@@ -65,3 +65,9 @@ def pytest_runtest_makereport(item, call):
                  "\n".join(f"  {p}" for p in paths)))
     except Exception:
         pass
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (CUDA kernels of "
+        "repro_torch have no CPU mode); skips elsewhere")
