@@ -8,26 +8,43 @@ Phases, each of which raises on failure (exit code != 0):
   1. card     — ``nvidia-smi`` name and power limit, then the kernel build
                 (one nvcc per CUDA source, all started together).
   2. kernels  — each hand-written kernel at the shapes the serving path
-                gives it (bfloat16) and once in float32 at a small shape,
-                held to its plain PyTorch version on the card (bf16 2e-2,
-                fp32 2e-5, atol and rtol; at the serving shapes the bf16
-                decode-attention and expert-FFN results are also held to
-                the float32 plain version on the same inputs within half
-                a bf16 ulp plus 1e-4); kernel, plain-version and
-                library-call times by CUDA events (median of 20 after
+                gives it (bfloat16) and in float32, held to its plain
+                PyTorch version on the card (bf16 2e-2, fp32 2e-5, atol
+                and rtol; at the serving shapes the bf16 decode-attention
+                and expert-FFN results are also held to the float32 plain
+                version on the same inputs within half a bf16 ulp plus
+                1e-4); the paged decode attention also bitwise to the
+                fused kernel on the gathered pages, and the flash kernel
+                also at the chunked-prefill shape; kernel, plain-version
+                and library-call times by CUDA events (median of 20 after
                 warm-up, L2 flushed before each run).
   3. reference — a reduced float32 Mixtral on the card against the same
                 model's plain path on the CPU (logits to 1e-3).
   4. serve    — Mixtral-8x7B widths at 8 layers in bfloat16 with seeded
-                random weights: 8 requests of 128 prompt tokens and 32
-                greedy new tokens through ``engine.client.submit`` and
-                ``engine.step()``; every kernel's launch count must grow.
-                Launches are read per phase (the prefills run inside
-                ``client.submit``, the decode steps inside ``step()``) and
-                the expert FFN's also per kernel path.
+                random weights, contiguous KV, whole-prompt prefill: 8
+                requests of 128 prompt tokens and 32 greedy new tokens
+                through ``engine.client.submit`` and ``engine.step()``;
+                every kernel of the path must be launched. Launches are
+                read per phase (the prefills run inside ``client.submit``,
+                the decode steps inside ``step()``) and the expert FFN's
+                also per kernel path. Every step checkpoints its KV.
   5. failover — the same requests with ``engine.fail_ew(0)`` after 8
                 decode steps; every stream must equal the failure-free one
                 bit for bit.
+  6. kv plane — the same model at capacity factor 4.0 (no token dropped,
+                so slots and chunking cannot change a stream) in three
+                engines sharing the weights: whole-prompt contiguous,
+                chunked contiguous and chunked paged (16-token pages),
+                chunk budget CHUNK_BUDGET tokens. Paged streams must equal
+                contiguous ones bit for bit; whether chunked equals whole
+                prefill is printed. The paged run must launch the paged
+                decode attention and never the fused one.
+  7. AW failover — the paged engine again with ``fail_aw(0)`` once every
+                request has 8 tokens, then ``recover_aw_requests()`` (AW1
+                is full: nothing is admitted), ``provision_aw(0)``, and
+                steps to the end: every stream must equal the paged
+                failure-free run bit for bit; restored requests and bytes,
+                the recovery time and the largest token gap are printed.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -46,6 +63,8 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # rounding once at the output costs at most half an ulp (2^-8 relative);
 # 1e-4 absolute covers float32 summation order
 ROUND_ATOL, ROUND_RTOL = 1e-4, 2.0 ** -8
+CHUNK_BUDGET = 256                 # prefill tokens per step, KV-plane phase
+PAGE_TOKENS = 16
 
 
 def card_line() -> str:
@@ -174,6 +193,183 @@ def kernel_decode_attention(torch, g, records):
         replaces=da.KERNEL.replaces, max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms, shape=f"B{b} H{h} Hkv{hkv} Dh{dh} Sc{sc} bf16"))
+    print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
+          f"ms, bound {b_ms:.4f} ms ({b_by})")
+
+
+def paged_inputs(torch, g, b, h, hkv, dh, nblk, pt, dtype, min_len):
+    """Page pools with a null page 0, a page that rows 0 and 1 share, and
+    unmapped (null) tail blocks; every row's gathered positions causal.
+    Returns the kernel's arguments and the host block table and
+    positions."""
+    import numpy as np
+    npages = 1 + b * nblk
+    pk = torch.randn((npages, pt, hkv, dh), generator=g,
+                     device="cuda").to(dtype)
+    pv = torch.randn((npages, pt, hkv, dh), generator=g,
+                     device="cuda").to(dtype)
+    q = torch.randn((b, h, dh), generator=g, device="cuda").to(dtype)
+    k1 = torch.randn((b, hkv, dh), generator=g, device="cuda").to(dtype)
+    v1 = torch.randn((b, hkv, dh), generator=g, device="cuda").to(dtype)
+    pos = torch.randint(min_len, nblk * pt - 1, (b,), generator=g,
+                        device="cuda", dtype=torch.int32)
+    ids = (torch.randperm(npages - 1, generator=g, device="cuda") + 1)
+    ids, pos_h = ids.cpu().numpy(), pos.cpu().numpy()
+    bt = np.zeros((b, nblk), np.int32)
+    for i in range(b):
+        used = -(-int(pos_h[i]) // pt)
+        bt[i, :used] = ids[i * nblk:i * nblk + used]
+    bt[1, 0] = bt[0, 0]
+    ppos = np.full((npages, pt), -1, np.int32)
+    for i in range(b):
+        for j in range(nblk):
+            if bt[i, j]:
+                ppos[bt[i, j]] = np.arange(j * pt, (j + 1) * pt)
+    args = (q, pk, pv, torch.from_numpy(ppos).cuda(),
+            torch.from_numpy(bt).cuda(), k1, v1, pos)
+    return args, bt, ppos, pos_h
+
+
+def kernel_decode_attention_paged(torch, g, records):
+    from repro_torch.kernels import decode_attention as da
+    import numpy as np
+    import torch.nn.functional as F
+    print("decode_attention_paged (block-table GQA decode, "
+          "csrc/decode_attention.cu)")
+    b, h, hkv, dh, nblk, pt = 8, 32, 8, 128, 32, PAGE_TOKENS
+    sc = nblk * pt
+    args32, _, _, _ = paged_inputs(torch, g, b, h, hkv, dh, nblk, pt,
+                                   torch.float32, 128)
+    shape = f"B{b} H{h} Hkv{hkv} Dh{dh} pt{pt} nblk{nblk} P{1 + b * nblk}"
+    for cap in (0.0, 30.0):
+        got = da.decode_attention_paged_cuda(*args32, softcap=cap)
+        check(f"fp32 {shape} softcap={cap}", got,
+              da.decode_attention_paged_plain(*args32, softcap=cap),
+              "float32")
+        q, pk, pv, ppos, bt, k1, v1, pos = args32
+        fused = da.decode_attention_cuda(
+            q, *da.gather_pages(pk, pv, ppos, bt), k1, v1, pos, softcap=cap)
+        if not torch.equal(got, fused):
+            raise AssertionError(f"paged kernel differs from the fused "
+                                 f"kernel on the gathered pages (fp32, "
+                                 f"softcap {cap})")
+        print(f"  fp32 softcap={cap}: bitwise equal to the fused kernel on "
+              f"the gathered pages")
+    args = tuple(t.bfloat16() if t.is_floating_point() else t
+                 for t in args32)
+    del args32
+    q, pk, pv, ppos, bt, k1, v1, pos = args
+    got = da.decode_attention_paged_cuda(*args)
+    err = check(f"bf16 {shape}", got, da.decode_attention_paged_plain(*args),
+                "bfloat16")
+    check(f"bf16 {shape} vs float32 plain", got,
+          da.decode_attention_paged_plain(*(t.float() if t.is_floating_point()
+                                            else t for t in args)),
+          atol=ROUND_ATOL, rtol=ROUND_RTOL)
+    ck, cv, cpos = da.gather_pages(pk, pv, ppos, bt)
+    if not torch.equal(got, da.decode_attention_cuda(q, ck, cv, cpos, k1, v1,
+                                                     pos)):
+        raise AssertionError("paged kernel differs from the fused kernel "
+                             "on the gathered pages (bf16)")
+    print("  bf16: bitwise equal to the fused kernel on the gathered pages")
+    ms = time_ms(torch, lambda: da.decode_attention_paged_cuda(*args))
+    plain_ms = time_ms(torch, lambda: da.decode_attention_paged_plain(*args))
+    # library yardstick: SDPA over the pre-gathered view + current token
+    # (the gather itself excluded: no single PyTorch call walks a block
+    # table)
+    grp = h // hkv
+    kk = torch.cat([ck, k1[:, None]], 1).transpose(1, 2)
+    vv = torch.cat([cv, v1[:, None]], 1).transpose(1, 2)
+    kk = kk.repeat_interleave(grp, 1).contiguous()
+    vv = vv.repeat_interleave(grp, 1).contiguous()
+    valid = (cpos >= 0) & (cpos <= pos[:, None])
+    mask = torch.cat([valid, torch.ones((b, 1), dtype=torch.bool,
+                                        device="cuda")], 1)[:, None, None]
+    qq = q[:, :, None, :]
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask))
+    # bytes of the valid pages: every (page, offset) some row attends to,
+    # once, with the positions of the pages read and the block table
+    bt_h, cpos_h = bt.cpu().numpy(), cpos.cpu().numpy()
+    page = np.repeat(bt_h, pt, axis=1)
+    off = np.tile(np.arange(pt), nblk)[None].repeat(b, 0)
+    v_h = valid.cpu().numpy()
+    uniq = len(set(zip(page[v_h].tolist(), off[v_h].tolist())))
+    pages_read = len(set(bt_h[bt_h > 0].tolist()))
+    el = 2
+    nbytes = (2 * q.numel() + 2 * uniq * hkv * dh + k1.numel() +
+              v1.numel()) * el + (pages_read * pt + bt.numel() + b) * 4
+    flops = 4.0 * (int(v_h.sum()) + b) * grp * hkv * dh
+    b_ms, b_by = bound(nbytes, flops)
+    records.append(dict(
+        name="decode_attention_paged", route="cuda",
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces=da.PAGED_KERNEL.replaces, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        library="SDPA on the pre-gathered view, gather excluded",
+        shape=f"{shape} bf16, {int(cpos_h.shape[1])}-token view"))
+    print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the "
+          f"pre-gathered view {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+
+def kernel_flash_chunk(torch, g, records):
+    """The flash kernel at the chunked-prefill shape: max_batch rows of C
+    queries against the gathered 512-key view; rows outside the chunk
+    carry q_pos -1 (their keys are live decode state), pads -1."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import blockwise_attention
+    import torch.nn.functional as F
+    print("flash_attention at the chunk shape (csrc/flash_attention.cu)")
+    b, sk, h, hkv, dh = 8, 512, 32, 8, 128
+    recs = {}
+    for c, dtype in ((8, torch.float32), (128, torch.bfloat16)):
+        name = "float32" if dtype == torch.float32 else "bfloat16"
+        q = torch.randn((b, c, h, dh), generator=g, device="cuda").to(dtype)
+        k = torch.randn((b, sk, hkv, dh), generator=g, device="cuda").to(dtype)
+        v = torch.randn((b, sk, hkv, dh), generator=g, device="cuda").to(dtype)
+        ar = torch.arange(sk, device="cuda", dtype=torch.int32)
+        kp = torch.where(ar < 100, ar, torch.full_like(ar, -1)).repeat(b, 1)
+        qp = torch.full((b, c), -1, device="cuda", dtype=torch.int32)
+        # row 0: the chunk [0, c - 1) of a fresh prompt (one pad);
+        # row 1: the chunk [200, 200 + c) after a 200-token prefix
+        take = c - 1
+        qp[0, :take] = torch.arange(take, device="cuda", dtype=torch.int32)
+        kp[0] = torch.where(ar < take, ar, torch.full_like(ar, -1))
+        qp[1] = torch.arange(200, 200 + c, device="cuda", dtype=torch.int32)
+        kp[1] = torch.where(ar < 200 + c, ar, torch.full_like(ar, -1))
+
+        def kern():
+            return fa.flash_attention_cuda(q, k, v, qp, kp)
+
+        def plain():
+            return blockwise_attention(q, k, v, qp, kp, block_k=16)
+
+        recs[c] = (check(f"{'fp32' if c == 8 else 'bf16'} B{b} C{c} Sk{sk} "
+                         f"H{h} Hkv{hkv} Dh{dh}, rows outside the chunk",
+                         kern(), plain(), name), kern, plain, q, k, v, qp, kp)
+    err, kern, plain, q, k, v, qp, kp = recs[128]
+    ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
+    grp = h // hkv
+    qq = q.transpose(1, 2).contiguous()
+    kk = k.transpose(1, 2).repeat_interleave(grp, 1).contiguous()
+    vv = v.transpose(1, 2).repeat_interleave(grp, 1).contiguous()
+    m = (kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None])
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=m[:, None]))
+    live = (qp >= 0).any(1)
+    keys = int(((kp >= 0) & live[:, None]).sum().item())
+    pairs = int(m.sum().item())
+    nbytes = (2 * int((qp >= 0).sum().item()) * h * dh +
+              2 * keys * hkv * dh) * 2 + (qp.numel() + kp.numel()) * 4
+    flops = 4.0 * pairs * h * dh
+    b_ms, b_by = bound(nbytes, flops)
+    records.append(dict(
+        name="flash_attention[chunk]", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces=fa.KERNEL.replaces, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        shape=f"B{b} C128 Sk{sk} H{h} Hkv{hkv} Dh{dh} bf16, 2 rows in "
+              f"the chunk"))
     print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
           f"ms, bound {b_ms:.4f} ms ({b_by})")
 
@@ -371,56 +567,114 @@ def launch_counts():
     from repro_torch.kernels import decode_attention, flash_attention, \
         moe_gemm
     counts = {k.symbol: k.launches for k in (
-        decode_attention.KERNEL, flash_attention.KERNEL, moe_gemm.KERNEL)}
+        decode_attention.KERNEL, decode_attention.PAGED_KERNEL,
+        flash_attention.KERNEL, moe_gemm.KERNEL)}
     counts.update({f"moe_ffn/{k}": v
                    for k, v in moe_gemm.path_launches.items()})
     return counts
 
 
-def serve(torch, engine, prompts, max_new, fail_after=None):
-    """Submit every prompt through the client, step until all are done.
-    Returns (streams, ttft_s, tbt_s list, decode_tokens, decode_s,
-    launches): ``launches`` holds each phase's launch counts, "prefill"
-    (the submits, which admit and prefill) and "decode" (the steps)."""
-    from repro_torch.serving.api import RequestSpec
-    if engine.device.type == "cuda":
+def reset_counts():
+    from repro_torch.kernels import decode_attention, flash_attention, \
+        moe_gemm
+    for k in (decode_attention.KERNEL, decode_attention.PAGED_KERNEL,
+              flash_attention.KERNEL, moe_gemm.KERNEL):
+        k.launches = 0
+    for k in moe_gemm.path_launches:
+        moe_gemm.path_launches[k] = 0
+
+
+def delta(a, b):
+    return {k: b[k] - a[k] for k in a}
+
+
+class Run:
+    """One pass of requests through an engine: streams, per-request token
+    times, and launch counts per phase: "prefill" (inside
+    ``client.submit``, which admits and, without the chunked plane,
+    prefills), "chunks" (the chunked plane's ticks inside ``step()``) and
+    "decode" (the rest of ``step()``)."""
+
+    def __init__(self, torch, engine, prompts, max_new, fail=None):
+        from repro_torch.serving.api import RequestSpec
         torch.cuda.synchronize()
-    c0 = launch_counts()
-    t_submit, handles = {}, []
-    for i, p in enumerate(prompts):
-        t_submit[f"r{i}"] = time.perf_counter()
-        handles.append(engine.client.submit(RequestSpec(
-            rid=f"r{i}", prompt=p, max_new=max_new)))
-    c1 = launch_counts()
-    first, last, tbt = {}, {}, []
-    steps = 0
-    t_dec0 = None
-    while not all(h.done() for h in handles):
-        if fail_after is not None and steps == fail_after:
-            engine.fail_ew(0)
-        out = engine.step()
-        now = time.perf_counter()      # step() ends in a device->host sync
-        steps += 1
-        if t_dec0 is None:
-            t_dec0 = now
-        for rid in out:
-            if rid not in first:
-                first[rid] = now - t_submit[rid]
-            else:
-                tbt.append(now - last[rid])
-            last[rid] = now
-    t_end = time.perf_counter()
-    c2 = launch_counts()
-    launches = {"prefill": {k: c1[k] - c0[k] for k in c0},
-                "decode": {k: c2[k] - c1[k] for k in c0}}
-    streams = [h.tokens() for h in handles]
-    # release in reverse, so the slot free lists are back in their initial
-    # order and a rerun lands every request in the same slot (expert
-    # capacity ranks tokens by slot, so placement is part of the input)
-    for h in reversed(handles):
-        engine.release_request(h.rid)
-    n_dec = sum(len(s) - 1 for s in streams)
-    return streams, first, tbt, n_dec, t_end - t_dec0, launches
+        chunk_counts = {k: 0 for k in launch_counts()}
+        self.tick_s = []       # host time of each chunk tick that ran work
+        if engine.chunked is not None:
+            tick = engine.chunked.tick
+
+            def counted_tick():
+                c0 = launch_counts()
+                t0 = time.perf_counter()
+                out = tick()   # ends in the chunk checkpoint's host copy
+                if out:
+                    self.tick_s.append(time.perf_counter() - t0)
+                for k, v in delta(c0, launch_counts()).items():
+                    chunk_counts[k] += v
+                return out
+            engine.chunked.tick = counted_tick
+        c0 = launch_counts()
+        t_submit, handles = {}, []
+        for i, p in enumerate(prompts):
+            t_submit[f"r{i}"] = time.perf_counter()
+            handles.append(engine.client.submit(RequestSpec(
+                rid=f"r{i}", prompt=p, max_new=max_new)))
+        c1 = launch_counts()
+        self.first, last, self.tbt = {}, {}, []
+        self.steps = 0
+        self.t_fail, self.victims, self.recovery_s = None, [], None
+        t_dec0 = None
+        while not all(h.done() for h in handles):
+            if fail is not None and self.t_fail is None:
+                t = time.perf_counter()
+                victims = fail(engine, handles, self.steps)
+                if victims is not None:
+                    self.t_fail, self.victims = t, victims
+            out = engine.step()
+            now = time.perf_counter()  # step() ends in a device->host sync
+            self.steps += 1
+            if t_dec0 is None:
+                t_dec0 = now
+            for rid in out:
+                if rid not in self.first:
+                    self.first[rid] = now - t_submit[rid]
+                else:
+                    self.tbt.append(now - last[rid])
+                last[rid] = now
+            if self.t_fail is not None and self.recovery_s is None and \
+                    all(last.get(r, 0) > self.t_fail for r in self.victims):
+                self.recovery_s = now - self.t_fail
+        t_end = time.perf_counter()
+        c2 = launch_counts()
+        if engine.chunked is not None:
+            engine.chunked.tick = tick
+        self.launches = {"prefill": delta(c0, c1), "chunks": chunk_counts,
+                         "decode": {k: v - chunk_counts[k] for k, v in
+                                    delta(c1, c2).items()}}
+        self.streams = [h.tokens() for h in handles]
+        # release in reverse, so the slot free lists are back in their
+        # initial order and a rerun lands every request in the same slot
+        # (expert capacity ranks tokens by slot, so placement is part of
+        # the input at the model's capacity factor)
+        for h in reversed(handles):
+            engine.release_request(h.rid)
+        self.n_dec = sum(len(s) - 1 for s in self.streams)
+        self.dec_s = t_end - t_dec0
+
+    def report(self, label):
+        ttfts = sorted(self.first.values())
+        tbt = self.tbt
+        print(f"  {label}: TTFT p50 {pct(ttfts, .5) * 1e3:.2f} ms p99 "
+              f"{pct(ttfts, .99) * 1e3:.2f} ms; TBT p50 "
+              f"{pct(tbt, .5) * 1e3:.2f} ms p99 {pct(tbt, .99) * 1e3:.2f} "
+              f"ms max {max(tbt) * 1e3:.2f} ms; decode "
+              f"{self.n_dec / self.dec_s:.1f} tok/s ({self.n_dec} tokens "
+              f"in {self.dec_s:.3f} s, {self.steps} steps)")
+        if self.tick_s:
+            print(f"    {len(self.tick_s)} chunk ticks: "
+                  f"{', '.join(f'{t * 1e3:.1f}' for t in self.tick_s)} ms")
+        for phase, counts in self.launches.items():
+            print(f"    {phase}: { {k: v for k, v in counts.items() if v} }")
 
 
 def pct(xs, q):
@@ -428,13 +682,21 @@ def pct(xs, q):
     return xs[min(len(xs) - 1, max(0, int(round(q * (len(xs) - 1)))))]
 
 
-def serve_phase(torch, counters, path_counts, profile_dir=None):
+def mixtral_8_layers(capacity_factor=None):
     import dataclasses
-    import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.serving.engine import EngineConfig, InferenceEngine
     cfg = dataclasses.replace(get_config("mixtral_8x7b"), num_layers=8,
                               dtype="bfloat16")
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+    return cfg
+
+
+def serve_phase(torch, profile_dir=None):
+    import numpy as np
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    cfg = mixtral_8_layers()
     ecfg = EngineConfig(max_batch=8, max_seq=512, num_aw=2, num_ew=2)
     t0 = time.perf_counter()
     engine = InferenceEngine(cfg, ecfg, seed=0, device="cuda")
@@ -450,55 +712,215 @@ def serve_phase(torch, counters, path_counts, profile_dir=None):
 
     # warm-up: the first pass at new shapes pays allocator growth and
     # library setup that a serving process pays once
-    serve(torch, engine, prompts, 2)
-    for k in counters:
-        k.launches = 0
-    for k in path_counts:
-        path_counts[k] = 0
+    Run(torch, engine, prompts, 2)
+    reset_counts()
     steps0, calls0 = engine.steps, engine.scheduler.stats.calls
-    streams, first, tbt, n_dec, dec_s, phases = serve(torch, engine,
-                                                      prompts, max_new)
-    launches = {k.symbol: k.launches for k in counters}
-    prefill_calls = engine.scheduler.stats.calls - calls0
+    run = Run(torch, engine, prompts, max_new)
+    launches = launch_counts()
     print(f"  main path launches: {launches} "
-          f"({prefill_calls} prefill calls, {engine.steps - steps0} decode "
-          f"steps)")
-    for phase, counts in phases.items():
-        print(f"    {phase}: {counts}")
-    for k in counters:
-        if k.launches <= 0:
-            raise AssertionError(f"{k.symbol} was not launched on the "
-                                 f"main path")
+          f"({engine.scheduler.stats.calls - calls0} prefill calls, "
+          f"{engine.steps - steps0} decode steps)")
+    for k in ("decode_attention_fused", "flash_attention", "moe_ffn"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched on the main path")
+    if launches["decode_attention_paged"]:
+        raise AssertionError("the contiguous engine launched the paged "
+                             "kernel")
     for phase, path in (("prefill", "tensor_core"), ("decode", "skinny")):
-        n = phases[phase]["moe_ffn"]
-        if n <= 0 or phases[phase][f"moe_ffn/{path}"] != n:
+        n = run.launches[phase]["moe_ffn"]
+        if n <= 0 or run.launches[phase][f"moe_ffn/{path}"] != n:
             raise AssertionError(f"the expert FFN's {phase} launches did "
                                  f"not all take the {path} path: "
-                                 f"{phases[phase]}")
-    for s in streams:
-        if len(s) != max_new or not all(0 <= t < cfg.vocab_size for t in s):
-            raise AssertionError(f"bad stream {s}")
-    ttfts = sorted(first.values())
-    print(f"  TTFT p50 {pct(ttfts, .5) * 1e3:.2f} ms p99 "
-          f"{pct(ttfts, .99) * 1e3:.2f} ms; TBT p50 "
-          f"{pct(tbt, .5) * 1e3:.2f} ms p99 {pct(tbt, .99) * 1e3:.2f} ms; "
-          f"decode {n_dec / dec_s:.1f} tok/s "
-          f"({n_dec} tokens in {dec_s:.3f} s)")
-    print(f"  stream r0: {streams[0][:12]}...")
+                                 f"{run.launches[phase]}")
+    for st in run.streams:
+        if len(st) != max_new or not all(0 <= t < cfg.vocab_size
+                                         for t in st):
+            raise AssertionError(f"bad stream {st}")
+    run.report("serve")
+    print(f"  stream r0: {run.streams[0][:12]}...")
+    # what the per-step checkpoint adds: one batched gather of every row's
+    # new KV and one device-to-host copy
+    slots = list(range(8))
+    toks = [150] * 8
+    ck_ms = host_ms(torch, lambda: engine.layout.extract_tokens(
+        engine.cache, slots, toks))
+    print(f"  per-step checkpoint gather + device-to-host copy (8 rows, "
+          f"{cfg.num_layers} layers): {ck_ms:.3f} ms")
 
     print("failover: fail_ew(0) after 8 decode steps")
     steps0 = engine.steps
-    failed = serve(torch, engine, prompts, max_new, fail_after=8)[0]
-    if failed != streams:
-        bad = [i for i, (a, b) in enumerate(zip(failed, streams)) if a != b]
+
+    def fail_ew(eng, handles, steps):
+        if steps == 8:
+            eng.fail_ew(0)
+            return []
+        return None
+    failed = Run(torch, engine, prompts, max_new, fail=fail_ew).streams
+    if failed != run.streams:
+        bad = [i for i, (a, b) in enumerate(zip(failed, run.streams))
+               if a != b]
         raise AssertionError(f"streams under fail_ew(0) differ from the "
                              f"failure-free run for requests {bad}")
-    print(f"  {len(streams)} streams bitwise equal to the failure-free run "
-          f"({engine.steps - steps0} decode steps, EW0 failed: "
+    print(f"  {len(run.streams)} streams bitwise equal to the failure-free "
+          f"run ({engine.steps - steps0} decode steps, EW0 failed: "
           f"{sorted(engine.failed_ews)})")
+    engine.provision_ew(0)
     if profile_dir is not None:
         profile_decode(torch, engine, prompts, profile_dir)
-    return launches, phases
+    return engine, prompts, launches, run.launches
+
+
+def host_ms(torch, fn, reps: int = 20) -> float:
+    """Median host time of ``fn`` through a device sync (for work that
+    ends on the host, such as a device-to-host copy)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def row_count_probe(torch, params):
+    """Whether a token's result depends on how many rows share its call,
+    at the row counts chunked and whole-prompt prefill give it: each dense
+    projection of a layer (torch.matmul) over M rows, and the expert FFN
+    kernel for one slot at capacity C (the skinny path for C <= 4, the
+    tensor-core path above). Each result's first rows are compared bit for
+    bit with the same rows computed at the largest count. Printed, not
+    checked: it says where chunked and whole prefill part."""
+    from repro_torch.kernels import moe_gemm as mg
+    g = torch.Generator(device="cuda").manual_seed(3)
+    lp = params["layers"][0]
+    weights = {n: lp["attn"][n] for n in ("wq", "wk", "wv", "wo")}
+    weights["router"] = lp["moe"]["router"]
+    for name, w in weights.items():
+        x = torch.randn((1024, w.shape[0]), generator=g, device="cuda").to(
+            w.dtype)
+        ref = x @ w
+        same = {m: torch.equal(x[:m] @ w, ref[:m]) for m in (8, 64, 128, 256)}
+        print(f"  row-count probe, x @ {name} {tuple(w.shape)}: rows equal "
+              f"to the M=1024 call's: "
+              f"{ {f'M={m}': v for m, v in same.items()} }")
+    ex = lp["moe"]["experts"]
+    d = weights["wq"].shape[0]
+    se = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    xs = torch.randn((1, 256, d), generator=g, device="cuda").to(
+        weights["wq"].dtype)
+    real = 2
+
+    def ffn(c):
+        xc = torch.zeros((1, c, d), dtype=xs.dtype, device="cuda")
+        xc[:, :real] = xs[:, :real]
+        cnt = torch.full((1,), real, dtype=torch.int32, device="cuda")
+        return mg.expert_ffn_cuda(xc, ex["wg"], ex["wu"], ex["wd"], se,
+                                  cnt)[:, :real]
+    ref = ffn(256)
+    same = {c: torch.equal(ffn(c), ref) for c in (2, 4, 8, 64, 128)}
+    print(f"  row-count probe, expert FFN's first {real} rows equal to the "
+          f"C=256 call's: { {f'C={c}': v for c, v in same.items()} }")
+
+
+def kv_plane_phase(torch, engine, prompts):
+    """Whole-prompt contiguous, chunked contiguous and chunked paged
+    engines on the serve phase's weights at capacity factor 4.0; then the
+    AW failover on the paged engine. Returns the paged run's launches."""
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    # capacity >= tokens in every call: no token is ever dropped, so a
+    # stream does not depend on its slot or on how its prompt is chunked
+    cfg = mixtral_8_layers(capacity_factor=4.0)
+    base = dict(max_batch=8, max_seq=512, num_aw=2, num_ew=2)
+    engines = {
+        "whole": InferenceEngine(cfg, EngineConfig(**base),
+                                 params=engine.params, device="cuda"),
+        "contiguous": InferenceEngine(
+            cfg, EngineConfig(**base, chunk_token_budget=CHUNK_BUDGET),
+            params=engine.params, device="cuda"),
+        "paged": InferenceEngine(
+            cfg, EngineConfig(**base, chunk_token_budget=CHUNK_BUDGET,
+                              kv_page_tokens=PAGE_TOKENS),
+            params=engine.params, device="cuda"),
+    }
+    max_new = 32
+    runs = {}
+    for name, eng in engines.items():
+        Run(torch, eng, prompts, 2)                   # warm-up
+        reset_counts()
+        runs[name] = Run(torch, eng, prompts, max_new)
+        runs[name].report(name)
+    paged = engines["paged"]
+    if runs["paged"].streams != runs["contiguous"].streams:
+        bad = [i for i, (a, b) in enumerate(zip(
+            runs["paged"].streams, runs["contiguous"].streams)) if a != b]
+        raise AssertionError(f"paged streams differ from contiguous ones "
+                             f"for requests {bad}")
+    print(f"  paged (page {PAGE_TOKENS} tokens) streams bitwise equal to "
+          f"contiguous ones, both chunked at {CHUNK_BUDGET} tokens/step")
+    same = runs["contiguous"].streams == runs["whole"].streams
+    diff = [i for i, (a, b) in enumerate(zip(runs["contiguous"].streams,
+                                             runs["whole"].streams))
+            if a != b]
+    print(f"  chunked streams equal to whole-prompt streams: {same}"
+          + ("" if same else f" (requests {diff} differ)"))
+    row_count_probe(torch, engine.params)
+    lp = {k: sum(ph[k] for ph in runs["paged"].launches.values())
+          for k in runs["paged"].launches["decode"]}
+    if lp["decode_attention_paged"] <= 0 or lp["decode_attention_fused"]:
+        raise AssertionError(f"the paged engine's decode steps did not all "
+                             f"launch the paged kernel: {lp}")
+    if lp["flash_attention"] <= 0 or lp["moe_ffn"] <= 0:
+        raise AssertionError(f"a kernel of the paged path was not "
+                             f"launched: {lp}")
+    print(f"  paged path launches: {lp}")
+    print(f"  chunk calls: paged {paged.chunked.stats.calls}, shapes "
+          f"{sorted(paged.chunked.stats.shapes)}")
+    paged.pages.check()
+    print(f"  PagePool.check() passed: {paged.pages.stats()}")
+
+    print("AW failover: fail_aw(0) once every request has 8 tokens")
+    restores0 = paged.store.stats.restores
+    bytes0 = paged.store.stats.bytes_restored
+    recovered_now = []
+
+    def fail_aw(eng, handles, steps):
+        if min(len(h.tokens()) for h in handles) < 8:
+            return None
+        victims = [r.rid for r in eng.requests.values()
+                   if r.aw == 0 and not r.done]
+        eng.fail_aw(0)
+        recovered_now.extend(eng.recover_aw_requests())
+        eng.provision_aw(0)
+        return victims
+    fo = Run(torch, paged, prompts, max_new, fail=fail_aw)
+    if fo.t_fail is None:
+        raise AssertionError("the AW failure was never injected")
+    if fo.streams != runs["paged"].streams:
+        bad = [i for i, (a, b) in enumerate(zip(fo.streams,
+                                                runs["paged"].streams))
+               if a != b]
+        raise AssertionError(f"streams under fail_aw(0) differ from the "
+                             f"failure-free run for requests {bad}")
+    restored = paged.store.stats.restores - restores0
+    print(f"  {len(fo.streams)} streams bitwise equal to the failure-free "
+          f"paged run; {len(fo.victims)} requests on AW0, "
+          f"{len(recovered_now)} restored by recover_aw_requests (AW1 "
+          f"full), {restored} restored at the next step")
+    print(f"  restored {restored} requests, "
+          f"{paged.store.stats.bytes_restored - bytes0} bytes; fail_aw to "
+          f"the restored requests' next token {fo.recovery_s * 1e3:.2f} ms "
+          f"(host clock); largest gap between tokens "
+          f"{max(fo.tbt) * 1e3:.2f} ms; on {card_line()}")
+    fo.report("AW failover")
+    paged.pages.check()
+    if restored != len(fo.victims) or recovered_now:
+        raise AssertionError(f"expected the {len(fo.victims)} requests of "
+                             f"AW0 restored at the step after "
+                             f"provision_aw(0); {restored} restored, "
+                             f"{recovered_now} at recover_aw_requests")
+    return runs["paged"].launches
 
 
 def profile_decode(torch, engine, prompts, out_dir):
@@ -583,8 +1005,6 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels import build
-    from repro_torch.kernels import decode_attention, flash_attention, \
-        moe_gemm
 
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -601,24 +1021,32 @@ def main():
     records = []
     g = torch.Generator(device="cuda").manual_seed(0)
     kernel_decode_attention(torch, g, records)
+    kernel_decode_attention_paged(torch, g, records)
     kernel_flash_attention(torch, g, records, b=1)
+    kernel_flash_chunk(torch, g, records)
     kernel_moe_gemm(torch, g, records, [("decode", 2, "skinny"),
                                         ("prefill", 64, "tensor_core")])
-    counters = [decode_attention.KERNEL, flash_attention.KERNEL,
-                moe_gemm.KERNEL]
 
     print("reference: reduced Mixtral, card kernels vs CPU plain path")
     reference_phase(torch)
-    print("serve: Mixtral-8x7B widths, 8 layers, bf16")
-    launches, phases = serve_phase(torch, counters, moe_gemm.path_launches,
-                                   profile_dir=args.profile)
+    print("serve: Mixtral-8x7B widths, 8 layers, bf16, contiguous KV")
+    engine, prompts, launches, phases = serve_phase(
+        torch, profile_dir=args.profile)
+    print(f"kv plane: the same weights at capacity factor 4.0, chunked "
+          f"prefill ({CHUNK_BUDGET} tokens/step), paged KV "
+          f"({PAGE_TOKENS}-token pages)")
+    paged = kv_plane_phase(torch, engine, prompts)
     for r in records:
         r["launches"] = {
             "decode_attention_fused": launches["decode_attention_fused"],
+            "decode_attention_paged":
+                paged["decode"]["decode_attention_paged"],
             "flash_attention": launches["flash_attention"],
+            "flash_attention[chunk]": paged["chunks"]["flash_attention"],
             "moe_gemm[prefill]": phases["prefill"]["moe_ffn"],
             "moe_gemm[decode]": phases["decode"]["moe_ffn"],
         }[r["name"]]
+    print(card_line())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

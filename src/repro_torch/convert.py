@@ -31,7 +31,7 @@ def _tree(node, fn):
     return fn(node)
 
 
-def params_from_reference(ref_params: Any, device="cpu") -> dict:
+def params_from_reference(ref_params: Any, device="cuda") -> dict:
     """Convert reference decoder params (``build_decoder().init_params``)
     into the port's param dict on ``device``."""
     out = {k: _tree(v, lambda a: _tensor(a, device))

@@ -1,10 +1,15 @@
-// Fused GQA decode attention for Hopper (sm_90a).
+// GQA decode attention for Hopper (sm_90a): one kernel body, two layouts.
 //
-// Replaces the TPU kernel src/repro/kernels/decode_attention.py::
-// decode_attention_fused (_decode_attn_fused_kernel): one query token per
-// row against its cached K/V (mask cpos >= 0 & cpos <= pos, optional
-// sliding window and tanh softcap), the current token's (k1, v1) folded in
-// at the end, then normalised. Accumulation is float32.
+// Replaces two TPU kernels of src/repro/kernels/decode_attention.py:
+//   * decode_attention_fused (_decode_attn_fused_kernel): a contiguous
+//     cache [B, Sc, Hkv, Dh];
+//   * decode_attention_paged (_decode_attn_paged_kernel): page pools
+//     [P, pt, Hkv, Dh] read through a block table bt [B, nblk] (page 0 is
+//     the null page, its positions -1 forever).
+// Both: one query token per row against its cached K/V (mask cpos >= 0 &
+// cpos <= pos, optional sliding window on the contiguous layout, tanh
+// softcap), the current token's (k1, v1) folded in at the end, then
+// normalised. Accumulation is float32.
 //
 // What bounds it on an H100: bytes. Each (row, kv-head) reads its valid
 // cache slice once (2 * Dh values per position) and does ~4 flops per
@@ -25,6 +30,17 @@
 // warps' partials merge through shared memory, and the epilogue folds
 // (k1, v1) and normalises. The TPU kernel's sequential kv-block grid axis
 // becomes the loop inside the block; nothing crosses blocks.
+//
+// The layout is a template parameter that only says where logical cache
+// position j of row b lives: row b * Sc + j of the contiguous cache, or
+// row bt[b, j / pt] * pt + j % pt of the page pool (Sc = nblk * pt). The
+// warps visit the same logical positions in the same order and do the
+// same arithmetic in both, so the paged kernel is bitwise equal to the
+// contiguous one on the same logical content (the property the TPU kernel
+// states at block_k == page_tokens). Each block reads its own block-table
+// row, which replaces the TPU kernel's scalar prefetch: with pt a multiple
+// of NJ a group of positions never straddles a page, so the indirection
+// costs one dependent load per group of NJ positions.
 #include "common.cuh"
 
 namespace {
@@ -34,15 +50,33 @@ using namespace repro;
 constexpr int NWARPS = 8;
 constexpr int NJ = 4;                       // cache positions per warp step
 
-template <typename T, int EPL, int G>
+// Row of the K/V arrays (and index into the positions) holding logical
+// position j0 of batch row b; positions j0 .. j0 + NJ - 1 (j0 a multiple
+// of NJ) are the consecutive rows after it.
+struct Contiguous {
+  int Sc;
+  __device__ __forceinline__ size_t group(int b, int j0) const {
+    return (size_t)b * Sc + j0;
+  }
+};
+
+struct Paged {
+  const int* bt;                            // [B, nblk]
+  int nblk, pt;                             // pt % NJ == 0
+  __device__ __forceinline__ size_t group(int b, int j0) const {
+    const int page = __ldg(&bt[(size_t)b * nblk + j0 / pt]);
+    return (size_t)page * pt + j0 % pt;
+  }
+};
+
+template <typename T, int EPL, int G, typename Layout>
 __global__ void __launch_bounds__(NWARPS * 32)
-decode_attn_fused_kernel(const T* __restrict__ q, const T* __restrict__ ck,
-                         const T* __restrict__ cv,
-                         const int* __restrict__ cpos,
-                         const T* __restrict__ k1, const T* __restrict__ v1,
-                         const int* __restrict__ pos, T* __restrict__ out,
-                         int H, int Hkv, int Sc, int window, float softcap,
-                         float scale) {
+decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ ck,
+                   const T* __restrict__ cv, const int* __restrict__ cpos,
+                   const T* __restrict__ k1, const T* __restrict__ v1,
+                   const int* __restrict__ pos, T* __restrict__ out, int H,
+                   int Hkv, int Sc, int window, float softcap, float scale,
+                   Layout layout) {
   constexpr int Dh = EPL * 32;
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
@@ -66,21 +100,21 @@ decode_attn_fused_kernel(const T* __restrict__ q, const T* __restrict__ ck,
     }
   }
 
-  const size_t stride = (size_t)Hkv * Dh;   // between cache positions
-  const size_t base = ((size_t)b * Sc * Hkv + hk) * Dh + lane;
-  const int* cp_row = cpos + (size_t)b * Sc;
+  const size_t stride = (size_t)Hkv * Dh;   // between cache rows
+  const size_t head = (size_t)hk * Dh + lane;
   for (int j0 = warp * NJ; j0 < Sc; j0 += NWARPS * NJ) {
+    const size_t r0 = layout.group(b, j0);
     bool valid[NJ];
     float kr[NJ][EPL], vr[NJ][EPL];
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
-      const int j = j0 + jj;
-      const int cp = j < Sc ? cp_row[j] : -1;
+      const int cp = j0 + jj < Sc ? cpos[r0 + jj] : -1;
       valid[jj] = cp >= 0 && cp <= p && (!window || cp > p - window);
+      const size_t off = (r0 + jj) * stride + head;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
-        kr[jj][e] = valid[jj] ? to_f(ck[base + j * stride + 32 * e]) : 0.f;
-        vr[jj][e] = valid[jj] ? to_f(cv[base + j * stride + 32 * e]) : 0.f;
+        kr[jj][e] = valid[jj] ? to_f(ck[off + 32 * e]) : 0.f;
+        vr[jj][e] = valid[jj] ? to_f(cv[off + 32 * e]) : 0.f;
       }
     }
     bool any = false;
@@ -175,42 +209,65 @@ decode_attn_fused_kernel(const T* __restrict__ q, const T* __restrict__ ck,
   }
 }
 
-template <typename T, int EPL>
+template <typename T, int EPL, typename Layout>
 cudaError_t launch_g(const void* q, const void* ck, const void* cv,
                      const int* cpos, const void* k1, const void* v1,
                      const int* pos, void* out, int B, int H, int Hkv,
-                     int Sc, int window, float softcap, cudaStream_t st) {
+                     int Sc, int window, float softcap, Layout layout,
+                     cudaStream_t st) {
   const float scale = 1.0f / sqrtf((float)(EPL * 32));
   const dim3 grid(Hkv, B);
   const dim3 block(NWARPS * 32);
 #define DECODE_ARGS                                                        \
   (const T*)q, (const T*)ck, (const T*)cv, cpos, (const T*)k1,             \
-      (const T*)v1, pos, (T*)out, H, Hkv, Sc, window, softcap, scale
+      (const T*)v1, pos, (T*)out, H, Hkv, Sc, window, softcap, scale, layout
   switch (H / Hkv) {
-    case 1: decode_attn_fused_kernel<T, EPL, 1><<<grid, block, 0, st>>>(DECODE_ARGS); break;
-    case 2: decode_attn_fused_kernel<T, EPL, 2><<<grid, block, 0, st>>>(DECODE_ARGS); break;
-    case 4: decode_attn_fused_kernel<T, EPL, 4><<<grid, block, 0, st>>>(DECODE_ARGS); break;
-    case 8: decode_attn_fused_kernel<T, EPL, 8><<<grid, block, 0, st>>>(DECODE_ARGS); break;
+    case 1: decode_attn_kernel<T, EPL, 1, Layout><<<grid, block, 0, st>>>(DECODE_ARGS); break;
+    case 2: decode_attn_kernel<T, EPL, 2, Layout><<<grid, block, 0, st>>>(DECODE_ARGS); break;
+    case 4: decode_attn_kernel<T, EPL, 4, Layout><<<grid, block, 0, st>>>(DECODE_ARGS); break;
+    case 8: decode_attn_kernel<T, EPL, 8, Layout><<<grid, block, 0, st>>>(DECODE_ARGS); break;
     default: return cudaErrorInvalidValue;
   }
 #undef DECODE_ARGS
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename Layout>
 cudaError_t launch(const void* q, const void* ck, const void* cv,
                    const int* cpos, const void* k1, const void* v1,
                    const int* pos, void* out, int B, int H, int Hkv, int Dh,
-                   int Sc, int window, float softcap, cudaStream_t st) {
+                   int Sc, int window, float softcap, Layout layout,
+                   cudaStream_t st) {
   switch (Dh) {
     case 32: return launch_g<T, 1>(q, ck, cv, cpos, k1, v1, pos, out, B, H,
-                                   Hkv, Sc, window, softcap, st);
+                                   Hkv, Sc, window, softcap, layout, st);
     case 64: return launch_g<T, 2>(q, ck, cv, cpos, k1, v1, pos, out, B, H,
-                                   Hkv, Sc, window, softcap, st);
+                                   Hkv, Sc, window, softcap, layout, st);
     case 128: return launch_g<T, 4>(q, ck, cv, cpos, k1, v1, pos, out, B, H,
-                                    Hkv, Sc, window, softcap, st);
+                                    Hkv, Sc, window, softcap, layout, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename Layout>
+int launch_dtype(const void* q, const void* ck, const void* cv,
+                 const void* cpos, const void* k1, const void* v1,
+                 const void* pos, void* out, int B, int H, int Hkv, int Dh,
+                 int Sc, int window, float softcap, int dtype, Layout layout,
+                 void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0)
+    err = launch<float>(q, ck, cv, (const int*)cpos, k1, v1, (const int*)pos,
+                        out, B, H, Hkv, Dh, Sc, window, softcap, layout, st);
+  else if (dtype == 1)
+    err = launch<__nv_bfloat16>(q, ck, cv, (const int*)cpos, k1, v1,
+                                (const int*)pos, out, B, H, Hkv, Dh, Sc,
+                                window, softcap, layout, st);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
 }
 
 }  // namespace
@@ -226,18 +283,24 @@ extern "C" int decode_attention_fused(const void* q, const void* ck,
                                       int H, int Hkv, int Dh, int Sc,
                                       int window, float softcap, int dtype,
                                       void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = launch<float>(q, ck, cv, (const int*)cpos, k1, v1,
-                        (const int*)pos, out, B, H, Hkv, Dh, Sc, window,
-                        softcap, st);
-  else if (dtype == 1)
-    err = launch<__nv_bfloat16>(q, ck, cv, (const int*)cpos, k1, v1,
-                                (const int*)pos, out, B, H, Hkv, Dh, Sc,
-                                window, softcap, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return launch_dtype(q, ck, cv, cpos, k1, v1, pos, out, B, H, Hkv, Dh, Sc,
+                      window, softcap, dtype, Contiguous{Sc}, stream);
+}
+
+// q [B,H,Dh]; pk/pv [P,pt,Hkv,Dh] page pools; ppos [P,pt] int32; bt
+// [B,nblk] int32 with entries in [0, P); k1/v1 [B,Hkv,Dh]; pos [B] int32
+// -> out [B,H,Dh]; all contiguous. pt a multiple of 4; no window. Same
+// G, Dh and dtype codes as decode_attention_fused.
+extern "C" int decode_attention_paged(const void* q, const void* pk,
+                                      const void* pv, const void* ppos,
+                                      const void* bt, const void* k1,
+                                      const void* v1, const void* pos,
+                                      void* out, int B, int H, int Hkv,
+                                      int Dh, int pt, int nblk,
+                                      float softcap, int dtype,
+                                      void* stream) {
+  if (pt <= 0 || pt % NJ != 0) return (int)cudaErrorInvalidValue;
+  return launch_dtype(q, pk, pv, ppos, k1, v1, pos, out, B, H, Hkv, Dh,
+                      nblk * pt, 0, softcap, dtype,
+                      Paged{(const int*)bt, nblk, pt}, stream);
 }

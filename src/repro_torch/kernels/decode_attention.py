@@ -1,10 +1,12 @@
-"""Fused GQA decode attention: the CUDA kernel's wrapper and its plain
-version.
+"""GQA decode attention over a contiguous cache and over page pools: the
+CUDA kernels' wrappers and their plain versions.
 
-The kernel (``csrc/decode_attention.cu``) replaces the TPU kernel
-``repro/kernels/decode_attention.py::decode_attention_fused``. The plain
-version is the reference's CPU path: cache partials
-(``ref.decode_attention_partial_ref``) then ``combine_decode_partials``.
+Both kernels are one body in ``csrc/decode_attention.cu``, which replaces
+the TPU kernels ``repro/kernels/decode_attention.py::decode_attention_fused``
+and ``::decode_attention_paged``. The plain versions are the reference's
+CPU path: cache partials (``ref.decode_attention_partial_ref``) then
+``combine_decode_partials``; the paged one gathers the pages through the
+block table first.
 """
 from __future__ import annotations
 
@@ -21,6 +23,10 @@ KERNEL = build.CudaKernel(
     "decode_attention", "decode_attention_fused",
     [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
     replaces="src/repro/kernels/decode_attention.py:317")
+PAGED_KERNEL = build.CudaKernel(
+    "decode_attention", "decode_attention_paged",
+    [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    replaces="src/repro/kernels/decode_attention.py:257")
 
 
 def combine_decode_partials(q, m, l, acc, k1, v1, *, softcap: float = 0.0):
@@ -51,6 +57,33 @@ def decode_attention_plain(q, ck, cv, cpos, k1, v1, pos, *, window: int = 0,
     return combine_decode_partials(q, m, l, acc, k1, v1, softcap=softcap)
 
 
+def gather_pages(pk, pv, ppos, bt):
+    """The contiguous view [B, nblk*pt, ...] of page pools through the
+    block table [B, nblk]."""
+    b, nblk = bt.shape
+    pt = pk.shape[1]
+    flat = bt.reshape(-1).long()
+    return (pk[flat].reshape(b, nblk * pt, *pk.shape[2:]),
+            pv[flat].reshape(b, nblk * pt, *pv.shape[2:]),
+            ppos[flat].reshape(b, nblk * pt))
+
+
+def decode_attention_paged_plain(q, pk, pv, ppos, bt, k1, v1, pos, *,
+                                 softcap: float = 0.0):
+    """Plain PyTorch version of the paged kernel (any device): gather the
+    pages, then the contiguous plain path."""
+    ck, cv, cpos = gather_pages(pk, pv, ppos, bt)
+    return decode_attention_plain(q, ck, cv, cpos, k1, v1, pos,
+                                  softcap=softcap)
+
+
+def _check_heads(name, h, hkv, dh):
+    if h % hkv or h // hkv not in (1, 2, 4, 8) or dh not in (32, 64, 128):
+        raise ValueError(f"{name} kernel takes G = H / Hkv in (1, 2, 4, 8) "
+                         f"and Dh in (32, 64, 128); got H={h} Hkv={hkv} "
+                         f"Dh={dh}")
+
+
 def decode_attention_cuda(q, ck, cv, cpos, k1, v1, pos, *, window: int = 0,
                           softcap: float = 0.0):
     """Launch the CUDA kernel. q: [B,H,Dh]; ck/cv: [B,Sc,Hkv,Dh];
@@ -64,10 +97,7 @@ def decode_attention_cuda(q, ck, cv, cpos, k1, v1, pos, *, window: int = 0,
         raise ValueError("decode_attention: inconsistent shapes "
                          f"q{tuple(q.shape)} ck{tuple(ck.shape)} "
                          f"cpos{tuple(cpos.shape)} k1{tuple(k1.shape)}")
-    if h % hkv or h // hkv not in (1, 2, 4, 8) or dh not in (32, 64, 128):
-        raise ValueError(f"decode_attention kernel takes G = H / Hkv in "
-                         f"(1, 2, 4, 8) and Dh in (32, 64, 128); got H={h} "
-                         f"Hkv={hkv} Dh={dh}")
+    _check_heads("decode_attention", h, hkv, dh)
     if len({t.dtype for t in (q, ck, cv, k1, v1)}) != 1:
         raise TypeError("decode_attention: q, cache and k1/v1 must share "
                         "one dtype")
@@ -80,4 +110,42 @@ def decode_attention_cuda(q, ck, cv, cpos, k1, v1, pos, *, window: int = 0,
            build.ptr(k1), build.ptr(v1), build.ptr(pos), build.ptr(out),
            b, h, hkv, dh, sc, int(window), float(softcap), code,
            build.stream_ptr(q))
+    return out
+
+
+def decode_attention_paged_cuda(q, pk, pv, ppos, bt, k1, v1, pos, *,
+                                softcap: float = 0.0):
+    """Launch the paged CUDA kernel. q: [B,H,Dh]; pk/pv: [P,pt,Hkv,Dh];
+    ppos: [P,pt] int32; bt: [B,nblk] int32, entries in [0, P) (0 = the
+    null page); k1/v1: [B,Hkv,Dh]; pos: [B] int32. pt must be a multiple
+    of 4. Returns [B,H,Dh] in q's dtype."""
+    b, h, dh = q.shape
+    npg, pt, hkv = pk.shape[0], pk.shape[1], pk.shape[2]
+    nblk = bt.shape[1] if bt.dim() == 2 else -1
+    if pk.shape != (npg, pt, hkv, dh) or pv.shape != pk.shape or \
+            ppos.shape != (npg, pt) or bt.shape != (b, nblk) or \
+            k1.shape != (b, hkv, dh) or v1.shape != k1.shape or \
+            pos.shape != (b,):
+        raise ValueError("decode_attention_paged: inconsistent shapes "
+                         f"q{tuple(q.shape)} pk{tuple(pk.shape)} "
+                         f"ppos{tuple(ppos.shape)} bt{tuple(bt.shape)} "
+                         f"k1{tuple(k1.shape)}")
+    _check_heads("decode_attention_paged", h, hkv, dh)
+    if pt % 4:
+        raise ValueError(f"decode_attention_paged kernel takes page_tokens "
+                         f"a multiple of 4; got {pt}")
+    if len({t.dtype for t in (q, pk, pv, k1, v1)}) != 1:
+        raise TypeError("decode_attention_paged: q, pools and k1/v1 must "
+                        "share one dtype")
+    if bt.dtype != torch.int32 or ppos.dtype != torch.int32:
+        raise TypeError("decode_attention_paged: bt and ppos must be int32")
+    code = build.dtype_code(q)
+    q, pk, pv, k1, v1, ppos, bt = (t.contiguous() for t in
+                                   (q, pk, pv, k1, v1, ppos, bt))
+    pos = pos.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    PAGED_KERNEL(build.ptr(q), build.ptr(pk), build.ptr(pv), build.ptr(ppos),
+                 build.ptr(bt), build.ptr(k1), build.ptr(v1), build.ptr(pos),
+                 build.ptr(out), b, h, hkv, dh, pt, nblk, float(softcap),
+                 code, build.stream_ptr(q))
     return out

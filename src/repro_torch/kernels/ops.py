@@ -8,8 +8,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.decode_attention import (decode_attention_cuda,
-                                                  decode_attention_plain)
+from repro_torch.kernels.decode_attention import (
+    decode_attention_cuda, decode_attention_paged_cuda,
+    decode_attention_paged_plain, decode_attention_plain)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.moe_gemm import expert_ffn_cuda, expert_ffn_plain
 
@@ -29,6 +30,17 @@ def decode_attention(q, ck, cv, cpos, k1, v1, pos, *, window: int = 0,
     pos: [B]. Returns [B,H,Dh]."""
     fn = decode_attention_cuda if _on_cuda(q) else decode_attention_plain
     return fn(q, ck, cv, cpos, k1, v1, pos, window=window, softcap=softcap)
+
+
+def decode_attention_paged(q, pk, pv, ppos, bt, k1, v1, pos, *,
+                           softcap: float = 0.0):
+    """Single-token GQA decode attention over a paged cache + current token.
+    q: [B,H,Dh]; pk/pv: [P,pt,Hkv,Dh] page pools; ppos: [P,pt]; bt:
+    [B,nblk] block table (page 0 = the null page, positions all -1);
+    k1/v1: [B,Hkv,Dh]; pos: [B]. Full attention only. Returns [B,H,Dh]."""
+    fn = decode_attention_paged_cuda if _on_cuda(q) \
+        else decode_attention_paged_plain
+    return fn(q, pk, pv, ppos, bt, k1, v1, pos, softcap=softcap)
 
 
 def full_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,

@@ -1,9 +1,12 @@
-"""GQA attention: blockwise full attention for prefill and single-token
-decode against a contiguous slotted KV cache.
+"""GQA attention: blockwise full attention for prefill, chunked prefill
+and single-token decode, against a contiguous slotted KV cache or a paged
+one.
 
 Cache layout per attention layer (as in the reference):
     {"k": [B, Sc, Hkv, Dh], "v": [B, Sc, Hkv, Dh], "pos": [B, Sc] int32}
-``pos`` holds the absolute position stored in each slot (-1 = empty). The
+``pos`` holds the absolute position stored in each slot (-1 = empty). A
+paged layer holds P physical pages of pt tokens instead ([P, pt, ...]),
+read through one block table ``bt`` [B, nblk] (see ``paged_view``). The
 port updates cache tensors in place (the reference returns new arrays):
 an engine keeps one cache for life, so in-place writes save a full copy
 per step.
@@ -15,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import gather_pages
 from repro_torch.kernels.ref import NEG_INF, attn_scale
 from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
 
@@ -28,7 +32,7 @@ PREFILL_BLOCK_K = 16
 # params
 # --------------------------------------------------------------------------
 
-def attn_init(gen, cfg: ModelConfig, device="cpu"):
+def attn_init(gen, cfg: ModelConfig, device):
     d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     return {
         "wq": dense_init(gen, d, h * dh, device=device),
@@ -132,8 +136,8 @@ def blockwise_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
 # cache management
 # --------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, window: int = 0,
-               dtype=None, device="cpu"):
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device,
+               window: int = 0, dtype=None):
     sc = min(window, max_seq) if window else max_seq
     dh, hkv = cfg.head_dim_, cfg.num_kv_heads
     dt = dtype or cfg.torch_dtype
@@ -163,6 +167,36 @@ def cache_write_prefill(cache, k, v, positions):
     return cache
 
 
+def write_entries(positions, bt=None, page_tokens: int = 0):
+    """(rows, cols) of the entries of ``positions`` [B, C] that a cache
+    write keeps: position >= 0 and, on a paged cache, a block mapped to a
+    real page. The reference scatters the others out of bounds, where they
+    are dropped; PyTorch raises on an out-of-range index instead, so they
+    are left out here. Computed once per forward call (one host sync) and
+    shared by every layer's write."""
+    keep = positions >= 0
+    if bt is not None:
+        blk = (positions.clamp(min=0) % (bt.shape[1] * page_tokens)) \
+            // page_tokens
+        keep &= torch.gather(bt, 1, blk.long()) > 0
+    return torch.nonzero(keep, as_tuple=True)
+
+
+def cache_write_chunk(cache, k, v, positions, rows, cols):
+    """Write a prefill chunk's K/V [B,C,...] at absolute ``positions``
+    [B,C] into an existing cache, in place. Only the entries (rows, cols)
+    of ``write_entries`` are written: chunk padding and rows not in this
+    chunk call (position -1) stay untouched, so the same call can extend
+    some rows' prompts while other rows hold live decode state."""
+    sc = cache["k"].shape[1]
+    p = positions[rows, cols]
+    slot = (p % sc).long()
+    cache["k"][rows, slot] = k[rows, cols].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v[rows, cols].to(cache["v"].dtype)
+    cache["pos"][rows, slot] = p.to(torch.int32)
+    return cache
+
+
 def cache_write_token(cache, k1, v1, pos, window: int = 0):
     """Write one token's K/V [B,1,...] at absolute position pos [B], in
     place. Rows with pos < 0 keep their cache untouched (the reference
@@ -179,6 +213,45 @@ def cache_write_token(cache, k1, v1, pos, window: int = 0):
                                     t[bidx, slot])
     p = cache["pos"]
     p[bidx, slot] = torch.where(valid, pos.to(torch.int32), p[bidx, slot])
+    return cache
+
+
+# --------------------------------------------------------------------------
+# paged cache (block tables over a physical page pool)
+# --------------------------------------------------------------------------
+#
+# Paged layer cache: {"k": [P, pt, Hkv, Dh], "v": [P, pt, Hkv, Dh], "pos":
+# [P, pt] int32} plus one block table ``bt`` [B, nblk] int32 shared by all
+# layers, mapping logical block j of slot b to a physical page. Page 0 is
+# the null page: never allocated, its positions -1 forever, and every
+# unmapped block points at it, so unmapped regions mask out exactly like
+# an empty contiguous cache. With nblk * pt == Sc the gathered view
+# reproduces the contiguous layout element for element, which is what
+# makes the paged engine bitwise equal to the contiguous one.
+
+
+def paged_view(cache, bt):
+    """The contiguous [B, nblk*pt, ...] view of a paged layer cache through
+    the block table (a gather, not a view). Stale K/V under pos == -1
+    entries is harmless: masked scores never read it."""
+    k, v, pos = gather_pages(cache["k"], cache["v"], cache["pos"], bt)
+    return {"k": k, "v": v, "pos": pos}
+
+
+def paged_write_chunk(cache, bt, k, v, positions, rows, cols):
+    """Paged twin of ``cache_write_chunk``: scatter chunk K/V [B,C,...] at
+    absolute ``positions`` [B,C] into physical pages through the block
+    table, in place. Only the entries (rows, cols) of ``write_entries``
+    are written, so page 0 is never written. A decode token's write is
+    this at C = 1."""
+    pt = cache["k"].shape[1]
+    p = positions[rows, cols]
+    spos = (p % (bt.shape[1] * pt)).long()
+    page = bt[rows, spos // pt].long()
+    off = spos % pt
+    cache["k"][page, off] = k[rows, cols].to(cache["k"].dtype)
+    cache["v"][page, off] = v[rows, cols].to(cache["v"].dtype)
+    cache["pos"][page, off] = p.to(torch.int32)
     return cache
 
 
@@ -221,4 +294,67 @@ def attn_decode(cfg: ModelConfig, params, x, cache, pos, *, window: int = 0):
                                 softcap=cfg.attn_softcap)
     out = out.reshape(b, 1, -1) @ params["wo"]
     cache = cache_write_token(cache, k1, v1, pos, window=window)
+    return out, cache
+
+
+def _chunk_qkv(cfg, params, x, positions):
+    q = _project_q(cfg, params, x)
+    k, v = _project_kv(cfg, params, x)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _chunk_attend(cfg, params, x, q, view, positions, window: int = 0):
+    from repro_torch.kernels import ops as kops
+    out = kops.full_attention(
+        q, view["k"], view["v"], positions, view["pos"], window=window,
+        softcap=cfg.attn_softcap, causal=True,
+        block_k=_pick_block(view["k"].shape[1], PREFILL_BLOCK_K))
+    return out.reshape(*x.shape[:2], -1) @ params["wo"]
+
+
+def attn_chunk(cfg: ModelConfig, params, x, cache, positions, writes, *,
+               window: int = 0):
+    """Chunked-prefill path: x [B,C,D] extends each row's sequence at
+    absolute ``positions`` [B,C] (-1 = chunk padding / row not in this
+    chunk). The chunk's K/V are written into the cache first (entries
+    ``writes`` = (rows, cols) of ``write_entries``), then the chunk
+    queries attend over the whole updated cache: causal masking by stored
+    position covers both the committed prefix and the chunk itself.
+    Returns (out [B,C,D], cache)."""
+    q, k, v = _chunk_qkv(cfg, params, x, positions)
+    cache = cache_write_chunk(cache, k, v, positions, *writes)
+    return _chunk_attend(cfg, params, x, q, cache, positions,
+                         window=window), cache
+
+
+def attn_chunk_paged(cfg: ModelConfig, params, x, cache, bt, positions,
+                     writes):
+    """Chunked prefill over a paged layer cache: write the chunk's K/V
+    through the block table, then attend over the gathered contiguous
+    view with the same pinned KV block as ``attn_chunk``, so the result
+    matches the contiguous engine exactly. Full attention only."""
+    q, k, v = _chunk_qkv(cfg, params, x, positions)
+    cache = paged_write_chunk(cache, bt, k, v, positions, *writes)
+    return _chunk_attend(cfg, params, x, q, paged_view(cache, bt),
+                         positions), cache
+
+
+def attn_decode_paged(cfg: ModelConfig, params, x, cache, bt, pos, writes):
+    """Single-token decode over a paged layer cache: the attention reads
+    the pages through the block table (the paged kernel on the card, a
+    gather and the contiguous plain path on the CPU), then the token's
+    K/V is written through the table (entries ``writes`` of
+    ``write_entries`` over pos[:, None])."""
+    from repro_torch.kernels import ops as kops
+    b = x.shape[0]
+    q = _project_q(cfg, params, x)
+    k1, v1 = _project_kv(cfg, params, x)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k1 = apply_rope(k1, pos[:, None], cfg.rope_theta)
+    out = kops.decode_attention_paged(
+        q[:, 0], cache["k"], cache["v"], cache["pos"], bt, k1[:, 0],
+        v1[:, 0], pos, softcap=cfg.attn_softcap)
+    out = out.reshape(b, 1, -1) @ params["wo"]
+    cache = paged_write_chunk(cache, bt, k1, v1, pos[:, None], *writes)
     return out, cache

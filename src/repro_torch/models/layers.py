@@ -23,17 +23,17 @@ def _normal(gen: torch.Generator, shape, device):
                        device=device)
 
 
-def dense_init(gen, in_dim: int, out_dim: int, scale: float = 1.0,
-               device="cpu"):
+def dense_init(gen, in_dim: int, out_dim: int, *, device,
+               scale: float = 1.0):
     return _normal(gen, (in_dim, out_dim), device) * (scale /
                                                       math.sqrt(in_dim))
 
 
-def embed_init(gen, vocab: int, d: int, device="cpu"):
+def embed_init(gen, vocab: int, d: int, device):
     return _normal(gen, (vocab, d), device) * 0.02
 
 
-def rmsnorm_init(d: int, device="cpu"):
+def rmsnorm_init(d: int, device):
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
@@ -53,7 +53,7 @@ def rmsnorm(params, x, eps: float = 1e-6):
 # RoPE
 # --------------------------------------------------------------------------
 
-def rope_freqs(head_dim: int, theta: float, device="cpu"):
+def rope_freqs(head_dim: int, theta: float, device):
     exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
                              device=device) / head_dim
     return 1.0 / (theta ** exponents)  # [head_dim/2]
@@ -75,7 +75,7 @@ def apply_rope(x, positions, theta: float):
 # dense MLP (SwiGLU or plain)
 # --------------------------------------------------------------------------
 
-def mlp_init(gen, d: int, d_ff: int, gated: bool = True, device="cpu"):
+def mlp_init(gen, d: int, d_ff: int, gated: bool, device):
     p = {"w_up": dense_init(gen, d, d_ff, device=device),
          "w_down": dense_init(gen, d_ff, d, device=device)}
     if gated:

@@ -26,7 +26,7 @@ def moe_placement(cfg: ModelConfig, num_ew: int) -> ert_lib.ExpertPlacement:
 
 
 def moe_init(gen, cfg: ModelConfig, placement: ert_lib.ExpertPlacement,
-             device="cpu"):
+             device):
     """One MoE layer's params. The stored bank holds one row per logical
     expert, padded to ``placement.primary_slots``."""
     e_store, d, f = placement.primary_slots, cfg.d_model, cfg.moe.d_ff

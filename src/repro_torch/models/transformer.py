@@ -1,5 +1,6 @@
 """Decoder stack for the transformer MoE family (port of
-``repro.models.transformer``), Mixtral first.
+``repro.models.transformer``), Mixtral first: whole-prompt prefill,
+chunked prefill and decode, over a contiguous or a paged KV cache.
 
 The reference scans stacked layer params with ``lax.scan``; here the params
 hold a plain list of per-layer dicts and the stack is a Python loop. MoE
@@ -31,6 +32,7 @@ class ModelApi(NamedTuple):
     prefill: Callable[..., Any]         # -> (last_logits, caches, load)
     decode: Callable[..., Any]          # -> (logits, caches, load)
     init_route_state: Callable[..., refe.RouteState]
+    prefill_chunk: Callable[..., Any]   # -> (caches, load)
 
 
 def layer_windows(cfg: ModelConfig):
@@ -61,12 +63,25 @@ def _layer_init(gen, cfg: ModelConfig, use_moe: bool, placement, device):
 
 def _layer_apply(cfg: ModelConfig, p, x, *, window: int, mode: str,
                  positions=None, pos=None, cache=None, route_state=None,
-                 placement=None, capacity=None, token_mask=None):
-    """mode: 'prefill' | 'decode'. Returns (x, cache, slot load)."""
+                 placement=None, capacity=None, token_mask=None, bt=None,
+                 writes=None):
+    """mode: 'prefill' | 'chunk' | 'decode'. ``bt`` is the [B, nblk] block
+    table of a paged cache (None = contiguous); ``writes`` the cache
+    entries a chunk (or paged decode) write keeps (``attn.write_entries``).
+    Returns (x, cache, slot load)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    if mode == "decode":
+    if mode == "decode" and bt is not None:
+        a, cache = attn.attn_decode_paged(cfg, p["attn"], h, cache, bt, pos,
+                                          writes)
+    elif mode == "decode":
         a, cache = attn.attn_decode(cfg, p["attn"], h, cache, pos,
                                     window=window)
+    elif mode == "chunk" and bt is not None:
+        a, cache = attn.attn_chunk_paged(cfg, p["attn"], h, cache, bt,
+                                         positions, writes)
+    elif mode == "chunk":
+        a, cache = attn.attn_chunk(cfg, p["attn"], h, cache, positions,
+                                   writes, window=window)
     else:
         a, cache = attn.attn_full(cfg, p["attn"], h, positions,
                                   window=window, cache=cache)
@@ -127,13 +142,23 @@ def build_decoder(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
                    route_state=None, capacity=None, token_mask=None):
         load_total = torch.zeros((n_slots,), dtype=torch.float32,
                                  device=x.device)
+        # a paged engine carries one block table beside its layer pools,
+        # threaded to every layer; the entries a cache write keeps are
+        # the same in every layer, so they are found once per call
+        bt = caches.get("bt") if caches is not None else None
+        writes = None
+        if mode == "chunk" or (mode == "decode" and bt is not None):
+            pt = caches["layers"][0]["k"].shape[1]
+            writes = attn.write_entries(
+                positions if mode == "chunk" else pos[:, None], bt, pt)
         for i, lp in enumerate(params["layers"]):
             c = caches["layers"][i] if caches is not None else None
             x, c, load = _layer_apply(
                 cfg, lp, x, window=windows[i], mode=mode,
                 positions=positions, pos=pos, cache=c,
                 route_state=route_state, placement=placement,
-                capacity=capacity, token_mask=token_mask)
+                capacity=capacity, token_mask=token_mask, bt=bt,
+                writes=writes)
             load_total = load_total + load
         return rmsnorm(params["final_norm"], x, cfg.norm_eps), load_total
 
@@ -157,10 +182,26 @@ def build_decoder(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
         return unembed(cfg, params, x[:, -1]), caches, load
 
     @torch.no_grad()
+    def prefill_chunk(params, tokens, positions, caches, route_state,
+                      capacity=None):
+        """One budgeted prefill chunk over the shared slot-partitioned
+        cache. tokens: [B, C] int; positions: [B, C] absolute prompt
+        positions (-1 = chunk padding or a row not in this chunk call;
+        such rows, live decode slots included, are untouched). Updates
+        ``caches`` in place; returns (caches, slot load). No logits: the
+        first generated token rides the decode step."""
+        x, load = _run_stack(params, _embed(params, tokens), "chunk",
+                             positions=positions, caches=caches,
+                             route_state=route_state, capacity=capacity,
+                             token_mask=positions >= 0)
+        return caches, load
+
+    @torch.no_grad()
     def decode(params, tokens, pos, caches, route_state):
         """tokens: [B] int; pos: [B] absolute positions (-1 = row not
         decoding: no cache write, no capacity claim). Expert capacity comes
-        from the model's capacity factor. Updates ``caches`` in place;
+        from the model's capacity factor. ``caches`` may be paged (a "bt"
+        block table beside the layer pools). Updates ``caches`` in place;
         returns (logits [B, V], caches, slot load [P])."""
         x, load = _run_stack(params, _embed(params, tokens[:, None]),
                              "decode", pos=pos, caches=caches,
@@ -186,4 +227,5 @@ def build_decoder(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
         return refe.RouteState.healthy(placement, num_aw, device=device)
 
     return ModelApi(cfg, placement, num_aw, num_ew, device, init_params,
-                    init_cache, prefill, decode, init_route_state)
+                    init_cache, prefill, decode, init_route_state,
+                    prefill_chunk)

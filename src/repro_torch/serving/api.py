@@ -3,8 +3,10 @@ SLO classes, ``RequestSpec``, ``Client`` and ``RequestHandle``.
 
 ``Client.submit`` enqueues into the Gateway's class queues and runs one
 admission pass; it never refuses. ``RequestHandle`` observes one request:
-``status()`` over the lifecycle queued -> placed -> decoding -> done (or
-cancelled), incremental ``new_tokens()``, and ``cancel()``.
+``status()`` over the lifecycle queued -> placed -> prefilling (chunked
+prefill) -> decoding -> done (or cancelled), with "preempted" while its AW
+is dead and it waits to be restored; incremental ``new_tokens()``, and
+``cancel()``.
 """
 from __future__ import annotations
 
@@ -72,7 +74,9 @@ class RequestSpec:
 
 QUEUED = "queued"
 PLACED = "placed"
+PREFILLING = "prefilling"
 DECODING = "decoding"
+PREEMPTED = "preempted"
 DONE = "done"
 CANCELLED = "cancelled"
 

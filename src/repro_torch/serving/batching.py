@@ -1,15 +1,22 @@
-"""Continuous-batching scheduler: batched prefill + interleaved decode
-(port of ``repro.serving.batching``).
+"""Continuous-batching scheduler: batched prefill, per-request
+restoration and interleaved decode (port of ``repro.serving.batching``).
 
-Each tick it pulls admitted requests from the Gateway, prefills them in
-length-bucketed padded batches, and runs one decode step over all active
-slots. Two prefill schemes, chosen from the cache layout:
+Each tick it pulls admitted requests from the Gateway, restores recovery
+entries from the checkpoint store, hands prompts of 2 or more tokens to
+the chunked-prefill plane when it is on (or else prefills them in
+length-bucketed padded batches), runs the plane's budgeted slice, and
+then one decode step over all active slots. Whole-prompt schemes, chosen
+from the cache layout:
 
   * padded (full-attention caches): ``prompt[:-1]`` padded to the bucket
     length; pad entries are scrubbed from the slot (``pos`` = -1) and the
     prompt's last token rides the next decode step;
   * exact (1-token prompts): requests of one prompt length share one
     unpadded call and the first token comes from its last-position logits.
+
+Every KV write is checkpointed: the whole-prompt prefix at install, each
+chunk as it lands (serving/chunked.py), each decode step's tokens in one
+batched gather and one device-to-host copy.
 
 Pad tokens (length and repeated-row padding) are masked out of expert
 capacity, and the prefill capacity comes from the real token count, so a
@@ -24,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.serving.gateway import Gateway, QueuedRequest
+from repro_torch.serving.kvcache import CacheLayout
 
 PREFILL_BUCKET = 16               # padded-prefill length bucket
 
@@ -61,11 +69,22 @@ class ContinuousBatchScheduler:
     # -- admission ----------------------------------------------------------
     def admit(self, now: float = 0.0) -> List[str]:
         """Admit as many queued requests as placement allows; returns the
-        rids installed this tick."""
-        fresh = self.gateway.admit(now)
+        rids installed this tick (fresh and recovered)."""
+        eng = self.engine
+        fresh: List[Tuple[QueuedRequest, int, int]] = []
+        installed: List[str] = []
+        for q, aw, slot in self.gateway.admit(now):
+            if q.recovery:
+                self._install_recovery(q, aw, slot, now)
+            elif eng.chunked is not None and len(q.prompt) >= 2:
+                # the prompt streams through budgeted chunks on later ticks
+                eng.chunked.start(q, aw, slot, now)
+            else:
+                fresh.append((q, aw, slot))
+            installed.append(q.rid)
         for group in self._bucket_groups(fresh):
             self._prefill_group(group, now)
-        return [q.rid for q, _, _ in fresh]
+        return installed
 
     def _bucket_groups(self, fresh):
         """(padded, bucket_len) groups for the padded scheme, (exact,
@@ -125,15 +144,21 @@ class ContinuousBatchScheduler:
         self.stats.batch_sizes.append(n_real)
 
         for i, (q, aw, slot) in enumerate(entries):
-            state = eng.layout.request_state(req_cache, i)
+            # the prefill cache is contiguous whatever the engine's layout;
+            # the engine's layout writes it into the slot (a paged engine
+            # maps the prefilled prefix's pages first)
+            state = CacheLayout.request_state(req_cache, i)
             if padded and pre_lens[i] < length:
-                state = eng.layout.scrub_request_state(state, pre_lens[i])
+                state = CacheLayout.scrub_request_state(state, pre_lens[i])
+            eng._kv_ensure(slot, pre_lens[i])
             eng.layout.write_request_state(eng.cache, slot, state)
             first = int(firsts[i]) if not padded else None
-            self._install_fresh(q, aw, slot, now, padded=padded, first=first)
+            self._install_fresh(q, aw, slot, now, padded=padded, first=first,
+                                n_prefilled=pre_lens[i])
 
     def _install_fresh(self, q: QueuedRequest, aw: int, slot: int,
-                       now: float, *, padded: bool, first: Optional[int]):
+                       now: float, *, padded: bool, first: Optional[int],
+                       n_prefilled: int):
         eng = self.engine
         n = len(q.prompt)
         st = eng.make_request_state(q, slot)
@@ -153,30 +178,90 @@ class ContinuousBatchScheduler:
                 st.t_done = now
         eng.requests[q.rid] = st
 
+        eng.aws[aw].checkpointer.register(q.rid, prompt_len=n)
+        if n_prefilled > 0:
+            eng._bulk_checkpoint(st, 0, n_prefilled - 1)
+        eng.aws[aw].checkpointer.flush()
+
+    # -- per-request restoration (recovery admissions) ----------------------
+    def _install_recovery(self, q: QueuedRequest, aw: int, slot: int,
+                          now: float):
+        """§6.2: write the committed KV prefix into the new slot and rewind
+        the request to the committed token. A request caught mid-prefill
+        re-enters the chunked plane with its cursor at the commit
+        watermark: only the uncommitted tail of the prompt is recomputed."""
+        eng = self.engine
+        r = eng.requests.get(q.rid)
+        if r is None:              # released while waiting for recovery
+            eng.aws[aw].slots.release(slot)
+            return
+        committed, tok_val, segs = eng.store.restore_request(q.rid)
+        eng._kv_clear_slot(slot)
+        if segs:
+            # paged: map pages covering the restored prefix first
+            eng._kv_ensure(slot, max(segs) + 1)
+            eng.layout.write_token_segments(eng.cache, slot, list(segs),
+                                            list(segs.values()))
+        r.slot = slot
+        r._aw = aw
+        r.paused = False
+        r.queued_for_recovery = False
+        r.t_admit = now
+        eng.store.reassign(q.rid, aw)
+        # re-bind sampling to the (possibly different) recovery slot; the
+        # counter-based draw is slot-independent, so the replayed stream is
+        # the same wherever the request lands
+        eng.decode_plane.bind(r)
+
+        if r.prefilling:
+            # resume the chunk stream after the restored prefix (committed
+            # is -1 when the failure hit before any chunk was committed)
+            eng.chunked.stats.restored_tokens[q.rid] = \
+                eng.chunked.stats.restored_tokens.get(q.rid, 0) + len(segs)
+            eng.chunked.resume(r, aw, slot, committed + 1)
+            return
+
+        n_prompt = len(r.prompt)
+        n_gen = max(0, committed + 2 - n_prompt)
+        r.tokens = r.tokens[:n_gen]
+        r.pos = committed + 1
+        if committed + 1 < n_prompt:
+            r.next_input = int(r.prompt[committed + 1])
+        elif tok_val >= 0:
+            r.next_input = int(tok_val)
+        elif r.tokens:
+            r.next_input = int(r.tokens[-1])
+
     # -- decode -------------------------------------------------------------
     def step(self, now: Optional[float] = None) -> Dict[str, List[int]]:
-        """One iteration: an admission pass when anything waits, then one
-        decode step over all active slots. Returns {rid: new_tokens}."""
+        """One iteration: an admission pass when anything waits, a budgeted
+        slice of chunked prefill (when the plane is on), then one decode
+        step over all active slots. Returns {rid: new_tokens}."""
         eng = self.engine
         t_now = now if now is not None else float(eng.steps)
         if self.gateway.depth():
             self.admit(t_now)
+        if eng.chunked is not None:
+            eng.chunked.tick()
         act = eng.active_requests()
         if not act:
             return {}
         return self._step_single(act, t_now)
 
     def _step_single(self, act, t_now: float) -> Dict[str, List[int]]:
-        """One decode dispatch + device sampling; only the [B] token
-        vector crosses to the host."""
+        """One decode dispatch + device sampling; the [B] token vector and
+        the step's checkpoint segments cross to the host."""
         eng = self.engine
         b = eng.ecfg.max_batch
         tokens = np.zeros((b,), np.int32)
-        # inactive rows carry pos -1: no cache write, no capacity claim
+        # inactive rows carry pos -1: no cache write, no capacity claim, so
+        # a decode step never touches a slot that is mid-chunked-prefill
         pos = np.full((b,), -1, np.int32)
         for r in act:
             tokens[r.slot] = r.next_input
             pos[r.slot] = r.pos
+            # paged: the step writes KV at r.pos; its page must be mapped
+            eng._kv_ensure(r.slot, r.pos + 1)
         dev = eng.device
         pos_dev = torch.as_tensor(pos, device=dev)
         logits, eng.cache, _ = eng.api.decode(
@@ -185,9 +270,17 @@ class ContinuousBatchScheduler:
         toks = eng.decode_plane.sample(logits, pos_dev).cpu().numpy()
         self.gateway.stats.host_syncs += 1
 
+        # the KV the step wrote for every active request (all on live AWs:
+        # a dead AW's requests are paused): one batched gather, one
+        # device-to-host copy
+        stacked = eng.layout.extract_tokens(
+            eng.cache, [r.slot for r in act], [r.pos for r in act])
+
         out: Dict[str, List[int]] = {}
-        for r in act:
+        for i, r in enumerate(act):
             nxt = int(toks[r.slot])
+            eng.aws[r.aw].checkpointer.checkpoint_token(
+                r.rid, r.pos, [leaf[i] for leaf in stacked], token_value=nxt)
             r.pos += 1
             r.tokens.append(nxt)
             r.next_input = nxt
@@ -197,5 +290,7 @@ class ContinuousBatchScheduler:
             if len(r.tokens) >= r.max_new or r.pos >= eng.ecfg.max_seq - 1:
                 r.done = True
                 r.t_done = t_now
+        for w in eng.aws:
+            w.checkpointer.flush()
         eng.steps += 1
         return out

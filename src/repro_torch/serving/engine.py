@@ -5,15 +5,24 @@ facade over the layered serving stack.
   * ``AttentionWorker`` / ``ExpertWorker`` (serving/workers.py): failure
     domains;
   * ``ContinuousBatchScheduler`` (serving/batching.py): bucketed padded
-    prefill and the shared decode step.
+    prefill, per-request restoration and the shared decode step;
+  * ``ChunkedPrefillPlane`` (serving/chunked.py): budgeted, resumable
+    prefill, when ``chunk_token_budget`` > 0.
 
-The engine owns the device state (params, route state, the slot-partitioned
-KV cache) on ``device`` ("cuda" unless the caller asks for "cpu").
+The engine owns the device state (params, route state, the KV cache:
+contiguous per slot, or paged through block tables when
+``kv_page_tokens`` > 0) on ``device`` ("cuda" unless the caller asks for
+"cpu"), and the CheckpointStore every AW streams its KV writes to.
 
-Failure API of this slice: ``fail_ew(e)`` — EW e crashes and the ERT
-resolves its experts to shadow slots on the next step; nothing else
-changes. ``provision_ew(e)`` brings it back. The AW failure domain
-(checkpoint streaming and per-request restore) arrives with its slice.
+Failure API:
+  * ``fail_aw(a)``: AW a crashes; its slots, pages and undelivered
+    checkpoint writes are lost and its requests pause.
+    ``recover_aw_requests()`` requeues them at the front of the Gateway
+    and admits what fits; each is restored per request from the store
+    onto a healthy slot (§6.2). ``provision_aw(a)`` brings the AW back.
+  * ``fail_ew(e)``: EW e crashes and the ERT resolves its experts to
+    shadow slots on the next step; nothing else changes.
+    ``provision_ew(e)`` brings it back.
 """
 from __future__ import annotations
 
@@ -24,13 +33,18 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.checkpoint import CheckpointStore
 from repro_torch.core.refe import RouteState
 from repro_torch.models import get_model
-from repro_torch.serving.api import STANDARD, Client, SamplingParams
+from repro_torch.serving.api import (CANCELLED, DECODING, DONE, PLACED,
+                                     PREEMPTED, PREFILLING, STANDARD, Client,
+                                     SamplingParams)
 from repro_torch.serving.batching import ContinuousBatchScheduler
+from repro_torch.serving.chunked import ChunkedPrefillPlane
 from repro_torch.serving.decode_loop import DecodeLoopPlane
 from repro_torch.serving.gateway import Gateway, QueuedRequest
-from repro_torch.serving.kvcache import CacheLayout
+from repro_torch.serving.kvcache import (CacheLayout, PagedCacheLayout,
+                                         PagePool)
 from repro_torch.serving.workers import AttentionWorker, ExpertWorker
 
 
@@ -41,6 +55,12 @@ class EngineConfig:
     num_aw: int = 2
     num_ew: int = 2
     sample_seed: int = 0           # the engine's part of every draw's key
+    kv_page_tokens: int = 0        # KV page extent in tokens (0 = the
+    #                                contiguous per-slot cache; > 0 needs
+    #                                full attention, chunked prefill and
+    #                                must divide max_seq)
+    chunk_token_budget: int = 0    # real prefill tokens per tick (0 =
+    #                                whole-prompt prefill)
 
 
 @dataclass
@@ -53,6 +73,11 @@ class RequestState:
     pos: int = 0                  # next position to write
     next_input: int = -1          # token the next decode step consumes
     done: bool = False
+    paused: bool = False          # owning AW died; awaiting re-admission
+    queued_for_recovery: bool = False
+    prefilling: bool = False      # prompt still streaming through the
+    #                               chunked-prefill plane (no decode yet)
+    prefill_cursor: int = 0       # prompt tokens already written to cache
     cancelled: bool = False
     slo_class: str = STANDARD
     deadline: Optional[float] = None
@@ -69,11 +94,18 @@ class RequestState:
 
     @property
     def state(self) -> str:
+        """queued -> placed -> prefilling -> decoding -> done (or
+        cancelled); "preempted" while its AW is dead and it waits for
+        restoration (queued is before a RequestState exists)."""
         if self.cancelled:
-            return "cancelled"
+            return CANCELLED
         if self.done:
-            return "done"
-        return "decoding" if self.tokens else "placed"
+            return DONE
+        if self.paused or self.queued_for_recovery:
+            return PREEMPTED
+        if self.prefilling:
+            return PREFILLING
+        return DECODING if self.tokens else PLACED
 
     @property
     def ttft(self) -> float:
@@ -99,19 +131,52 @@ class InferenceEngine:
         self.route_state: RouteState = self.api.init_route_state()
         if ecfg.max_batch % ecfg.num_aw:
             raise ValueError("max_batch must be a multiple of num_aw")
-        self.cache = self.api.init_cache(ecfg.max_batch, ecfg.max_seq)
-        self.layout = CacheLayout()
+        # ---- KV plane: contiguous per-slot cache, or paged block tables.
+        # Paged mode swaps the layout, not the model: the per-layer pools
+        # are the contiguous cache built with batch = pages, max_seq =
+        # page_tokens, plus one [B, nblk] block table.
+        self.pages: Optional[PagePool] = None
+        if ecfg.kv_page_tokens > 0:
+            pt = ecfg.kv_page_tokens
+            if ecfg.max_seq % pt:
+                raise ValueError(f"kv_page_tokens={pt} must divide "
+                                 f"max_seq={ecfg.max_seq}")
+            if cfg.sliding_window:
+                raise ValueError("paged KV needs full attention in every "
+                                 "layer (no sliding window)")
+            if ecfg.chunk_token_budget <= 0:
+                # the reference's paged engine runs only with chunked
+                # prefill: its whole-prompt path reads the paged cache
+                # through the contiguous layout and fails
+                raise ValueError("paged KV needs chunked prefill "
+                                 "(chunk_token_budget > 0)")
+            self.pages = PagePool(ecfg.max_batch, ecfg.num_aw,
+                                  ecfg.max_seq // pt, pt)
+            self.layout = PagedCacheLayout(self.pages, ecfg.max_seq)
+            self.cache = self.layout.make_cache(self.api.init_cache,
+                                                ecfg.max_batch)
+        else:
+            self.layout = CacheLayout()
+            self.cache = self.api.init_cache(ecfg.max_batch, ecfg.max_seq)
         self.prefill_paddable = self.layout.prefill_paddable(
             self.cache, ecfg.max_seq)
+        self.store = CheckpointStore()
 
         per_aw = ecfg.max_batch // ecfg.num_aw
-        self.aws = [AttentionWorker(a, a * per_aw, (a + 1) * per_aw)
+        self.aws = [AttentionWorker(a, a * per_aw, (a + 1) * per_aw,
+                                    self.store)
                     for a in range(ecfg.num_aw)]
         self.ews = [ExpertWorker(e) for e in range(ecfg.num_ew)]
 
         self.gateway = Gateway(self.aws)
         self.scheduler = ContinuousBatchScheduler(self, self.gateway)
         self.decode_plane = DecodeLoopPlane(self)
+        self.chunked: Optional[ChunkedPrefillPlane] = None
+        if ecfg.chunk_token_budget > 0:
+            if not self.prefill_paddable:
+                raise ValueError("chunked prefill needs full attention "
+                                 "(cache slot == absolute position)")
+            self.chunked = ChunkedPrefillPlane(self, ecfg.chunk_token_budget)
         self.requests: Dict[str, RequestState] = {}
         self._release_hooks: List[Callable] = []
         self._client: Optional[Client] = None
@@ -153,17 +218,151 @@ class InferenceEngine:
 
     # -- decode -------------------------------------------------------------
     def active_requests(self) -> List[RequestState]:
-        return [r for r in self.requests.values() if not r.done]
+        return [r for r in self.requests.values()
+                if not r.done and not r.paused and not r.prefilling]
 
     def step(self, now: Optional[float] = None) -> Dict[str, List[int]]:
         """One iteration: admission when anything waits, then one decode
         step over all active slots. Returns {rid: new_tokens}."""
         return self.scheduler.step(now)
 
+    # -- checkpoint streaming -------------------------------------------------
+    def _bulk_checkpoint(self, r: RequestState, start: int, last: int):
+        """Stream token segments [start, last] of the request's slot to
+        its AW's store log through the bulk range path."""
+        self._ck_range(self.aws[r._aw].checkpointer, r.rid, start,
+                       self.layout.extract_range(self.cache, r.slot, start,
+                                                 last - start + 1),
+                       [self._ck_token_value(r, t)
+                        for t in range(start, last + 1)])
+
+    @staticmethod
+    def _ck_token_value(r: RequestState, t: int) -> int:
+        # the store hands back position t's *next decode input*: a prompt
+        # token while t + 1 is still in the prompt, else the generated
+        # token whose sampling consumed position t
+        n = len(r.prompt)
+        if t + 1 < n:
+            return int(r.prompt[t + 1])
+        k = t - n + 1
+        return int(r.tokens[k]) if 0 <= k < len(r.tokens) else -1
+
+    def _ck_range(self, ck, rid: str, start: int, seg_stack, token_values):
+        """Bulk-range checkpointing, split at page boundaries on a paged
+        engine (a page's worth of KV commits or dies together). The
+        store's segments stay token-granular and layout-independent."""
+        if self.pages is not None:
+            ck.checkpoint_blocks(rid, start, seg_stack, token_values,
+                                 self.pages.page_tokens)
+        else:
+            ck.checkpoint_range(rid, start, seg_stack, token_values)
+
+    # -- KV facades: every clear / extend of a slot's resident KV routes
+    # through here, so contiguous and paged engines share call sites. On a
+    # paged engine they also run the host allocator and keep the device
+    # block table in sync with its host mirror.
+    def _kv_sync_bt(self):
+        """Upload the host block-table mirror when it drifted."""
+        if self.pages is not None and self.pages.dirty:
+            self.layout.set_block_table(self.cache, self.pages.bt)
+            self.pages.dirty = False
+
+    def _kv_free_pages(self, pids):
+        """Scrub freed pages' positions before they can be allocated
+        again: a stale ``pos >= 0`` entry would leak the old owner's KV
+        into the next owner's attention."""
+        if pids:
+            self.layout.scrub_pages(self.cache, pids)
+
+    def _kv_ensure(self, slot: int, upto: int):
+        """Map pages so positions [0, upto) of ``slot`` have storage before
+        a prefill, chunk or decode step writes them. No-op on a
+        contiguous engine (the slot owns its whole extent)."""
+        if self.pages is None or upto <= 0:
+            return
+        pool = self.pages
+        need = -(-min(upto, self.ecfg.max_seq) // pool.page_tokens)
+        aw = pool.aw_of_slot(slot)
+        for blk in range(need):
+            if pool.bt[slot, blk] > 0:
+                continue
+            pid = pool.alloc(aw)
+            if pid < 0:
+                raise RuntimeError(
+                    f"AW{aw} out of KV pages: slot {slot} needs block "
+                    f"{blk} ({need} total)")
+            pool.map_block(slot, blk, pid)
+        self._kv_sync_bt()
+
+    def _kv_clear_slot(self, slot: int):
+        """Release a slot's resident KV. Contiguous: reset the slot's rows.
+        Paged: unmap the block-table row, return its pages to the AW's
+        free list and scrub them."""
+        if self.pages is None:
+            self.layout.clear_slot(self.cache, slot)
+            return
+        self._kv_free_pages(self.pages.release_slot(slot))
+        self._kv_sync_bt()
+
     # -- failures -----------------------------------------------------------
+    @property
+    def failed_aws(self) -> set:
+        return {w.aw_id for w in self.aws if not w.alive}
+
     @property
     def failed_ews(self) -> set:
         return {w.ew_id for w in self.ews if w.member and not w.alive}
+
+    def fail_aw(self, aw: int):
+        """AW crash: its slots, pages and undelivered checkpoint writes are
+        gone; its requests pause until re-admitted through the Gateway.
+        Requests caught mid-prefill stop their chunk stream; recovery
+        resumes it from the committed cursor."""
+        if self.pages is not None:
+            # the AW's physical pages die with it; freed pages are scrubbed
+            # so every free page is clean when the AW is provisioned again
+            per = self.ecfg.max_batch // self.ecfg.num_aw
+            freed = []
+            for s in range(aw * per, (aw + 1) * per):
+                freed += self.pages.release_slot(s)
+            self._kv_free_pages(freed)
+            self._kv_sync_bt()
+        self.route_state = self.aws[aw].fail(self.route_state)
+        recoverable = set(self.store.active_requests_on(aw))
+        if self.chunked is not None:
+            self.chunked.drop_aw(aw)
+        for r in self.requests.values():
+            if r._aw == aw and not r.done and r.rid in recoverable:
+                r.paused = True
+
+    def recover_aw_requests(self, now: float = 0.0) -> List[str]:
+        """Per-request restoration (§6.2): requeue every request of a dead
+        AW at the front of the Gateway and admit as many as capacity
+        allows now; the rest stay queued and are admitted on later ticks.
+        Returns the rids restored now."""
+        entries = []
+        for aw in sorted(self.failed_aws):
+            for rid in self.store.active_requests_on(aw):
+                r = self.requests.get(rid)
+                if r is None or r.done or r.queued_for_recovery:
+                    continue
+                r.queued_for_recovery = True
+                # the recovery waiting spell starts now; class, deadline
+                # and sampling survive the crash with the state
+                entries.append(QueuedRequest(
+                    rid, r.prompt, r.max_new, t_enqueue=now,
+                    slo_class=r.slo_class, deadline=r.deadline,
+                    sampling=r.sampling))
+        self.gateway.requeue_recovery(entries)
+        admitted = set(self.scheduler.admit(now))
+        return [q.rid for q in entries if q.rid in admitted]
+
+    def provision_aw(self, aw: int):
+        # slots still held on this AW: finished requests not yet released
+        # (their release frees the slot); paused ones lost theirs
+        in_use = {r.slot for r in self.requests.values()
+                  if r._aw == aw and not r.paused}
+        self.route_state = self.aws[aw].provision(self.route_state, in_use)
 
     def fail_ew(self, ew: int):
         self.route_state = self.ews[ew].fail(self.route_state)
@@ -184,12 +383,27 @@ class InferenceEngine:
         return True
 
     def release_request(self, rid: str):
-        """Free one request's slot and cache rows."""
+        """Full teardown of one request's footprint: the chunk stream, any
+        stale recovery entry, the owning AW's slot, prefill cursor and
+        pending checkpoint WRs, and the store log. Safe for done,
+        cancelled and crash-paused requests alike (the slot is released
+        only when this request still holds it)."""
         r = self.requests.pop(rid, None)
         if r is None:
             return
+        if self.chunked is not None:
+            self.chunked.drop(rid)
+        if r.queued_for_recovery:
+            # a stale recovery entry must not reach the scheduler
+            self.gateway.drop(rid)
         if r._aw >= 0 and self.aws[r._aw].alive:
-            self.layout.clear_slot(self.cache, r.slot)
-            self.aws[r._aw].slots.release(r.slot)
+            aw = self.aws[r._aw]
+            # pending WRs and the prefill cursor die with the request (they
+            # reference a log about to be released)
+            aw.drop_request(rid)
+            if not r.paused:
+                self._kv_clear_slot(r.slot)
+                aw.slots.release(r.slot)
+        self.store.release(rid)
         for hook in self._release_hooks:
             hook(r)

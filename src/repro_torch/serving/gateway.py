@@ -4,13 +4,14 @@ placement (port of ``repro.serving.gateway``).
 Every request enters the queue of its SLO class; admission serves the
 class heads by weighted dequeue (interactive 4 : standard 2 : batch 1 per
 round). Within a class, entries with an earlier first-token deadline sort
-ahead (stable). A head that cannot be placed blocks only its own class for
-this tick.
+ahead (stable), and recovery entries (requests of a failed AW waiting to
+be restored, ``recovery=True``) stay at the front. A head that cannot be
+placed blocks only its own class for this tick.
 
 Placement policies (a healthy AW with free capacity, or None):
 ``least_loaded`` (most free slots; ties -> lowest id) and ``round_robin``.
-Session affinity, the token cap, preemption and recovery entries arrive
-with the planes they serve.
+Session affinity, the token cap and preemption arrive with the planes
+they serve.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ class QueuedRequest:
     slo_class: str = STANDARD
     deadline: Optional[float] = None
     sampling: Optional[SamplingParams] = None
+    recovery: bool = False          # re-admission of a failed AW's request
 
     @property
     def deadline_key(self) -> float:
@@ -82,6 +84,7 @@ class GatewayStats:
     enqueued: int = 0
     admitted: int = 0
     blocked_ticks: int = 0          # head-of-queue retries
+    requeued: int = 0               # recovery re-admissions queued
     host_syncs: int = 0             # decode-path device->host token drains
     queue_delay: Dict[str, float] = field(default_factory=dict)
     by_class: Dict[str, Dict[str, int]] = field(default_factory=dict)
@@ -118,17 +121,26 @@ class Gateway:
         self.stats.bump(slo_class, "enqueued")
 
     def _insert(self, entry: QueuedRequest):
-        """Deadline-aware stable insertion: after any head already blocked
-        and after every entry with an equal-or-earlier deadline."""
+        """Deadline-aware stable insertion: after every recovery entry,
+        after any head already blocked and after every entry with an
+        equal-or-earlier deadline."""
         q = self.queues[entry.slo_class]
         i = len(q)
         for j, e in enumerate(q):
-            if e.retries > 0:
+            if e.recovery or e.retries > 0:
                 continue
             if e.deadline_key > entry.deadline_key:
                 i = j
                 break
         q.insert(i, entry)
+
+    def requeue_recovery(self, entries: List[QueuedRequest]):
+        """A failed AW's requests re-enter at the FRONT of their class
+        queue (they are older than everything waiting behind them)."""
+        for e in reversed(entries):
+            e.recovery = True
+            self.queues[e.slo_class].appendleft(e)
+            self.stats.requeued += 1
 
     @property
     def queue(self) -> Tuple[QueuedRequest, ...]:

@@ -1,27 +1,113 @@
-"""Per-request slot operations over the contiguous KV cache (port of the
-``CacheLayout`` half of ``repro.serving.kvcache``).
+"""Per-request KV operations over the contiguous slotted cache and over a
+paged one (port of ``repro.serving.kvcache``).
 
-The port's cache is ``{"layers": [{"k", "v", "pos"}, ...]}`` with the
-request slot as axis 0 of every tensor, so the reference's leaf discovery
-(batch axis, attention vs state leaves) is not needed. Writes are in place.
-The paged layout and the checkpoint extractors arrive with their slices.
+The port's contiguous cache is ``{"layers": [{"k", "v", "pos"}, ...]}``
+with the request slot as axis 0 of every tensor, so the reference's leaf
+discovery (batch axis, attention vs state leaves) is not needed. A paged
+cache holds per-layer page pools ``[P, pt, ...]`` instead, plus one block
+table ``"bt"`` [B, nblk] (models/attention.py). Writes are in place.
+
+Checkpoint segments (the unit of §6.1) are layout-independent: one
+token's segment is ``[kv [L, 2, Hkv, Dh], pos [L]]`` on the host, in the
+cache's own dtype, so a segment a paged AW wrote restores onto a
+contiguous engine and vice versa. A gather for many tokens returns the
+same two leaves with a leading token axis, from one device-to-host copy.
 """
 from __future__ import annotations
 
+from collections import deque
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 
-class CacheLayout:
+def _pack_to_host(kv, pos) -> List[torch.Tensor]:
+    """Bring a gathered K/V stack [n, L, 2, Hkv, Dh] and its positions
+    [n, L] to the host in one copy, as two leaves (views of one host
+    buffer holding exactly the device bits)."""
+    n = kv.shape[0]
+    packed = torch.cat([kv.reshape(n, -1).view(torch.uint8),
+                        pos.reshape(n, -1).view(torch.uint8)], 1).cpu()
+    nkv = kv[0].numel() * kv.element_size()
+    return [packed[:, :nkv].view(kv.dtype).reshape(kv.shape),
+            packed[:, nkv:].view(torch.int32).reshape(pos.shape)]
+
+
+class _SegmentOps:
+    """Token-segment gather and restore, shared by both layouts through
+    ``_index`` (where each (slot, token) lives in every layer) and
+    ``_mapped`` (which tokens of a slot have storage)."""
+
+    def _index(self, cache, slots, tokens):
+        raise NotImplementedError
+
+    def _mapped(self, slot: int, tokens: np.ndarray) -> np.ndarray:
+        return np.ones(len(tokens), bool)
+
+    def extract_tokens(self, cache, slots, tokens) -> List[torch.Tensor]:
+        """Checkpoint segments of the (slot, token) pairs in one batched
+        gather and one device-to-host copy: host leaves
+        [kv [n, L, 2, Hkv, Dh], pos [n, L]]; pair i's segment is
+        [kv[i], pos[i]]."""
+        dev = cache["layers"][0]["k"].device
+        s = torch.as_tensor(np.asarray(slots), dtype=torch.long, device=dev)
+        t = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
+                            device=dev)
+        kv, pos = [], []
+        for layer, (i0, i1) in zip(cache["layers"],
+                                   self._index(cache, s, t)):
+            kv.append(torch.stack([layer["k"][i0, i1], layer["v"][i0, i1]],
+                                  1))
+            pos.append(layer["pos"][i0, i1])
+        return _pack_to_host(torch.stack(kv, 1), torch.stack(pos, 1))
+
+    def extract_range(self, cache, slot: int, start: int,
+                      count: int) -> List[torch.Tensor]:
+        """The ``count`` contiguous token segments [start, start + count)
+        of one slot (a prefill chunk's, or a bulk checkpoint's)."""
+        return self.extract_tokens(cache, np.full(count, slot),
+                                   np.arange(start, start + count))
+
+    def write_token_segments(self, cache, slot: int, tokens: List[int],
+                             segs: List[list]):
+        """Per-request restoration (§6.2): write the segments of
+        ``tokens`` into ``slot``, in place. Tokens without storage (an
+        unmapped page) are dropped, as the reference's scatter drops
+        them."""
+        keep = self._mapped(slot, np.asarray(tokens))
+        if not keep.any():
+            return cache
+        tokens = np.asarray(tokens)[keep]
+        segs = [sg for sg, k in zip(segs, keep) if k]
+        dev = cache["layers"][0]["k"].device
+        kv = torch.stack([sg[0] for sg in segs]).to(dev)    # [n,L,2,Hkv,Dh]
+        pos = torch.stack([sg[1] for sg in segs]).to(dev)   # [n,L]
+        s = torch.full((len(tokens),), slot, dtype=torch.long, device=dev)
+        t = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+        for li, (layer, (i0, i1)) in enumerate(zip(
+                cache["layers"], self._index(cache, s, t))):
+            layer["k"][i0, i1] = kv[:, li, 0]
+            layer["v"][i0, i1] = kv[:, li, 1]
+            layer["pos"][i0, i1] = pos[:, li]
+        return cache
+
+
+class CacheLayout(_SegmentOps):
     """Slot-level operations on a contiguous attention cache."""
 
-    def request_state(self, cache, row: int) -> List[Dict[str, torch.Tensor]]:
+    def _index(self, cache, slots, tokens):
+        return [(slots, tokens % layer["k"].shape[1])
+                for layer in cache["layers"]]
+
+    @staticmethod
+    def request_state(cache, row: int) -> List[Dict[str, torch.Tensor]]:
         """One row of every layer's cache (views, not copies)."""
         return [{k: t[row] for k, t in layer.items()}
                 for layer in cache["layers"]]
 
-    def scrub_request_state(self, state, valid_len: int):
+    @staticmethod
+    def scrub_request_state(state, valid_len: int):
         """Invalidate pad entries of a batched-prefill row: positions
         >= ``valid_len`` become -1, which the decode kernels mask. K/V
         payloads stay; they are unreachable once the position is -1."""
@@ -48,6 +134,204 @@ class CacheLayout:
 
     def prefill_paddable(self, cache, max_seq: int) -> bool:
         """True when slot index == absolute position in every layer (full
-        attention, no ring wrap): the precondition for padded prefill."""
+        attention, no ring wrap): the precondition for padded and chunked
+        prefill."""
         return all(layer["k"].shape[1] >= max_seq
                    for layer in cache["layers"])
+
+
+# --------------------------------------------------------------------------
+# paged layout: block tables over physical page pools
+# --------------------------------------------------------------------------
+
+class PagedCacheLayout(_SegmentOps):
+    """Operations on a PAGED cache (vLLM-style block tables).
+
+    The paged cache is the contiguous one with every layer's per-slot
+    rows replaced by a pool of physical pages (slot axis B -> page axis P,
+    position axis Sc -> page extent ``page_tokens``), plus one block table
+    ``bt`` [B, nblk] int32 shared by all layers (nblk * page_tokens ==
+    max_seq, so a slot's gathered pages reproduce its contiguous layout
+    element for element). Page 0 is reserved: never allocated, positions
+    -1 forever; unmapped blocks point at it.
+
+    The host mirror of the block table lives in the ``PagePool``; the
+    engine uploads it before every device call that reads it. Paged mode
+    is full-attention only (the engine checks)."""
+
+    def __init__(self, pool: "PagePool", max_seq: int):
+        if max_seq != pool.nblk * pool.page_tokens:
+            raise ValueError(f"page_tokens={pool.page_tokens} x "
+                             f"{pool.nblk} blocks != max_seq={max_seq}")
+        self.pool = pool
+        self.page_tokens = pool.page_tokens
+        self.nblk = pool.nblk
+        self.max_seq = max_seq
+
+    def make_cache(self, init_cache, batch: int):
+        """Per-layer page pools (the contiguous init with batch =
+        num_pages, max_seq = page_tokens) and the block table, every entry
+        at the null page."""
+        cache = init_cache(self.pool.num_pages, self.page_tokens)
+        dev = cache["layers"][0]["k"].device
+        cache["bt"] = torch.zeros((batch, self.nblk), dtype=torch.int32,
+                                  device=dev)
+        return cache
+
+    def set_block_table(self, cache, bt_host: np.ndarray):
+        """Upload the host block-table mirror (a [B, nblk] int32 copy)."""
+        cache["bt"].copy_(torch.from_numpy(np.ascontiguousarray(bt_host)))
+        return cache
+
+    def _index(self, cache, slots, tokens):
+        spos = tokens % self.max_seq
+        page = cache["bt"][slots, spos // self.page_tokens].long()
+        return [(page, spos % self.page_tokens)] * len(cache["layers"])
+
+    def _mapped(self, slot: int, tokens: np.ndarray) -> np.ndarray:
+        blk = (tokens % self.max_seq) // self.page_tokens
+        return self.pool.bt[slot, blk] > 0
+
+    def write_request_state(self, cache, slot: int, state):
+        """Scatter a contiguous per-slot state (``CacheLayout.request_state``
+        of a prefill cache) into the slot's mapped pages. Unmapped blocks
+        are left out: callers map pages covering the valid prefix first,
+        and the rest is scrubbed (-1) padding."""
+        row = self.pool.bt[slot]
+        blk = np.nonzero(row > 0)[0]
+        if not len(blk):
+            return cache
+        dev = cache["layers"][0]["k"].device
+        pages = torch.as_tensor(row[blk], dtype=torch.long, device=dev)
+        blk = torch.as_tensor(blk, dtype=torch.long, device=dev)
+        pt = self.page_tokens
+        for layer, st in zip(cache["layers"], state):
+            for k, t in layer.items():
+                src = st[k].reshape(self.nblk, pt, *st[k].shape[1:])
+                t[pages] = src[blk].to(t.dtype)
+        return cache
+
+    def scrub_pages(self, cache, pages: List[int]):
+        """Invalidate freed pages' positions, so a recycled page can never
+        leak stale entries into its next owner's attention."""
+        if pages:
+            dev = cache["layers"][0]["k"].device
+            idx = torch.as_tensor(pages, dtype=torch.long, device=dev)
+            for layer in cache["layers"]:
+                layer["pos"][idx] = -1
+        return cache
+
+    def prefill_paddable(self, cache, max_seq: int) -> bool:
+        return max_seq <= self.max_seq
+
+
+# --------------------------------------------------------------------------
+# host-side page allocator
+# --------------------------------------------------------------------------
+
+class PagePool:
+    """Host bookkeeping for the physical page pools: per-AW free lists
+    (pages partition across AWs like slots do: a failure domain owns its
+    pages), refcounts, and the host mirror of the device block table.
+
+    Page ids are global; page 0 is reserved (never allocated). An
+    allocated page starts at refcount 1 and returns to its AW's free list
+    only when the count hits 0."""
+
+    def __init__(self, num_slots: int, num_aw: int, blocks_per_slot: int,
+                 page_tokens: int, pages_per_aw: int = 0):
+        self.page_tokens = page_tokens
+        self.nblk = blocks_per_slot
+        self.num_aw = num_aw
+        self.slots_per_aw = num_slots // num_aw
+        self.pages_per_aw = pages_per_aw or \
+            self.slots_per_aw * blocks_per_slot
+        self.num_pages = 1 + self.pages_per_aw * num_aw
+        self._free = [deque(range(1 + a * self.pages_per_aw,
+                                  1 + (a + 1) * self.pages_per_aw))
+                      for a in range(num_aw)]
+        self.ref = np.zeros(self.num_pages, np.int32)
+        self.bt = np.zeros((num_slots, self.nblk), np.int32)
+        self.dirty = False   # host bt differs from the device copy
+
+    # ------------------------------------------------------------------
+    def aw_of_page(self, pid: int) -> int:
+        assert pid > 0
+        return (pid - 1) // self.pages_per_aw
+
+    def aw_of_slot(self, slot: int) -> int:
+        return slot // self.slots_per_aw
+
+    def free_pages(self, aw: int) -> int:
+        return len(self._free[aw])
+
+    def alloc(self, aw: int) -> int:
+        """Allocate one page on AW ``aw`` (refcount 1), or -1 if its pool
+        is exhausted."""
+        if not self._free[aw]:
+            return -1
+        pid = self._free[aw].popleft()
+        assert self.ref[pid] == 0, pid
+        self.ref[pid] = 1
+        return pid
+
+    def incref(self, pid: int):
+        assert pid > 0 and self.ref[pid] > 0, pid
+        self.ref[pid] += 1
+
+    def decref(self, pid: int) -> bool:
+        """Drop one reference; True when the page was freed (the caller
+        must scrub it on the device before it can be allocated again)."""
+        assert pid > 0 and self.ref[pid] > 0, pid
+        self.ref[pid] -= 1
+        if self.ref[pid] == 0:
+            self._free[self.aw_of_page(pid)].append(pid)
+            return True
+        return False
+
+    # ------------------------------------------------------------------
+    def map_block(self, slot: int, blk: int, pid: int):
+        self.bt[slot, blk] = pid
+        self.dirty = True
+
+    def mapped_blocks(self, slot: int) -> int:
+        return int((self.bt[slot] > 0).sum())
+
+    def slot_pages(self, slot: int) -> List[int]:
+        return [int(p) for p in self.bt[slot] if p > 0]
+
+    def release_slot(self, slot: int) -> List[int]:
+        """Unmap the whole slot and decref its pages; returns the pages
+        whose refcount hit 0 (to scrub and recycle)."""
+        freed = [pid for pid in self.slot_pages(slot) if self.decref(pid)]
+        if self.bt[slot].any():
+            self.bt[slot] = 0
+            self.dirty = True
+        return freed
+
+    # ------------------------------------------------------------------
+    def stats(self) -> Dict[str, int]:
+        return {"pages_total": self.num_pages - 1,
+                "pages_used": int((self.ref[1:] > 0).sum()),
+                "pages_shared": int((self.ref[1:] > 1).sum())}
+
+    def check(self) -> None:
+        """Allocator invariants: every page is either free exactly once
+        with refcount 0, or allocated with refcount > 0 and on no free
+        list; block tables only reference allocated pages."""
+        seen: Dict[int, int] = {}
+        for aw, fl in enumerate(self._free):
+            for pid in fl:
+                if self.aw_of_page(pid) != aw:
+                    raise AssertionError(f"page {pid} on AW{aw}'s free list")
+                seen[pid] = seen.get(pid, 0) + 1
+        for pid in range(1, self.num_pages):
+            if self.ref[pid] == 0:
+                if seen.get(pid, 0) != 1:
+                    raise AssertionError(
+                        f"page {pid} free-count {seen.get(pid, 0)} != 1")
+            elif pid in seen:
+                raise AssertionError(f"page {pid} allocated AND free")
+        mapped = self.bt[self.bt > 0]
+        if not (self.ref[mapped] > 0).all():
+            raise AssertionError("bt references a free page")

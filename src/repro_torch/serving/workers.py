@@ -4,8 +4,10 @@ Attention Workers and Expert Workers are distinct failure domains: each
 worker object owns exactly the state that dies with it.
 
   * ``AttentionWorker`` owns its slice of the slot space (a
-    ``SlotPartition`` over the shared cache) and its liveness bit. Its
-    checkpoint stream and fail/provision arrive with the AW-failure slice.
+    ``SlotPartition`` over the shared cache), its checkpoint stream (a
+    ``KVCheckpointer``), its in-flight chunked-prefill streams and its
+    liveness bit; ``fail`` loses the slots, the streams and every
+    checkpoint write not yet delivered.
   * ``ExpertWorker`` owns its liveness bit; its experts' reachability is
     carried by the RouteState health mask, so ``fail``/``provision`` are
     pure RouteState transitions.
@@ -16,6 +18,7 @@ from collections import deque
 from typing import Deque, Set
 
 from repro_torch.core import selfheal
+from repro_torch.core.checkpoint import CheckpointStore, KVCheckpointer
 from repro_torch.core.refe import RouteState
 
 
@@ -46,17 +49,26 @@ class SlotPartition:
             raise ValueError(f"slot {slot} is not in [{self.lo}, {self.hi})")
         self._free.appendleft(slot)
 
+    def drop(self):
+        """The partition's slots become unusable (worker crash)."""
+        self._free = deque()
+
     def restore(self, in_use: Set[int]):
         self._free = deque(s for s in range(self.lo, self.hi)
                            if s not in in_use)
 
 
 class AttentionWorker:
-    """One AW: its cache partition and its liveness."""
+    """One AW: cache partition, checkpoint stream and liveness."""
 
-    def __init__(self, aw_id: int, lo: int, hi: int):
+    def __init__(self, aw_id: int, lo: int, hi: int, store: CheckpointStore):
         self.aw_id = aw_id
         self.slots = SlotPartition(lo, hi)
+        self.checkpointer = KVCheckpointer(store, aw_id, seed=aw_id)
+        # in-flight chunked-prefill streams this AW owns: rid ->
+        # prefill_cursor (prompt tokens already written to its slot); they
+        # die with the worker like the slot partition does
+        self.prefills: dict = {}
         self.alive = True
 
     def free_slots(self) -> int:
@@ -69,6 +81,31 @@ class AttentionWorker:
         """Allocate a slot for an admission. Returns (slot, matched prefix
         length), the latter 0 until the prefix cache is ported."""
         return self.slots.alloc(), 0
+
+    def drop_request(self, rid: str) -> int:
+        """Planned teardown of one request's residency on this AW (cancel,
+        release): forget its prefill cursor and discard its pending
+        checkpoint WRs. The slot partition is untouched; the caller
+        releases the slot. Returns the number of WRs discarded."""
+        self.prefills.pop(rid, None)
+        return self.checkpointer.drop_request(rid)
+
+    def fail(self, route_state: RouteState) -> RouteState:
+        """Crash: slots (and any KV not checkpointed) are gone; WRs still
+        pending on the AW side never reach the store, so the commit
+        watermark freezes at the last delivered contiguous prefix."""
+        self.alive = False
+        self.slots.drop()
+        self.prefills.clear()
+        self.checkpointer.drop_pending()
+        return selfheal.fail_aw(route_state, self.aw_id)
+
+    def provision(self, route_state: RouteState,
+                  in_use: Set[int]) -> RouteState:
+        """Background re-provisioning (§5.4): fresh slots join the pool."""
+        self.alive = True
+        self.slots.restore(in_use)
+        return selfheal.recover_aw(route_state, self.aw_id)
 
     def __repr__(self):
         return (f"AW{self.aw_id}(alive={self.alive}, "

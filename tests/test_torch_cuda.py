@@ -137,6 +137,74 @@ def test_shadow_slot_is_bitwise_the_primary(dev, c):
     assert torch.equal(y[0], y[1])
 
 
+def _paged_case(r, b, h, hkv, dh, nblk, pt, dtype, dev):
+    """Page pools with a null page 0, rows that share a page and rows
+    whose tail blocks are unmapped (null), and the gathered positions
+    causal in every row's view."""
+    npages = 1 + b * nblk
+    pk, pv = (_randn(r, (npages, pt, hkv, dh), dtype, dev) for _ in range(2))
+    q = _randn(r, (b, h, dh), dtype, dev)
+    k1, v1 = (_randn(r, (b, hkv, dh), dtype, dev) for _ in range(2))
+    bt = np.zeros((b, nblk), np.int32)
+    ids = r.permutation(np.arange(1, npages)).astype(np.int32)
+    pos = r.integers(pt, nblk * pt, size=(b,)).astype(np.int32)
+    for i in range(b):
+        used = -(-int(pos[i]) // pt)          # blocks holding [0, pos)
+        bt[i, :used] = ids[i * nblk:i * nblk + used]
+    if b > 1:
+        bt[1, 0] = bt[0, 0]                   # a page two rows share
+    ppos = np.full((npages, pt), -1, np.int32)
+    for i in range(b):
+        for j in range(nblk):
+            if bt[i, j]:
+                ppos[bt[i, j]] = np.arange(j * pt, (j + 1) * pt)
+    ppos[0] = -1
+    t = [torch.from_numpy(a).to(dev) for a in (ppos, bt, pos)]
+    return q, pk, pv, t[0], t[1], k1, v1, t[2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,dh", [(8, 8, 64), (16, 4, 128),
+                                      (32, 8, 128)])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_paged_kernel_bitwise_the_fused_kernel(dev, dtype, h, hkv, dh,
+                                               softcap):
+    """The paged kernel shares the fused kernel's body, so on the same
+    logical content (the pages gathered through the block table) the two
+    are bitwise equal."""
+    r = np.random.default_rng(h + dh)
+    args = _paged_case(r, 3, h, hkv, dh, 8, 16, dtype, dev)
+    q, pk, pv, ppos, bt, k1, v1, pos = args
+    n = da.PAGED_KERNEL.launches
+    got = ops.decode_attention_paged(*args, softcap=softcap)
+    assert da.PAGED_KERNEL.launches == n + 1
+    ck, cv, cpos = da.gather_pages(pk, pv, ppos, bt)
+    want = da.decode_attention_cuda(q, ck, cv, cpos, k1, v1, pos,
+                                    softcap=softcap)
+    assert torch.equal(got, want)
+    _close(got, da.decode_attention_paged_plain(*args, softcap=softcap),
+           dtype)
+
+
+def test_paged_kernel_refuses_what_it_does_not_take(dev):
+    r = np.random.default_rng(0)
+    q, pk, pv, ppos, bt, k1, v1, pos = _paged_case(
+        r, 2, 8, 2, 64, 4, 16, torch.float32, dev)
+    with pytest.raises(ValueError):                   # page of 6 tokens
+        ops.decode_attention_paged(q, pk[:, :6].contiguous(),
+                                   pv[:, :6].contiguous(),
+                                   ppos[:, :6].contiguous(), bt, k1, v1, pos)
+    with pytest.raises(ValueError):                   # bt rows != B
+        ops.decode_attention_paged(q, pk, pv, ppos, bt[:1], k1, v1, pos)
+    with pytest.raises(TypeError):                    # int64 block table
+        ops.decode_attention_paged(q, pk, pv, ppos, bt.long(), k1, v1, pos)
+    with pytest.raises(TypeError):                    # mixed dtypes
+        ops.decode_attention_paged(q, pk.bfloat16(), pv, ppos, bt, k1, v1,
+                                   pos)
+    with pytest.raises(ValueError):                   # G = 3
+        ops.decode_attention_paged(q[:, :6], pk, pv, ppos, bt, k1, v1, pos)
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros((1, 4, 48), device=dev)            # Dh 48: no kernel
     ck = torch.zeros((1, 8, 2, 48), device=dev)

@@ -56,7 +56,8 @@ def runs():
         telemetry=False, flight_recorder=False), jax.random.PRNGKey(0))
     te = InferenceEngine(tcfg, EngineConfig(max_batch=8, max_seq=96,
                                             num_aw=2, num_ew=2),
-                         params=params_from_reference(je.params),
+                         params=params_from_reference(je.params,
+                                                        device="cpu"),
                          device="cpu")
     # seed 4: every greedy choice along these streams wins by >= 3e-3
     r = np.random.default_rng(4)
@@ -167,14 +168,16 @@ def test_gateway_admission_order_matches_reference(policy):
     from repro.core.checkpoint import CheckpointStore
     from repro.serving.gateway import Gateway as JGateway
     from repro.serving.workers import AttentionWorker as JAW
+    from repro_torch.core.checkpoint import CheckpointStore as TStore
     from repro_torch.serving.gateway import Gateway
     from repro_torch.serving.workers import AttentionWorker
 
     store = CheckpointStore()
     jg = JGateway([JAW(a, 2 * a, 2 * a + 2, store) for a in range(2)],
                   policy=policy)
-    tg = Gateway([AttentionWorker(a, 2 * a, 2 * a + 2) for a in range(2)],
-                 policy=policy)
+    tstore = TStore()
+    tg = Gateway([AttentionWorker(a, 2 * a, 2 * a + 2, tstore)
+                  for a in range(2)], policy=policy)
     reqs = [("b0", "batch", None), ("s0", "standard", None),
             ("i0", "interactive", 5.0), ("s1", "standard", 2.0),
             ("i1", "interactive", 1.0), ("b1", "batch", None),

@@ -30,7 +30,7 @@ def models():
     japi = jget_model(jcfg, num_aw=2, num_ew=2)
     tapi = tget_model(tcfg, num_aw=2, num_ew=2, device="cpu")
     jparams = japi.init_params(jax.random.PRNGKey(0))
-    return japi, tapi, jparams, params_from_reference(jparams)
+    return japi, tapi, jparams, params_from_reference(jparams, device="cpu")
 
 
 def test_configs_match():
@@ -105,7 +105,8 @@ def test_prefill_and_decode_logits(models, fail_ew):
 def test_port_imports_neither_jax_nor_reference():
     """The serving stack of the port runs on a machine without JAX."""
     code = ("import sys; import repro_torch.serving.engine, "
-            "repro_torch.convert, repro_torch.kernels.ops; "
+            "repro_torch.convert, repro_torch.kernels.ops, "
+            "repro_torch.core.checkpoint, repro_torch.serving.chunked; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
