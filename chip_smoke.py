@@ -10,12 +10,13 @@ Phases, each of which raises on failure (exit code != 0):
   2. kernels  — each hand-written kernel at the shapes the serving path
                 gives it (bfloat16) and in float32, held to its plain
                 PyTorch version on the card (bf16 2e-2, fp32 2e-5, atol
-                and rtol; at the serving shapes the bf16 decode-attention
-                and expert-FFN results are also held to the float32 plain
-                version on the same inputs within half a bf16 ulp plus
-                1e-4); the paged decode attention also bitwise to the
-                fused kernel on the gathered pages, and the flash kernel
-                also at the chunked-prefill shape; kernel, plain-version
+                and rtol; at the serving shapes the bf16 decode-attention,
+                chunk-shape flash and expert-FFN results are also held to
+                the float32 plain version on the same inputs within half a
+                bf16 ulp plus 1e-4); the paged decode attention also
+                bitwise to the fused kernel on the gathered pages; the
+                expert FFN at every capacity a later phase gives it
+                (MOE_SHAPES; checked after the runs); kernel, plain-version
                 and library-call times by CUDA events (median of 20 after
                 warm-up, L2 flushed before each run).
   3. reference — a reduced float32 Mixtral on the card against the same
@@ -65,6 +66,15 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 ROUND_ATOL, ROUND_RTOL = 1e-4, 2.0 ** -8
 CHUNK_BUDGET = 256                 # prefill tokens per step, KV-plane phase
 PAGE_TOKENS = 16
+# the expert FFN's capacities C on the serving paths, each with the kernel
+# path it must take: serve decode and whole-prompt prefill at capacity
+# factor 1.25; the KV-plane decode, whole-prompt prefill, chunk calls and
+# chunk tails at 4.0 (C 128 and 256 span two and four 64-row M tiles).
+# main() fails if a path gives the kernel a C that is not here.
+MOE_SHAPES = [("decode", 2, "skinny"), ("prefill", 64, "tensor_core"),
+              ("decode-kv", 8, "tensor_core"),
+              ("prefill-kv", 128, "tensor_core"),
+              ("chunk-tail", 4, "skinny"), ("chunk", 256, "tensor_core")]
 
 
 def card_line() -> str:
@@ -344,9 +354,15 @@ def kernel_flash_chunk(torch, g, records):
         def plain():
             return blockwise_attention(q, k, v, qp, kp, block_k=16)
 
-        recs[c] = (check(f"{'fp32' if c == 8 else 'bf16'} B{b} C{c} Sk{sk} "
-                         f"H{h} Hkv{hkv} Dh{dh}, rows outside the chunk",
-                         kern(), plain(), name), kern, plain, q, k, v, qp, kp)
+        label = (f"{'fp32' if c == 8 else 'bf16'} B{b} C{c} Sk{sk} H{h} "
+                 f"Hkv{hkv} Dh{dh}, rows outside the chunk")
+        got = kern()
+        recs[c] = (check(label, got, plain(), name), kern, plain, q, k, v,
+                   qp, kp)
+        if dtype == torch.bfloat16:
+            check(f"{label}, vs float32 plain", got, blockwise_attention(
+                q.float(), k.float(), v.float(), qp, kp, block_k=16),
+                atol=ROUND_ATOL, rtol=ROUND_RTOL)
     err, kern, plain, q, k, v, qp, kp = recs[128]
     ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
     grp = h // hkv
@@ -574,6 +590,22 @@ def launch_counts():
     return counts
 
 
+# the capacities C the expert FFN kernel was given, per Run phase; observed
+# around ``ops.expert_ffn_cuda`` (the launch counts stay the wrapper's own)
+FFN_C = {"phase": None, "seen": None, "all": set()}
+
+
+def observe_ffn_capacities():
+    from repro_torch.kernels import ops
+    launch = ops.expert_ffn_cuda
+
+    def observed(x, *args, **kw):
+        if FFN_C["seen"] is not None:
+            FFN_C["seen"].setdefault(FFN_C["phase"], set()).add(x.shape[1])
+        return launch(x, *args, **kw)
+    ops.expert_ffn_cuda = observed
+
+
 def reset_counts():
     from repro_torch.kernels import decode_attention, flash_attention, \
         moe_gemm
@@ -606,7 +638,9 @@ class Run:
             def counted_tick():
                 c0 = launch_counts()
                 t0 = time.perf_counter()
+                FFN_C["phase"] = "chunks"
                 out = tick()   # ends in the chunk checkpoint's host copy
+                FFN_C["phase"] = "decode"
                 if out:
                     self.tick_s.append(time.perf_counter() - t0)
                 for k, v in delta(c0, launch_counts()).items():
@@ -614,12 +648,15 @@ class Run:
                 return out
             engine.chunked.tick = counted_tick
         c0 = launch_counts()
+        self.ffn_c = FFN_C["seen"] = {}
+        FFN_C["phase"] = "prefill"
         t_submit, handles = {}, []
         for i, p in enumerate(prompts):
             t_submit[f"r{i}"] = time.perf_counter()
             handles.append(engine.client.submit(RequestSpec(
                 rid=f"r{i}", prompt=p, max_new=max_new)))
         c1 = launch_counts()
+        FFN_C["phase"] = "decode"
         self.first, last, self.tbt = {}, {}, []
         self.steps = 0
         self.t_fail, self.victims, self.recovery_s = None, [], None
@@ -646,6 +683,13 @@ class Run:
                 self.recovery_s = now - self.t_fail
         t_end = time.perf_counter()
         c2 = launch_counts()
+        FFN_C["seen"] = None
+        n_ffn = delta(c0, c2)["moe_ffn"]
+        if n_ffn and not self.ffn_c:
+            raise AssertionError(f"{n_ffn} expert FFN launches, none seen "
+                                 f"through ops.expert_ffn_cuda")
+        for cs in self.ffn_c.values():
+            FFN_C["all"] |= cs
         if engine.chunked is not None:
             engine.chunked.tick = tick
         self.launches = {"prefill": delta(c0, c1), "chunks": chunk_counts,
@@ -674,7 +718,9 @@ class Run:
             print(f"    {len(self.tick_s)} chunk ticks: "
                   f"{', '.join(f'{t * 1e3:.1f}' for t in self.tick_s)} ms")
         for phase, counts in self.launches.items():
-            print(f"    {phase}: { {k: v for k, v in counts.items() if v} }")
+            print(f"    {phase}: { {k: v for k, v in counts.items() if v} }"
+                  + (f", expert FFN at C {sorted(self.ffn_c[phase])}"
+                     if phase in self.ffn_c else ""))
 
 
 def pct(xs, q):
@@ -827,7 +873,8 @@ def row_count_probe(torch, params):
 def kv_plane_phase(torch, engine, prompts):
     """Whole-prompt contiguous, chunked contiguous and chunked paged
     engines on the serve phase's weights at capacity factor 4.0; then the
-    AW failover on the paged engine. Returns the paged run's launches."""
+    AW failover on the paged engine. Returns the launches per phase of
+    the whole-prompt and the paged runs."""
     from repro_torch.serving.engine import EngineConfig, InferenceEngine
     # capacity >= tokens in every call: no token is ever dropped, so a
     # stream does not depend on its slot or on how its prompt is chunked
@@ -874,6 +921,10 @@ def kv_plane_phase(torch, engine, prompts):
     if lp["flash_attention"] <= 0 or lp["moe_ffn"] <= 0:
         raise AssertionError(f"a kernel of the paged path was not "
                              f"launched: {lp}")
+    dec = runs["paged"].launches["decode"]
+    if dec["moe_ffn/tensor_core"] != dec["moe_ffn"]:
+        raise AssertionError(f"the paged decode steps' expert FFN did not "
+                             f"all take the tensor-core path: {dec}")
     print(f"  paged path launches: {lp}")
     print(f"  chunk calls: paged {paged.chunked.stats.calls}, shapes "
           f"{sorted(paged.chunked.stats.shapes)}")
@@ -920,7 +971,7 @@ def kv_plane_phase(torch, engine, prompts):
                              f"AW0 restored at the step after "
                              f"provision_aw(0); {restored} restored, "
                              f"{recovered_now} at recover_aw_requests")
-    return runs["paged"].launches
+    return runs["whole"].launches, runs["paged"].launches
 
 
 def profile_decode(torch, engine, prompts, out_dir):
@@ -1018,14 +1069,14 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    observe_ffn_capacities()
     records = []
     g = torch.Generator(device="cuda").manual_seed(0)
     kernel_decode_attention(torch, g, records)
     kernel_decode_attention_paged(torch, g, records)
     kernel_flash_attention(torch, g, records, b=1)
     kernel_flash_chunk(torch, g, records)
-    kernel_moe_gemm(torch, g, records, [("decode", 2, "skinny"),
-                                        ("prefill", 64, "tensor_core")])
+    kernel_moe_gemm(torch, g, records, MOE_SHAPES)
 
     print("reference: reduced Mixtral, card kernels vs CPU plain path")
     reference_phase(torch)
@@ -1035,7 +1086,15 @@ def main():
     print(f"kv plane: the same weights at capacity factor 4.0, chunked "
           f"prefill ({CHUNK_BUDGET} tokens/step), paged KV "
           f"({PAGE_TOKENS}-token pages)")
-    paged = kv_plane_phase(torch, engine, prompts)
+    whole, paged = kv_plane_phase(torch, engine, prompts)
+    checked = {c for _, c, _ in MOE_SHAPES}
+    if not FFN_C["all"] <= checked:
+        raise AssertionError(f"the expert FFN ran at C "
+                             f"{sorted(FFN_C['all'] - checked)}, which the "
+                             f"kernel phase did not hold to its plain "
+                             f"version")
+    print(f"expert FFN capacities on every run: {sorted(FFN_C['all'])}, "
+          f"each held to its plain version in the kernel phase")
     for r in records:
         r["launches"] = {
             "decode_attention_fused": launches["decode_attention_fused"],
@@ -1045,6 +1104,10 @@ def main():
             "flash_attention[chunk]": paged["chunks"]["flash_attention"],
             "moe_gemm[prefill]": phases["prefill"]["moe_ffn"],
             "moe_gemm[decode]": phases["decode"]["moe_ffn"],
+            "moe_gemm[decode-kv]": paged["decode"]["moe_ffn"],
+            "moe_gemm[prefill-kv]": whole["prefill"]["moe_ffn"],
+            "moe_gemm[chunk]": paged["chunks"]["moe_ffn/tensor_core"],
+            "moe_gemm[chunk-tail]": paged["chunks"]["moe_ffn/skinny"],
         }[r["name"]]
     print(card_line())
     print(json.dumps({"kernels": records}))

@@ -167,33 +167,30 @@ def cache_write_prefill(cache, k, v, positions):
     return cache
 
 
-def write_entries(positions, bt=None, page_tokens: int = 0):
-    """(rows, cols) of the entries of ``positions`` [B, C] that a cache
-    write keeps: position >= 0 and, on a paged cache, a block mapped to a
-    real page. The reference scatters the others out of bounds, where they
-    are dropped; PyTorch raises on an out-of-range index instead, so they
-    are left out here. Computed once per forward call (one host sync) and
-    shared by every layer's write."""
-    keep = positions >= 0
-    if bt is not None:
-        blk = (positions.clamp(min=0) % (bt.shape[1] * page_tokens)) \
-            // page_tokens
-        keep &= torch.gather(bt, 1, blk.long()) > 0
-    return torch.nonzero(keep, as_tuple=True)
-
-
-def cache_write_chunk(cache, k, v, positions, rows, cols):
+def cache_write_chunk(cache, k, v, positions):
     """Write a prefill chunk's K/V [B,C,...] at absolute ``positions``
-    [B,C] into an existing cache, in place. Only the entries (rows, cols)
-    of ``write_entries`` are written: chunk padding and rows not in this
-    chunk call (position -1) stay untouched, so the same call can extend
-    some rows' prompts while other rows hold live decode state."""
+    [B,C] into an existing cache, in place. Entries with position -1
+    (chunk padding, rows not in this chunk call) leave the cache as it
+    was, so the same call can extend some rows' prompts while other rows
+    hold live decode state. The reference scatters them out of bounds,
+    where they are dropped; PyTorch raises on an out-of-range index, so
+    here they write a slot's own value back onto it, without a host sync.
+    That slot must be one no real entry of the row writes: a chunk row
+    holds one run of consecutive positions from column 0 (how the chunked
+    plane builds it), so entry c of a row starting at position p0 goes to
+    slot (p0 + c) % Sc, distinct for C <= Sc."""
     sc = cache["k"].shape[1]
-    p = positions[rows, cols]
-    slot = (p % sc).long()
-    cache["k"][rows, slot] = k[rows, cols].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v[rows, cols].to(cache["v"].dtype)
-    cache["pos"][rows, slot] = p.to(torch.int32)
+    valid = positions >= 0
+    cols = torch.arange(positions.shape[1], device=positions.device)
+    slot = ((positions[:, :1].clamp(min=0) + cols) % sc).long()
+    bidx = torch.arange(k.shape[0], device=k.device)[:, None]
+    for name, new in (("k", k), ("v", v)):
+        t = cache[name]
+        t[bidx, slot] = torch.where(valid[..., None, None], new.to(t.dtype),
+                                    t[bidx, slot])
+    p = cache["pos"]
+    p[bidx, slot] = torch.where(valid, positions.to(torch.int32),
+                                p[bidx, slot])
     return cache
 
 
@@ -220,12 +217,15 @@ def cache_write_token(cache, k1, v1, pos, window: int = 0):
 # paged cache (block tables over a physical page pool)
 # --------------------------------------------------------------------------
 #
-# Paged layer cache: {"k": [P, pt, Hkv, Dh], "v": [P, pt, Hkv, Dh], "pos":
-# [P, pt] int32} plus one block table ``bt`` [B, nblk] int32 shared by all
-# layers, mapping logical block j of slot b to a physical page. Page 0 is
-# the null page: never allocated, its positions -1 forever, and every
-# unmapped block points at it, so unmapped regions mask out exactly like
-# an empty contiguous cache. With nblk * pt == Sc the gathered view
+# Paged layer cache: {"k": [P+1, pt, Hkv, Dh], "v": [P+1, pt, Hkv, Dh],
+# "pos": [P+1, pt] int32} plus one block table ``bt`` [B, nblk] int32
+# shared by all layers, mapping logical block j of slot b to a physical
+# page. Page 0 is the null page: never allocated, its positions -1
+# forever, and every unmapped block points at it, so unmapped regions mask
+# out exactly like an empty contiguous cache. The last page, P, is the
+# sink: never mapped and never read, it takes the writes the reference
+# drops out of bounds, so a paged write needs no host sync and never
+# touches the null page. With nblk * pt == Sc the gathered view
 # reproduces the contiguous layout element for element, which is what
 # makes the paged engine bitwise equal to the contiguous one.
 
@@ -238,20 +238,20 @@ def paged_view(cache, bt):
     return {"k": k, "v": v, "pos": pos}
 
 
-def paged_write_chunk(cache, bt, k, v, positions, rows, cols):
+def paged_write_chunk(cache, bt, k, v, positions):
     """Paged twin of ``cache_write_chunk``: scatter chunk K/V [B,C,...] at
-    absolute ``positions`` [B,C] into physical pages through the block
-    table, in place. Only the entries (rows, cols) of ``write_entries``
-    are written, so page 0 is never written. A decode token's write is
-    this at C = 1."""
+    absolute ``positions`` [B,C] through the block table, in place.
+    Entries with position -1, and entries whose block maps to the null
+    page, go to the sink page. A decode token's write is this at C = 1."""
+    sink = cache["k"].shape[0] - 1
     pt = cache["k"].shape[1]
-    p = positions[rows, cols]
-    spos = (p % (bt.shape[1] * pt)).long()
-    page = bt[rows, spos // pt].long()
+    spos = (positions.clamp(min=0) % (bt.shape[1] * pt)).long()
+    page = torch.gather(bt, 1, spos // pt).long()
+    page = torch.where((positions >= 0) & (page > 0), page, sink)
     off = spos % pt
-    cache["k"][page, off] = k[rows, cols].to(cache["k"].dtype)
-    cache["v"][page, off] = v[rows, cols].to(cache["v"].dtype)
-    cache["pos"][page, off] = p.to(torch.int32)
+    cache["k"][page, off] = k.to(cache["k"].dtype)
+    cache["v"][page, off] = v.to(cache["v"].dtype)
+    cache["pos"][page, off] = positions.to(torch.int32)
     return cache
 
 
@@ -313,39 +313,36 @@ def _chunk_attend(cfg, params, x, q, view, positions, window: int = 0):
     return out.reshape(*x.shape[:2], -1) @ params["wo"]
 
 
-def attn_chunk(cfg: ModelConfig, params, x, cache, positions, writes, *,
+def attn_chunk(cfg: ModelConfig, params, x, cache, positions, *,
                window: int = 0):
     """Chunked-prefill path: x [B,C,D] extends each row's sequence at
     absolute ``positions`` [B,C] (-1 = chunk padding / row not in this
-    chunk). The chunk's K/V are written into the cache first (entries
-    ``writes`` = (rows, cols) of ``write_entries``), then the chunk
+    chunk). The chunk's K/V are written into the cache first, then the chunk
     queries attend over the whole updated cache: causal masking by stored
     position covers both the committed prefix and the chunk itself.
     Returns (out [B,C,D], cache)."""
     q, k, v = _chunk_qkv(cfg, params, x, positions)
-    cache = cache_write_chunk(cache, k, v, positions, *writes)
+    cache = cache_write_chunk(cache, k, v, positions)
     return _chunk_attend(cfg, params, x, q, cache, positions,
                          window=window), cache
 
 
-def attn_chunk_paged(cfg: ModelConfig, params, x, cache, bt, positions,
-                     writes):
+def attn_chunk_paged(cfg: ModelConfig, params, x, cache, bt, positions):
     """Chunked prefill over a paged layer cache: write the chunk's K/V
     through the block table, then attend over the gathered contiguous
     view with the same pinned KV block as ``attn_chunk``, so the result
     matches the contiguous engine exactly. Full attention only."""
     q, k, v = _chunk_qkv(cfg, params, x, positions)
-    cache = paged_write_chunk(cache, bt, k, v, positions, *writes)
+    cache = paged_write_chunk(cache, bt, k, v, positions)
     return _chunk_attend(cfg, params, x, q, paged_view(cache, bt),
                          positions), cache
 
 
-def attn_decode_paged(cfg: ModelConfig, params, x, cache, bt, pos, writes):
+def attn_decode_paged(cfg: ModelConfig, params, x, cache, bt, pos):
     """Single-token decode over a paged layer cache: the attention reads
     the pages through the block table (the paged kernel on the card, a
     gather and the contiguous plain path on the CPU), then the token's
-    K/V is written through the table (entries ``writes`` of
-    ``write_entries`` over pos[:, None])."""
+    K/V is written through the table."""
     from repro_torch.kernels import ops as kops
     b = x.shape[0]
     q = _project_q(cfg, params, x)
@@ -356,5 +353,5 @@ def attn_decode_paged(cfg: ModelConfig, params, x, cache, bt, pos, writes):
         q[:, 0], cache["k"], cache["v"], cache["pos"], bt, k1[:, 0],
         v1[:, 0], pos, softcap=cfg.attn_softcap)
     out = out.reshape(b, 1, -1) @ params["wo"]
-    cache = paged_write_chunk(cache, bt, k1, v1, pos[:, None], *writes)
+    cache = paged_write_chunk(cache, bt, k1, v1, pos[:, None])
     return out, cache

@@ -63,25 +63,22 @@ def _layer_init(gen, cfg: ModelConfig, use_moe: bool, placement, device):
 
 def _layer_apply(cfg: ModelConfig, p, x, *, window: int, mode: str,
                  positions=None, pos=None, cache=None, route_state=None,
-                 placement=None, capacity=None, token_mask=None, bt=None,
-                 writes=None):
+                 placement=None, capacity=None, token_mask=None, bt=None):
     """mode: 'prefill' | 'chunk' | 'decode'. ``bt`` is the [B, nblk] block
-    table of a paged cache (None = contiguous); ``writes`` the cache
-    entries a chunk (or paged decode) write keeps (``attn.write_entries``).
-    Returns (x, cache, slot load)."""
+    table of a paged cache (None = contiguous). Returns (x, cache, slot
+    load)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if mode == "decode" and bt is not None:
-        a, cache = attn.attn_decode_paged(cfg, p["attn"], h, cache, bt, pos,
-                                          writes)
+        a, cache = attn.attn_decode_paged(cfg, p["attn"], h, cache, bt, pos)
     elif mode == "decode":
         a, cache = attn.attn_decode(cfg, p["attn"], h, cache, pos,
                                     window=window)
     elif mode == "chunk" and bt is not None:
         a, cache = attn.attn_chunk_paged(cfg, p["attn"], h, cache, bt,
-                                         positions, writes)
+                                         positions)
     elif mode == "chunk":
         a, cache = attn.attn_chunk(cfg, p["attn"], h, cache, positions,
-                                   writes, window=window)
+                                   window=window)
     else:
         a, cache = attn.attn_full(cfg, p["attn"], h, positions,
                                   window=window, cache=cache)
@@ -143,22 +140,15 @@ def build_decoder(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
         load_total = torch.zeros((n_slots,), dtype=torch.float32,
                                  device=x.device)
         # a paged engine carries one block table beside its layer pools,
-        # threaded to every layer; the entries a cache write keeps are
-        # the same in every layer, so they are found once per call
+        # threaded to every layer
         bt = caches.get("bt") if caches is not None else None
-        writes = None
-        if mode == "chunk" or (mode == "decode" and bt is not None):
-            pt = caches["layers"][0]["k"].shape[1]
-            writes = attn.write_entries(
-                positions if mode == "chunk" else pos[:, None], bt, pt)
         for i, lp in enumerate(params["layers"]):
             c = caches["layers"][i] if caches is not None else None
             x, c, load = _layer_apply(
                 cfg, lp, x, window=windows[i], mode=mode,
                 positions=positions, pos=pos, cache=c,
                 route_state=route_state, placement=placement,
-                capacity=capacity, token_mask=token_mask, bt=bt,
-                writes=writes)
+                capacity=capacity, token_mask=token_mask, bt=bt)
             load_total = load_total + load
         return rmsnorm(params["final_norm"], x, cfg.norm_eps), load_total
 

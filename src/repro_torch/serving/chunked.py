@@ -11,8 +11,7 @@
     (live decode slots, other requests) carry position -1 and are
     untouched.
   * **Resumable streams**: per-request progress lives in
-    ``RequestState.prefill_cursor`` and mirrors into the owning
-    AttentionWorker's ``prefills`` map. Each chunk's KV segments stream to
+    ``RequestState.prefill_cursor``. Each chunk's KV segments stream to
     the CheckpointStore (§6.1 extended to prefill), so when an AW dies
     mid-prefill, recovery restores the committed chunk prefix and resumes
     the stream from the cursor instead of from token 0.
@@ -105,7 +104,6 @@ class ChunkedPrefillPlane:
         self.stats.prefilled_tokens.setdefault(q.rid, 0)
         self.jobs[q.rid] = _PrefillJob(q.rid, np.asarray(q.prompt), aw, slot,
                                        n_pre=n - 1)
-        eng.aws[aw].prefills[q.rid] = 0
 
     def resume(self, r, aw: int, slot: int, cursor: int):
         """Re-open a stream after mid-prefill failure recovery: the
@@ -120,19 +118,15 @@ class ChunkedPrefillPlane:
         r.prefilling = True
         self.jobs[r.rid] = _PrefillJob(r.rid, np.asarray(r.prompt), aw, slot,
                                        n_pre=n_pre)
-        self.engine.aws[aw].prefills[r.rid] = cursor
 
     def drop(self, rid: str):
-        job = self.jobs.pop(rid, None)
-        if job is not None:
-            self.engine.aws[job.aw].prefills.pop(rid, None)
+        self.jobs.pop(rid, None)
 
     def drop_aw(self, aw_id: int):
         """AW crash: its in-flight prefill streams die with it (recovery
         entries re-open them through the Gateway)."""
         for rid in [r for r, j in self.jobs.items() if j.aw == aw_id]:
             del self.jobs[rid]
-        self.engine.aws[aw_id].prefills.clear()
 
     # ------------------------------------------------------------------
     # the iteration planner
@@ -216,12 +210,10 @@ class ChunkedPrefillPlane:
             c = r.prefill_cursor
             self._checkpoint_chunk(job, c, take)
             r.prefill_cursor = c + take
-            eng.aws[job.aw].prefills[job.rid] = r.prefill_cursor
             self.stats.prefilled_tokens[job.rid] = \
                 self.stats.prefilled_tokens.get(job.rid, 0) + take
             if r.prefill_cursor >= job.n_pre:
                 del self.jobs[job.rid]
-                eng.aws[job.aw].prefills.pop(job.rid, None)
                 self._finalize(r)
         return real
 

@@ -153,7 +153,9 @@ class PagedCacheLayout(_SegmentOps):
     ``bt`` [B, nblk] int32 shared by all layers (nblk * page_tokens ==
     max_seq, so a slot's gathered pages reproduce its contiguous layout
     element for element). Page 0 is reserved: never allocated, positions
-    -1 forever; unmapped blocks point at it.
+    -1 forever; unmapped blocks point at it. The pools hold one page past
+    the allocator's, the sink that takes dropped writes and is never read
+    (``models.attention.paged_write_chunk``).
 
     The host mirror of the block table lives in the ``PagePool``; the
     engine uploads it before every device call that reads it. Paged mode
@@ -170,9 +172,10 @@ class PagedCacheLayout(_SegmentOps):
 
     def make_cache(self, init_cache, batch: int):
         """Per-layer page pools (the contiguous init with batch =
-        num_pages, max_seq = page_tokens) and the block table, every entry
-        at the null page."""
-        cache = init_cache(self.pool.num_pages, self.page_tokens)
+        num_pages + 1, the last being the sink page that takes dropped
+        writes; max_seq = page_tokens) and the block table, every entry at
+        the null page."""
+        cache = init_cache(self.pool.num_pages + 1, self.page_tokens)
         dev = cache["layers"][0]["k"].device
         cache["bt"] = torch.zeros((batch, self.nblk), dtype=torch.int32,
                                   device=dev)
@@ -239,13 +242,12 @@ class PagePool:
     only when the count hits 0."""
 
     def __init__(self, num_slots: int, num_aw: int, blocks_per_slot: int,
-                 page_tokens: int, pages_per_aw: int = 0):
+                 page_tokens: int):
         self.page_tokens = page_tokens
         self.nblk = blocks_per_slot
         self.num_aw = num_aw
         self.slots_per_aw = num_slots // num_aw
-        self.pages_per_aw = pages_per_aw or \
-            self.slots_per_aw * blocks_per_slot
+        self.pages_per_aw = self.slots_per_aw * blocks_per_slot
         self.num_pages = 1 + self.pages_per_aw * num_aw
         self._free = [deque(range(1 + a * self.pages_per_aw,
                                   1 + (a + 1) * self.pages_per_aw))

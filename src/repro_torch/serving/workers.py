@@ -65,10 +65,6 @@ class AttentionWorker:
         self.aw_id = aw_id
         self.slots = SlotPartition(lo, hi)
         self.checkpointer = KVCheckpointer(store, aw_id, seed=aw_id)
-        # in-flight chunked-prefill streams this AW owns: rid ->
-        # prefill_cursor (prompt tokens already written to its slot); they
-        # die with the worker like the slot partition does
-        self.prefills: dict = {}
         self.alive = True
 
     def free_slots(self) -> int:
@@ -84,10 +80,8 @@ class AttentionWorker:
 
     def drop_request(self, rid: str) -> int:
         """Planned teardown of one request's residency on this AW (cancel,
-        release): forget its prefill cursor and discard its pending
-        checkpoint WRs. The slot partition is untouched; the caller
+        release): discard its pending checkpoint WRs. The slot partition is untouched; the caller
         releases the slot. Returns the number of WRs discarded."""
-        self.prefills.pop(rid, None)
         return self.checkpointer.drop_request(rid)
 
     def fail(self, route_state: RouteState) -> RouteState:
@@ -96,7 +90,6 @@ class AttentionWorker:
         watermark freezes at the last delivered contiguous prefix."""
         self.alive = False
         self.slots.drop()
-        self.prefills.clear()
         self.checkpointer.drop_pending()
         return selfheal.fail_aw(route_state, self.aw_id)
 

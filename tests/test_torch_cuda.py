@@ -83,7 +83,7 @@ def test_flash_attention_kernel(dev, dtype, b, s, h, hkv, dh, window,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [2, 12, 40])
+@pytest.mark.parametrize("c", [2, 12, 40, 130])
 @pytest.mark.parametrize("gated,act", [(True, "silu"), (False, "gelu")])
 def test_expert_ffn_kernel(dev, dtype, c, gated, act):
     r = np.random.default_rng(c)
@@ -100,7 +100,8 @@ def test_expert_ffn_kernel(dev, dtype, c, gated, act):
 
 
 @pytest.mark.parametrize("c,path", [(2, "skinny"), (12, "tensor_core"),
-                                    (40, "tensor_core")])
+                                    (40, "tensor_core"),
+                                    (130, "tensor_core")])
 def test_expert_ffn_bf16_rounds_once(dev, c, path):
     """In bfloat16 each path keeps float32 inside (hidden activation
     included) and rounds once, at the output: within half an ulp of the

@@ -12,7 +12,9 @@ slot or its chunking):
     without chunked prefill is refused;
   * the PagePool keeps its invariants under seeded random operation
     sequences, alone and inside an engine with AW failures;
-  * ``ops.decode_attention_paged`` agrees with the JAX op.
+  * ``ops.decode_attention_paged`` agrees with the JAX op;
+  * chunk and paged cache writes leave what the JAX writes drop untouched
+    (padding, rows not in the call, blocks on the null page).
 """
 import dataclasses
 import random
@@ -25,6 +27,7 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.kernels import ops as jops
+from repro.models import attention as jattn
 from repro.serving.api import RequestSpec as JSpec
 from repro.serving.engine import EngineConfig as JEngineConfig
 from repro.serving.engine import InferenceEngine as JEngine
@@ -32,6 +35,7 @@ from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_reference
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import ops as tops
+from repro_torch.models import attention as tattn
 from repro_torch.serving.api import RequestSpec
 from repro_torch.serving.engine import EngineConfig, InferenceEngine
 from repro_torch.serving.kvcache import PagePool
@@ -345,3 +349,73 @@ def test_decode_attention_paged_op_matches_reference(b, h, hkv, dh,
     ck, cv, cpos = tda.gather_pages(pk, pv, ppos, bt)
     assert torch.equal(got, tda.decode_attention_plain(
         q, ck, cv, cpos, k1, v1, pos, softcap=softcap))
+
+
+# --------------------------------------------------------------------------
+# cache writes with the reference's drop semantics
+# --------------------------------------------------------------------------
+
+def _chunk_positions(r, b, c, sc):
+    """Chunk-call positions as the chunked plane builds them: each row in
+    the call holds one run of consecutive positions from column 0, then
+    padding (-1); row 0 is not in the call."""
+    pos = np.full((b, c), -1, np.int32)
+    for i in range(1, b):
+        take = int(r.integers(1, c + 1))
+        start = int(r.integers(0, sc - take + 1))
+        pos[i, :take] = np.arange(start, start + take)
+    return pos
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_cache_write_chunk_drops_as_reference(seed, paged):
+    """The same chunk write through the port and the JAX package: every
+    entry the reference keeps lands bit for bit, and nothing it drops
+    (padding, rows not in the call, blocks mapped to the null page)
+    touches the cache. A paged decode write is the C = 1 case."""
+    r = np.random.default_rng(seed)
+    b, hkv, dh, pt, nblk = 4, 2, 8, 4, 6
+    sc = pt * nblk
+    for c in (5, 1):
+        pos = _chunk_positions(r, b, c, sc)
+        k = r.normal(size=(b, c, hkv, dh)).astype(np.float32)
+        v = r.normal(size=(b, c, hkv, dh)).astype(np.float32)
+        if paged:
+            npages = 1 + b * nblk
+            bt = np.zeros((b, nblk), np.int32)
+            ids = r.permutation(np.arange(1, npages)).astype(np.int32)
+            for i in range(b):       # half the blocks stay on the null page
+                keep = r.random(nblk) < 0.5
+                bt[i, keep] = ids[i * nblk:(i + 1) * nblk][keep]
+            rows = npages
+        else:
+            rows = b
+        ck = r.normal(size=(rows, pt if paged else sc, hkv, dh)).astype(
+            np.float32)
+        cv = r.normal(size=ck.shape).astype(np.float32)
+        cpos = r.integers(-1, sc, size=ck.shape[:2]).astype(np.int32)
+        if paged:
+            cpos[0] = -1
+            jc = jattn.paged_write_chunk(
+                {"k": jnp.asarray(ck), "v": jnp.asarray(cv),
+                 "pos": jnp.asarray(cpos)}, jnp.asarray(bt), k, v, pos)
+            # the port's pools carry the sink page after the last
+            tc = {n: torch.from_numpy(np.concatenate([a, a[:1]]))
+                  for n, a in (("k", ck), ("v", cv), ("pos", cpos))}
+            tattn.paged_write_chunk(tc, torch.from_numpy(bt),
+                                    torch.from_numpy(k), torch.from_numpy(v),
+                                    torch.from_numpy(pos))
+            tc = {n: t[:-1] for n, t in tc.items()}
+            assert (tc["pos"][0] == -1).all()
+        else:
+            jc = jattn.cache_write_chunk(
+                {"k": jnp.asarray(ck), "v": jnp.asarray(cv),
+                 "pos": jnp.asarray(cpos)}, k, v, pos)
+            tc = {n: torch.from_numpy(a.copy())
+                  for n, a in (("k", ck), ("v", cv), ("pos", cpos))}
+            tattn.cache_write_chunk(tc, torch.from_numpy(k),
+                                    torch.from_numpy(v),
+                                    torch.from_numpy(pos))
+        for n in ("k", "v", "pos"):
+            assert np.array_equal(tc[n].numpy(), np.asarray(jc[n])), n
