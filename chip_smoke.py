@@ -2,24 +2,29 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --profile DIR    # and a torch.profiler pass
+    python3 chip_smoke.py --profile DIR    # and torch.profiler passes
+                                           # (Mixtral in DIR, Zamba2 in
+                                           # DIR/hybrid)
 
 Phases, each of which raises on failure (exit code != 0):
   1. card     — ``nvidia-smi`` name and power limit, then the kernel build
                 (one nvcc per CUDA source, all started together).
-  2. kernels  — each hand-written kernel at the shapes the serving path
-                gives it (bfloat16) and in float32, held to its plain
+  2. kernels  — each hand-written kernel at the shapes the serving paths
+                give it (bfloat16) and in float32, held to its plain
                 PyTorch version on the card (bf16 2e-2, fp32 2e-5, atol
-                and rtol; at the serving shapes the bf16 decode-attention,
-                chunk-shape flash and expert-FFN results are also held to
-                the float32 plain version on the same inputs within half a
-                bf16 ulp plus 1e-4); the paged decode attention also
-                bitwise to the fused kernel on the gathered pages; the
-                expert FFN at every capacity a later phase gives it
-                (MOE_SHAPES; checked after the runs); kernel, plain-version
-                and library-call times by CUDA events (median of 20 after
-                warm-up, L2 flushed before each run).
-  3. reference — a reduced float32 Mixtral on the card against the same
+                and rtol; the SSD scan 2e-4 in float32, as the Pallas
+                kernel is held; at the serving shapes bf16 results are also
+                held to the float32 plain version on the same inputs
+                within half a bf16 ulp plus 1e-4); the paged decode
+                attention also bitwise to the fused kernel on the gathered
+                pages; decode and flash attention also at Zamba2's head dim
+                112; the expert FFN at every (C, path) a later phase gives
+                it (MOE_SHAPES) and the SSD scan at every (B, S)
+                (SCAN_SHAPES), both checked after the runs; kernel,
+                plain-version and library-call times by CUDA events
+                (median of 20 after warm-up, L2 flushed before each run).
+  3. reference — a reduced float32 Mixtral, and a reduced float32 Zamba2
+                with a trailing block, on the card against the same
                 model's plain path on the CPU (logits to 1e-3).
   4. serve    — Mixtral-8x7B widths at 8 layers in bfloat16 with seeded
                 random weights, contiguous KV, whole-prompt prefill: 8
@@ -37,21 +42,35 @@ Phases, each of which raises on failure (exit code != 0):
                 engines sharing the weights: whole-prompt contiguous,
                 chunked contiguous and chunked paged (16-token pages),
                 chunk budget CHUNK_BUDGET tokens. Paged streams must equal
-                contiguous ones bit for bit; whether chunked equals whole
-                prefill is printed. The paged run must launch the paged
-                decode attention and never the fused one.
+                contiguous ones, and chunked streams whole-prompt ones, bit
+                for bit; the row-count probe holds every row count and
+                capacity the prefill and chunk calls used to the largest
+                call's rows, bit for bit. The paged run must launch the
+                paged decode attention and never the fused one.
   7. AW failover — the paged engine again with ``fail_aw(0)`` once every
                 request has 8 tokens, then ``recover_aw_requests()`` (AW1
                 is full: nothing is admitted), ``provision_aw(0)``, and
                 steps to the end: every stream must equal the paged
                 failure-free run bit for bit; restored requests and bytes,
                 the recovery time and the largest token gap are printed.
+  8. hybrid   — Zamba2-7B widths at 13 layers in bfloat16 (2 units of 6
+                Mamba2 blocks + the shared attention block, 1 trailing
+                block), 8 requests of 128 prompt tokens and 16 greedy new
+                tokens, each prefilled alone: every Mamba2 block of every
+                prefill launches the SSD scan, the shared block the flash
+                and decode kernels at head dim 112; the per-step checkpoint
+                copy (every row's K/V and whole recurrent state) is timed.
+                Then ``fail_aw(0)`` once every request has 8 tokens,
+                recover, provision: every stream must equal the
+                failure-free one bit for bit.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import argparse
+import gc
 import json
 import statistics
+from collections import Counter
 import subprocess
 import sys
 import time
@@ -59,6 +78,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
+FP32_FLOPS_PER_S = 67e12           # H100 SXM float32 on the CUDA cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # a bfloat16 result against the float32 plain version on the same inputs:
 # rounding once at the output costs at most half an ulp (2^-8 relative);
@@ -66,15 +86,29 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 ROUND_ATOL, ROUND_RTOL = 1e-4, 2.0 ** -8
 CHUNK_BUDGET = 256                 # prefill tokens per step, KV-plane phase
 PAGE_TOKENS = 16
-# the expert FFN's capacities C on the serving paths, each with the kernel
-# path it must take: serve decode and whole-prompt prefill at capacity
-# factor 1.25; the KV-plane decode, whole-prompt prefill, chunk calls and
+# the expert FFN's capacities C on the serving paths, each with the kind
+# of call (decode step or not) and the kernel path it must take: serve
+# decode and whole-prompt prefill at capacity factor 1.25; the KV-plane
+# decode (and chunk calls at C 8), whole-prompt prefill, chunk calls and
 # chunk tails at 4.0 (C 128 and 256 span two and four 64-row M tiles).
-# main() fails if a path gives the kernel a C that is not here.
-MOE_SHAPES = [("decode", 2, "skinny"), ("prefill", 64, "tensor_core"),
-              ("decode-kv", 8, "tensor_core"),
-              ("prefill-kv", 128, "tensor_core"),
-              ("chunk-tail", 4, "skinny"), ("chunk", 256, "tensor_core")]
+# Only decode steps take the skinny path: prefill and chunk calls take the
+# tensor-core path at every C, chunk tails at C 2 and 4 included, so a
+# token rounds one way whatever its call's C. main() fails if a run gives
+# the kernel a (C, path) that is not here.
+MOE_SHAPES = [("decode", 2, True, "skinny"),
+              ("prefill", 64, False, "tensor_core"),
+              ("decode-kv", 8, True, "tensor_core"),
+              ("prefill-kv", 128, False, "tensor_core"),
+              ("chunk-tail", 4, False, "tensor_core"),
+              ("chunk-tail-2", 2, False, "tensor_core"),
+              ("chunk", 256, False, "tensor_core")]
+# Zamba2-7B as the hybrid phases serve it: 13 of 81 layers (two units of 6
+# Mamba2 blocks + the shared block, then one trailing block)
+HYBRID_LAYERS = 13
+HYBRID_MAX_SEQ = 256
+# the SSD scan's (B, S) on the hybrid serving path (one 128-token prompt
+# per prefill call); main() fails if a run gives the kernel another
+SCAN_SHAPES = [(1, 128)]
 
 
 def card_line() -> str:
@@ -105,9 +139,12 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S):
+    """The least time for the work: bytes at the HBM rate or flops at
+    ``peak`` (bf16 tensor cores unless the kernel computes in float32 on
+    the CUDA cores), the larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -147,7 +184,6 @@ def decode_inputs(torch, g, b, h, hkv, dh, sc, dtype, min_len):
 
 def kernel_decode_attention(torch, g, records):
     from repro_torch.kernels import decode_attention as da
-    import torch.nn.functional as F
     print("decode_attention (fused GQA decode, csrc/decode_attention.cu)")
     # fp32 at a small shape, with a window and a softcap
     q, ck, cv, cpos, k1, v1, pos = decode_inputs(
@@ -159,10 +195,17 @@ def kernel_decode_attention(torch, g, records):
               da.decode_attention_plain(q, ck, cv, cpos, k1, v1, pos,
                                         window=window, softcap=cap),
               "float32")
-    # the serving shape: 8 rows, Mixtral heads, a 512-token cache; in
-    # float32 first, so the instantiation the main path uses is held to
-    # the float32 bar
-    b, h, hkv, dh, sc = 8, 32, 8, 128, 512
+    # the serving shape: 8 rows, Mixtral heads, a 512-token cache
+    decode_attention_at(torch, g, records, "decode_attention_fused",
+                        8, 32, 8, 128, 512)
+
+
+def decode_attention_at(torch, g, records, name, b, h, hkv, dh, sc):
+    """The fused decode kernel at a serving shape: in float32 first, so
+    the instantiation the main path uses is held to the float32 bar, then
+    in bf16 against the bf16 and the float32 plain versions; times."""
+    from repro_torch.kernels import decode_attention as da
+    import torch.nn.functional as F
     args32 = decode_inputs(torch, g, b, h, hkv, dh, sc, torch.float32, 128)
     check(f"fp32 B{b} H{h} Hkv{hkv} Dh{dh} Sc{sc}",
           da.decode_attention_cuda(*args32),
@@ -198,7 +241,7 @@ def kernel_decode_attention(torch, g, records):
     flops = 4.0 * (valid + b) * grp * hkv * dh
     b_ms, b_by = bound(nbytes, flops)
     records.append(dict(
-        name="decode_attention_fused", route="cuda",
+        name=name, route="cuda",
         source="src/repro_torch/csrc/decode_attention.cu",
         replaces=da.KERNEL.replaces, max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -390,10 +433,9 @@ def kernel_flash_chunk(torch, g, records):
           f"ms, bound {b_ms:.4f} ms ({b_by})")
 
 
-def kernel_flash_attention(torch, g, records, b):
+def kernel_flash_attention(torch, g, records):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.attention import blockwise_attention
-    import torch.nn.functional as F
     print("flash_attention (prefill GQA, csrc/flash_attention.cu)")
     # fp32 small: GQA, -1 positions (a fully masked row), window, softcap
     bs, s, h, hkv, dh = 2, 40, 6, 2, 32
@@ -410,11 +452,24 @@ def kernel_flash_attention(torch, g, records, b):
               blockwise_attention(q, k, v, p, p, window=window, softcap=cap,
                                   block_k=16), "float32")
     # the serving shape: one 128-token prompt per prefill call
-    s, h, hkv, dh = 128, 32, 8, 128
-    q = torch.randn((b, s, h, dh), generator=g, device="cuda").bfloat16()
-    k = torch.randn((b, s, hkv, dh), generator=g, device="cuda").bfloat16()
-    v = torch.randn((b, s, hkv, dh), generator=g, device="cuda").bfloat16()
+    flash_attention_at(torch, g, records, "flash_attention", 1, 128, 32, 8,
+                       128)
+
+
+def flash_attention_at(torch, g, records, name, b, s, h, hkv, dh):
+    """The flash kernel at a whole-prompt serving shape, in float32 and
+    bf16 (the latter also against the float32 plain version); times."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import blockwise_attention
+    import torch.nn.functional as F
     p = torch.arange(s, device="cuda", dtype=torch.int32).repeat(b, 1)
+    qkv = [torch.randn((b, s, n, dh), generator=g, device="cuda")
+           for n in (h, hkv, hkv)]
+    check(f"fp32 B{b} S{s} H{h} Hkv{hkv} Dh{dh} causal",
+          fa.flash_attention_cuda(*qkv, p, p),
+          blockwise_attention(*qkv, p, p, block_k=16), "float32")
+    q, k, v = (t.bfloat16() for t in qkv)
+    del qkv
 
     def kern():
         return fa.flash_attention_cuda(q, k, v, p, p)
@@ -422,8 +477,13 @@ def kernel_flash_attention(torch, g, records, b):
     def plain():
         return blockwise_attention(q, k, v, p, p, block_k=16)
 
-    err = check(f"bf16 B{b} S{s} H{h} Hkv{hkv} Dh{dh} causal", kern(),
+    got = kern()
+    err = check(f"bf16 B{b} S{s} H{h} Hkv{hkv} Dh{dh} causal", got,
                 plain(), "bfloat16")
+    check(f"bf16 B{b} S{s} H{h} Hkv{hkv} Dh{dh} causal vs float32 plain",
+          got, blockwise_attention(q.float(), k.float(), v.float(), p, p,
+                                   block_k=16),
+          atol=ROUND_ATOL, rtol=ROUND_RTOL)
     ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
     grp = h // hkv
     qq = q.transpose(1, 2).contiguous()
@@ -435,7 +495,7 @@ def kernel_flash_attention(torch, g, records, b):
     flops = 4.0 * b * h * dh * s * (s + 1) / 2
     b_ms, b_by = bound(nbytes, flops)
     records.append(dict(
-        name="flash_attention", route="cuda",
+        name=name, route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces=fa.KERNEL.replaces, max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
@@ -444,8 +504,77 @@ def kernel_flash_attention(torch, g, records, b):
           f"ms, bound {b_ms:.4f} ms ({b_by})")
 
 
+def scan_inputs(torch, g, bs, s, h, p, n, dtype):
+    x = torch.randn((bs, s, h, p), generator=g, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((bs, s, h), generator=g, device="cuda"))
+    a = -torch.exp(torch.randn((h,), generator=g, device="cuda") * 0.5)
+    b = torch.randn((bs, s, n), generator=g, device="cuda") * 0.3
+    c = torch.randn((bs, s, n), generator=g, device="cuda") * 0.3
+    return x, dt, a, b, c
+
+
+def kernel_ssm_scan(torch, g, records, shapes):
+    """The SSD scan at Zamba2-7B's widths (112 heads, P = N = 64, chunk
+    64) for every (B, S) in ``shapes`` (checked against what the runs
+    give it, after them), plus one step and an odd length that halves the
+    chunk to 1: float32 within 2e-4 of the plain chunked scan (the Pallas
+    kernel's bar), bf16 within half an ulp + 1e-4 of the float32 plain
+    version."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import ssm_scan as ss
+    print("ssm_scan (Mamba2/SSD chunked scan, csrc/ssm_scan.cu)")
+    h, p, n, chunk = 112, 64, 64, 64
+    for bs, s_ in ((1, 1), (1, 127), (2, 96)):
+        args = scan_inputs(torch, g, bs, s_, 8, p, n, torch.float32)
+        y, hf = ss.ssm_scan_cuda(*args, chunk=chunk)
+        wy, wh = kref.ssm_scan_chunked_ref(*args, chunk=chunk)
+        tag = f"fp32 B{bs} S{s_} H8 P{p} N{n} (chunk " \
+              f"{kref.scan_chunk(s_, chunk)})"
+        check(f"{tag} y", y, wy, atol=2e-4, rtol=2e-4)
+        check(f"{tag} h_final", hf, wh, atol=2e-4, rtol=2e-4)
+    for bs, s_ in shapes:
+        args32 = scan_inputs(torch, g, bs, s_, h, p, n, torch.float32)
+        y, hf = ss.ssm_scan_cuda(*args32, chunk=chunk)
+        wy, wh = kref.ssm_scan_chunked_ref(*args32, chunk=chunk)
+        tag = f"B{bs} S{s_} H{h} P{p} N{n}"
+        check(f"fp32 {tag} y", y, wy, atol=2e-4, rtol=2e-4)
+        check(f"fp32 {tag} h_final", hf, wh, atol=2e-4, rtol=2e-4)
+        args = (args32[0].bfloat16(),) + args32[1:]
+        y, hf = ss.ssm_scan_cuda(*args, chunk=chunk)
+        wy, wh = kref.ssm_scan_chunked_ref(args[0].float(), *args[1:],
+                                           chunk=chunk)
+        err = check(f"bf16 {tag} y vs float32 plain", y, wy,
+                    atol=ROUND_ATOL, rtol=ROUND_RTOL)
+        check(f"bf16 {tag} h_final vs float32 plain", hf, wh, atol=2e-4,
+              rtol=2e-4)
+        ms = time_ms(torch, lambda: ss.ssm_scan_cuda(*args, chunk=chunk))
+        plain_ms = time_ms(torch, lambda: kref.ssm_scan_chunked_ref(
+            *args, chunk=chunk))
+        t = kref.scan_chunk(s_, chunk)
+        nbytes = (2 * args[0].numel() * 2 + bs * h * p * n * 4 +
+                  (bs * s_ * h + 2 * bs * s_ * n + h) * 4)
+        # per (b, h, chunk): C B^T, W x, C h^T and the state update
+        flops = 2.0 * bs * h * (s_ // t) * (t * t * n + t * t * p +
+                                            t * n * p + p * n * t)
+        b_ms, b_by = bound(nbytes, flops, FP32_FLOPS_PER_S)
+        records.append(dict(
+            name="ssm_scan", route="cuda",
+            source="src/repro_torch/csrc/ssm_scan.cu",
+            replaces=ss.KERNEL.replaces, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None,
+            library="none: no single PyTorch call computes the SSD scan",
+            shape=f"{tag} chunk {t} bf16 x, float32 math (bound at the "
+                  f"67 TFLOP/s float32 peak)"))
+        print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, no library "
+              f"call, bound {b_ms:.4f} ms ({b_by}, float32 peak)")
+        del args, args32
+
+
 def kernel_moe_gemm(torch, g, records, shapes):
-    """``shapes``: (label, C, the kernel path that C must take)."""
+    """``shapes``: (label, C, whether the call is a decode step, the
+    kernel path it must take)."""
     from repro_torch.kernels import moe_gemm as mg
     print("moe_gemm (grouped expert FFN, csrc/moe_gemm.cu)")
     # fp32 small, both paths (C <= 4 streams split-K; larger C tiles):
@@ -475,7 +604,7 @@ def kernel_moe_gemm(torch, g, records, shapes):
     # primaries 0..7, shadows replicate EW 0's experts (the initial plan)
     se = torch.tensor(list(range(8)) + [0, 1, 2, 3, 0, 1, 2, 3],
                       dtype=torch.int32, device="cuda")
-    for label, c, path in shapes:
+    for label, c, decode, path in shapes:
         cnt = torch.tensor([c] * 8 + [0] * 8, dtype=torch.int32,
                            device="cuda")
         x = torch.randn((n_slot, c, d), generator=g,
@@ -483,7 +612,8 @@ def kernel_moe_gemm(torch, g, records, shapes):
         x[8:] = 0
 
         def kern():
-            return mg.expert_ffn_cuda(x, bank[0], bank[1], wdn, se, cnt)
+            return mg.expert_ffn_cuda(x, bank[0], bank[1], wdn, se, cnt,
+                                      decode=decode)
 
         def plain():
             return mg.expert_ffn_plain(x, bank[0], bank[1], wdn, se, cnt)
@@ -524,7 +654,9 @@ def kernel_moe_gemm(torch, g, records, shapes):
             replaces=mg.KERNEL.replaces, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms,
-            shape=f"P{n_slot} (8 active) C{c} D{d} F{f} bf16"))
+            shape=f"P{n_slot} (8 active) C{c} D{d} F{f} bf16, "
+                  f"{'decode step' if decode else 'prefill/chunk call'}, "
+                  f"{path} path"))
         print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, bmm chain "
               f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         del x, cnt
@@ -536,12 +668,10 @@ def kernel_moe_gemm(torch, g, records, shapes):
 # reference and serve phases
 # --------------------------------------------------------------------------
 
-def reference_phase(torch):
-    """A reduced float32 Mixtral through the kernels on the card against
-    the same model's plain path on the CPU."""
-    from repro_torch.configs import get_config
+def reference_phase(torch, cfg):
+    """A reduced float32 model through the kernels on the card against
+    the same model's plain path on the CPU (logits to 1e-3)."""
     from repro_torch.models import get_model
-    cfg = get_config("mixtral_8x7b").reduced()
     gpu = get_model(cfg, num_aw=2, num_ew=2, device="cuda")
     cpu = get_model(cfg, num_aw=2, num_ew=2, device="cpu")
     params = gpu.init_params(torch.Generator(device="cuda").manual_seed(1))
@@ -571,46 +701,76 @@ def reference_phase(torch):
     dc, _, _ = cpu.decode(cparams, nt, pos, cc, cpu.init_route_state())
     for name, a, b in (("prefill", lg, lc), ("decode", dg, dc)):
         err = (a.cpu() - b).abs().max().item()
-        print(f"  reduced fp32 Mixtral {name} logits, card vs CPU: "
+        print(f"  {cfg.name} ({cfg.num_layers} layers) fp32 {name} logits, "
+              f"card vs CPU: "
               f"max_abs_err {err:.3e} (tol 1e-3)")
         if not err <= 1e-3:
             raise AssertionError(f"{name} logits disagree with the CPU "
                                  f"plain path: {err:.3e}")
 
 
+def all_kernels():
+    from repro_torch.kernels import decode_attention, flash_attention, \
+        moe_gemm, ssm_scan
+    return (decode_attention.KERNEL, decode_attention.PAGED_KERNEL,
+            flash_attention.KERNEL, moe_gemm.KERNEL, ssm_scan.KERNEL)
+
+
 def launch_counts():
     """Every kernel's launch count, and the expert FFN's per path."""
-    from repro_torch.kernels import decode_attention, flash_attention, \
-        moe_gemm
-    counts = {k.symbol: k.launches for k in (
-        decode_attention.KERNEL, decode_attention.PAGED_KERNEL,
-        flash_attention.KERNEL, moe_gemm.KERNEL)}
+    from repro_torch.kernels import moe_gemm
+    counts = {k.symbol: k.launches for k in all_kernels()}
     counts.update({f"moe_ffn/{k}": v
                    for k, v in moe_gemm.path_launches.items()})
     return counts
 
 
-# the capacities C the expert FFN kernel was given, per Run phase; observed
-# around ``ops.expert_ffn_cuda`` (the launch counts stay the wrapper's own)
-FFN_C = {"phase": None, "seen": None, "all": set()}
+# what each Run gives the kernels, observed around the wrappers (the launch
+# counts stay the wrappers' own): per phase of the current Run, a Counter of
+# the expert FFN's (C, path); over all runs, the (C, path) pairs, the C of
+# prefill and chunk calls, the SSD scan's (B, S) and the row counts of the
+# row-blocked projections and norms (prefill and chunk calls only)
+SEEN = {"phase": None, "run": None, "ffn": Counter(), "ffn_prefill_c": set(),
+        "scan": set(), "rows": set()}
 
 
-def observe_ffn_capacities():
+def observe_kernel_shapes():
+    from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import ops
-    launch = ops.expert_ffn_cuda
+    from repro_torch.models import layers
+    ffn, scan, blocked = ops.expert_ffn_cuda, ops.ssm_scan_cuda, \
+        layers.row_blocked
 
-    def observed(x, *args, **kw):
-        if FFN_C["seen"] is not None:
-            FFN_C["seen"].setdefault(FFN_C["phase"], set()).add(x.shape[1])
-        return launch(x, *args, **kw)
-    ops.expert_ffn_cuda = observed
+    def ffn_observed(x, *args, **kw):
+        before = dict(mg.path_launches)
+        y = ffn(x, *args, **kw)
+        if SEEN["run"] is not None:
+            path = next(k for k, v in mg.path_launches.items()
+                        if v != before[k])
+            key = (x.shape[1], path)
+            SEEN["run"].setdefault(SEEN["phase"], Counter())[key] += 1
+            SEEN["ffn"][key] += 1
+            if SEEN["phase"] in ("prefill", "chunks"):
+                SEEN["ffn_prefill_c"].add(x.shape[1])
+        return y
+
+    def scan_observed(x, *args, **kw):
+        if SEEN["run"] is not None:
+            SEEN["scan"].add(tuple(x.shape[:2]))
+        return scan(x, *args, **kw)
+
+    def rows_observed(fn, x):
+        if SEEN["run"] is not None:
+            SEEN["rows"].add(x.numel() // x.shape[-1])
+        return blocked(fn, x)
+    ops.expert_ffn_cuda = ffn_observed
+    ops.ssm_scan_cuda = scan_observed
+    layers.row_blocked = rows_observed
 
 
 def reset_counts():
-    from repro_torch.kernels import decode_attention, flash_attention, \
-        moe_gemm
-    for k in (decode_attention.KERNEL, decode_attention.PAGED_KERNEL,
-              flash_attention.KERNEL, moe_gemm.KERNEL):
+    from repro_torch.kernels import moe_gemm
+    for k in all_kernels():
         k.launches = 0
     for k in moe_gemm.path_launches:
         moe_gemm.path_launches[k] = 0
@@ -638,9 +798,9 @@ class Run:
             def counted_tick():
                 c0 = launch_counts()
                 t0 = time.perf_counter()
-                FFN_C["phase"] = "chunks"
+                SEEN["phase"] = "chunks"
                 out = tick()   # ends in the chunk checkpoint's host copy
-                FFN_C["phase"] = "decode"
+                SEEN["phase"] = "decode"
                 if out:
                     self.tick_s.append(time.perf_counter() - t0)
                 for k, v in delta(c0, launch_counts()).items():
@@ -648,16 +808,22 @@ class Run:
                 return out
             engine.chunked.tick = counted_tick
         c0 = launch_counts()
-        self.ffn_c = FFN_C["seen"] = {}
-        FFN_C["phase"] = "prefill"
+        self.ffn_c = SEEN["run"] = {}
+        SEEN["phase"] = "prefill"
         t_submit, handles = {}, []
-        for i, p in enumerate(prompts):
-            t_submit[f"r{i}"] = time.perf_counter()
-            handles.append(engine.client.submit(RequestSpec(
-                rid=f"r{i}", prompt=p, max_new=max_new)))
-        c1 = launch_counts()
-        FFN_C["phase"] = "decode"
         self.first, last, self.tbt = {}, {}, []
+        for i, p in enumerate(prompts):
+            rid = f"r{i}"
+            t_submit[rid] = time.perf_counter()
+            handles.append(engine.client.submit(RequestSpec(
+                rid=rid, prompt=p, max_new=max_new)))
+            if handles[-1].tokens():
+                # the exact whole-prompt scheme samples the first token
+                # from the prefill's logits (a host sync) inside submit
+                last[rid] = time.perf_counter()
+                self.first[rid] = last[rid] - t_submit[rid]
+        c1 = launch_counts()
+        SEEN["phase"] = "decode"
         self.steps = 0
         self.t_fail, self.victims, self.recovery_s = None, [], None
         t_dec0 = None
@@ -683,13 +849,12 @@ class Run:
                 self.recovery_s = now - self.t_fail
         t_end = time.perf_counter()
         c2 = launch_counts()
-        FFN_C["seen"] = None
+        SEEN["run"] = None
         n_ffn = delta(c0, c2)["moe_ffn"]
-        if n_ffn and not self.ffn_c:
-            raise AssertionError(f"{n_ffn} expert FFN launches, none seen "
-                                 f"through ops.expert_ffn_cuda")
-        for cs in self.ffn_c.values():
-            FFN_C["all"] |= cs
+        if n_ffn != sum(sum(c.values()) for c in self.ffn_c.values()):
+            raise AssertionError(f"{n_ffn} expert FFN launches, not all "
+                                 f"seen through ops.expert_ffn_cuda: "
+                                 f"{self.ffn_c}")
         if engine.chunked is not None:
             engine.chunked.tick = tick
         self.launches = {"prefill": delta(c0, c1), "chunks": chunk_counts,
@@ -719,7 +884,8 @@ class Run:
                   f"{', '.join(f'{t * 1e3:.1f}' for t in self.tick_s)} ms")
         for phase, counts in self.launches.items():
             print(f"    {phase}: { {k: v for k, v in counts.items() if v} }"
-                  + (f", expert FFN at C {sorted(self.ffn_c[phase])}"
+                  + (f", expert FFN (C, path): "
+                     f"{dict(sorted(self.ffn_c[phase].items()))}"
                      if phase in self.ffn_c else ""))
 
 
@@ -813,7 +979,7 @@ def serve_phase(torch, profile_dir=None):
     engine.provision_ew(0)
     if profile_dir is not None:
         profile_decode(torch, engine, prompts, profile_dir)
-    return engine, prompts, launches, run.launches
+    return engine, prompts, run
 
 
 def host_ms(torch, fn, reps: int = 20) -> float:
@@ -831,43 +997,88 @@ def host_ms(torch, fn, reps: int = 20) -> float:
 
 
 def row_count_probe(torch, params):
-    """Whether a token's result depends on how many rows share its call,
-    at the row counts chunked and whole-prompt prefill give it: each dense
-    projection of a layer (torch.matmul) over M rows, and the expert FFN
-    kernel for one slot at capacity C (the skinny path for C <= 4, the
-    tensor-core path above). Each result's first rows are compared bit for
-    bit with the same rows computed at the largest count. Printed, not
-    checked: it says where chunked and whole prefill part."""
-    from repro_torch.kernels import moe_gemm as mg
+    """Whether a token's bits depend on how many rows share its call, at
+    every row count the runs' prefill and chunk calls gave the row-blocked
+    projections and norms (``SEEN["rows"]``) and every capacity C they
+    gave the expert FFN (``SEEN["ffn_prefill_c"]``): each result is
+    compared bit for bit with the same rows of the largest call, the rows
+    taken at two offsets (a token need not sit at the same row, or the
+    same position in its row block, in both calls). Raises on any
+    mismatch. Also times the blocked projections against one plain
+    matmul: the repair's cost per call."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
     g = torch.Generator(device="cuda").manual_seed(3)
     lp = params["layers"][0]
     weights = {n: lp["attn"][n] for n in ("wq", "wk", "wv", "wo")}
     weights["router"] = lp["moe"]["router"]
-    for name, w in weights.items():
-        x = torch.randn((1024, w.shape[0]), generator=g, device="cuda").to(
-            w.dtype)
-        ref = x @ w
-        same = {m: torch.equal(x[:m] @ w, ref[:m]) for m in (8, 64, 128, 256)}
-        print(f"  row-count probe, x @ {name} {tuple(w.shape)}: rows equal "
-              f"to the M=1024 call's: "
-              f"{ {f'M={m}': v for m, v in same.items()} }")
-    ex = lp["moe"]["experts"]
+    rows = sorted(SEEN["rows"])
+    if not rows or not SEEN["ffn_prefill_c"]:
+        raise AssertionError("no prefill or chunk call shapes were seen")
+    big = max(rows + [1024]) + 64
     d = weights["wq"].shape[0]
-    se = torch.zeros((1,), dtype=torch.int32, device="cuda")
-    xs = torch.randn((1, 256, d), generator=g, device="cuda").to(
-        weights["wq"].dtype)
-    real = 2
+    bad = []
 
-    def ffn(c):
-        xc = torch.zeros((1, c, d), dtype=xs.dtype, device="cuda")
-        xc[:, :real] = xs[:, :real]
-        cnt = torch.full((1,), real, dtype=torch.int32, device="cuda")
-        return mg.expert_ffn_cuda(xc, ex["wg"], ex["wu"], ex["wd"], se,
-                                  cnt)[:, :real]
-    ref = ffn(256)
-    same = {c: torch.equal(ffn(c), ref) for c in (2, 4, 8, 64, 128)}
-    print(f"  row-count probe, expert FFN's first {real} rows equal to the "
-          f"C=256 call's: { {f'C={c}': v for c, v in same.items()} }")
+    def same(name, fn, x, ref, m):
+        for off in (0, 37):
+            if not torch.equal(fn(x[off:off + m]), ref[off:off + m]):
+                bad.append((name, m, off))
+    for name, w in weights.items():
+        x = torch.randn((big, w.shape[0]), generator=g, device="cuda").to(
+            w.dtype)
+
+        def proj(v, w=w):
+            return layers.matmul(v, w, True)
+        ref = proj(x)
+        for m in rows:
+            same(f"x @ {name}", proj, x, ref, m)
+    x = torch.randn((big, d), generator=g, device="cuda").to(
+        weights["wq"].dtype)
+
+    def ln(v):
+        return layers.norm(lp["ln1"], v, 1e-6, True)
+    ref = ln(x)
+    for m in rows:
+        same("rmsnorm", ln, x, ref, m)
+    print(f"  row-count probe: projections (wq, wk, wv, wo, router) and "
+          f"rmsnorm at M {rows}, each at 2 offsets, against the M={big} "
+          f"call")
+    ex = lp["moe"]["experts"]
+    se = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    cs = sorted(SEEN["ffn_prefill_c"])
+    xs = torch.randn((1, max(cs) + 64, d), generator=g, device="cuda").to(
+        weights["wq"].dtype)
+
+    def ffn(v):
+        cnt = torch.full((1,), v.shape[1], dtype=torch.int32, device="cuda")
+        return ops.expert_ffn(v.contiguous(), ex["wg"], ex["wu"], ex["wd"],
+                              se, cnt, decode=False)
+    ref = ffn(xs)
+    for c in cs:
+        for off in (0, 37):
+            if not torch.equal(ffn(xs[:, off:off + c]), ref[:, off:off + c]):
+                bad.append(("expert FFN", c, off))
+    print(f"  row-count probe: expert FFN prefill/chunk path at C {cs}, "
+          f"each at 2 offsets, against the C={xs.shape[1]} call")
+    if bad:
+        raise AssertionError(f"rows whose bits depend on the call's row "
+                             f"count: {bad}")
+    print("  row-count probe: every row bitwise equal to the largest "
+          "call's")
+    for name in ("wq", "wk"):
+        w = weights[name]
+        for m in (64, 128, 1024):
+            xm = torch.randn((m, d), generator=g, device="cuda").to(w.dtype)
+            tb = time_ms(torch, lambda: layers.matmul(xm, w, True))
+            tp = time_ms(torch, lambda: xm @ w)
+            print(f"  repair cost, x @ {name} {tuple(w.shape)} at M={m}: "
+                  f"row-blocked {tb:.4f} ms, one matmul {tp:.4f} ms")
+    xm = torch.randn((1024, d), generator=g, device="cuda").to(
+        weights["wq"].dtype)
+    tb = time_ms(torch, lambda: layers.norm(lp["ln1"], xm, 1e-6, True))
+    tp = time_ms(torch, lambda: layers.rmsnorm(lp["ln1"], xm, 1e-6))
+    print(f"  repair cost, rmsnorm at M=1024: row-blocked {tb:.4f} ms, "
+          f"one call {tp:.4f} ms")
 
 
 def kv_plane_phase(torch, engine, prompts):
@@ -906,13 +1117,14 @@ def kv_plane_phase(torch, engine, prompts):
                              f"for requests {bad}")
     print(f"  paged (page {PAGE_TOKENS} tokens) streams bitwise equal to "
           f"contiguous ones, both chunked at {CHUNK_BUDGET} tokens/step")
-    same = runs["contiguous"].streams == runs["whole"].streams
-    diff = [i for i, (a, b) in enumerate(zip(runs["contiguous"].streams,
-                                             runs["whole"].streams))
-            if a != b]
-    print(f"  chunked streams equal to whole-prompt streams: {same}"
-          + ("" if same else f" (requests {diff} differ)"))
     row_count_probe(torch, engine.params)
+    if runs["contiguous"].streams != runs["whole"].streams:
+        bad = [i for i, (a, b) in enumerate(zip(runs["contiguous"].streams,
+                                                runs["whole"].streams))
+               if a != b]
+        raise AssertionError(f"chunked streams differ from whole-prompt "
+                             f"streams for requests {bad}")
+    print("  chunked streams bitwise equal to whole-prompt streams")
     lp = {k: sum(ph[k] for ph in runs["paged"].launches.values())
           for k in runs["paged"].launches["decode"]}
     if lp["decode_attention_paged"] <= 0 or lp["decode_attention_fused"]:
@@ -971,7 +1183,122 @@ def kv_plane_phase(torch, engine, prompts):
                              f"AW0 restored at the step after "
                              f"provision_aw(0); {restored} restored, "
                              f"{recovered_now} at recover_aw_requests")
-    return runs["whole"].launches, runs["paged"].launches
+    return runs["whole"], runs["paged"]
+
+
+def zamba2_13_layers():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("zamba2_7b"),
+                               num_layers=HYBRID_LAYERS, dtype="bfloat16")
+
+
+def hybrid_phase(torch, profile_dir=None):
+    """Zamba2-7B at full width, 13 layers, bf16 (2 units of 6 Mamba2
+    blocks + the shared attention block, then 1 trailing block): 8
+    requests of 128 prompt tokens and 16 greedy new tokens, each
+    prefilled alone through ``client.submit`` (the exact whole-prompt
+    scheme: a recurrent state never sees a pad); then the same requests
+    with ``fail_aw(0)`` once every request has 8 tokens, recover,
+    provision: every stream must equal the failure-free one bit for bit.
+    Returns the failure-free Run."""
+    import numpy as np
+    from repro_torch.models.hybrid import _geometry
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    cfg = zamba2_13_layers()
+    every, units, trailing = _geometry(cfg)
+    ecfg = EngineConfig(max_batch=8, max_seq=HYBRID_MAX_SEQ, num_aw=2,
+                        num_ew=1)
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, ecfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  engine: {cfg.name} at {cfg.num_layers} layers ({units} units "
+          f"of {every} Mamba2 blocks + the shared block, {trailing} "
+          f"trailing) bf16, {cfg.param_count / 1e9:.2f}B params, seeded "
+          f"init {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(128,)).astype(np.int32)
+               for _ in range(8)]
+    max_new = 16
+    Run(torch, engine, prompts, 2)                    # warm-up
+    reset_counts()
+    calls0, steps0 = engine.scheduler.stats.calls, engine.steps
+    run = Run(torch, engine, prompts, max_new)
+    calls = engine.scheduler.stats.calls - calls0
+    steps = engine.steps - steps0
+    pre, dec = run.launches["prefill"], run.launches["decode"]
+    want = {"prefill": {"ssm_scan": cfg.num_layers * calls,
+                        "flash_attention": units * calls},
+            "decode": {"ssm_scan": 0, "decode_attention_fused":
+                       units * steps}}
+    for phase, kernels in want.items():
+        for k, n in kernels.items():
+            if run.launches[phase][k] != n:
+                raise AssertionError(
+                    f"hybrid {phase}: {k} launched "
+                    f"{run.launches[phase][k]} times, expected {n} "
+                    f"({calls} prefill calls, {steps} decode steps)")
+    if calls != len(prompts) or pre["moe_ffn"] or dec["moe_ffn"] or \
+            dec["decode_attention_paged"]:
+        raise AssertionError(f"hybrid launches off the path: {run.launches}")
+    for st in run.streams:
+        if len(st) != max_new or not all(0 <= t < cfg.vocab_size
+                                         for t in st):
+            raise AssertionError(f"bad stream {st}")
+    print(f"  main path: {calls} prefill calls (each one 128-token prompt: "
+          f"{cfg.num_layers} ssm_scan + {units} flash launches), {steps} "
+          f"decode steps ({units} decode attention launches each)")
+    run.report("hybrid serve")
+    print(f"  stream r0: {run.streams[0][:12]}...")
+    # what the per-step checkpoint copies: every row's new K/V plus its
+    # whole recurrent state (h and conv of every Mamba2 block)
+    slots, toks = list(range(8)), [150] * 8
+    leaves = engine.layout.extract_tokens(engine.cache, slots, toks)
+    nbytes = sum(t.nbytes for t in leaves)
+    ck_ms = host_ms(torch, lambda: engine.layout.extract_tokens(
+        engine.cache, slots, toks), reps=10)
+    print(f"  per-step checkpoint gather + device-to-host copy (8 rows): "
+          f"{ck_ms:.3f} ms, {nbytes} bytes ({nbytes // 8} per token)")
+
+    print("hybrid AW failover: fail_aw(0) once every request has 8 tokens")
+    restores0 = engine.store.stats.restores
+    bytes0 = engine.store.stats.bytes_restored
+    recovered_now = []
+
+    def fail_aw(eng, handles, steps):
+        if min(len(h.tokens()) for h in handles) < 8:
+            return None
+        victims = [r.rid for r in eng.requests.values()
+                   if r.aw == 0 and not r.done]
+        eng.fail_aw(0)
+        recovered_now.extend(eng.recover_aw_requests())
+        eng.provision_aw(0)
+        return victims
+    fo = Run(torch, engine, prompts, max_new, fail=fail_aw)
+    if fo.t_fail is None:
+        raise AssertionError("the AW failure was never injected")
+    if fo.streams != run.streams:
+        bad = [i for i, (a, b) in enumerate(zip(fo.streams, run.streams))
+               if a != b]
+        raise AssertionError(f"hybrid streams under fail_aw(0) differ from "
+                             f"the failure-free run for requests {bad}")
+    restored = engine.store.stats.restores - restores0
+    if restored != len(fo.victims) or recovered_now or not fo.victims:
+        raise AssertionError(f"expected the {len(fo.victims)} requests of "
+                             f"AW0 restored at the step after "
+                             f"provision_aw(0); {restored} restored, "
+                             f"{recovered_now} at recover_aw_requests")
+    print(f"  {len(fo.streams)} streams bitwise equal to the failure-free "
+          f"run; restored {restored} requests, "
+          f"{engine.store.stats.bytes_restored - bytes0} bytes; fail_aw to "
+          f"the restored requests' next token {fo.recovery_s * 1e3:.2f} ms "
+          f"(host clock); largest gap between tokens "
+          f"{max(fo.tbt) * 1e3:.2f} ms; on {card_line()}")
+    fo.report("hybrid AW failover")
+    if profile_dir is not None:
+        profile_decode(torch, engine, prompts, profile_dir / "hybrid")
+    return run
 
 
 def profile_decode(torch, engine, prompts, out_dir):
@@ -1069,46 +1396,83 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    observe_ffn_capacities()
+    observe_kernel_shapes()
     records = []
     g = torch.Generator(device="cuda").manual_seed(0)
     kernel_decode_attention(torch, g, records)
+    print("decode_attention at Zamba2's shared block (Dh 112, G 1)")
+    decode_attention_at(torch, g, records, "decode_attention_fused[Dh112]",
+                        8, 32, 32, 112, HYBRID_MAX_SEQ)
     kernel_decode_attention_paged(torch, g, records)
-    kernel_flash_attention(torch, g, records, b=1)
+    kernel_flash_attention(torch, g, records)
+    print("flash_attention at Zamba2's shared block (Dh 112, G 1)")
+    flash_attention_at(torch, g, records, "flash_attention[Dh112]", 1, 128,
+                       32, 32, 112)
     kernel_flash_chunk(torch, g, records)
     kernel_moe_gemm(torch, g, records, MOE_SHAPES)
+    kernel_ssm_scan(torch, g, records, SCAN_SHAPES)
 
+    import dataclasses
+    from repro_torch.configs import get_config
     print("reference: reduced Mixtral, card kernels vs CPU plain path")
-    reference_phase(torch)
+    reference_phase(torch, get_config("mixtral_8x7b").reduced())
+    print("reference: reduced Zamba2 with a trailing block, card kernels vs "
+          "CPU plain path")
+    reference_phase(torch, dataclasses.replace(
+        get_config("zamba2_7b").reduced(), num_layers=5))
     print("serve: Mixtral-8x7B widths, 8 layers, bf16, contiguous KV")
-    engine, prompts, launches, phases = serve_phase(
-        torch, profile_dir=args.profile)
+    engine, prompts, serve = serve_phase(torch, profile_dir=args.profile)
     print(f"kv plane: the same weights at capacity factor 4.0, chunked "
           f"prefill ({CHUNK_BUDGET} tokens/step), paged KV "
           f"({PAGE_TOKENS}-token pages)")
     whole, paged = kv_plane_phase(torch, engine, prompts)
-    checked = {c for _, c, _ in MOE_SHAPES}
-    if not FFN_C["all"] <= checked:
-        raise AssertionError(f"the expert FFN ran at C "
-                             f"{sorted(FFN_C['all'] - checked)}, which the "
-                             f"kernel phase did not hold to its plain "
+    del engine
+    gc.collect()                 # the engines hold reference cycles
+    torch.cuda.empty_cache()
+    print(f"hybrid: Zamba2-7B widths, {HYBRID_LAYERS} layers, bf16, "
+          f"contiguous KV + recurrent state, 2 AWs")
+    hybrid = hybrid_phase(torch, profile_dir=args.profile)
+
+    checked = {(c, path) for _, c, _, path in MOE_SHAPES}
+    if not set(SEEN["ffn"]) <= checked:
+        raise AssertionError(f"the expert FFN ran at (C, path) "
+                             f"{sorted(set(SEEN['ffn']) - checked)}, which "
+                             f"the kernel phase did not hold to its plain "
                              f"version")
-    print(f"expert FFN capacities on every run: {sorted(FFN_C['all'])}, "
-          f"each held to its plain version in the kernel phase")
+    print(f"expert FFN (C, path) on every run: {sorted(SEEN['ffn'])}, each "
+          f"held to its plain version in the kernel phase")
+    if not SEEN["scan"] <= set(SCAN_SHAPES):
+        raise AssertionError(f"the SSD scan ran at (B, S) "
+                             f"{sorted(SEEN['scan'] - set(SCAN_SHAPES))}, "
+                             f"which the kernel phase did not check")
+    print(f"ssm_scan (B, S) on every run: {sorted(SEEN['scan'])}, each held "
+          f"to its plain version in the kernel phase")
+
+    def total(run, k):
+        return sum(ph[k] for ph in run.launches.values())
+
+    def ffn_launches(run, c, path):
+        return sum(cnt[(c, path)] for cnt in run.ffn_c.values())
+    runs = {"serve": serve, "whole": whole, "paged": paged}
+    moe_run = {"decode": "serve", "prefill": "serve", "prefill-kv": "whole"}
+    launches = {
+        "decode_attention_fused": total(serve, "decode_attention_fused"),
+        "decode_attention_fused[Dh112]":
+            total(hybrid, "decode_attention_fused"),
+        "decode_attention_paged": total(paged, "decode_attention_paged"),
+        "flash_attention": total(serve, "flash_attention"),
+        "flash_attention[Dh112]": total(hybrid, "flash_attention"),
+        "flash_attention[chunk]": paged.launches["chunks"]["flash_attention"],
+        "ssm_scan": total(hybrid, "ssm_scan"),
+    }
+    for label, c, _, path in MOE_SHAPES:
+        launches[f"moe_gemm[{label}]"] = ffn_launches(
+            runs[moe_run.get(label, "paged")], c, path)
     for r in records:
-        r["launches"] = {
-            "decode_attention_fused": launches["decode_attention_fused"],
-            "decode_attention_paged":
-                paged["decode"]["decode_attention_paged"],
-            "flash_attention": launches["flash_attention"],
-            "flash_attention[chunk]": paged["chunks"]["flash_attention"],
-            "moe_gemm[prefill]": phases["prefill"]["moe_ffn"],
-            "moe_gemm[decode]": phases["decode"]["moe_ffn"],
-            "moe_gemm[decode-kv]": paged["decode"]["moe_ffn"],
-            "moe_gemm[prefill-kv]": whole["prefill"]["moe_ffn"],
-            "moe_gemm[chunk]": paged["chunks"]["moe_ffn/tensor_core"],
-            "moe_gemm[chunk-tail]": paged["chunks"]["moe_ffn/skinny"],
-        }[r["name"]]
+        r["launches"] = launches[r["name"]]
+        if r["launches"] <= 0:
+            raise AssertionError(f"{r['name']} was not launched on its "
+                                 f"path")
     print(card_line())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

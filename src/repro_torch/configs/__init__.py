@@ -1,7 +1,7 @@
 """Architecture config registry: ``get_config(<id>)`` resolution.
 
-Only the paper's own model is registered so far; the other families of
-``repro.configs`` join as their model code is ported.
+The paper's own model and the hybrid family are registered; the other
+families of ``repro.configs`` join as their model code is ported.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from repro_torch.configs.base import ModelConfig, MoEConfig  # noqa: F401
 
 ARCH_IDS = (
     "mixtral_8x7b",   # the paper's own evaluation model
+    "zamba2_7b",      # Mamba2 blocks + a shared attention block
 )
 
 

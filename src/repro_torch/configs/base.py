@@ -36,8 +36,8 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class SSMConfig:
-    """Mamba2-style block configuration (no family of the port uses it yet;
-    kept so ``reduced()`` mirrors the reference field for field)."""
+    """Mamba2-style selective state-space block configuration (the hybrid
+    family: Zamba2)."""
 
     state_dim: int = 0
     head_dim: int = 64
@@ -109,8 +109,8 @@ class ModelConfig:
 
     @property
     def param_count(self) -> int:
-        """Approximate parameter count (embeddings + blocks), transformer
-        families only."""
+        """Approximate parameter count (embeddings + blocks), as the
+        reference counts it."""
         d = self.d_model
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         hd = self.head_dim_
@@ -123,6 +123,12 @@ class ModelConfig:
             dense_ffn = 3 * d * self.d_ff if self.d_ff else 3 * d * self.moe.d_ff
             n += self.moe.first_k_dense * (attn + dense_ffn)
             n += (self.num_layers - self.moe.first_k_dense) * (attn + ffn_moe)
+        elif self.ssm.enabled and self.arch_type == "hybrid":
+            d_in = self.ssm.expand * d
+            mamba = 2 * d * d_in + d_in * d + d_in * (self.ssm.state_dim * 2)
+            n += self.num_layers * mamba
+            n_attn_apps = self.num_layers // max(1, self.hybrid_attn_every)
+            n += attn + 3 * d * self.d_ff if n_attn_apps else 0
         else:
             mult = 3 if self.mlp_gated else 2
             n += self.num_layers * (attn + mult * d * self.d_ff)

@@ -3,7 +3,8 @@
 Takes the reference model's params as a nested dict/tuple of array-likes
 (``np.asarray`` must accept each leaf, as it does JAX arrays) and returns
 the port's layout: the scanned ``blocks`` axis is unstacked into a list of
-per-layer dicts (leading ``dense{i}`` layers first), and every weight keeps
+per-layer dicts (leading ``dense{i}`` layers first), the hybrid's stacked
+Mamba2 blocks into one list in execution order, and every weight keeps
 its layout ([in, out] projections, [E, D, F] expert banks). The port does
 not import JAX: the caller hands over the params.
 """
@@ -32,8 +33,11 @@ def _tree(node, fn):
 
 
 def params_from_reference(ref_params: Any, device="cuda") -> dict:
-    """Convert reference decoder params (``build_decoder().init_params``)
-    into the port's param dict on ``device``."""
+    """Convert reference decoder or hybrid params (``init_params`` of
+    ``build_decoder`` or ``build_hybrid``) into the port's param dict on
+    ``device``."""
+    if "units" in ref_params:
+        return _hybrid_from_reference(ref_params, device)
     out = {k: _tree(v, lambda a: _tensor(a, device))
            for k, v in ref_params.items()
            if k != "blocks" and not k.startswith("dense")}
@@ -57,3 +61,21 @@ def _first_leaf(node):
         node = next(iter(node.values())) if isinstance(node, dict) \
             else node[0]
     return node
+
+
+def _hybrid_from_reference(ref_params, device) -> dict:
+    """The hybrid's stacked Mamba2 blocks (``units`` [r, every, ...], then
+    ``trailing`` [t, ...]) become one ``blocks`` list in execution
+    order; ``shared`` and the rest keep their layout."""
+    out = {k: _tree(v, lambda a: _tensor(a, device))
+           for k, v in ref_params.items() if k not in ("units", "trailing")}
+    units = _tree(ref_params["units"], np.asarray)
+    r, every = _first_leaf(units).shape[:2]
+    blocks = [_tree(units, lambda a, u=u, j=j: _tensor(a[u, j], device))
+              for u in range(r) for j in range(every)]
+    if "trailing" in ref_params:
+        tr = _tree(ref_params["trailing"], np.asarray)
+        blocks += [_tree(tr, lambda a, i=i: _tensor(a[i], device))
+                   for i in range(_first_leaf(tr).shape[0])]
+    out["blocks"] = blocks
+    return out

@@ -23,7 +23,9 @@
 // device memory once for all G of them. Eight warps take groups of NJ = 4
 // consecutive cache positions round-robin; inside a warp the 32 lanes
 // split the head dimension (lane l owns elements l, l+32, ...: coalesced
-// loads), the 4 * G scores of a group are warp-wide reductions interleaved
+// loads; a head dimension that is not a multiple of 32, such as Zamba2's
+// 112, leaves the last group's upper lanes holding zeros, which add
+// nothing to any sum), the 4 * G scores of a group are warp-wide reductions interleaved
 // for instruction-level parallelism, and the warp's online softmax (m, l,
 // acc) takes one rescale per group. A masked position contributes exactly
 // nothing (probability 0, max unchanged), as in the block update. The
@@ -69,7 +71,7 @@ struct Paged {
   }
 };
 
-template <typename T, int EPL, int G, typename Layout>
+template <typename T, int DH, int G, typename Layout>
 __global__ void __launch_bounds__(NWARPS * 32)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ ck,
                    const T* __restrict__ cv, const int* __restrict__ cpos,
@@ -77,12 +79,15 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ ck,
                    const int* __restrict__ pos, T* __restrict__ out, int H,
                    int Hkv, int Sc, int window, float softcap, float scale,
                    Layout layout) {
-  constexpr int Dh = EPL * 32;
+  constexpr int EPL = (DH + 31) / 32;       // head elements per lane
+  constexpr int DP = EPL * 32;
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int p = pos[b];
+  // whether lane element e lies inside the head (always, when DH % 32 == 0)
+  auto in = [lane](int e) { return DH % 32 == 0 || lane + 32 * e < DH; };
 
   float qr[G][EPL];
   float acc[G][EPL];
@@ -92,16 +97,16 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ ck,
   for (int g = 0; g < G; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.f;
-    const size_t off = ((size_t)b * H + (size_t)hk * G + g) * Dh + lane;
+    const size_t off = ((size_t)b * H + (size_t)hk * G + g) * DH + lane;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       acc[g][e] = 0.f;
-      qr[g][e] = to_f(q[off + 32 * e]) * scale;
+      qr[g][e] = in(e) ? to_f(q[off + 32 * e]) * scale : 0.f;
     }
   }
 
-  const size_t stride = (size_t)Hkv * Dh;   // between cache rows
-  const size_t head = (size_t)hk * Dh + lane;
+  const size_t stride = (size_t)Hkv * DH;   // between cache rows
+  const size_t head = (size_t)hk * DH + lane;
   for (int j0 = warp * NJ; j0 < Sc; j0 += NWARPS * NJ) {
     const size_t r0 = layout.group(b, j0);
     bool valid[NJ];
@@ -113,8 +118,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ ck,
       const size_t off = (r0 + jj) * stride + head;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
-        kr[jj][e] = valid[jj] ? to_f(ck[off + 32 * e]) : 0.f;
-        vr[jj][e] = valid[jj] ? to_f(cv[off + 32 * e]) : 0.f;
+        kr[jj][e] = valid[jj] && in(e) ? to_f(ck[off + 32 * e]) : 0.f;
+        vr[jj][e] = valid[jj] && in(e) ? to_f(cv[off + 32 * e]) : 0.f;
       }
     }
     bool any = false;
@@ -163,7 +168,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ ck,
 
   __shared__ float sm_m[NWARPS][G];
   __shared__ float sm_l[NWARPS][G];
-  __shared__ float sm_acc[NWARPS][G][Dh];
+  __shared__ float sm_acc[NWARPS][G][DP];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     if (lane == 0) {
@@ -189,12 +194,13 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ ck,
 #pragma unroll
       for (int e = 0; e < EPL; ++e) a[e] += sm_acc[w][g][lane + 32 * e] * c;
     }
-    const size_t qoff = ((size_t)b * H + (size_t)hk * G + g) * Dh + lane;
-    const size_t koff = ((size_t)b * Hkv + hk) * Dh + lane;
+    const size_t qoff = ((size_t)b * H + (size_t)hk * G + g) * DH + lane;
+    const size_t koff = ((size_t)b * Hkv + hk) * DH + lane;
     float s = 0.f;
 #pragma unroll
     for (int e = 0; e < EPL; ++e)
-      s += to_f(q[qoff + 32 * e]) * scale * to_f(k1[koff + 32 * e]);
+      if (in(e))
+        s += to_f(q[qoff + 32 * e]) * scale * to_f(k1[koff + 32 * e]);
     s = warp_sum(s);
     if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
     const float m_f = fmaxf(mm, s);
@@ -203,29 +209,30 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ ck,
     const float denom = fmaxf(ll * corr + ps, 1e-30f);
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
+      if (!in(e)) continue;
       const float o = (a[e] * corr + ps * to_f(v1[koff + 32 * e])) / denom;
       store(&out[qoff + 32 * e], o);
     }
   }
 }
 
-template <typename T, int EPL, typename Layout>
+template <typename T, int DH, typename Layout>
 cudaError_t launch_g(const void* q, const void* ck, const void* cv,
                      const int* cpos, const void* k1, const void* v1,
                      const int* pos, void* out, int B, int H, int Hkv,
                      int Sc, int window, float softcap, Layout layout,
                      cudaStream_t st) {
-  const float scale = 1.0f / sqrtf((float)(EPL * 32));
+  const float scale = 1.0f / sqrtf((float)DH);
   const dim3 grid(Hkv, B);
   const dim3 block(NWARPS * 32);
 #define DECODE_ARGS                                                        \
   (const T*)q, (const T*)ck, (const T*)cv, cpos, (const T*)k1,             \
       (const T*)v1, pos, (T*)out, H, Hkv, Sc, window, softcap, scale, layout
   switch (H / Hkv) {
-    case 1: decode_attn_kernel<T, EPL, 1, Layout><<<grid, block, 0, st>>>(DECODE_ARGS); break;
-    case 2: decode_attn_kernel<T, EPL, 2, Layout><<<grid, block, 0, st>>>(DECODE_ARGS); break;
-    case 4: decode_attn_kernel<T, EPL, 4, Layout><<<grid, block, 0, st>>>(DECODE_ARGS); break;
-    case 8: decode_attn_kernel<T, EPL, 8, Layout><<<grid, block, 0, st>>>(DECODE_ARGS); break;
+    case 1: decode_attn_kernel<T, DH, 1, Layout><<<grid, block, 0, st>>>(DECODE_ARGS); break;
+    case 2: decode_attn_kernel<T, DH, 2, Layout><<<grid, block, 0, st>>>(DECODE_ARGS); break;
+    case 4: decode_attn_kernel<T, DH, 4, Layout><<<grid, block, 0, st>>>(DECODE_ARGS); break;
+    case 8: decode_attn_kernel<T, DH, 8, Layout><<<grid, block, 0, st>>>(DECODE_ARGS); break;
     default: return cudaErrorInvalidValue;
   }
 #undef DECODE_ARGS
@@ -239,12 +246,16 @@ cudaError_t launch(const void* q, const void* ck, const void* cv,
                    int Sc, int window, float softcap, Layout layout,
                    cudaStream_t st) {
   switch (Dh) {
-    case 32: return launch_g<T, 1>(q, ck, cv, cpos, k1, v1, pos, out, B, H,
+    case 32: return launch_g<T, 32>(q, ck, cv, cpos, k1, v1, pos, out, B, H,
                                    Hkv, Sc, window, softcap, layout, st);
-    case 64: return launch_g<T, 2>(q, ck, cv, cpos, k1, v1, pos, out, B, H,
+    case 64: return launch_g<T, 64>(q, ck, cv, cpos, k1, v1, pos, out, B, H,
                                    Hkv, Sc, window, softcap, layout, st);
-    case 128: return launch_g<T, 4>(q, ck, cv, cpos, k1, v1, pos, out, B, H,
-                                    Hkv, Sc, window, softcap, layout, st);
+    case 112: return launch_g<T, 112>(q, ck, cv, cpos, k1, v1, pos, out, B,
+                                      H, Hkv, Sc, window, softcap, layout,
+                                      st);
+    case 128: return launch_g<T, 128>(q, ck, cv, cpos, k1, v1, pos, out, B,
+                                      H, Hkv, Sc, window, softcap, layout,
+                                      st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -274,7 +285,7 @@ int launch_dtype(const void* q, const void* ck, const void* cv,
 
 // q [B,H,Dh]; ck/cv [B,Sc,Hkv,Dh]; cpos [B,Sc] int32; k1/v1 [B,Hkv,Dh];
 // pos [B] int32 -> out [B,H,Dh]; all contiguous. G = H / Hkv in
-// {1, 2, 4, 8}, Dh in {32, 64, 128}. dtype 0 = float32, 1 = bfloat16.
+// {1, 2, 4, 8}, Dh in {32, 64, 112, 128}. dtype 0 = float32, 1 = bfloat16.
 // Returns cudaGetLastError() after the launch.
 extern "C" int decode_attention_fused(const void* q, const void* ck,
                                       const void* cv, const void* cpos,

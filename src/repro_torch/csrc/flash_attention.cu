@@ -14,8 +14,10 @@
 // Design: one block per (16-row query tile, kv-head, batch row). A query
 // "row" is one (position, grouped head) pair, so the G heads of a kv-head
 // share every K/V tile the block stages in shared memory. Each of the four
-// warps owns four rows; the 32 lanes split the head dimension and every
-// score is a warp-wide reduction. KV tiles are a fixed 32 keys whatever the
+// warps owns four rows; the 32 lanes split the head dimension (a head
+// dimension that is not a multiple of 32, such as 112, is zero-filled to
+// the next one in registers and shared memory) and every score is a
+// warp-wide reduction. KV tiles are a fixed 32 keys whatever the
 // padded extent, and keys are visited in ascending order; a masked key is
 // skipped, which is exactly the no-op it is in the block update, so the
 // result does not depend on how far the KV axis was padded.
@@ -30,14 +32,17 @@ constexpr int R = 4;                        // query rows per warp
 constexpr int ROWS = NWARPS * R;            // query rows per block
 constexpr int BKV = 32;                     // keys per shared-memory tile
 
-template <typename T, int EPL>
+template <typename T, int DH>
 __global__ void __launch_bounds__(NWARPS * 32)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ qpos,
                   const int* __restrict__ kpos, T* __restrict__ out, int Sq,
                   int Sk, int H, int Hkv, int G, int causal, int window,
                   float softcap, float scale) {
-  constexpr int Dh = EPL * 32;
+  constexpr int EPL = (DH + 31) / 32;       // head elements per lane
+  constexpr int DP = EPL * 32;
+  // whether lane element e lies inside the head (always, when DH % 32 == 0)
+  auto in = [](int lane, int e) { return DH % 32 == 0 || lane + 32 * e < DH; };
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
@@ -63,26 +68,27 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int i = row / G;
       const int g = row % G;
       qp[r] = qpos[(size_t)b * Sq + i];
-      off = (((size_t)b * Sq + i) * H + (size_t)hk * G + g) * Dh + lane;
+      off = (((size_t)b * Sq + i) * H + (size_t)hk * G + g) * DH + lane;
     }
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       acc[r][e] = 0.f;
-      qr[r][e] = live[r] ? to_f(q[off + 32 * e]) * scale : 0.f;
+      qr[r][e] = live[r] && in(lane, e) ? to_f(q[off + 32 * e]) * scale
+                                        : 0.f;
     }
   }
 
-  __shared__ float ks[BKV][Dh];
-  __shared__ float vs[BKV][Dh];
+  __shared__ float ks[BKV][DP];
+  __shared__ float vs[BKV][DP];
   __shared__ int kps[BKV];
   for (int j0 = 0; j0 < Sk; j0 += BKV) {
-    for (int idx = threadIdx.x; idx < BKV * Dh; idx += NWARPS * 32) {
-      const int jj = idx / Dh;
-      const int d = idx % Dh;
+    for (int idx = threadIdx.x; idx < BKV * DP; idx += NWARPS * 32) {
+      const int jj = idx / DP;
+      const int d = idx % DP;
       const int j = j0 + jj;
       float kv = 0.f, vv = 0.f;
-      if (j < Sk) {
-        const size_t off = (((size_t)b * Sk + j) * Hkv + hk) * Dh + d;
+      if (j < Sk && d < DH) {
+        const size_t off = (((size_t)b * Sk + j) * Hkv + hk) * DH + d;
         kv = to_f(k[off]);
         vv = to_f(v[off]);
       }
@@ -131,11 +137,12 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = row0 + r;
     const int i = row / G;
     const int g = row % G;
-    const size_t off = (((size_t)b * Sq + i) * H + (size_t)hk * G + g) * Dh + lane;
+    const size_t off = (((size_t)b * Sq + i) * H + (size_t)hk * G + g) * DH + lane;
 #pragma unroll
     for (int e = 0; e < EPL; ++e)
-      store(&out[off + 32 * e],
-            l[r] > 0.f ? acc[r][e] / fmaxf(l[r], 1e-30f) : 0.f);
+      if (in(lane, e))
+        store(&out[off + 32 * e],
+              l[r] > 0.f ? acc[r][e] / fmaxf(l[r], 1e-30f) : 0.f);
   }
 }
 
@@ -152,9 +159,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   (const T*)q, (const T*)k, (const T*)v, qpos, kpos, (T*)out, Sq, Sk, H,   \
       Hkv, G, causal, window, softcap, scale
   switch (Dh) {
-    case 32: flash_attn_kernel<T, 1><<<grid, block, 0, st>>>(FLASH_ARGS); break;
-    case 64: flash_attn_kernel<T, 2><<<grid, block, 0, st>>>(FLASH_ARGS); break;
-    case 128: flash_attn_kernel<T, 4><<<grid, block, 0, st>>>(FLASH_ARGS); break;
+    case 32: flash_attn_kernel<T, 32><<<grid, block, 0, st>>>(FLASH_ARGS); break;
+    case 64: flash_attn_kernel<T, 64><<<grid, block, 0, st>>>(FLASH_ARGS); break;
+    case 112: flash_attn_kernel<T, 112><<<grid, block, 0, st>>>(FLASH_ARGS); break;
+    case 128: flash_attn_kernel<T, 128><<<grid, block, 0, st>>>(FLASH_ARGS); break;
     default: return cudaErrorInvalidValue;
   }
 #undef FLASH_ARGS
@@ -164,7 +172,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q [B,Sq,H,Dh]; k/v [B,Sk,Hkv,Dh]; qpos [B,Sq], kpos [B,Sk] int32 (-1 =
-// invalid) -> out [B,Sq,H,Dh]; all contiguous. dtype 0 = float32,
+// invalid) -> out [B,Sq,H,Dh]; all contiguous; Dh in {32, 64, 112, 128}.
+// dtype 0 = float32,
 // 1 = bfloat16. Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* qpos, const void* kpos, void* out,

@@ -22,13 +22,15 @@
 // F tiles; blocks here run in parallel, so the FFN is two GEMM-shaped
 // passes with the hidden activation in scratch between them (act(g) * u
 // applied when the gate/up sums are complete). Three paths, chosen from
-// the dtype, C and alignment:
-//   * skinny (C <= 4, the decode step; bytes-bound): each thread streams
+// the kind of call (the caller says whether it is a decode step), the
+// dtype, C and alignment:
+//   * skinny (decode steps at C <= 4; bytes-bound): each thread streams
 //     16-byte vectors of weight columns, the reduction axis is split over
 //     blocks so enough loads are in flight, and split partials are summed
 //     in a fixed order by small finalize kernels (deterministic, no
 //     atomics);
-//   * tensor-core tile (bf16, C > 4: prefill): wmma 16x16x16 bf16
+//   * tensor-core tile (bf16: every prefill and chunk call, whatever
+//     its C, and decode steps at C > 4): wmma 16x16x16 bf16
 //     fragments with float32 accumulators, 64 x 64 tiles per block; the
 //     hidden activation stays float32 between the two passes, as in the
 //     TPU kernel, and enters the down product as a hi + lo pair of bf16
@@ -38,7 +40,11 @@
 //     memory, one column per thread with BM float32 sums in registers
 //     (BM = 16 or 64 from C).
 // Every path computes a slot only from its expert's rows and its own x, so
-// a shadow slot reproduces its primary bit for bit.
+// a shadow slot reproduces its primary bit for bit. The tile paths give a
+// token's row the same bits whatever C and whichever row of the slot it
+// takes, and the skinny path rounds otherwise: so only a decode step may
+// take it, and a token's bits in a prefill or chunk call never depend on
+// how many tokens share the call (chunked == whole-prompt prefill).
 #include <cuda_bf16.h>
 #include <mma.h>
 
@@ -633,10 +639,10 @@ bool tc_shapes_ok(int D, int F) { return D % 8 == 0 && F % 8 == 0; }
 // rows on the tensor-core path), plus the split partials on the skinny
 // path
 template <typename T>
-size_t workspace_floats(int P, int C, int D, int F) {
+size_t workspace_floats(int P, int C, int D, int F, int decode) {
   size_t need = (size_t)P * C * F;
   const SkinnyPlan pl = skinny_plan<T>(P, C, D, F);
-  if (pl.use)
+  if (pl.use && decode)
     need += 2 * (size_t)pl.s1 * P * C * F + (size_t)pl.s2 * P * C * D;
   if (std::is_same<T, bf16>::value && tc_shapes_ok(D, F))
     need = std::max(need, (size_t)P * padded_rows(C) * F);
@@ -651,10 +657,12 @@ enum Path { SKINNY = 0, TENSOR_CORE = 1, CUDA_CORE = 2 };
 
 template <typename T>
 Path choose_path(const void* x, const void* wg, const void* wu,
-                 const void* wd, int P, int C, int D, int F, int gated) {
+                 const void* wd, int P, int C, int D, int F, int gated,
+                 int decode) {
   const bool weights_aligned =
       aligned16(wu) && aligned16(wd) && (!gated || aligned16(wg));
-  if (skinny_plan<T>(P, C, D, F).use && weights_aligned) return SKINNY;
+  if (decode && skinny_plan<T>(P, C, D, F).use && weights_aligned)
+    return SKINNY;
   if (std::is_same<T, bf16>::value && tc_shapes_ok(D, F) && weights_aligned &&
       aligned16(x))
     return TENSOR_CORE;
@@ -665,8 +673,8 @@ template <typename T>
 cudaError_t launch(const void* x, const void* wg, const void* wu,
                    const void* wd, const int* se, const int* counts,
                    float* hidden, void* y, int P, int C, int D, int F,
-                   int gated, int act, cudaStream_t st) {
-  const Path path = choose_path<T>(x, wg, wu, wd, P, C, D, F, gated);
+                   int gated, int act, int decode, cudaStream_t st) {
+  const Path path = choose_path<T>(x, wg, wu, wd, P, C, D, F, gated, decode);
   if (path == SKINNY) {
     const SkinnyPlan pl = skinny_plan<T>(P, C, D, F);
     if (C <= 2)
@@ -689,20 +697,23 @@ cudaError_t launch(const void* x, const void* wg, const void* wu,
 
 // Float32 elements of the workspace moe_ffn needs for these shapes.
 extern "C" long long moe_ffn_workspace(int P, int C, int D, int F,
-                                       int dtype) {
-  return (long long)(dtype == 0 ? workspace_floats<float>(P, C, D, F)
-                                : workspace_floats<__nv_bfloat16>(P, C, D, F));
+                                       int dtype, int decode) {
+  return (long long)(dtype == 0
+                         ? workspace_floats<float>(P, C, D, F, decode)
+                         : workspace_floats<__nv_bfloat16>(P, C, D, F,
+                                                           decode));
 }
 
-// The path moe_ffn takes for these arguments: 0 = skinny (decode-shaped),
+// The path moe_ffn takes for these arguments: 0 = skinny (decode steps),
 // 1 = tensor-core tile, 2 = CUDA-core tile; -1 for an unknown dtype.
 extern "C" int moe_ffn_path(const void* x, const void* wg, const void* wu,
                             const void* wd, int P, int C, int D, int F,
-                            int gated, int dtype) {
+                            int gated, int dtype, int decode) {
   if (dtype == 0)
-    return choose_path<float>(x, wg, wu, wd, P, C, D, F, gated);
+    return choose_path<float>(x, wg, wu, wd, P, C, D, F, gated, decode);
   if (dtype == 1)
-    return choose_path<__nv_bfloat16>(x, wg, wu, wd, P, C, D, F, gated);
+    return choose_path<__nv_bfloat16>(x, wg, wu, wd, P, C, D, F, gated,
+                                      decode);
   return -1;
 }
 
@@ -710,13 +721,14 @@ extern "C" int moe_ffn_path(const void* x, const void* wg, const void* wu,
 // slot_expert [P] int32 (-1 = empty slot, reads expert 0 like the
 // reference's gather); counts [P] int32; workspace: float32 scratch of
 // moe_ffn_workspace() elements; -> y [P,C,D]; all contiguous. act 0 =
-// silu, 1 = gelu (tanh form). dtype 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError().
+// silu, 1 = gelu (tanh form). dtype 0 = float32, 1 = bfloat16. decode 1
+// = a decode step (may take the skinny path), 0 = a prefill or chunk call.
+// Returns cudaGetLastError().
 extern "C" int moe_ffn(const void* x, const void* wg, const void* wu,
                        const void* wd, const void* slot_expert,
                        const void* counts, void* hidden, void* y, int P,
                        int C, int D, int F, int gated, int act, int dtype,
-                       void* stream) {
+                       int decode, void* stream) {
   if (P <= 0 || C <= 0 || D <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* se = (const int*)slot_expert;
@@ -725,10 +737,10 @@ extern "C" int moe_ffn(const void* x, const void* wg, const void* wu,
   cudaError_t err;
   if (dtype == 0)
     err = launch<float>(x, wg, wu, wd, se, cn, h, y, P, C, D, F, gated, act,
-                        st);
+                        decode, st);
   else if (dtype == 1)
     err = launch<__nv_bfloat16>(x, wg, wu, wd, se, cn, h, y, P, C, D, F,
-                                gated, act, st);
+                                gated, act, decode, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

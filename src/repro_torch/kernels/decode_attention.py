@@ -27,6 +27,8 @@ PAGED_KERNEL = build.CudaKernel(
     "decode_attention", "decode_attention_paged",
     [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P],
     replaces="src/repro/kernels/decode_attention.py:257")
+#: head dims the kernels are built for (112: Zamba2-7B's shared block)
+HEAD_DIMS = (32, 64, 112, 128)
 
 
 def combine_decode_partials(q, m, l, acc, k1, v1, *, softcap: float = 0.0):
@@ -78,9 +80,9 @@ def decode_attention_paged_plain(q, pk, pv, ppos, bt, k1, v1, pos, *,
 
 
 def _check_heads(name, h, hkv, dh):
-    if h % hkv or h // hkv not in (1, 2, 4, 8) or dh not in (32, 64, 128):
+    if h % hkv or h // hkv not in (1, 2, 4, 8) or dh not in HEAD_DIMS:
         raise ValueError(f"{name} kernel takes G = H / Hkv in (1, 2, 4, 8) "
-                         f"and Dh in (32, 64, 128); got H={h} Hkv={hkv} "
+                         f"and Dh in {HEAD_DIMS}; got H={h} Hkv={hkv} "
                          f"Dh={dh}")
 
 

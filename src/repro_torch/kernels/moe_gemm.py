@@ -21,7 +21,7 @@ from repro_torch.kernels import ref as kref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = build.CudaKernel(
-    "moe_gemm", "moe_ffn", [_P] * 8 + [_I] * 7 + [_P],
+    "moe_gemm", "moe_ffn", [_P] * 8 + [_I] * 8 + [_P],
     replaces="src/repro/kernels/moe_gemm.py:72")
 ACT_CODES = {"silu": 0, "gelu": 1}
 #: the kernel's paths, in the order of the C source's codes
@@ -30,22 +30,23 @@ PATHS = ("skinny", "tensor_core", "cuda_core")
 path_launches = dict.fromkeys(PATHS, 0)
 
 
-def _workspace_floats(p: int, c: int, d: int, f: int, code: int) -> int:
+def _workspace_floats(p: int, c: int, d: int, f: int, code: int,
+                      decode: int) -> int:
     """Float32 scratch the launch needs (hidden activation and, on the
-    decode-shaped path, split partials), as the CUDA source computes it."""
+    decode path, split partials), as the CUDA source computes it."""
     fn = build.library("moe_gemm").moe_ffn_workspace
-    fn.argtypes = [_I] * 5
+    fn.argtypes = [_I] * 6
     fn.restype = ctypes.c_longlong
-    return int(fn(p, c, d, f, code))
+    return int(fn(p, c, d, f, code, decode))
 
 
-def _path(x, w_gate, w_up, w_down, p, c, d, f, gated, code) -> str:
+def _path(x, w_gate, w_up, w_down, p, c, d, f, gated, code, decode) -> str:
     """The path the kernel takes for these arguments, as it chooses it."""
     fn = build.library("moe_gemm").moe_ffn_path
-    fn.argtypes = [_P] * 4 + [_I] * 6
+    fn.argtypes = [_P] * 4 + [_I] * 7
     fn.restype = _I
     return PATHS[fn(build.ptr(x), build.ptr(w_gate), build.ptr(w_up),
-                    build.ptr(w_down), p, c, d, f, gated, code)]
+                    build.ptr(w_down), p, c, d, f, gated, code, decode)]
 
 
 def expert_ffn_plain(x, w_gate, w_up, w_down, slot_expert, counts, *,
@@ -63,8 +64,11 @@ def expert_ffn_plain(x, w_gate, w_up, w_down, slot_expert, counts, *,
 
 
 def expert_ffn_cuda(x, w_gate, w_up, w_down, slot_expert, counts, *,
-                    act: str = "silu"):
-    """Launch the CUDA kernel; same contract as ``expert_ffn_plain``."""
+                    act: str = "silu", decode: bool = True):
+    """Launch the CUDA kernel; same contract as ``expert_ffn_plain``.
+    ``decode`` False (a prefill or chunk call) keeps the kernel off its
+    skinny path, which rounds unlike the tile paths: a token's bits then
+    do not depend on the capacity C of its call."""
     p, c, d = x.shape
     e, _, f = w_up.shape
     if w_up.shape != (e, d, f) or w_down.shape != (e, f, d) or \
@@ -84,14 +88,15 @@ def expert_ffn_cuda(x, w_gate, w_up, w_down, slot_expert, counts, *,
     w_gate = w_up if w_gate is None else w_gate.contiguous()
     slot_expert = slot_expert.to(torch.int32).contiguous()
     counts = counts.to(torch.int32).contiguous()
-    workspace = torch.empty((_workspace_floats(p, c, d, f, code),),
+    dec = int(bool(decode))
+    workspace = torch.empty((_workspace_floats(p, c, d, f, code, dec),),
                             dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     gated = int(len(ws) == 3)
-    path = _path(x, w_gate, w_up, w_down, p, c, d, f, gated, code)
+    path = _path(x, w_gate, w_up, w_down, p, c, d, f, gated, code, dec)
     KERNEL(build.ptr(x), build.ptr(w_gate), build.ptr(w_up),
            build.ptr(w_down), build.ptr(slot_expert), build.ptr(counts),
            build.ptr(workspace), build.ptr(y), p, c, d, f, gated,
-           ACT_CODES[act], code, build.stream_ptr(x))
+           ACT_CODES[act], code, dec, build.stream_ptr(x))
     path_launches[path] += 1
     return y

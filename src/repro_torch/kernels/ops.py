@@ -13,6 +13,8 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_paged_plain, decode_attention_plain)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.moe_gemm import expert_ffn_cuda, expert_ffn_plain
+from repro_torch.kernels.ref import ssm_scan_chunked_ref, ssm_scan_ref
+from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -58,11 +60,31 @@ def full_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
 
 
 def expert_ffn(x, w_gate, w_up, w_down, slot_expert, counts, *,
-               act: str = "silu"):
+               act: str = "silu", decode: bool = True):
     """x: [P,...,D] per-slot token batches -> [P,...,D]. Slot p runs the
-    stored expert ``slot_expert[p]``; slots with ``counts == 0`` give 0."""
+    stored expert ``slot_expert[p]``; slots with ``counts == 0`` give 0.
+    ``decode`` says which kind of call this is: only a decode step may
+    take the kernel's skinny path, so every prefill and chunk call rounds
+    its tokens one way whatever its capacity."""
     shape = x.shape
     x3 = x.reshape(shape[0], -1, shape[-1])
-    fn = expert_ffn_cuda if _on_cuda(x) else expert_ffn_plain
-    return fn(x3, w_gate, w_up, w_down, slot_expert, counts,
-              act=act).reshape(shape)
+    if _on_cuda(x):
+        y = expert_ffn_cuda(x3, w_gate, w_up, w_down, slot_expert, counts,
+                            act=act, decode=decode)
+    else:
+        y = expert_ffn_plain(x3, w_gate, w_up, w_down, slot_expert, counts,
+                             act=act)
+    return y.reshape(shape)
+
+
+def ssm_scan(x, dt, a, b, c, *, chunk: int = 64):
+    """Full-sequence SSD scan from a zero state. x: [B,S,H,P]; dt:
+    [B,S,H]; a: [H]; b, c: [B,S,N]. Returns (y [B,S,H,P], h_final
+    [B,H,P,N] float32). The kernel runs at every S on the card; the CPU
+    takes the chunked plain form for S > 1 and the sequential one for a
+    single step, as the reference does."""
+    if _on_cuda(x):
+        return ssm_scan_cuda(x, dt, a, b, c, chunk=chunk)
+    if x.shape[1] > 1:
+        return ssm_scan_chunked_ref(x, dt, a, b, c, chunk=chunk)
+    return ssm_scan_ref(x, dt, a, b, c)

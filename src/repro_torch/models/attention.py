@@ -20,7 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import gather_pages
 from repro_torch.kernels.ref import NEG_INF, attn_scale
-from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
+from repro_torch.models.layers import apply_rope, dense_init, matmul, norm
 
 # Cached (prefill/chunk) attention pins the KV block size of the online
 # softmax, so its accumulation order does not depend on the padded extent
@@ -42,28 +42,33 @@ def attn_init(gen, cfg: ModelConfig, device):
     }
 
 
-def _project_q(cfg, params, x):
+# The projections take ``blocked`` on prefill and chunk calls: their rows
+# then run in fixed blocks (``layers.row_blocked``), so a token's K/V and
+# query bits do not depend on how many rows share its call, and chunked
+# prefill gives the bits of whole-prompt prefill. Decode steps do not.
+
+def _project_q(cfg, params, x, blocked: bool = False):
     b, s, _ = x.shape
-    q = x @ params["wq"]
+    q = matmul(x, params["wq"], blocked)
     if "bq" in params:
         q = q + params["bq"].to(q.dtype)
     q = q.reshape(b, s, cfg.num_heads, cfg.head_dim_)
     if "q_norm" in params:
-        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        q = norm(params["q_norm"], q, cfg.norm_eps, blocked)
     return q
 
 
-def _project_kv(cfg, params, x):
+def _project_kv(cfg, params, x, blocked: bool = False):
     b, s, _ = x.shape
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    k = matmul(x, params["wk"], blocked)
+    v = matmul(x, params["wv"], blocked)
     if "bk" in params:
         k = k + params["bk"].to(k.dtype)
         v = v + params["bv"].to(v.dtype)
     k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim_)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim_)
     if "k_norm" in params:
-        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+        k = norm(params["k_norm"], k, cfg.norm_eps, blocked)
     return k, v
 
 
@@ -265,15 +270,15 @@ def attn_full(cfg: ModelConfig, params, x, positions, *, window: int = 0,
     None). With a cache the plain version's KV block is pinned to
     PREFILL_BLOCK_K, as in the reference."""
     from repro_torch.kernels import ops as kops
-    q = _project_q(cfg, params, x)
-    k, v = _project_kv(cfg, params, x)
+    q = _project_q(cfg, params, x, blocked=True)
+    k, v = _project_kv(cfg, params, x, blocked=True)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     bk = _pick_block(k.shape[1], PREFILL_BLOCK_K) if cache is not None else 0
     out = kops.full_attention(q, k, v, positions, positions, window=window,
                               softcap=cfg.attn_softcap, causal=causal,
                               block_k=bk)
-    out = out.reshape(*x.shape[:2], -1) @ params["wo"]
+    out = matmul(out.reshape(*x.shape[:2], -1), params["wo"], True)
     if cache is not None:
         cache = cache_write_prefill(cache, k, v, positions)
     return out, cache
@@ -298,8 +303,8 @@ def attn_decode(cfg: ModelConfig, params, x, cache, pos, *, window: int = 0):
 
 
 def _chunk_qkv(cfg, params, x, positions):
-    q = _project_q(cfg, params, x)
-    k, v = _project_kv(cfg, params, x)
+    q = _project_q(cfg, params, x, blocked=True)
+    k, v = _project_kv(cfg, params, x, blocked=True)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -310,7 +315,7 @@ def _chunk_attend(cfg, params, x, q, view, positions, window: int = 0):
         q, view["k"], view["v"], positions, view["pos"], window=window,
         softcap=cfg.attn_softcap, causal=True,
         block_k=_pick_block(view["k"].shape[1], PREFILL_BLOCK_K))
-    return out.reshape(*x.shape[:2], -1) @ params["wo"]
+    return matmul(out.reshape(*x.shape[:2], -1), params["wo"], True)
 
 
 def attn_chunk(cfg: ModelConfig, params, x, cache, positions, *,

@@ -50,6 +50,46 @@ def rmsnorm(params, x, eps: float = 1e-6):
 
 
 # --------------------------------------------------------------------------
+# row-blocked evaluation (prefill and chunk calls)
+# --------------------------------------------------------------------------
+
+#: rows of every block a prefill or chunk call's dense projection or norm
+#: runs on
+ROW_BLOCK = 128
+
+
+def row_blocked(fn, x):
+    """``fn`` applied to the rows of x [..., K] in fixed blocks of
+    ROW_BLOCK rows (the last padded with zeros): every row goes through
+    the same call of the same shape, whatever the number of rows. A
+    library GEMM or reduction picks its algorithm (and so its summation
+    order) by the row count, so without this a token's bits in a prefill
+    or chunk call would depend on how many rows share the call, and
+    chunked prefill would part from whole-prompt prefill. ``fn`` must act
+    on each row alone. Returns [..., N]."""
+    k = x.shape[-1]
+    rows = x.reshape(-1, k)
+    m = rows.shape[0]
+    buf = rows.new_zeros((-(-m // ROW_BLOCK) * ROW_BLOCK, k))
+    buf[:m] = rows
+    out = torch.cat([fn(buf[i:i + ROW_BLOCK])
+                     for i in range(0, buf.shape[0], ROW_BLOCK)])
+    return out[:m].reshape(*x.shape[:-1], out.shape[-1])
+
+
+def matmul(x, w, blocked: bool):
+    """x [..., K] @ w [K, N], row-blocked for a prefill or chunk call."""
+    return row_blocked(lambda r: r @ w, x) if blocked else x @ w
+
+
+def norm(params, x, eps: float, blocked: bool):
+    """``rmsnorm``, row-blocked for a prefill or chunk call."""
+    if blocked:
+        return row_blocked(lambda r: rmsnorm(params, r, eps), x)
+    return rmsnorm(params, x, eps)
+
+
+# --------------------------------------------------------------------------
 # RoPE
 # --------------------------------------------------------------------------
 
@@ -87,13 +127,13 @@ def act_fn(name: str):
     return ACTS[name]
 
 
-def mlp(params, x, act: str = "silu"):
-    up = x @ params["w_up"]
+def mlp(params, x, act: str = "silu", blocked: bool = False):
+    up = matmul(x, params["w_up"], blocked)
     if "w_gate" in params:
-        up = act_fn(act)(x @ params["w_gate"]) * up
+        up = act_fn(act)(matmul(x, params["w_gate"], blocked)) * up
     else:
         up = act_fn(act)(up)
-    return up @ params["w_down"]
+    return matmul(up, params["w_down"], blocked)
 
 
 # --------------------------------------------------------------------------

@@ -17,7 +17,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import ert as ert_lib
 from repro_torch.core import refe
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import dense_init, mlp, mlp_init
+from repro_torch.models.layers import dense_init, matmul, mlp, mlp_init
 
 
 def moe_placement(cfg: ModelConfig, num_ew: int) -> ert_lib.ExpertPlacement:
@@ -50,15 +50,19 @@ def moe_init(gen, cfg: ModelConfig, placement: ert_lib.ExpertPlacement,
 
 def moe_apply(cfg: ModelConfig, params, x, route_state: refe.RouteState,
               placement: ert_lib.ExpertPlacement,
-              capacity: Optional[int] = None, token_mask=None):
+              capacity: Optional[int] = None, token_mask=None,
+              decode: bool = False):
     """x: [B, S, D] -> (y [B, S, D], aux_loss, slot_load [P]).
 
     ``token_mask`` ([B, S] bool) flags real tokens; pads are excluded from
     capacity competition. ``slot_load`` (tokens dispatched per slot) also
-    tells the expert kernel which slots are empty."""
+    tells the expert kernel which slots are empty. ``decode`` marks a
+    decode step; a prefill or chunk call runs the router in fixed row
+    blocks and keeps the expert kernel on its tile paths, so a token's
+    bits do not depend on how many tokens share the call."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    logits = xt @ params["router"].to(xt.dtype)
+    logits = matmul(xt, params["router"].to(xt.dtype), not decode)
     routing = refe.route(
         xt, logits, route_state, placement,
         top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity_factor,
@@ -71,9 +75,10 @@ def moe_apply(cfg: ModelConfig, params, x, route_state: refe.RouteState,
     def expert_fn(expert_in):
         return kops.expert_ffn(expert_in, ex["wg"].to(x.dtype),
                                ex["wu"].to(x.dtype), ex["wd"].to(x.dtype),
-                               route_state.slot_expert, counts, act=cfg.act)
+                               route_state.slot_expert, counts, act=cfg.act,
+                               decode=decode)
 
     y = refe.expert_io(xt, routing, expert_fn)
     if "shared" in params:
-        y = y + mlp(params["shared"], xt, cfg.act)
+        y = y + mlp(params["shared"], xt, cfg.act, blocked=not decode)
     return y.reshape(b, s, d), routing["aux_loss"], routing["slot_load"]

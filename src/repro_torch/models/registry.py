@@ -1,5 +1,6 @@
-"""Model family dispatch: config -> ModelApi (transformer family only so
-far; the other families raise until they are ported)."""
+"""Model family dispatch: config -> ModelApi (the transformer family and
+the Zamba2 hybrid so far; the other families raise until they are
+ported)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -8,7 +9,12 @@ from repro_torch.models.transformer import ModelApi, build_decoder
 
 def get_model(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
               device="cuda") -> ModelApi:
+    kw = dict(num_aw=num_aw, num_ew=num_ew, device=device)
+    if cfg.ssm.enabled and cfg.hybrid_attn_every:
+        from repro_torch.models.hybrid import build_hybrid
+        return build_hybrid(cfg, **kw)
     if cfg.is_encdec or cfg.xlstm_pattern or cfg.ssm.enabled:
         raise NotImplementedError(
-            f"{cfg.name}: only the transformer family is ported so far")
-    return build_decoder(cfg, num_aw=num_aw, num_ew=num_ew, device=device)
+            f"{cfg.name}: only the transformer family and the Zamba2 "
+            f"hybrid are ported so far")
+    return build_decoder(cfg, **kw)

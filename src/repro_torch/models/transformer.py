@@ -17,7 +17,7 @@ from repro_torch.core import ert as ert_lib
 from repro_torch.core import refe
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (embed_init, mlp, mlp_init, rmsnorm,
+from repro_torch.models.layers import (embed_init, mlp, mlp_init, norm,
                                        rmsnorm_init, unembed)
 
 
@@ -66,8 +66,10 @@ def _layer_apply(cfg: ModelConfig, p, x, *, window: int, mode: str,
                  placement=None, capacity=None, token_mask=None, bt=None):
     """mode: 'prefill' | 'chunk' | 'decode'. ``bt`` is the [B, nblk] block
     table of a paged cache (None = contiguous). Returns (x, cache, slot
-    load)."""
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    load). Prefill and chunk calls run their dense projections and norms
+    in fixed row blocks (``layers.row_blocked``); decode steps do not."""
+    blocked = mode != "decode"
+    h = norm(p["ln1"], x, cfg.norm_eps, blocked)
     if mode == "decode" and bt is not None:
         a, cache = attn.attn_decode_paged(cfg, p["attn"], h, cache, bt, pos)
     elif mode == "decode":
@@ -83,16 +85,30 @@ def _layer_apply(cfg: ModelConfig, p, x, *, window: int, mode: str,
         a, cache = attn.attn_full(cfg, p["attn"], h, positions,
                                   window=window, cache=cache)
     x = x + a
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    h = norm(p["ln2"], x, cfg.norm_eps, blocked)
     if "moe" in p:
         f, _, load = moe_mod.moe_apply(cfg, p["moe"], h, route_state,
                                        placement, capacity=capacity,
-                                       token_mask=token_mask)
+                                       token_mask=token_mask,
+                                       decode=not blocked)
     else:
-        f = mlp(p["mlp"], h, cfg.act)
+        f = mlp(p["mlp"], h, cfg.act, blocked=blocked)
         n_slots = placement.num_slots if placement is not None else 0
         load = torch.zeros((n_slots,), dtype=torch.float32, device=x.device)
     return x + f, cache, load
+
+
+def route_state_without_experts(num_aw: int, num_ew: int,
+                                device) -> refe.RouteState:
+    """The RouteState of a model without MoE layers: empty slot tables,
+    every worker healthy."""
+    def empty(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+    return refe.RouteState(
+        candidates=empty(0, 2),
+        ew_health=torch.ones((num_ew,), dtype=torch.bool, device=device),
+        aw_health=torch.ones((num_aw,), dtype=torch.bool, device=device),
+        slot_expert=empty(0), slot_owner=empty(0), split_slot=empty(0))
 
 
 def cast_floats(tree, dtype):
@@ -150,7 +166,8 @@ def build_decoder(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
                 route_state=route_state, placement=placement,
                 capacity=capacity, token_mask=token_mask, bt=bt)
             load_total = load_total + load
-        return rmsnorm(params["final_norm"], x, cfg.norm_eps), load_total
+        return norm(params["final_norm"], x, cfg.norm_eps,
+                    mode != "decode"), load_total
 
     def _embed(params, tokens):
         return params["embed"].to(dtype)[tokens.long()]
@@ -201,19 +218,7 @@ def build_decoder(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
 
     def init_route_state():
         if placement is None:
-            return refe.RouteState(
-                candidates=torch.zeros((0, 2), dtype=torch.int32,
-                                       device=device),
-                ew_health=torch.ones((num_ew,), dtype=torch.bool,
-                                     device=device),
-                aw_health=torch.ones((num_aw,), dtype=torch.bool,
-                                     device=device),
-                slot_expert=torch.zeros((0,), dtype=torch.int32,
-                                        device=device),
-                slot_owner=torch.zeros((0,), dtype=torch.int32,
-                                       device=device),
-                split_slot=torch.zeros((0,), dtype=torch.int32,
-                                       device=device))
+            return route_state_without_experts(num_aw, num_ew, device)
         return refe.RouteState.healthy(placement, num_aw, device=device)
 
     return ModelApi(cfg, placement, num_aw, num_ew, device, init_params,

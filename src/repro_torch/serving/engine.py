@@ -60,7 +60,8 @@ class EngineConfig:
     #                                full attention, chunked prefill and
     #                                must divide max_seq)
     chunk_token_budget: int = 0    # real prefill tokens per tick (0 =
-    #                                whole-prompt prefill)
+    #                                whole-prompt prefill; a family that
+    #                                cannot be padded ignores it)
 
 
 @dataclass
@@ -138,6 +139,11 @@ class InferenceEngine:
         self.pages: Optional[PagePool] = None
         if ecfg.kv_page_tokens > 0:
             pt = ecfg.kv_page_tokens
+            if cfg.ssm.enabled:
+                # the reference's paged layout asserts an attention-only
+                # cache: recurrent state has no pages
+                raise ValueError("paged KV needs an attention-only cache "
+                                 f"({cfg.name} keeps recurrent state)")
             if ecfg.max_seq % pt:
                 raise ValueError(f"kv_page_tokens={pt} must divide "
                                  f"max_seq={ecfg.max_seq}")
@@ -171,11 +177,11 @@ class InferenceEngine:
         self.gateway = Gateway(self.aws)
         self.scheduler = ContinuousBatchScheduler(self, self.gateway)
         self.decode_plane = DecodeLoopPlane(self)
+        # chunked streams need slot == absolute position and no recurrent
+        # state (a padded cache); other families keep the whole-prompt
+        # path, as in the reference
         self.chunked: Optional[ChunkedPrefillPlane] = None
-        if ecfg.chunk_token_budget > 0:
-            if not self.prefill_paddable:
-                raise ValueError("chunked prefill needs full attention "
-                                 "(cache slot == absolute position)")
+        if ecfg.chunk_token_budget > 0 and self.prefill_paddable:
             self.chunked = ChunkedPrefillPlane(self, ecfg.chunk_token_budget)
         self.requests: Dict[str, RequestState] = {}
         self._release_hooks: List[Callable] = []

@@ -2,16 +2,21 @@
 paged one (port of ``repro.serving.kvcache``).
 
 The port's contiguous cache is ``{"layers": [{"k", "v", "pos"}, ...]}``
-with the request slot as axis 0 of every tensor, so the reference's leaf
-discovery (batch axis, attention vs state leaves) is not needed. A paged
-cache holds per-layer page pools ``[P, pt, ...]`` instead, plus one block
-table ``"bt"`` [B, nblk] (models/attention.py). Writes are in place.
+with the request slot as axis 0 of every tensor; a hybrid (Zamba2) cache
+adds the recurrent state leaves ``"h"`` [B, L, H, P, N] and ``"conv"``
+[B, L, W-1, Di] (models/hybrid.py). The reference's leaf discovery (batch
+axis, attention vs state leaves) is therefore not needed. A paged cache
+holds per-layer page pools ``[P, pt, ...]`` instead, plus one block table
+``"bt"`` [B, nblk] (models/attention.py); it is attention-only. Writes
+are in place.
 
 Checkpoint segments (the unit of §6.1) are layout-independent: one
 token's segment is ``[kv [L, 2, Hkv, Dh], pos [L]]`` on the host, in the
 cache's own dtype, so a segment a paged AW wrote restores onto a
-contiguous engine and vice versa. A gather for many tokens returns the
-same two leaves with a leading token axis, from one device-to-host copy.
+contiguous engine and vice versa; a hybrid's adds ``h`` and ``conv``, the
+slot's whole state at that token (the reference's state-leaf segment). A
+gather for many tokens returns the same leaves with a leading token axis,
+from one device-to-host copy.
 """
 from __future__ import annotations
 
@@ -22,16 +27,24 @@ import numpy as np
 import torch
 
 
-def _pack_to_host(kv, pos) -> List[torch.Tensor]:
-    """Bring a gathered K/V stack [n, L, 2, Hkv, Dh] and its positions
-    [n, L] to the host in one copy, as two leaves (views of one host
-    buffer holding exactly the device bits)."""
-    n = kv.shape[0]
-    packed = torch.cat([kv.reshape(n, -1).view(torch.uint8),
-                        pos.reshape(n, -1).view(torch.uint8)], 1).cpu()
-    nkv = kv[0].numel() * kv.element_size()
-    return [packed[:, :nkv].view(kv.dtype).reshape(kv.shape),
-            packed[:, nkv:].view(torch.int32).reshape(pos.shape)]
+#: a hybrid cache's recurrent state leaves, in segment order
+STATE_LEAVES = ("h", "conv")
+
+
+def _pack_to_host(leaves) -> List[torch.Tensor]:
+    """Bring gathered device tensors to the host in one copy (views of one
+    host buffer holding exactly the device bits)."""
+    flat = [t.reshape(-1).view(torch.uint8) for t in leaves]
+    packed = torch.cat(flat).cpu()
+    out, at = [], 0
+    for t, f in zip(leaves, flat):
+        out.append(packed[at:at + f.numel()].view(t.dtype).reshape(t.shape))
+        at += f.numel()
+    return out
+
+
+def _state_leaves(cache) -> List[str]:
+    return [name for name in STATE_LEAVES if name in cache]
 
 
 class _SegmentOps:
@@ -48,10 +61,16 @@ class _SegmentOps:
     def extract_tokens(self, cache, slots, tokens) -> List[torch.Tensor]:
         """Checkpoint segments of the (slot, token) pairs in one batched
         gather and one device-to-host copy: host leaves
-        [kv [n, L, 2, Hkv, Dh], pos [n, L]]; pair i's segment is
-        [kv[i], pos[i]]."""
+        [kv [n, L, 2, Hkv, Dh], pos [n, L]] (a hybrid's also h [n, ...]
+        and conv [n, ...]); pair i's segment is [leaf[i] for each leaf].
+
+        A state leaf's segment is the slot's whole current state, the same
+        for every token of the slot: when all pairs share one slot (a
+        prompt's prefix at install) it is gathered and copied once, and
+        every token's segment is a view of that one host copy."""
         dev = cache["layers"][0]["k"].device
-        s = torch.as_tensor(np.asarray(slots), dtype=torch.long, device=dev)
+        slots = np.asarray(slots)
+        s = torch.as_tensor(slots, dtype=torch.long, device=dev)
         t = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                             device=dev)
         kv, pos = [], []
@@ -60,7 +79,14 @@ class _SegmentOps:
             kv.append(torch.stack([layer["k"][i0, i1], layer["v"][i0, i1]],
                                   1))
             pos.append(layer["pos"][i0, i1])
-        return _pack_to_host(torch.stack(kv, 1), torch.stack(pos, 1))
+        states = _state_leaves(cache)
+        one_slot = len(slots) > 1 and bool((slots == slots[0]).all())
+        rows = s[:1] if one_slot else s
+        out = _pack_to_host([torch.stack(kv, 1), torch.stack(pos, 1)] +
+                            [cache[name][rows] for name in states])
+        if one_slot:
+            out[2:] = [h.expand(len(slots), *h.shape[1:]) for h in out[2:]]
+        return out
 
     def extract_range(self, cache, slot: int, start: int,
                       count: int) -> List[torch.Tensor]:
@@ -90,52 +116,72 @@ class _SegmentOps:
             layer["k"][i0, i1] = kv[:, li, 0]
             layer["v"][i0, i1] = kv[:, li, 1]
             layer["pos"][i0, i1] = pos[:, li]
+        # a state leaf's segment is the whole state: the reference writes
+        # the segments in token order, so the highest token's snapshot is
+        # what stays. Written once, from that token: a batched scatter
+        # with repeated indices picks no defined winner on CUDA.
+        last = segs[int(np.argmax(tokens))]
+        for j, name in enumerate(_state_leaves(cache)):
+            cache[name][slot] = last[2 + j].to(dev)
         return cache
 
 
 class CacheLayout(_SegmentOps):
-    """Slot-level operations on a contiguous attention cache."""
+    """Slot-level operations on a contiguous cache: attention layers and,
+    in a hybrid, recurrent state leaves."""
 
     def _index(self, cache, slots, tokens):
         return [(slots, tokens % layer["k"].shape[1])
                 for layer in cache["layers"]]
 
     @staticmethod
-    def request_state(cache, row: int) -> List[Dict[str, torch.Tensor]]:
-        """One row of every layer's cache (views, not copies)."""
-        return [{k: t[row] for k, t in layer.items()}
-                for layer in cache["layers"]]
+    def request_state(cache, row: int) -> Dict[str, object]:
+        """One row of the cache (views, not copies): {"layers": [one dict
+        per attention layer], and each state leaf}."""
+        out = {"layers": [{k: t[row] for k, t in layer.items()}
+                          for layer in cache["layers"]]}
+        out.update({name: cache[name][row] for name in _state_leaves(cache)})
+        return out
 
     @staticmethod
     def scrub_request_state(state, valid_len: int):
         """Invalidate pad entries of a batched-prefill row: positions
         >= ``valid_len`` become -1, which the decode kernels mask. K/V
-        payloads stay; they are unreachable once the position is -1."""
-        out = []
-        for layer in state:
+        payloads stay; they are unreachable once the position is -1.
+        Attention caches only: a state leaf must never see a pad."""
+        layers = []
+        for layer in state["layers"]:
             pos = layer["pos"]
-            out.append(dict(layer, pos=torch.where(
+            layers.append(dict(layer, pos=torch.where(
                 pos >= valid_len, torch.full_like(pos, -1), pos)))
-        return out
+        return dict(state, layers=layers)
 
     def write_request_state(self, cache, slot: int, state):
-        for layer, st in zip(cache["layers"], state):
+        for layer, st in zip(cache["layers"], state["layers"]):
             for k, t in layer.items():
                 t[slot].copy_(st[k])
+        for name in _state_leaves(cache):
+            cache[name][slot].copy_(state[name])
         return cache
 
     def clear_slot(self, cache, slot: int):
-        """Reset one slot (a finished or released request)."""
+        """Reset one slot (a finished or released request): K/V zeroed,
+        positions -1, recurrent state zeroed."""
         for layer in cache["layers"]:
             layer["k"][slot].zero_()
             layer["v"][slot].zero_()
             layer["pos"][slot].fill_(-1)
+        for name in _state_leaves(cache):
+            cache[name][slot].zero_()
         return cache
 
     def prefill_paddable(self, cache, max_seq: int) -> bool:
         """True when slot index == absolute position in every layer (full
-        attention, no ring wrap): the precondition for padded and chunked
-        prefill."""
+        attention, no ring wrap) and there is no recurrent state, which a
+        pad token must never reach: the precondition for padded and
+        chunked prefill."""
+        if _state_leaves(cache):
+            return False
         return all(layer["k"].shape[1] >= max_seq
                    for layer in cache["layers"])
 
@@ -208,7 +254,7 @@ class PagedCacheLayout(_SegmentOps):
         pages = torch.as_tensor(row[blk], dtype=torch.long, device=dev)
         blk = torch.as_tensor(blk, dtype=torch.long, device=dev)
         pt = self.page_tokens
-        for layer, st in zip(cache["layers"], state):
+        for layer, st in zip(cache["layers"], state["layers"]):
             for k, t in layer.items():
                 src = st[k].reshape(self.nblk, pt, *st[k].shape[1:])
                 t[pages] = src[blk].to(t.dtype)

@@ -13,6 +13,9 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gemm as mg
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels import ssm_scan as ss
+from repro_torch.models import layers
 from repro_torch.models.attention import blockwise_attention
 
 pytestmark = pytest.mark.cuda
@@ -222,3 +225,153 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                                    dtype=torch.float16),
                        torch.zeros((1,), dtype=torch.int32, device=dev),
                        torch.ones((1,), dtype=torch.int32, device=dev))
+
+
+# --------------------------------------------------------------------------
+# Zamba2: the SSD scan, and attention at head dim 112
+# --------------------------------------------------------------------------
+
+def _scan_inputs(r, bs, s, h, p, n, dtype, dev):
+    x = _randn(r, (bs, s, h, p), dtype, dev)
+    dt = torch.nn.functional.softplus(_randn(r, (bs, s, h), torch.float32,
+                                             dev))
+    a = -torch.exp(_randn(r, (h,), torch.float32, dev, 0.5))
+    b = _randn(r, (bs, s, n), torch.float32, dev, 0.3)
+    c = _randn(r, (bs, s, n), torch.float32, dev, 0.3)
+    return x, dt, a, b, c
+
+
+@pytest.mark.parametrize("bs,s,h,p,n,chunk", [
+    (1, 128, 112, 64, 64, 64),     # Zamba2-7B prefill of one prompt
+    (2, 128, 3, 16, 32, 32),
+    (2, 96, 1, 4, 8, 16),
+    (1, 1, 8, 64, 64, 64),         # one step
+    (1, 127, 4, 64, 64, 64),       # odd: the chunk halves down to 1
+    (2, 21, 2, 16, 16, 64),        # odd: one chunk of 21
+])
+def test_ssm_scan_kernel(dev, bs, s, h, p, n, chunk):
+    """float32 within 2e-4 of the plain chunked scan (the bar the Pallas
+    kernel is held to), on the kernel's every path through S and T."""
+    r = np.random.default_rng(s + h)
+    args = _scan_inputs(r, bs, s, h, p, n, torch.float32, dev)
+    launches = ss.KERNEL.launches
+    y, hf = ops.ssm_scan(*args, chunk=chunk)
+    assert ss.KERNEL.launches == launches + 1
+    wy, wh = kref.ssm_scan_chunked_ref(*args, chunk=chunk)
+    torch.testing.assert_close(y, wy, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(hf, wh, rtol=2e-4, atol=2e-4)
+    sy, sh = kref.ssm_scan_ref(*args)
+    torch.testing.assert_close(y, sy, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(hf, sh, rtol=2e-4, atol=2e-4)
+
+
+def test_ssm_scan_kernel_bf16_rounds_once(dev):
+    """bfloat16 x: float32 inside, one rounding of y at the output."""
+    r = np.random.default_rng(1)
+    args = _scan_inputs(r, 1, 128, 112, 64, 64, torch.bfloat16, dev)
+    y, hf = ss.ssm_scan_cuda(*args, chunk=64)
+    assert y.dtype == torch.bfloat16 and hf.dtype == torch.float32
+    wy, wh = kref.ssm_scan_chunked_ref(args[0].float(), *args[1:], chunk=64)
+    assert bool(((y.float() - wy).abs() <= 1e-4 + 2.0 ** -8 * wy.abs()).all())
+    torch.testing.assert_close(hf, wh, rtol=2e-4, atol=2e-4)
+
+
+def test_ssm_scan_refuses_what_it_does_not_take(dev):
+    r = np.random.default_rng(0)
+    x, dt, a, b, c = _scan_inputs(r, 1, 8, 2, 128, 16, torch.float32, dev)
+    with pytest.raises(ValueError):                  # P 128 > 64
+        ss.ssm_scan_cuda(x, dt, a, b, c)
+    with pytest.raises(ValueError):                  # dt rows != S
+        ss.ssm_scan_cuda(x[:, :, :, :16], dt[:, :4], a, b, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sc", [(8, 32, 256), (2, 4, 33)])
+def test_decode_attention_head_dim_112(dev, dtype, b, h, sc):
+    r = np.random.default_rng(sc)
+    dh = 112
+    q = _randn(r, (b, h, dh), dtype, dev)
+    ck, cv = (_randn(r, (b, sc, h, dh), dtype, dev) for _ in range(2))
+    k1, v1 = (_randn(r, (b, h, dh), dtype, dev) for _ in range(2))
+    pos = torch.tensor(r.integers(1, sc, size=(b,)), dtype=torch.int32,
+                       device=dev)
+    ar = torch.arange(sc, device=dev, dtype=torch.int32)[None]
+    cpos = torch.where(ar < pos[:, None], ar, torch.full_like(ar, -1))
+    args = (q, ck, cv, cpos, k1, v1, pos)
+    _close(ops.decode_attention(*args), da.decode_attention_plain(*args),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h", [(1, 128, 32), (2, 40, 4)])
+def test_flash_attention_head_dim_112(dev, dtype, b, s, h):
+    r = np.random.default_rng(s)
+    dh = 112
+    q = _randn(r, (b, s, h, dh), dtype, dev)
+    k, v = (_randn(r, (b, s, h, dh), dtype, dev) for _ in range(2))
+    p = torch.arange(s, device=dev, dtype=torch.int32).repeat(b, 1)
+    _close(ops.full_attention(q, k, v, p, p),
+           blockwise_attention(q, k, v, p, p, block_k=16), dtype)
+
+
+# --------------------------------------------------------------------------
+# row invariance: a token's bits in a prefill or chunk call do not depend
+# on how many rows share the call (chunked == whole-prompt prefill)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (4096, 8)])
+def test_blocked_projection_and_norm_rows_do_not_depend_on_m(dev, k, n):
+    r = np.random.default_rng(n)
+    w = _randn(r, (k, n), torch.bfloat16, dev, k ** -0.5)
+    scale = {"scale": _randn(r, (k,), torch.float32, dev)}
+    x = _randn(r, (1024 + 64, k), torch.bfloat16, dev)
+    ref = layers.matmul(x, w, True)
+    ref_n = layers.norm(scale, x, 1e-6, True)
+    for m, off in ((8, 0), (8, 77), (64, 200), (128, 5), (1024, 64)):
+        rows = x[off:off + m]
+        assert torch.equal(layers.matmul(rows, w, True), ref[off:off + m])
+        assert torch.equal(layers.norm(scale, rows, 1e-6, True),
+                           ref_n[off:off + m])
+
+
+def test_expert_ffn_prefill_path_rows_do_not_depend_on_c(dev):
+    """A prefill or chunk call (decode=False) takes the tensor-core path
+    at every C, and a token's row has the same bits whatever C and
+    whichever row of its slot it rides."""
+    r = np.random.default_rng(2)
+    d, f = 256, 512
+    wg, wu = (_randn(r, (2, d, f), torch.bfloat16, dev, d ** -0.5)
+              for _ in range(2))
+    wd = _randn(r, (2, f, d), torch.bfloat16, dev, f ** -0.5)
+    se = torch.tensor([1], dtype=torch.int32, device=dev)
+    xs = _randn(r, (1, 256, d), torch.bfloat16, dev)
+
+    def ffn(x):
+        cnt = torch.tensor([x.shape[1]], dtype=torch.int32, device=dev)
+        n = dict(mg.path_launches)
+        y = ops.expert_ffn(x, wg, wu, wd, se, cnt, decode=False)
+        assert {k for k, v in mg.path_launches.items()
+                if v != n[k]} == {"tensor_core"}
+        return y
+    ref = ffn(xs)
+    for c, off in ((2, 0), (2, 131), (4, 60), (8, 3), (128, 100),
+                   (256, 0)):
+        assert torch.equal(ffn(xs[:, off:off + c].contiguous()),
+                           ref[:, off:off + c])
+
+
+@pytest.mark.parametrize("c", [2, 4])
+def test_expert_ffn_prefill_path_small_c_rounds_once(dev, c):
+    r = np.random.default_rng(c)
+    p, d, f, e = 4, 64, 256, 3
+    x = _randn(r, (p, c, d), torch.bfloat16, dev)
+    wg, wu = (_randn(r, (e, d, f), torch.bfloat16, dev, 0.2)
+              for _ in range(2))
+    wd = _randn(r, (e, f, d), torch.bfloat16, dev, 0.2)
+    se = torch.tensor([0, 2, 1, 2], dtype=torch.int32, device=dev)
+    cnt = torch.tensor([c, 1, c, 0], dtype=torch.int32, device=dev)
+    got = mg.expert_ffn_cuda(x, wg, wu, wd, se, cnt, decode=False)
+    want = mg.expert_ffn_plain(x.float(), wg.float(), wu.float(), wd.float(),
+                               se, cnt)
+    assert bool(((got.float() - want).abs() <=
+                 1e-4 + 2.0 ** -8 * want.abs()).all())

@@ -106,7 +106,8 @@ def test_port_imports_neither_jax_nor_reference():
     """The serving stack of the port runs on a machine without JAX."""
     code = ("import sys; import repro_torch.serving.engine, "
             "repro_torch.convert, repro_torch.kernels.ops, "
-            "repro_torch.core.checkpoint, repro_torch.serving.chunked; "
+            "repro_torch.core.checkpoint, repro_torch.serving.chunked, "
+            "repro_torch.models.hybrid, repro_torch.kernels.ssm_scan; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
