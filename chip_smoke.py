@@ -554,9 +554,10 @@ def kernel_ssm_scan(torch, g, records, shapes):
         t = kref.scan_chunk(s_, chunk)
         nbytes = (2 * args[0].numel() * 2 + bs * h * p * n * 4 +
                   (bs * s_ * h + 2 * bs * s_ * n + h) * 4)
-        # per (b, h, chunk): C B^T, W x, C h^T and the state update
-        flops = 2.0 * bs * h * (s_ // t) * (t * t * n + t * t * p +
-                                            t * n * p + p * n * t)
+        # per (b, h, chunk): the causal (i >= j) half of C B^T and of
+        # W x, then C h^T and the state update
+        flops = 2.0 * bs * h * (s_ // t) * (t * (t + 1) // 2 * (n + p) +
+                                            2 * t * n * p)
         b_ms, b_by = bound(nbytes, flops, FP32_FLOPS_PER_S)
         records.append(dict(
             name="ssm_scan", route="cuda",
@@ -591,7 +592,8 @@ def kernel_moe_gemm(torch, g, records, shapes):
         for act, wg in (("silu", w[0]), ("gelu", None)):
             check(f"fp32 P{p_} C{c_} D{d_} F{f_} {act} "
                   f"{'gated' if wg is not None else 'ungated'}",
-                  mg.expert_ffn_cuda(x, wg, w[1], wd, se, cnt, act=act),
+                  mg.expert_ffn_cuda(x, wg, w[1], wd, se, cnt, decode=True,
+                                     act=act),
                   mg.expert_ffn_plain(x, wg, w[1], wd, se, cnt, act=act),
                   "float32")
     # the serving shapes: Mixtral's 8-expert bank, 16 slots on 2 EWs
@@ -1043,6 +1045,19 @@ def row_count_probe(torch, params):
     print(f"  row-count probe: projections (wq, wk, wv, wo, router) and "
           f"rmsnorm at M {rows}, each at 2 offsets, against the M={big} "
           f"call")
+    # why the norm is row-blocked too: plain rmsnorm (one call) at these
+    # row counts and at a one-token and a smallest-chunk call's
+    from repro_torch.serving.chunked import CHUNK_MIN
+    small = sorted({1, CHUNK_MIN} | set(rows))
+    for dt in (torch.bfloat16, torch.float32):
+        xd = x.to(dt)
+        want = layers.rmsnorm(lp["ln1"], xd, 1e-6)
+        differ = [m for m in small if not all(
+            torch.equal(layers.rmsnorm(lp["ln1"], xd[o:o + m], 1e-6),
+                        want[o:o + m]) for o in (0, 37))]
+        print(f"  row-count probe, plain rmsnorm (one call, {dt} input) at "
+              f"M {small}: rows differ from the M={big} call's at M "
+              f"{differ}")
     ex = lp["moe"]["experts"]
     se = torch.zeros((1,), dtype=torch.int32, device="cuda")
     cs = sorted(SEEN["ffn_prefill_c"])
@@ -1255,7 +1270,9 @@ def hybrid_phase(torch, profile_dir=None):
     # whole recurrent state (h and conv of every Mamba2 block)
     slots, toks = list(range(8)), [150] * 8
     leaves = engine.layout.extract_tokens(engine.cache, slots, toks)
-    nbytes = sum(t.nbytes for t in leaves)
+    # a state leaf is a list of per-row views, one host copy per slot
+    nbytes = sum(sum(v.nbytes for v in t) if isinstance(t, list)
+                 else t.nbytes for t in leaves)
     ck_ms = host_ms(torch, lambda: engine.layout.extract_tokens(
         engine.cache, slots, toks), reps=10)
     print(f"  per-step checkpoint gather + device-to-host copy (8 rows): "

@@ -64,7 +64,7 @@ def expert_ffn_plain(x, w_gate, w_up, w_down, slot_expert, counts, *,
 
 
 def expert_ffn_cuda(x, w_gate, w_up, w_down, slot_expert, counts, *,
-                    act: str = "silu", decode: bool = True):
+                    decode: bool, act: str = "silu"):
     """Launch the CUDA kernel; same contract as ``expert_ffn_plain``.
     ``decode`` False (a prefill or chunk call) keeps the kernel off its
     skinny path, which rounds unlike the tile paths: a token's bits then

@@ -60,7 +60,7 @@ def full_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
 
 
 def expert_ffn(x, w_gate, w_up, w_down, slot_expert, counts, *,
-               act: str = "silu", decode: bool = True):
+               decode: bool, act: str = "silu"):
     """x: [P,...,D] per-slot token batches -> [P,...,D]. Slot p runs the
     stored expert ``slot_expert[p]``; slots with ``counts == 0`` give 0.
     ``decode`` says which kind of call this is: only a decode step may

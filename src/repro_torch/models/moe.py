@@ -50,8 +50,8 @@ def moe_init(gen, cfg: ModelConfig, placement: ert_lib.ExpertPlacement,
 
 def moe_apply(cfg: ModelConfig, params, x, route_state: refe.RouteState,
               placement: ert_lib.ExpertPlacement,
-              capacity: Optional[int] = None, token_mask=None,
-              decode: bool = False):
+              capacity: Optional[int] = None, token_mask=None, *,
+              decode: bool):
     """x: [B, S, D] -> (y [B, S, D], aux_loss, slot_load [P]).
 
     ``token_mask`` ([B, S] bool) flags real tokens; pads are excluded from

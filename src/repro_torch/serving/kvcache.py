@@ -61,13 +61,14 @@ class _SegmentOps:
     def extract_tokens(self, cache, slots, tokens) -> List[torch.Tensor]:
         """Checkpoint segments of the (slot, token) pairs in one batched
         gather and one device-to-host copy: host leaves
-        [kv [n, L, 2, Hkv, Dh], pos [n, L]] (a hybrid's also h [n, ...]
-        and conv [n, ...]); pair i's segment is [leaf[i] for each leaf].
+        [kv [n, L, 2, Hkv, Dh], pos [n, L]] (a hybrid's also h and conv,
+        each a list of n host tensors); pair i's segment is [leaf[i] for
+        each leaf].
 
         A state leaf's segment is the slot's whole current state, the same
-        for every token of the slot: when all pairs share one slot (a
-        prompt's prefix at install) it is gathered and copied once, and
-        every token's segment is a view of that one host copy."""
+        for every token of the slot: each distinct slot's state is
+        gathered and copied once, and each pair's segment is a view of its
+        slot's one host copy (a prompt's tokens at install share one)."""
         dev = cache["layers"][0]["k"].device
         slots = np.asarray(slots)
         s = torch.as_tensor(slots, dtype=torch.long, device=dev)
@@ -79,13 +80,12 @@ class _SegmentOps:
             kv.append(torch.stack([layer["k"][i0, i1], layer["v"][i0, i1]],
                                   1))
             pos.append(layer["pos"][i0, i1])
-        states = _state_leaves(cache)
-        one_slot = len(slots) > 1 and bool((slots == slots[0]).all())
-        rows = s[:1] if one_slot else s
+        uniq, inv = np.unique(slots, return_inverse=True)
+        rows = torch.as_tensor(uniq, dtype=torch.long, device=dev)
         out = _pack_to_host([torch.stack(kv, 1), torch.stack(pos, 1)] +
-                            [cache[name][rows] for name in states])
-        if one_slot:
-            out[2:] = [h.expand(len(slots), *h.shape[1:]) for h in out[2:]]
+                            [cache[name][rows]
+                             for name in _state_leaves(cache)])
+        out[2:] = [[h[j] for j in inv.tolist()] for h in out[2:]]
         return out
 
     def extract_range(self, cache, slot: int, start: int,

@@ -97,7 +97,8 @@ def test_expert_ffn_kernel(dev, dtype, c, gated, act):
     se = torch.tensor([0, 1, 2, 3, 1, -1], dtype=torch.int32, device=dev)
     cnt = torch.tensor([c, 0, 1, c, 2, 0], dtype=torch.int32, device=dev)
     wg = wg if gated else None
-    got = mg.expert_ffn_cuda(x, wg, wu, wd, se, cnt, act=act)
+    got = mg.expert_ffn_cuda(x, wg, wu, wd, se, cnt, decode=True,
+                          act=act)
     _close(got, mg.expert_ffn_plain(x, wg, wu, wd, se, cnt, act=act), dtype)
     assert float(got[1].abs().max()) == 0.0
 
@@ -118,7 +119,7 @@ def test_expert_ffn_bf16_rounds_once(dev, c, path):
     se = torch.tensor([0, 2, 1, 2], dtype=torch.int32, device=dev)
     cnt = torch.tensor([c, 1, c, 0], dtype=torch.int32, device=dev)
     n = dict(mg.path_launches)
-    got = mg.expert_ffn_cuda(x, wg, wu, wd, se, cnt)
+    got = mg.expert_ffn_cuda(x, wg, wu, wd, se, cnt, decode=True)
     assert {k for k, v in mg.path_launches.items() if v != n[k]} == {path}
     want = mg.expert_ffn_plain(x.float(), wg.float(), wu.float(), wd.float(),
                                se, cnt)
@@ -137,7 +138,7 @@ def test_shadow_slot_is_bitwise_the_primary(dev, c):
     wd = _randn(r, (2, 128, 64), torch.bfloat16, dev, 0.1)
     se = torch.tensor([1, 1], dtype=torch.int32, device=dev)
     cnt = torch.tensor([c, c], dtype=torch.int32, device=dev)
-    y = mg.expert_ffn_cuda(x, w[0], w[1], wd, se, cnt)
+    y = mg.expert_ffn_cuda(x, w[0], w[1], wd, se, cnt, decode=True)
     assert torch.equal(y[0], y[1])
 
 
@@ -224,7 +225,8 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                        torch.zeros((1, 8, 8), device=dev,
                                    dtype=torch.float16),
                        torch.zeros((1,), dtype=torch.int32, device=dev),
-                       torch.ones((1,), dtype=torch.int32, device=dev))
+                       torch.ones((1,), dtype=torch.int32, device=dev),
+                       decode=True)
 
 
 # --------------------------------------------------------------------------

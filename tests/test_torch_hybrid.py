@@ -235,6 +235,30 @@ def test_prompt_checkpoint_holds_one_state_copy(runs):
     te.release_request("host")
 
 
+def test_mixed_slot_segments_share_one_state_copy_per_slot():
+    """A gather over pairs from several slots (a decode step's, or any
+    mix) gives each pair its own slot's whole state, from one host copy
+    per distinct slot."""
+    from repro_torch.serving.kvcache import CacheLayout
+    _, tcfg = _cfgs(5)
+    tapi = tget_model(tcfg, num_aw=2, num_ew=1, device="cpu")
+    cache = tapi.init_cache(4, 16)
+    g = torch.Generator().manual_seed(0)
+    for name in ("h", "conv"):
+        cache[name].copy_(torch.randn(cache[name].shape, generator=g))
+    slots, tokens = [2, 0, 2, 3, 0, 2], [5, 1, 6, 0, 2, 7]
+    segs = CacheLayout().extract_tokens(cache, slots, tokens)
+    for j, name in enumerate(("h", "conv")):
+        leaf = segs[2 + j]
+        assert len(leaf) == len(slots)
+        for i, s in enumerate(slots):
+            assert torch.equal(leaf[i], cache[name][s])
+        ptrs = {leaf[i].data_ptr() for i in range(len(slots))}
+        assert len(ptrs) == len(set(slots))
+    assert torch.equal(segs[1][:, 0],
+                       cache["layers"][0]["pos"][slots, tokens])
+
+
 def test_paged_hybrid_is_refused():
     _, tcfg = _cfgs(4)
     with pytest.raises(ValueError, match="attention-only"):

@@ -175,7 +175,8 @@ def test_expert_ffn_plain_vs_pallas(gated, act):
                            torch.from_numpy(bank["wu"]),
                            torch.from_numpy(bank["wd"]),
                            torch.from_numpy(slot_expert),
-                           torch.from_numpy(counts), act=act)
+                           torch.from_numpy(counts), decode=False,
+                           act=act)
     np.testing.assert_allclose(got4.reshape(p, c, d).numpy(), got.numpy(),
                                rtol=0, atol=0)
 
