@@ -4,7 +4,11 @@
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --profile DIR    # and torch.profiler passes
                                            # (Mixtral in DIR, Zamba2 in
-                                           # DIR/hybrid)
+                                           # DIR/hybrid, the dense models
+                                           # in DIR/gemma2, DIR/danube,
+                                           # DIR/qwen2; Chrome traces
+                                           # for Mixtral and Zamba2
+                                           # only)
 
 Phases, each of which raises on failure (exit code != 0):
   1. card     — ``nvidia-smi`` name and power limit, then the kernel build
@@ -18,14 +22,25 @@ Phases, each of which raises on failure (exit code != 0):
                 within half a bf16 ulp plus 1e-4); the paged decode
                 attention also bitwise to the fused kernel on the gathered
                 pages; decode and flash attention also at Zamba2's head dim
-                112; the expert FFN at every (C, path) a later phase gives
-                it (MOE_SHAPES) and the SSD scan at every (B, S)
-                (SCAN_SHAPES), both checked after the runs; kernel,
-                plain-version and library-call times by CUDA events
-                (median of 20 after warm-up, L2 flushed before each run).
-  3. reference — a reduced float32 Mixtral, and a reduced float32 Zamba2
-                with a trailing block, on the card against the same
-                model's plain path on the CPU (logits to 1e-3).
+                112 and at the dense family's shapes (Gemma2-2B: Dh 256,
+                G 2, softcap 50, a wrapped 4096-token ring with window 4096
+                and a global cache; Danube: Dh 80, G 4, window 4096;
+                Qwen2: Dh 128, G 6, contiguous and paged decode; flash
+                for each on a 128-token prompt); the partial decode
+                kernel at both Gemma2 decode shapes (m and l, and acc / l,
+                to the float32 bar; combined, against the fused kernel);
+                the expert FFN at every (C, path) a later phase gives it
+                (MOE_SHAPES), the SSD scan at every (B, S) (SCAN_SHAPES)
+                and each attention kernel at every (Dh, G) (CHECKED),
+                all checked after the runs; kernel, plain-version and
+                library-call times by CUDA events (median of 20 after
+                warm-up, L2 flushed before each run). The flash kernel's
+                records come from phase 12.
+  3. reference — a reduced float32 Mixtral, a reduced float32 Zamba2 with
+                a trailing block, and reduced float32 Gemma2, Danube and
+                Qwen2 (24-token prompts past their 16-token windows), on
+                the card against the same model's plain path on the CPU
+                (logits to 1e-3).
   4. serve    — Mixtral-8x7B widths at 8 layers in bfloat16 with seeded
                 random weights, contiguous KV, whole-prompt prefill: 8
                 requests of 128 prompt tokens and 32 greedy new tokens
@@ -63,6 +78,38 @@ Phases, each of which raises on failure (exit code != 0):
                 Then ``fail_aw(0)`` once every request has 8 tokens,
                 recover, provision: every stream must equal the
                 failure-free one bit for bit.
+  9. gemma2   — Gemma2-2B whole (26 layers, alternating 4096-token local
+                and global attention, softcaps) in bf16, 2 AWs, max_batch
+                8, max_seq 4608: 8 requests (4 of 128 prompt tokens, 2 of
+                4,088 whose rings wrap during decode, 2 of 4,160 whose
+                rings wrap inside prefill), 32 greedy new tokens; TTFT,
+                TBT, the per-step and install checkpoint copies. The
+                partial kernel on the final caches of one local and one
+                global layer: against the plain partials, combined against
+                the fused kernel, and two Sc halves merged in log-sum-exp
+                form and combined against the fused kernel. Then
+                ``fail_aw(0)`` once every request has 16 tokens, recover,
+                provision: streams bitwise equal, and AW0 must have held a
+                request of each long kind, its ring wrapped.
+ 10. danube   — H2O-Danube-1.8B whole (24 layers, every one a 4096-token
+                window, head dim 80) in bf16, max_batch 4: prompts of
+                4,088, 128, 4,160 and 128 tokens, the same failover check.
+ 11. qwen2    — Qwen2-1.5B whole (28 layers, QKV bias, G 6) in bf16,
+                max_seq 1024: 8 seeded prompts of 96-700 tokens through
+                whole-prompt, chunked contiguous and chunked paged engines
+                (paged == contiguous and chunked == whole-prompt, bit for
+                bit; the paged run launches the paged kernel at G 6 and
+                never the fused one), then the paged engine under
+                ``fail_aw(0)`` after 8 tokens, bitwise equal.
+ 12. flash at the served shapes — every (B, Sq, Sk, heads, window,
+                softcap) the runs gave the flash kernel, on the positions
+                of that shape's first call (pad tails, rows outside a
+                chunk) with seeded bf16 q/k/v, against the bf16 plain
+                version and the float32 one; then one record per path,
+                timed at the largest shape its run gave the kernel, with
+                the run's launches at that shape. main() fails on a shape
+                not checked.
+Each phase prints its wall time.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -75,6 +122,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
@@ -109,6 +157,14 @@ HYBRID_MAX_SEQ = 256
 # the SSD scan's (B, S) on the hybrid serving path (one 128-token prompt
 # per prefill call); main() fails if a run gives the kernel another
 SCAN_SHAPES = [(1, 128)]
+# the dense family at full width and depth: Gemma2-2B and H2O-Danube-1.8B
+# with 4096-token ring caches (prompts of 4088 tokens wrap during decode,
+# of 4160 inside prefill), Qwen2-1.5B with full attention
+RING_MAX_SEQ = 4608
+GEMMA2_LENS = (4088, 128, 4160, 128, 128, 4088, 128, 4160)
+DANUBE_LENS = (4088, 128, 4160, 128)
+QWEN2_MAX_SEQ = 1024
+QWEN2_LENS = (96, 700)             # seeded prompt lengths, inclusive
 
 
 def card_line() -> str:
@@ -200,41 +256,84 @@ def kernel_decode_attention(torch, g, records):
                         8, 32, 8, 128, 512)
 
 
-def decode_attention_at(torch, g, records, name, b, h, hkv, dh, sc):
+def ring_decode_inputs(torch, g, b, h, hkv, dh, sc, dtype, lo, hi):
+    """Decode inputs over a ring cache of Sc slots that every row has
+    passed: row b's next position lies in [lo, hi) (lo > Sc) and slot j
+    holds the latest earlier position congruent to j mod Sc, as a sliding
+    window layer's cache does."""
+    q, ck, cv, _, k1, v1, _ = decode_inputs(torch, g, b, h, hkv, dh, sc,
+                                            dtype, 1)
+    pos = torch.randint(lo, hi, (b,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    last = (pos - 1)[:, None]
+    ar = torch.arange(sc, device="cuda", dtype=torch.int32)[None]
+    cpos = (last - torch.remainder(last - ar, sc)).to(torch.int32)
+    return q, ck, cv, cpos, k1, v1, pos
+
+
+def valid_keys(cpos, pos, window):
+    """The [B, Sc] mask of cache entries a decode row attends to."""
+    ok = (cpos >= 0) & (cpos <= pos[:, None])
+    if window:
+        ok &= cpos > pos[:, None] - window
+    return ok
+
+
+def decode_attention_at(torch, g, records, name, b, h, hkv, dh, sc, *,
+                        window=0, softcap=0.0, ring=None):
     """The fused decode kernel at a serving shape: in float32 first, so
     the instantiation the main path uses is held to the float32 bar, then
-    in bf16 against the bf16 and the float32 plain versions; times."""
+    in bf16 against the bf16 and the float32 plain versions; times.
+    ``ring`` = (lo, hi) draws a wrapped ring cache (positions in [lo,
+    hi)) instead of a contiguous one."""
     from repro_torch.kernels import decode_attention as da
     import torch.nn.functional as F
-    args32 = decode_inputs(torch, g, b, h, hkv, dh, sc, torch.float32, 128)
-    check(f"fp32 B{b} H{h} Hkv{hkv} Dh{dh} Sc{sc}",
-          da.decode_attention_cuda(*args32),
-          da.decode_attention_plain(*args32), "float32")
+
+    def inputs(dtype):
+        if ring is not None:
+            return ring_decode_inputs(torch, g, b, h, hkv, dh, sc, dtype,
+                                      *ring)
+        return decode_inputs(torch, g, b, h, hkv, dh, sc, dtype, 128)
+    kw = dict(window=window, softcap=softcap)
+    tag = (f"B{b} H{h} Hkv{hkv} Dh{dh} Sc{sc}"
+           + (f" ring pos [{ring[0]}, {ring[1]})" if ring else "")
+           + (f" window={window}" if window else "")
+           + (f" softcap={softcap:g}" if softcap else ""))
+    args32 = inputs(torch.float32)
+    check(f"fp32 {tag}", da.decode_attention_cuda(*args32, **kw),
+          da.decode_attention_plain(*args32, **kw), "float32")
     del args32
-    args = decode_inputs(torch, g, b, h, hkv, dh, sc, torch.bfloat16, 128)
+    args = inputs(torch.bfloat16)
     q, ck, cv, cpos, k1, v1, pos = args
-    got = da.decode_attention_cuda(*args)
-    err = check(f"bf16 B{b} H{h} Hkv{hkv} Dh{dh} Sc{sc}", got,
-                da.decode_attention_plain(*args), "bfloat16")
-    check(f"bf16 B{b} H{h} Hkv{hkv} Dh{dh} Sc{sc} vs float32 plain", got,
+    got = da.decode_attention_cuda(*args, **kw)
+    err = check(f"bf16 {tag}", got, da.decode_attention_plain(*args, **kw),
+                "bfloat16")
+    check(f"bf16 {tag} vs float32 plain", got,
           da.decode_attention_plain(*(t.float() if t.is_floating_point()
-                                      else t for t in args)),
+                                      else t for t in args), **kw),
           atol=ROUND_ATOL, rtol=ROUND_RTOL)
-    ms = time_ms(torch, lambda: da.decode_attention_cuda(*args))
-    plain_ms = time_ms(torch, lambda: da.decode_attention_plain(*args))
-    # library yardstick: SDPA over cache + current token, heads expanded
+    CHECKED.add(("decode_attention_fused", dh, h // hkv))
+    ms = time_ms(torch, lambda: da.decode_attention_cuda(*args, **kw))
+    plain_ms = time_ms(torch, lambda: da.decode_attention_plain(*args,
+                                                                **kw))
+    ok = valid_keys(cpos, pos, window)
     grp = h // hkv
-    kk = torch.cat([ck, k1[:, None]], 1).transpose(1, 2)
-    vv = torch.cat([cv, v1[:, None]], 1).transpose(1, 2)
-    kk = kk.repeat_interleave(grp, 1).contiguous()
-    vv = vv.repeat_interleave(grp, 1).contiguous()
-    mask = torch.cat([cpos >= 0, torch.ones((b, 1), dtype=torch.bool,
-                                             device="cuda")], 1)
-    mask = mask[:, None, None, :]
-    qq = q[:, :, None, :]
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mask))
-    valid = int((cpos >= 0).sum().item())
+    lib_ms, library = None, "none: SDPA has no tanh softcap"
+    if not softcap:
+        # library yardstick: SDPA over cache + current token, heads
+        # expanded, the window in the mask
+        kk = torch.cat([ck, k1[:, None]], 1).transpose(1, 2)
+        vv = torch.cat([cv, v1[:, None]], 1).transpose(1, 2)
+        kk = kk.repeat_interleave(grp, 1).contiguous()
+        vv = vv.repeat_interleave(grp, 1).contiguous()
+        mask = torch.cat([ok, torch.ones((b, 1), dtype=torch.bool,
+                                         device="cuda")], 1)
+        mask = mask[:, None, None, :]
+        qq = q[:, :, None, :]
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mask))
+        library = "SDPA"
+    valid = int(ok.sum().item())
     el = 2
     nbytes = (q.numel() + 2 * valid * hkv * dh + k1.numel() + v1.numel()
               + q.numel()) * el + cpos.numel() * 4 + pos.numel() * 4
@@ -245,9 +344,85 @@ def decode_attention_at(torch, g, records, name, b, h, hkv, dh, sc):
         source="src/repro_torch/csrc/decode_attention.cu",
         replaces=da.KERNEL.replaces, max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, shape=f"B{b} H{h} Hkv{hkv} Dh{dh} Sc{sc} bf16"))
-    print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
-          f"ms, bound {b_ms:.4f} ms ({b_by})")
+        library_ms=lib_ms, library=library, shape=f"{tag} bf16"))
+    print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          + (f"SDPA {lib_ms:.4f} ms" if lib_ms is not None else library)
+          + f", bound {b_ms:.4f} ms ({b_by})")
+
+
+def merge_partials(torch, parts):
+    """Partials (m, l, acc) of disjoint slices of one cache, merged in
+    log-sum-exp form into the whole cache's partials (what a caller of
+    the partial kernel does with a cache split along Sc)."""
+    m = parts[0][0]
+    for pm, _, _ in parts[1:]:
+        m = torch.maximum(m, pm)
+    l = sum(pl * torch.exp(pm - m) for pm, pl, _ in parts)
+    acc = sum(pa * torch.exp(pm - m)[..., None] for pm, _, pa in parts)
+    return m, l, acc
+
+
+def check_partials(name, got, want):
+    """The partial kernel's (m, l, acc) against the plain version's at the
+    float32 bar: m and l directly, acc as acc / l (the softmax-weighted
+    mean of V, whose scale does not grow with l)."""
+    m, l, acc = got
+    wm, wl, wacc = want
+    check(f"{name} m", m, wm, "float32")
+    check(f"{name} l", l, wl, "float32")
+    return check(f"{name} acc / l", acc / l[..., None],
+                 wacc / wl[..., None], "float32")
+
+
+def partial_at(torch, g, records, name, b, h, hkv, dh, sc, *, window=0,
+               softcap=0.0, ring=None):
+    """The partial kernel at a serving shape: against the plain partials
+    in float32 and on bf16 inputs (its outputs are float32 either way),
+    and combined against the fused kernel; times. No single PyTorch call
+    returns softmax partials."""
+    from repro_torch.kernels import decode_attention as da
+    kw = dict(window=window, softcap=softcap)
+    tag = (f"B{b} H{h} Hkv{hkv} Dh{dh} Sc{sc}"
+           + (f" ring pos [{ring[0]}, {ring[1]})" if ring else "")
+           + (f" window={window}" if window else "")
+           + (f" softcap={softcap:g}" if softcap else ""))
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        if ring is not None:
+            args = ring_decode_inputs(torch, g, b, h, hkv, dh, sc, dtype,
+                                      *ring)
+        else:
+            args = decode_inputs(torch, g, b, h, hkv, dh, sc, dtype, 128)
+        q, ck, cv, cpos, k1, v1, pos = args
+        dn = "fp32" if dtype == torch.float32 else "bf16"
+        got = da.decode_attention_partial_cuda(q, ck, cv, cpos, pos, **kw)
+        errs.append(check_partials(f"{dn} {tag}", got,
+                                   da.decode_attention_partial_plain(
+                                       q, ck, cv, cpos, pos, **kw)))
+        check(f"{dn} {tag} combined vs the fused kernel",
+              da.combine_decode_partials(q, *got, k1, v1, softcap=softcap),
+              da.decode_attention_cuda(*args, **kw),
+              "float32" if dtype == torch.float32 else "bfloat16")
+    CHECKED.add(("decode_attention_partial", dh, h // hkv))
+    ms = time_ms(torch, lambda: da.decode_attention_partial_cuda(
+        q, ck, cv, cpos, pos, **kw))
+    plain_ms = time_ms(torch, lambda: da.decode_attention_partial_plain(
+        q, ck, cv, cpos, pos, **kw))
+    valid = int(valid_keys(cpos, pos, window).sum().item())
+    grp = h // hkv
+    nbytes = (q.numel() + 2 * valid * hkv * dh) * 2 + \
+        (cpos.numel() + pos.numel()) * 4 + (2 * b * h + b * h * dh) * 4
+    flops = 4.0 * valid * grp * hkv * dh
+    b_ms, b_by = bound(nbytes, flops)
+    records.append(dict(
+        name=name, route="cuda",
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces=da.PARTIAL_KERNEL.replaces, max_abs_err=errs[-1], ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library="none: no single PyTorch call returns softmax partials",
+        shape=f"{tag} bf16 in, float32 partials out"))
+    print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, no library call, "
+          f"bound {b_ms:.4f} ms ({b_by})")
 
 
 def paged_inputs(torch, g, b, h, hkv, dh, nblk, pt, dtype, min_len):
@@ -283,13 +458,13 @@ def paged_inputs(torch, g, b, h, hkv, dh, nblk, pt, dtype, min_len):
     return args, bt, ppos, pos_h
 
 
-def kernel_decode_attention_paged(torch, g, records):
+def kernel_decode_attention_paged(torch, g, records, name, b, h, hkv, dh,
+                                  nblk, pt=PAGE_TOKENS):
     from repro_torch.kernels import decode_attention as da
     import numpy as np
     import torch.nn.functional as F
-    print("decode_attention_paged (block-table GQA decode, "
-          "csrc/decode_attention.cu)")
-    b, h, hkv, dh, nblk, pt = 8, 32, 8, 128, 32, PAGE_TOKENS
+    print(f"decode_attention_paged (block-table GQA decode, "
+          f"csrc/decode_attention.cu), G {h // hkv}")
     sc = nblk * pt
     args32, _, _, _ = paged_inputs(torch, g, b, h, hkv, dh, nblk, pt,
                                    torch.float32, 128)
@@ -325,6 +500,7 @@ def kernel_decode_attention_paged(torch, g, records):
         raise AssertionError("paged kernel differs from the fused kernel "
                              "on the gathered pages (bf16)")
     print("  bf16: bitwise equal to the fused kernel on the gathered pages")
+    CHECKED.add(("decode_attention_paged", dh, h // hkv))
     ms = time_ms(torch, lambda: da.decode_attention_paged_cuda(*args))
     plain_ms = time_ms(torch, lambda: da.decode_attention_paged_plain(*args))
     # library yardstick: SDPA over the pre-gathered view + current token
@@ -355,7 +531,7 @@ def kernel_decode_attention_paged(torch, g, records):
     flops = 4.0 * (int(v_h.sum()) + b) * grp * hkv * dh
     b_ms, b_by = bound(nbytes, flops)
     records.append(dict(
-        name="decode_attention_paged", route="cuda",
+        name=name, route="cuda",
         source="src/repro_torch/csrc/decode_attention.cu",
         replaces=da.PAGED_KERNEL.replaces, max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
@@ -365,18 +541,19 @@ def kernel_decode_attention_paged(torch, g, records):
           f"pre-gathered view {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
 
-def kernel_flash_chunk(torch, g, records):
-    """The flash kernel at the chunked-prefill shape: max_batch rows of C
-    queries against the gathered 512-key view; rows outside the chunk
-    carry q_pos -1 (their keys are live decode state), pads -1."""
+def kernel_flash_chunk(torch, g, b, sk, h, hkv, dh, c_big):
+    """The flash kernel at a chunked-prefill shape: max_batch rows of C
+    queries against the gathered Sk-key view; rows outside the chunk
+    carry q_pos -1 (their keys are live decode state), pads -1. Float32
+    at C 8, bf16 at ``c_big`` (also against the float32 plain version).
+    The served chunk shapes are checked on their own positions after the
+    runs (served_flash_phase)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.attention import blockwise_attention
-    import torch.nn.functional as F
-    print("flash_attention at the chunk shape (csrc/flash_attention.cu)")
-    b, sk, h, hkv, dh = 8, 512, 32, 8, 128
-    recs = {}
-    for c, dtype in ((8, torch.float32), (128, torch.bfloat16)):
-        name = "float32" if dtype == torch.float32 else "bfloat16"
+    print(f"flash_attention at a chunk shape, G {h // hkv} "
+          f"(csrc/flash_attention.cu)")
+    for c, dtype in ((8, torch.float32), (c_big, torch.bfloat16)):
+        dname = "float32" if dtype == torch.float32 else "bfloat16"
         q = torch.randn((b, c, h, dh), generator=g, device="cuda").to(dtype)
         k = torch.randn((b, sk, hkv, dh), generator=g, device="cuda").to(dtype)
         v = torch.randn((b, sk, hkv, dh), generator=g, device="cuda").to(dtype)
@@ -390,50 +567,58 @@ def kernel_flash_chunk(torch, g, records):
         kp[0] = torch.where(ar < take, ar, torch.full_like(ar, -1))
         qp[1] = torch.arange(200, 200 + c, device="cuda", dtype=torch.int32)
         kp[1] = torch.where(ar < 200 + c, ar, torch.full_like(ar, -1))
-
-        def kern():
-            return fa.flash_attention_cuda(q, k, v, qp, kp)
-
-        def plain():
-            return blockwise_attention(q, k, v, qp, kp, block_k=16)
-
         label = (f"{'fp32' if c == 8 else 'bf16'} B{b} C{c} Sk{sk} H{h} "
                  f"Hkv{hkv} Dh{dh}, rows outside the chunk")
-        got = kern()
-        recs[c] = (check(label, got, plain(), name), kern, plain, q, k, v,
-                   qp, kp)
+        got = fa.flash_attention_cuda(q, k, v, qp, kp)
+        check(label, got, blockwise_attention(q, k, v, qp, kp, block_k=16),
+              dname)
         if dtype == torch.bfloat16:
             check(f"{label}, vs float32 plain", got, blockwise_attention(
                 q.float(), k.float(), v.float(), qp, kp, block_k=16),
                 atol=ROUND_ATOL, rtol=ROUND_RTOL)
-    err, kern, plain, q, k, v, qp, kp = recs[128]
-    ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
-    grp = h // hkv
-    qq = q.transpose(1, 2).contiguous()
-    kk = k.transpose(1, 2).repeat_interleave(grp, 1).contiguous()
-    vv = v.transpose(1, 2).repeat_interleave(grp, 1).contiguous()
-    m = (kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None])
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=m[:, None]))
-    live = (qp >= 0).any(1)
-    keys = int(((kp >= 0) & live[:, None]).sum().item())
-    pairs = int(m.sum().item())
-    nbytes = (2 * int((qp >= 0).sum().item()) * h * dh +
-              2 * keys * hkv * dh) * 2 + (qp.numel() + kp.numel()) * 4
-    flops = 4.0 * pairs * h * dh
-    b_ms, b_by = bound(nbytes, flops)
-    records.append(dict(
-        name="flash_attention[chunk]", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces=fa.KERNEL.replaces, max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        shape=f"B{b} C128 Sk{sk} H{h} Hkv{hkv} Dh{dh} bf16, 2 rows in "
-              f"the chunk"))
-    print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
-          f"ms, bound {b_ms:.4f} ms ({b_by})")
+    CHECKED.add(("flash_attention", dh, h // hkv))
 
 
-def kernel_flash_attention(torch, g, records):
+def kernel_dense_family(torch, g, records):
+    """The attention kernels at the shapes the dense family's runs give
+    them: Gemma2-2B (Dh 256, G 2, softcap 50; local layers a wrapped
+    4096-token ring with window 4096, global layers RING_MAX_SEQ slots),
+    H2O-Danube-1.8B (Dh 80, G 4, window 4096) and Qwen2-1.5B (Dh 128,
+    G 6: contiguous and paged decode), and the partial kernel at both
+    Gemma2 decode shapes; flash at each (Dh, G, window, softcap) on a
+    128-token prompt in float32 and bf16 (the served prompt and chunk
+    shapes are checked and timed after the runs)."""
+    ring = (4100, 4200)
+    print("Gemma2-2B decode attention (Dh 256, G 2, softcap 50)")
+    decode_attention_at(torch, g, records,
+                        "decode_attention_fused[gemma2 local]", 8, 8, 4,
+                        256, 4096, window=4096, softcap=50.0, ring=ring)
+    decode_attention_at(torch, g, records,
+                        "decode_attention_fused[gemma2 global]", 8, 8, 4,
+                        256, RING_MAX_SEQ, softcap=50.0)
+    print("decode_attention_partial at Gemma2-2B's decode shapes")
+    partial_at(torch, g, records, "decode_attention_partial[gemma2 local]",
+               8, 8, 4, 256, 4096, window=4096, softcap=50.0, ring=ring)
+    partial_at(torch, g, records, "decode_attention_partial[gemma2 global]",
+               8, 8, 4, 256, RING_MAX_SEQ, softcap=50.0)
+    print("Gemma2-2B flash attention")
+    for window in (4096, 0):
+        flash_attention_at(torch, g, 1, 128, 8, 4, 256, window=window,
+                           softcap=50.0)
+    print("H2O-Danube-1.8B attention (Dh 80, G 4, window 4096)")
+    decode_attention_at(torch, g, records, "decode_attention_fused[danube]",
+                        4, 32, 8, 80, 4096, window=4096, ring=ring)
+    flash_attention_at(torch, g, 1, 128, 32, 8, 80, window=4096)
+    print("Qwen2-1.5B attention (Dh 128, G 6)")
+    decode_attention_at(torch, g, records, "decode_attention_fused[qwen2]",
+                        8, 12, 2, 128, QWEN2_MAX_SEQ)
+    kernel_decode_attention_paged(torch, g, records,
+                                  "decode_attention_paged[qwen2]", 8, 12, 2,
+                                  128, QWEN2_MAX_SEQ // PAGE_TOKENS)
+    flash_attention_at(torch, g, 1, 128, 12, 2, 128)
+
+
+def kernel_flash_attention(torch, g):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.attention import blockwise_attention
     print("flash_attention (prefill GQA, csrc/flash_attention.cu)")
@@ -451,57 +636,147 @@ def kernel_flash_attention(torch, g, records):
                                       softcap=cap),
               blockwise_attention(q, k, v, p, p, window=window, softcap=cap,
                                   block_k=16), "float32")
-    # the serving shape: one 128-token prompt per prefill call
-    flash_attention_at(torch, g, records, "flash_attention", 1, 128, 32, 8,
-                       128)
+    # Mixtral's heads on one 128-token prompt
+    flash_attention_at(torch, g, 1, 128, 32, 8, 128)
 
 
-def flash_attention_at(torch, g, records, name, b, s, h, hkv, dh):
-    """The flash kernel at a whole-prompt serving shape, in float32 and
-    bf16 (the latter also against the float32 plain version); times."""
+def flash_attention_at(torch, g, b, s, h, hkv, dh, *, window=0,
+                       softcap=0.0):
+    """The flash kernel on a causal prompt of s tokens in float32 and bf16
+    (the latter also against the float32 plain version). The plain
+    version runs one query block (block_q = S): every row's online
+    softmax is the same, and a long prompt then takes S / 16 steps instead
+    of (S / 64) * (S / 16)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.attention import blockwise_attention
-    import torch.nn.functional as F
+    kw = dict(window=window, softcap=softcap)
+    tag = (f"B{b} S{s} H{h} Hkv{hkv} Dh{dh} causal"
+           + (f" window={window}" if window else "")
+           + (f" softcap={softcap:g}" if softcap else ""))
     p = torch.arange(s, device="cuda", dtype=torch.int32).repeat(b, 1)
     qkv = [torch.randn((b, s, n, dh), generator=g, device="cuda")
            for n in (h, hkv, hkv)]
-    check(f"fp32 B{b} S{s} H{h} Hkv{hkv} Dh{dh} causal",
-          fa.flash_attention_cuda(*qkv, p, p),
-          blockwise_attention(*qkv, p, p, block_k=16), "float32")
+
+    def plain(q, k, v):
+        return blockwise_attention(q, k, v, p, p, block_q=s, block_k=16,
+                                   **kw)
+    check(f"fp32 {tag}", fa.flash_attention_cuda(*qkv, p, p, **kw),
+          plain(*qkv), "float32")
     q, k, v = (t.bfloat16() for t in qkv)
-    del qkv
+    got = fa.flash_attention_cuda(q, k, v, p, p, **kw)
+    check(f"bf16 {tag}", got, plain(q, k, v), "bfloat16")
+    check(f"bf16 {tag} vs float32 plain", got,
+          plain(q.float(), k.float(), v.float()),
+          atol=ROUND_ATOL, rtol=ROUND_RTOL)
+    CHECKED.add(("flash_attention", dh, h // hkv))
+
+
+def flash_mask(shape, qp, kp):
+    """[B, Sq, Sk]: the (query, key) pairs a flash call attends to."""
+    m = (kp[:, None, :] >= 0) & (qp[:, :, None] >= 0)
+    if shape.causal:
+        m &= kp[:, None, :] <= qp[:, :, None]
+    if shape.window:
+        m &= kp[:, None, :] > qp[:, :, None] - shape.window
+    return m
+
+
+def flash_case(torch, g, shape):
+    """bf16 q, k, v of a served flash shape (seeded) with the positions of
+    its first call, and the kernel and plain calls on them."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import blockwise_attention
+    qp, kp = SEEN["flash"][shape]
+    q, k, v = (torch.randn((shape.b, n, hh, shape.dh), generator=g,
+                           device="cuda").bfloat16()
+               for n, hh in ((shape.sq, shape.h), (shape.sk, shape.hkv),
+                             (shape.sk, shape.hkv)))
+    kw = dict(window=shape.window, softcap=shape.softcap,
+              causal=shape.causal)
 
     def kern():
-        return fa.flash_attention_cuda(q, k, v, p, p)
+        return fa.flash_attention_cuda(q, k, v, qp, kp, **kw)
 
-    def plain():
-        return blockwise_attention(q, k, v, p, p, block_k=16)
+    def plain(q=q, k=k, v=v):
+        return blockwise_attention(q, k, v, qp, kp, block_q=shape.sq,
+                                   block_k=16, **kw)
+    return q, k, v, qp, kp, kern, plain
 
-    got = kern()
-    err = check(f"bf16 B{b} S{s} H{h} Hkv{hkv} Dh{dh} causal", got,
-                plain(), "bfloat16")
-    check(f"bf16 B{b} S{s} H{h} Hkv{hkv} Dh{dh} causal vs float32 plain",
-          got, blockwise_attention(q.float(), k.float(), v.float(), p, p,
-                                   block_k=16),
-          atol=ROUND_ATOL, rtol=ROUND_RTOL)
+
+def served_flash_phase(torch, g):
+    """Every flash shape the runs gave the kernel, on the positions of its
+    first call (pad tails and rows outside a chunk included) with seeded
+    bf16 q/k/v: against the bf16 plain version (2e-2) and the float32
+    plain version (half a bf16 ulp + 1e-4). Returns each shape's max abs
+    error."""
+    print(f"flash_attention at the {len(SEEN['flash'])} shapes the runs "
+          f"gave it, on their recorded positions")
+    errs = {}
+    for shape in sorted(SEEN["flash"]):
+        q, k, v, qp, kp, kern, plain = flash_case(torch, g, shape)
+        got = kern()
+        tag = (f"bf16 {shape.tag()}, {int((qp >= 0).sum())} query rows "
+               f"with a position")
+        errs[shape] = check(tag, got, plain(), "bfloat16")
+        check(f"{tag} vs float32 plain", got,
+              plain(q.float(), k.float(), v.float()),
+              atol=ROUND_ATOL, rtol=ROUND_RTOL)
+        FLASH_CHECKED.add(shape)
+        del q, k, v, got
+    return errs
+
+
+def flash_record(torch, g, records, name, run, phase, errs, *, window=None):
+    """A record of the flash kernel at the largest shape (Sq x Sk) that
+    ``run`` gave it in ``phase`` (with a window or not, if ``window`` is
+    given), timed on that shape's recorded positions; its launches are the
+    run's launches at that shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    shapes = {sh: n for (ph, sh), n in run.flash.items() if ph == phase and
+              (window is None or bool(sh.window) == window)}
+    if not shapes:
+        raise AssertionError(f"{name}: the run gave the flash kernel no "
+                             f"shape in its {phase} phase")
+    shape = max(shapes, key=lambda sh: (sh.sq * sh.sk, sh.b))
+    q, k, v, qp, kp, kern, plain = flash_case(torch, g, shape)
     ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
-    grp = h // hkv
-    qq = q.transpose(1, 2).contiguous()
-    kk = k.transpose(1, 2).repeat_interleave(grp, 1).contiguous()
-    vv = v.transpose(1, 2).repeat_interleave(grp, 1).contiguous()
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, is_causal=True))
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + 2 * p.numel() * 4
-    flops = 4.0 * b * h * dh * s * (s + 1) / 2
+    lib_ms, library = None, "none: SDPA has no tanh softcap"
+    mask = flash_mask(shape, qp, kp)
+    if not shape.softcap:
+        grp = shape.h // shape.hkv
+        qq = q.transpose(1, 2).contiguous()
+        kk = k.transpose(1, 2).repeat_interleave(grp, 1).contiguous()
+        vv = v.transpose(1, 2).repeat_interleave(grp, 1).contiguous()
+        ar = torch.arange(shape.sq, device="cuda", dtype=torch.int32)
+        if shape.sq == shape.sk and shape.causal and not shape.window and \
+                bool((qp == ar).all()) and bool((kp == ar).all()):
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, is_causal=True))
+        else:
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask[:, None]))
+        library = "SDPA"
+    live = (qp >= 0).any(1)
+    keys = int(((kp >= 0) & live[:, None]).sum().item())
+    nbytes = (2 * int((qp >= 0).sum().item()) * shape.h * shape.dh +
+              2 * keys * shape.hkv * shape.dh) * 2 + \
+        (qp.numel() + kp.numel()) * 4
+    flops = 4.0 * int(mask.sum().item()) * shape.h * shape.dh
     b_ms, b_by = bound(nbytes, flops)
     records.append(dict(
         name=name, route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
-        replaces=fa.KERNEL.replaces, max_abs_err=err, ms=ms,
+        replaces=fa.KERNEL.replaces, max_abs_err=errs[shape], ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        shape=f"B{b} S{s} H{h} Hkv{hkv} Dh{dh} causal bf16"))
-    print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
-          f"ms, bound {b_ms:.4f} ms ({b_by})")
+        library=library, launches=shapes[shape],
+        shape=f"{shape.tag()} bf16, {int((qp >= 0).sum())} query rows with "
+              f"a position (served; {sum(shapes.values())} launches over "
+              f"{len(shapes)} shapes in this phase)"))
+    print(f"  {name}: {shape.tag()}, {shapes[shape]} launches: time "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          + (f"SDPA {lib_ms:.4f} ms" if lib_ms is not None else library)
+          + f", bound {b_ms:.4f} ms ({b_by})")
 
 
 def scan_inputs(torch, g, bs, s, h, p, n, dtype):
@@ -715,7 +990,8 @@ def all_kernels():
     from repro_torch.kernels import decode_attention, flash_attention, \
         moe_gemm, ssm_scan
     return (decode_attention.KERNEL, decode_attention.PAGED_KERNEL,
-            flash_attention.KERNEL, moe_gemm.KERNEL, ssm_scan.KERNEL)
+            decode_attention.PARTIAL_KERNEL, flash_attention.KERNEL,
+            moe_gemm.KERNEL, ssm_scan.KERNEL)
 
 
 def launch_counts():
@@ -730,10 +1006,19 @@ def launch_counts():
 # what each Run gives the kernels, observed around the wrappers (the launch
 # counts stay the wrappers' own): per phase of the current Run, a Counter of
 # the expert FFN's (C, path); over all runs, the (C, path) pairs, the C of
-# prefill and chunk calls, the SSD scan's (B, S) and the row counts of the
-# row-blocked projections and norms (prefill and chunk calls only)
+# prefill and chunk calls, the SSD scan's (B, S), the row counts of the
+# row-blocked projections and norms (prefill and chunk calls only), the
+# attention kernels' (kernel, Dh, G, window?, softcap?) and every flash
+# call's whole shape (FlashShape) with the positions of its first call
 SEEN = {"phase": None, "run": None, "ffn": Counter(), "ffn_prefill_c": set(),
-        "scan": set(), "rows": set()}
+        "scan": set(), "rows": set(), "attn": Counter(),
+        "attn_run": Counter(), "flash": {}, "flash_run": Counter()}
+# the (kernel, Dh, G) each attention kernel was held to its plain version
+# at in the kernel phase; main() fails if a run gives a kernel another
+CHECKED = set()
+# the flash shapes held to the plain version on their recorded positions
+# (served_flash_phase); main() fails if a run gave the kernel another
+FLASH_CHECKED = set()
 
 
 def observe_kernel_shapes():
@@ -765,9 +1050,36 @@ def observe_kernel_shapes():
         if SEEN["run"] is not None:
             SEEN["rows"].add(x.numel() // x.shape[-1])
         return blocked(fn, x)
+
+    def attn_observed(kernel, fn):
+        # q [..., H, Dh]; the cache, page pool or keys [., ., Hkv, Dh]
+        def observed(q, kv, *args, **kw):
+            if SEEN["run"] is not None:
+                key = (kernel, q.shape[-1], q.shape[-2] // kv.shape[2],
+                       bool(kw.get("window")), bool(kw.get("softcap")))
+                SEEN["attn"][key] += 1
+                SEEN["attn_run"][key] += 1
+                if kernel == "flash_attention":   # args: v, q_pos, k_pos
+                    shape = FlashShape(
+                        q.shape[0], q.shape[1], kv.shape[1], q.shape[2],
+                        kv.shape[2], q.shape[3], int(kw.get("window", 0)),
+                        float(kw.get("softcap", 0.0)),
+                        bool(kw.get("causal", True)))
+                    if shape not in SEEN["flash"]:
+                        SEEN["flash"][shape] = (args[1].clone(),
+                                                args[2].clone())
+                    SEEN["flash_run"][(SEEN["phase"], shape)] += 1
+            return fn(q, kv, *args, **kw)
+        return observed
     ops.expert_ffn_cuda = ffn_observed
     ops.ssm_scan_cuda = scan_observed
     layers.row_blocked = rows_observed
+    ops.decode_attention_cuda = attn_observed("decode_attention_fused",
+                                              ops.decode_attention_cuda)
+    ops.decode_attention_paged_cuda = attn_observed(
+        "decode_attention_paged", ops.decode_attention_paged_cuda)
+    ops.flash_attention_cuda = attn_observed("flash_attention",
+                                             ops.flash_attention_cuda)
 
 
 def reset_counts():
@@ -782,6 +1094,26 @@ def delta(a, b):
     return {k: b[k] - a[k] for k in a}
 
 
+class FlashShape(NamedTuple):
+    """One flash call's shape: q [B, Sq, H, Dh], keys [B, Sk, Hkv, Dh]."""
+    b: int
+    sq: int
+    sk: int
+    h: int
+    hkv: int
+    dh: int
+    window: int
+    softcap: float
+    causal: bool
+
+    def tag(self):
+        return (f"B{self.b} Sq{self.sq} Sk{self.sk} H{self.h} Hkv{self.hkv} "
+                f"Dh{self.dh}" + (f" window={self.window}" if self.window
+                                  else "")
+                + (f" softcap={self.softcap:g}" if self.softcap else "")
+                + ("" if self.causal else " not causal"))
+
+
 class Run:
     """One pass of requests through an engine: streams, per-request token
     times, and launch counts per phase: "prefill" (inside
@@ -789,7 +1121,8 @@ class Run:
     prefills), "chunks" (the chunked plane's ticks inside ``step()``) and
     "decode" (the rest of ``step()``)."""
 
-    def __init__(self, torch, engine, prompts, max_new, fail=None):
+    def __init__(self, torch, engine, prompts, max_new, fail=None,
+                 at_end=None):
         from repro_torch.serving.api import RequestSpec
         torch.cuda.synchronize()
         chunk_counts = {k: 0 for k in launch_counts()}
@@ -811,6 +1144,8 @@ class Run:
             engine.chunked.tick = counted_tick
         c0 = launch_counts()
         self.ffn_c = SEEN["run"] = {}
+        self.attn = SEEN["attn_run"] = Counter()
+        self.flash = SEEN["flash_run"] = Counter()   # (phase, FlashShape)
         SEEN["phase"] = "prefill"
         t_submit, handles = {}, []
         self.first, last, self.tbt = {}, {}, []
@@ -852,6 +1187,8 @@ class Run:
         t_end = time.perf_counter()
         c2 = launch_counts()
         SEEN["run"] = None
+        if at_end is not None:          # the engine's final caches
+            at_end(engine)
         n_ffn = delta(c0, c2)["moe_ffn"]
         if n_ffn != sum(sum(c.values()) for c in self.ffn_c.values()):
             raise AssertionError(f"{n_ffn} expert FFN launches, not all "
@@ -1096,109 +1433,140 @@ def row_count_probe(torch, params):
           f"one call {tp:.4f} ms")
 
 
-def kv_plane_phase(torch, engine, prompts):
+def same_streams(what, got, want):
+    """Raise unless two Runs' streams are equal, naming the requests that
+    differ."""
+    if got.streams != want.streams:
+        bad = [i for i, (x, y) in enumerate(zip(got.streams, want.streams))
+               if x != y]
+        raise AssertionError(f"{what} differ for requests {bad}")
+
+
+def aw_failover(torch, label, engine, prompts, max_new, want, fail_tokens):
+    """``fail_aw(0)`` once every request has ``fail_tokens`` tokens, then
+    ``recover_aw_requests()`` (the other AW is full: nothing is restored
+    there), ``provision_aw(0)``, and steps to the end. Every stream must
+    equal ``want``'s bit for bit, and AW0's requests must all be restored
+    at the step after provisioning. Returns the Run and (rid, prompt
+    tokens, position) of each request AW0 held."""
+    print(f"{label} AW failover: fail_aw(0) once every request has "
+          f"{fail_tokens} tokens")
+    restores0 = engine.store.stats.restores
+    bytes0 = engine.store.stats.bytes_restored
+    recovered_now, held = [], []
+
+    def fail_aw(eng, handles, steps):
+        if min(len(h.tokens()) for h in handles) < fail_tokens:
+            return None
+        victims = [r for r in eng.requests.values()
+                   if r.aw == 0 and not r.done]
+        held.extend((r.rid, len(r.prompt), r.pos) for r in victims)
+        eng.fail_aw(0)
+        recovered_now.extend(eng.recover_aw_requests())
+        eng.provision_aw(0)
+        return [r.rid for r in victims]
+    fo = Run(torch, engine, prompts, max_new, fail=fail_aw)
+    if fo.t_fail is None:
+        raise AssertionError(f"{label}: the AW failure was never injected")
+    same_streams(f"{label} streams under fail_aw(0)", fo, want)
+    restored = engine.store.stats.restores - restores0
+    if restored != len(fo.victims) or recovered_now or not fo.victims:
+        raise AssertionError(f"{label}: expected the {len(fo.victims)} "
+                             f"requests of AW0 restored at the step after "
+                             f"provision_aw(0); {restored} restored, "
+                             f"{recovered_now} at recover_aw_requests")
+    print(f"  {len(fo.streams)} streams bitwise equal to the failure-free "
+          f"run; restored the {restored} requests of AW0 (rid, prompt "
+          f"tokens, position at the failure: {held}) at the step after "
+          f"provision_aw(0), none by recover_aw_requests (AW1 full), "
+          f"{engine.store.stats.bytes_restored - bytes0} bytes; fail_aw to "
+          f"the restored requests' next token {fo.recovery_s * 1e3:.2f} ms "
+          f"(host clock); largest gap between tokens "
+          f"{max(fo.tbt) * 1e3:.2f} ms; on {card_line()}")
+    fo.report(f"{label} AW failover")
+    return fo, held
+
+
+def kv_plane_phase(torch, label, cfg, prompts, *, params=None, max_batch=8,
+                   max_seq=512, num_ew=2, max_new=32, fail_tokens=8):
     """Whole-prompt contiguous, chunked contiguous and chunked paged
-    engines on the serve phase's weights at capacity factor 4.0; then the
-    AW failover on the paged engine. Returns the launches per phase of
-    the whole-prompt and the paged runs."""
+    engines (CHUNK_BUDGET chunk tokens a step, PAGE_TOKENS-token pages) on
+    one set of weights (``params``, else the whole-prompt engine's seeded
+    init): paged streams must equal contiguous ones, and chunked streams
+    whole-prompt ones, bit for bit; the paged run must launch the paged
+    decode kernel and never the fused one. Then the AW failover on the
+    paged engine (``aw_failover``). Returns the failure-free Runs and the
+    engines, by engine."""
     from repro_torch.serving.engine import EngineConfig, InferenceEngine
-    # capacity >= tokens in every call: no token is ever dropped, so a
-    # stream does not depend on its slot or on how its prompt is chunked
-    cfg = mixtral_8_layers(capacity_factor=4.0)
-    base = dict(max_batch=8, max_seq=512, num_aw=2, num_ew=2)
+    base = dict(max_batch=max_batch, max_seq=max_seq, num_aw=2,
+                num_ew=num_ew)
+    t0 = time.perf_counter()
+    whole = InferenceEngine(cfg, EngineConfig(**base), params=params,
+                            seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  engine: {cfg.name}, {cfg.num_layers} layers bf16, "
+          f"{cfg.param_count / 1e9:.2f}B params, "
+          + ("shared weights" if params is not None else
+             f"seeded init {time.perf_counter() - t0:.1f} s")
+          + f", {torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
     engines = {
-        "whole": InferenceEngine(cfg, EngineConfig(**base),
-                                 params=engine.params, device="cuda"),
+        "whole": whole,
         "contiguous": InferenceEngine(
             cfg, EngineConfig(**base, chunk_token_budget=CHUNK_BUDGET),
-            params=engine.params, device="cuda"),
+            params=whole.params, device="cuda"),
         "paged": InferenceEngine(
             cfg, EngineConfig(**base, chunk_token_budget=CHUNK_BUDGET,
                               kv_page_tokens=PAGE_TOKENS),
-            params=engine.params, device="cuda"),
+            params=whole.params, device="cuda"),
     }
-    max_new = 32
     runs = {}
     for name, eng in engines.items():
         Run(torch, eng, prompts, 2)                   # warm-up
         reset_counts()
         runs[name] = Run(torch, eng, prompts, max_new)
-        runs[name].report(name)
-    paged = engines["paged"]
-    if runs["paged"].streams != runs["contiguous"].streams:
-        bad = [i for i, (a, b) in enumerate(zip(
-            runs["paged"].streams, runs["contiguous"].streams)) if a != b]
-        raise AssertionError(f"paged streams differ from contiguous ones "
-                             f"for requests {bad}")
+        runs[name].report(f"{label} {name}")
+    same_streams(f"{label} paged streams (against contiguous ones)",
+                 runs["paged"], runs["contiguous"])
     print(f"  paged (page {PAGE_TOKENS} tokens) streams bitwise equal to "
           f"contiguous ones, both chunked at {CHUNK_BUDGET} tokens/step")
-    row_count_probe(torch, engine.params)
-    if runs["contiguous"].streams != runs["whole"].streams:
-        bad = [i for i, (a, b) in enumerate(zip(runs["contiguous"].streams,
-                                                runs["whole"].streams))
-               if a != b]
-        raise AssertionError(f"chunked streams differ from whole-prompt "
-                             f"streams for requests {bad}")
+    same_streams(f"{label} chunked streams (against whole-prompt ones)",
+                 runs["contiguous"], runs["whole"])
     print("  chunked streams bitwise equal to whole-prompt streams")
     lp = {k: sum(ph[k] for ph in runs["paged"].launches.values())
           for k in runs["paged"].launches["decode"]}
-    if lp["decode_attention_paged"] <= 0 or lp["decode_attention_fused"]:
-        raise AssertionError(f"the paged engine's decode steps did not all "
-                             f"launch the paged kernel: {lp}")
-    if lp["flash_attention"] <= 0 or lp["moe_ffn"] <= 0:
-        raise AssertionError(f"a kernel of the paged path was not "
-                             f"launched: {lp}")
-    dec = runs["paged"].launches["decode"]
-    if dec["moe_ffn/tensor_core"] != dec["moe_ffn"]:
-        raise AssertionError(f"the paged decode steps' expert FFN did not "
-                             f"all take the tensor-core path: {dec}")
-    print(f"  paged path launches: {lp}")
+    if lp["decode_attention_paged"] <= 0 or lp["decode_attention_fused"] \
+            or lp["flash_attention"] <= 0:
+        raise AssertionError(f"{label}: the paged engine's decode steps did "
+                             f"not all launch the paged kernel, or flash "
+                             f"was not launched: {lp}")
+    print(f"  paged path launches: {lp}; attention (kernel, Dh, G, window, "
+          f"softcap): {dict(runs['paged'].attn)}")
+    paged = engines["paged"]
     print(f"  chunk calls: paged {paged.chunked.stats.calls}, shapes "
           f"{sorted(paged.chunked.stats.shapes)}")
     paged.pages.check()
     print(f"  PagePool.check() passed: {paged.pages.stats()}")
-
-    print("AW failover: fail_aw(0) once every request has 8 tokens")
-    restores0 = paged.store.stats.restores
-    bytes0 = paged.store.stats.bytes_restored
-    recovered_now = []
-
-    def fail_aw(eng, handles, steps):
-        if min(len(h.tokens()) for h in handles) < 8:
-            return None
-        victims = [r.rid for r in eng.requests.values()
-                   if r.aw == 0 and not r.done]
-        eng.fail_aw(0)
-        recovered_now.extend(eng.recover_aw_requests())
-        eng.provision_aw(0)
-        return victims
-    fo = Run(torch, paged, prompts, max_new, fail=fail_aw)
-    if fo.t_fail is None:
-        raise AssertionError("the AW failure was never injected")
-    if fo.streams != runs["paged"].streams:
-        bad = [i for i, (a, b) in enumerate(zip(fo.streams,
-                                                runs["paged"].streams))
-               if a != b]
-        raise AssertionError(f"streams under fail_aw(0) differ from the "
-                             f"failure-free run for requests {bad}")
-    restored = paged.store.stats.restores - restores0
-    print(f"  {len(fo.streams)} streams bitwise equal to the failure-free "
-          f"paged run; {len(fo.victims)} requests on AW0, "
-          f"{len(recovered_now)} restored by recover_aw_requests (AW1 "
-          f"full), {restored} restored at the next step")
-    print(f"  restored {restored} requests, "
-          f"{paged.store.stats.bytes_restored - bytes0} bytes; fail_aw to "
-          f"the restored requests' next token {fo.recovery_s * 1e3:.2f} ms "
-          f"(host clock); largest gap between tokens "
-          f"{max(fo.tbt) * 1e3:.2f} ms; on {card_line()}")
-    fo.report("AW failover")
+    aw_failover(torch, label, paged, prompts, max_new, runs["paged"],
+                fail_tokens)
     paged.pages.check()
-    if restored != len(fo.victims) or recovered_now:
-        raise AssertionError(f"expected the {len(fo.victims)} requests of "
-                             f"AW0 restored at the step after "
-                             f"provision_aw(0); {restored} restored, "
-                             f"{recovered_now} at recover_aw_requests")
-    return runs["whole"], runs["paged"]
+    return runs, engines
+
+
+def mixtral_kv_plane(torch, engine, prompts):
+    """The KV plane on the serve phase's weights at capacity factor 4.0
+    (capacity >= tokens in every call: no token is ever dropped, so a
+    stream does not depend on its slot or on how its prompt is chunked):
+    every expert FFN launch of the paged decode steps on the tensor-core
+    path, and the row-count probe. Returns the failure-free Runs."""
+    runs, _ = kv_plane_phase(torch, "kv plane",
+                             mixtral_8_layers(capacity_factor=4.0), prompts,
+                             params=engine.params)
+    dec = runs["paged"].launches["decode"]
+    if dec["moe_ffn"] <= 0 or dec["moe_ffn/tensor_core"] != dec["moe_ffn"]:
+        raise AssertionError(f"the paged decode steps' expert FFN did not "
+                             f"all take the tensor-core path: {dec}")
+    row_count_probe(torch, engine.params)
+    return runs
 
 
 def zamba2_13_layers():
@@ -1278,51 +1646,194 @@ def hybrid_phase(torch, profile_dir=None):
     print(f"  per-step checkpoint gather + device-to-host copy (8 rows): "
           f"{ck_ms:.3f} ms, {nbytes} bytes ({nbytes // 8} per token)")
 
-    print("hybrid AW failover: fail_aw(0) once every request has 8 tokens")
-    restores0 = engine.store.stats.restores
-    bytes0 = engine.store.stats.bytes_restored
-    recovered_now = []
-
-    def fail_aw(eng, handles, steps):
-        if min(len(h.tokens()) for h in handles) < 8:
-            return None
-        victims = [r.rid for r in eng.requests.values()
-                   if r.aw == 0 and not r.done]
-        eng.fail_aw(0)
-        recovered_now.extend(eng.recover_aw_requests())
-        eng.provision_aw(0)
-        return victims
-    fo = Run(torch, engine, prompts, max_new, fail=fail_aw)
-    if fo.t_fail is None:
-        raise AssertionError("the AW failure was never injected")
-    if fo.streams != run.streams:
-        bad = [i for i, (a, b) in enumerate(zip(fo.streams, run.streams))
-               if a != b]
-        raise AssertionError(f"hybrid streams under fail_aw(0) differ from "
-                             f"the failure-free run for requests {bad}")
-    restored = engine.store.stats.restores - restores0
-    if restored != len(fo.victims) or recovered_now or not fo.victims:
-        raise AssertionError(f"expected the {len(fo.victims)} requests of "
-                             f"AW0 restored at the step after "
-                             f"provision_aw(0); {restored} restored, "
-                             f"{recovered_now} at recover_aw_requests")
-    print(f"  {len(fo.streams)} streams bitwise equal to the failure-free "
-          f"run; restored {restored} requests, "
-          f"{engine.store.stats.bytes_restored - bytes0} bytes; fail_aw to "
-          f"the restored requests' next token {fo.recovery_s * 1e3:.2f} ms "
-          f"(host clock); largest gap between tokens "
-          f"{max(fo.tbt) * 1e3:.2f} ms; on {card_line()}")
-    fo.report("hybrid AW failover")
+    aw_failover(torch, "hybrid", engine, prompts, max_new, run, 8)
     if profile_dir is not None:
         profile_decode(torch, engine, prompts, profile_dir / "hybrid")
     return run
 
 
-def profile_decode(torch, engine, prompts, out_dir):
-    """Trace 4 steady decode steps of the 8-request batch and one prefill
-    with torch.profiler: wall time per step, device-busy time, and the
-    kernels that take it. Writes the Chrome trace and the full table to
-    ``out_dir``."""
+def served_partials(torch, engine, out):
+    """The partial kernel on a served engine's final caches, one local
+    (ring) and one global layer, with seeded q/k1/v1 of the model's
+    shapes: the partials against the plain partials; the partials
+    combined against the fused kernel; the cache split in two halves
+    along Sc, each half's partials merged in log-sum-exp form, then
+    combined, against the fused kernel. Adds each layer's partial-kernel
+    launches to ``out``."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.transformer import layer_windows
+    cfg = engine.cfg
+    b = engine.ecfg.max_batch
+    pos = torch.full((b,), -1, dtype=torch.int32)
+    for r in engine.requests.values():
+        pos[r.slot] = r.pos
+    pos = pos.cuda()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dh, h, hkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
+    q = torch.randn((b, h, dh), generator=g, device="cuda").bfloat16()
+    k1, v1 = (torch.randn((b, hkv, dh), generator=g,
+                          device="cuda").bfloat16() for _ in range(2))
+    windows = layer_windows(cfg)
+    for li, kind in ((0, "local"), (1, "global")):
+        layer = engine.cache["layers"][li]
+        ck, cv, cpos = layer["k"], layer["v"], layer["pos"]
+        sc = ck.shape[1]
+        kw = dict(window=windows[li], softcap=cfg.attn_softcap)
+        tag = (f"served {kind} layer {li} (Sc {sc}, window {windows[li]}, "
+               f"positions up to {int(pos.max())})")
+        n0 = da.PARTIAL_KERNEL.launches
+        got = da.decode_attention_partial_cuda(q, ck, cv, cpos, pos, **kw)
+        check_partials(f"{tag} partials vs plain", got,
+                       da.decode_attention_partial_plain(q, ck, cv, cpos,
+                                                         pos, **kw))
+        fused = da.decode_attention_cuda(q, ck, cv, cpos, k1, v1, pos, **kw)
+        check(f"{tag} partials combined vs the fused kernel",
+              da.combine_decode_partials(q, *got, k1, v1,
+                                         softcap=cfg.attn_softcap),
+              fused, "bfloat16")
+        half = sc // 2
+        parts = [da.decode_attention_partial_cuda(
+            q, ck[:, a:z], cv[:, a:z], cpos[:, a:z], pos, **kw)
+            for a, z in ((0, half), (half, sc))]
+        check(f"{tag} two Sc halves merged, combined vs the fused kernel",
+              da.combine_decode_partials(q, *merge_partials(torch, parts),
+                                         k1, v1, softcap=cfg.attn_softcap),
+              fused, "bfloat16")
+        out[kind] = da.PARTIAL_KERNEL.launches - n0
+
+
+def dense_ring_phase(torch, label, cfg, ecfg, lens, *, max_new=32,
+                     fail_tokens=16, partials=False, profile_dir=None):
+    """A sliding-window model at full width and depth in bf16: the
+    requests of ``lens`` prompt tokens (each prefilled alone through
+    ``client.submit``: ring caches take the exact whole-prompt scheme) to
+    the end once, then again with ``fail_aw(0)`` once every request has
+    ``fail_tokens`` tokens, recover, provision: every stream must equal
+    the failure-free one bit for bit, and AW0 must have held a request
+    whose ring wrapped inside prefill and one whose ring wrapped during
+    decode. With ``partials``, the partial kernel is checked on the
+    failure-free run's final caches. With ``profile_dir``, a
+    torch.profiler pass over decode steps and one prefill of the first
+    prompt. Returns (Run, partial launches)."""
+    import numpy as np
+    from repro_torch.models.transformer import layer_windows
+    from repro_torch.serving.engine import InferenceEngine
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, ecfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    window = cfg.sliding_window
+    n_ring = sum(1 for w in layer_windows(cfg) if w)
+    print(f"  engine: {cfg.name}, {cfg.num_layers} layers ({n_ring} with a "
+          f"{window}-token window) bf16, {cfg.param_count / 1e9:.2f}B "
+          f"params, seeded init {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in lens]
+    # warm-up on the short prompts only
+    Run(torch, engine, [p for p in prompts if len(p) <= 128], 2)
+    reset_counts()
+    calls0, steps0 = engine.scheduler.stats.calls, engine.steps
+    part = {}
+    run = Run(torch, engine, prompts, max_new,
+              at_end=(lambda eng: served_partials(torch, eng, part))
+              if partials else None)
+    calls = engine.scheduler.stats.calls - calls0
+    steps = engine.steps - steps0
+    tot = {k: sum(ph[k] for ph in run.launches.values())
+           for k in run.launches["decode"]}
+    want = {"flash_attention": cfg.num_layers * calls,
+            "decode_attention_fused": cfg.num_layers * steps,
+            "decode_attention_paged": 0, "moe_ffn": 0, "ssm_scan": 0}
+    if any(tot[k] != n for k, n in want.items()) or calls != len(prompts):
+        raise AssertionError(f"{label} launches {tot}, expected {want} "
+                             f"({calls} prefill calls, {steps} steps)")
+    for st in run.streams:
+        if len(st) != max_new or not all(0 <= t < cfg.vocab_size
+                                         for t in st):
+            raise AssertionError(f"bad stream {st}")
+    print(f"  main path: {calls} prefill calls of one prompt each "
+          f"({cfg.num_layers} flash launches each), {steps} decode steps "
+          f"({cfg.num_layers} decode attention launches each); attention "
+          f"(kernel, Dh, G, window, softcap): {dict(run.attn)}")
+    run.report(label)
+    by_len = {}
+    for i, n in enumerate(lens):
+        by_len.setdefault(n, []).append(run.first[f"r{i}"] * 1e3)
+    print("  TTFT by prompt length, ms (each prompt prefilled alone, in "
+          "submission order): " + "; ".join(
+              f"{n}: {', '.join(f'{t:.1f}' for t in ts)}"
+              for n, ts in sorted(by_len.items())))
+    print(f"  stream r0: {run.streams[0][:12]}...")
+    slots = list(range(ecfg.max_batch))
+    toks = [max(lens)] * len(slots)
+    leaves = engine.layout.extract_tokens(engine.cache, slots, toks)
+    nbytes = sum(t.nbytes for t in leaves)
+    ck_ms = host_ms(torch, lambda: engine.layout.extract_tokens(
+        engine.cache, slots, toks))
+    print(f"  per-step checkpoint gather + device-to-host copy "
+          f"({len(slots)} rows): {ck_ms:.3f} ms, {nbytes} bytes "
+          f"({nbytes // len(slots)} per token)")
+    n = max(lens)
+    leaves = engine.layout.extract_range(engine.cache, 0, 0, n)
+    nbytes = sum(t.nbytes for t in leaves)
+    del leaves
+    inst_ms = host_ms(torch, lambda: engine.layout.extract_range(
+        engine.cache, 0, 0, n), reps=3)
+    print(f"  install checkpoint of a {n}-token prompt (gather + one "
+          f"device-to-host copy): {inst_ms:.1f} ms, {nbytes} bytes")
+
+    _, held = aw_failover(torch, label, engine, prompts, max_new, run,
+                          fail_tokens)
+    in_prefill = [v[0] for v in held if v[1] > window]
+    in_decode = [v[0] for v in held if v[1] <= window < v[2]]
+    if not in_prefill or not in_decode:
+        raise AssertionError(f"AW0 held no request whose ring wrapped "
+                             f"inside prefill or none whose ring wrapped "
+                             f"during decode: (rid, prompt, pos) {held}")
+    print(f"  restored requests whose rings wrapped inside prefill: "
+          f"{in_prefill}, during decode: {in_decode}")
+    if profile_dir is not None:
+        profile_decode(torch, engine, prompts, profile_dir / label,
+                       chrome=False)
+    del engine
+    return run, part
+
+
+def qwen2_phase(torch, profile_dir=None):
+    """Qwen2-1.5B at full width and depth in bf16 (QKV bias, G 6): 8
+    requests of seeded prompt lengths in QWEN2_LENS and 32 greedy new
+    tokens through the KV plane's three engines (``kv_plane_phase``,
+    failure after 8 tokens); the paged run must launch the paged kernel at
+    G 6. Returns the failure-free Runs."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("qwen2_1_5b"), dtype="bfloat16")
+    rng = np.random.default_rng(3)
+    lens = rng.integers(QWEN2_LENS[0], QWEN2_LENS[1] + 1, size=8)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),)).astype(
+        np.int32) for n in lens]
+    print(f"  prompt lengths {lens.tolist()}")
+    runs, engines = kv_plane_phase(torch, "qwen2", cfg, prompts,
+                                   max_seq=QWEN2_MAX_SEQ, num_ew=1)
+    if not any(k[0] == "decode_attention_paged" and k[2] == 6
+               for k in runs["paged"].attn):
+        raise AssertionError(f"the qwen2 paged run did not launch the paged "
+                             f"kernel at G 6: {dict(runs['paged'].attn)}")
+    if profile_dir is not None:
+        profile_decode(torch, engines["whole"], prompts,
+                       profile_dir / "qwen2", chrome=False)
+    return runs
+
+
+def profile_decode(torch, engine, prompts, out_dir, chrome=True):
+    """Trace 4 steady decode steps of the batch and one prefill of the
+    first prompt with torch.profiler: wall time per step, device-busy
+    time, and the kernels that take it. Writes the table of each to
+    ``out_dir``, and with ``chrome`` the Chrome traces (the dense phases
+    leave them out: a 4,088-token prefill's trace alone outgrows what a
+    chip run may bring back)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.api import RequestSpec
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1354,7 +1865,8 @@ def profile_decode(torch, engine, prompts, out_dir):
     engine.release_request("pp")
     from torch.autograd import DeviceType
     for name, pr, w, n in (("decode step", prof, wall, steps),
-                           ("prefill (1 x 128 tokens)", prof_pre, wall_pre,
+                           (f"prefill (1 x {len(prompts[0])} tokens)",
+                            prof_pre, wall_pre,
                             1)):
         ka = pr.key_averages()
 
@@ -1376,7 +1888,46 @@ def profile_decode(torch, engine, prompts, out_dir):
         tag = "decode" if n > 1 else "prefill"
         (out_dir / f"profile_{tag}.txt").write_text(ka.table(
             sort_by="self_cpu_time_total", row_limit=60))
-        pr.export_chrome_trace(str(out_dir / f"trace_{tag}.json"))
+        if chrome:
+            pr.export_chrome_trace(str(out_dir / f"trace_{tag}.json"))
+
+
+# the attention instantiations this slice added that the runs use:
+# (Dh, G) of Gemma2-2B, H2O-Danube-1.8B and Qwen2-1.5B, and the flash
+# kernel's new head dims (mangled template arguments)
+NEW_INSTANTIATIONS = ("Li256ELi2E", "Li80ELi4E", "Li128ELi6E", "Li80EEv",
+                      "Li256EEv")
+
+
+def print_ptxas(build_log):
+    """Registers and spills per kernel from nvcc's -Xptxas=-v output: a
+    summary per source, then every kernel that spills or takes 200 or
+    more registers, and the new instantiations the runs use."""
+    import re
+    for src, log in sorted(build_log.items()):
+        entries, name, spill = [], None, (0, 0)
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name, spill = m.group(1), (0, 0)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and name:
+                spill = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                entries.append((name, int(m.group(1)), spill))
+                name = None
+        if not entries:
+            continue
+        regs = [e[1] for e in entries]
+        print(f"  {src}: {len(entries)} kernels, {min(regs)}-{max(regs)} "
+              f"registers, {sum(1 for e in entries if any(e[2]))} spill")
+        for n, r, sp in entries:
+            if any(sp) or r >= 200 or any(k in n for k in
+                                          NEW_INSTANTIATIONS):
+                print(f"    {n[:90]}: {r} registers, spill stores/loads "
+                      f"{sp[0]}/{sp[1]} bytes")
 
 
 def main():
@@ -1407,27 +1958,31 @@ def main():
     t0 = time.perf_counter()
     build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
-          f"(nvcc wall {build.build_seconds:.1f} s)")
-    for name, log in sorted(build.build_log.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+          f"(nvcc wall {build.build_seconds:.1f} s; each source's nvcc, all "
+          f"started together: " + ", ".join(
+              f"{k} {v:.1f} s" for k, v in
+              sorted(build.build_source_seconds.items())) + ")")
+    print_ptxas(build.build_log)
 
     observe_kernel_shapes()
     records = []
+    phase = Phases(torch)
     g = torch.Generator(device="cuda").manual_seed(0)
     kernel_decode_attention(torch, g, records)
     print("decode_attention at Zamba2's shared block (Dh 112, G 1)")
     decode_attention_at(torch, g, records, "decode_attention_fused[Dh112]",
                         8, 32, 32, 112, HYBRID_MAX_SEQ)
-    kernel_decode_attention_paged(torch, g, records)
-    kernel_flash_attention(torch, g, records)
+    kernel_decode_attention_paged(torch, g, records,
+                                  "decode_attention_paged", 8, 32, 8, 128,
+                                  32)
+    kernel_flash_attention(torch, g)
     print("flash_attention at Zamba2's shared block (Dh 112, G 1)")
-    flash_attention_at(torch, g, records, "flash_attention[Dh112]", 1, 128,
-                       32, 32, 112)
-    kernel_flash_chunk(torch, g, records)
+    flash_attention_at(torch, g, 1, 128, 32, 32, 112)
+    kernel_flash_chunk(torch, g, 8, 512, 32, 8, 128, 128)
+    kernel_dense_family(torch, g, records)
     kernel_moe_gemm(torch, g, records, MOE_SHAPES)
     kernel_ssm_scan(torch, g, records, SCAN_SHAPES)
+    phase("kernels")
 
     import dataclasses
     from repro_torch.configs import get_config
@@ -1437,18 +1992,60 @@ def main():
           "CPU plain path")
     reference_phase(torch, dataclasses.replace(
         get_config("zamba2_7b").reduced(), num_layers=5))
+    for arch in ("gemma2_2b", "h2o_danube_1_8b", "qwen2_1_5b"):
+        print(f"reference: reduced {arch} (prompts past its 16-token "
+              f"window), card kernels vs CPU plain path")
+        reference_phase(torch, get_config(arch).reduced())
+    phase("reference")
     print("serve: Mixtral-8x7B widths, 8 layers, bf16, contiguous KV")
     engine, prompts, serve = serve_phase(torch, profile_dir=args.profile)
+    phase("serve + failover")
     print(f"kv plane: the same weights at capacity factor 4.0, chunked "
           f"prefill ({CHUNK_BUDGET} tokens/step), paged KV "
           f"({PAGE_TOKENS}-token pages)")
-    whole, paged = kv_plane_phase(torch, engine, prompts)
+    kv = mixtral_kv_plane(torch, engine, prompts)
+    whole, paged = kv["whole"], kv["paged"]
     del engine
-    gc.collect()                 # the engines hold reference cycles
-    torch.cuda.empty_cache()
+    phase("kv plane + AW failover")
     print(f"hybrid: Zamba2-7B widths, {HYBRID_LAYERS} layers, bf16, "
           f"contiguous KV + recurrent state, 2 AWs")
     hybrid = hybrid_phase(torch, profile_dir=args.profile)
+    phase("hybrid + AW failover")
+    from repro_torch.serving.engine import EngineConfig
+    print(f"gemma2: Gemma2-2B, all 26 layers, bf16, 2 AWs, max_batch 8, "
+          f"max_seq {RING_MAX_SEQ}, prompts {GEMMA2_LENS}")
+    gemma2, part = dense_ring_phase(
+        torch, "gemma2", dataclasses.replace(get_config("gemma2_2b"),
+                                             dtype="bfloat16"),
+        EngineConfig(max_batch=8, max_seq=RING_MAX_SEQ, num_aw=2, num_ew=1),
+        GEMMA2_LENS, partials=True, profile_dir=args.profile)
+    phase("gemma2 + partials + AW failover")
+    print(f"danube: H2O-Danube-1.8B, all 24 layers, bf16, 2 AWs, max_batch "
+          f"4, max_seq {RING_MAX_SEQ}, prompts {DANUBE_LENS}")
+    danube, _ = dense_ring_phase(
+        torch, "danube", dataclasses.replace(get_config("h2o_danube_1_8b"),
+                                             dtype="bfloat16"),
+        EngineConfig(max_batch=4, max_seq=RING_MAX_SEQ, num_aw=2, num_ew=1),
+        DANUBE_LENS, profile_dir=args.profile)
+    phase("danube + AW failover")
+    print(f"qwen2: Qwen2-1.5B, all 28 layers, bf16, 2 AWs, max_batch 8, "
+          f"max_seq {QWEN2_MAX_SEQ}")
+    qwen2 = qwen2_phase(torch, profile_dir=args.profile)
+    phase("qwen2 + AW failover")
+    errs = served_flash_phase(torch, g)
+    for name, run, ph, window in (
+            ("flash_attention", serve, "prefill", None),
+            ("flash_attention[Dh112]", hybrid, "prefill", None),
+            ("flash_attention[chunk]", paged, "chunks", None),
+            ("flash_attention[gemma2 local]", gemma2, "prefill", True),
+            ("flash_attention[gemma2 global]", gemma2, "prefill", False),
+            ("flash_attention[danube]", danube, "prefill", None),
+            ("flash_attention[qwen2 prefill]", qwen2["whole"], "prefill",
+             None),
+            ("flash_attention[qwen2 chunk]", qwen2["paged"], "chunks",
+             None)):
+        flash_record(torch, g, records, name, run, ph, errs, window=window)
+    phase("flash at the served shapes")
 
     checked = {(c, path) for _, c, _, path in MOE_SHAPES}
     if not set(SEEN["ffn"]) <= checked:
@@ -1464,12 +2061,29 @@ def main():
                              f"which the kernel phase did not check")
     print(f"ssm_scan (B, S) on every run: {sorted(SEEN['scan'])}, each held "
           f"to its plain version in the kernel phase")
+    ran = {k[:3] for k in SEEN["attn"]}
+    if not ran <= CHECKED:
+        raise AssertionError(f"the attention kernels ran at (kernel, Dh, G) "
+                             f"{sorted(ran - CHECKED)}, which the kernel "
+                             f"phase did not hold to the plain versions")
+    print(f"attention (kernel, Dh, G) on every run: {sorted(ran)}, each "
+          f"held to its plain version in the kernel phase")
+    if set(SEEN["flash"]) - FLASH_CHECKED:
+        raise AssertionError(f"the flash kernel ran at shapes "
+                             f"{sorted(set(SEEN['flash']) - FLASH_CHECKED)}"
+                             f", which were not held to the plain version")
+    print(f"flash_attention: all {len(SEEN['flash'])} shapes of the runs "
+          f"held to the plain version on their recorded positions")
 
     def total(run, k):
         return sum(ph[k] for ph in run.launches.values())
 
     def ffn_launches(run, c, path):
         return sum(cnt[(c, path)] for cnt in run.ffn_c.values())
+
+    def attn(run, kernel, window):
+        return sum(n for k, n in run.attn.items()
+                   if k[0] == kernel and k[3] == window)
     runs = {"serve": serve, "whole": whole, "paged": paged}
     moe_run = {"decode": "serve", "prefill": "serve", "prefill-kv": "whole"}
     launches = {
@@ -1477,25 +2091,62 @@ def main():
         "decode_attention_fused[Dh112]":
             total(hybrid, "decode_attention_fused"),
         "decode_attention_paged": total(paged, "decode_attention_paged"),
-        "flash_attention": total(serve, "flash_attention"),
-        "flash_attention[Dh112]": total(hybrid, "flash_attention"),
-        "flash_attention[chunk]": paged.launches["chunks"]["flash_attention"],
         "ssm_scan": total(hybrid, "ssm_scan"),
+        "decode_attention_fused[gemma2 local]":
+            attn(gemma2, "decode_attention_fused", True),
+        "decode_attention_fused[gemma2 global]":
+            attn(gemma2, "decode_attention_fused", False),
+        "decode_attention_partial[gemma2 local]": part.get("local", 0),
+        "decode_attention_partial[gemma2 global]": part.get("global", 0),
+        "decode_attention_fused[danube]":
+            total(danube, "decode_attention_fused"),
+        "decode_attention_fused[qwen2]":
+            total(qwen2["whole"], "decode_attention_fused"),
+        "decode_attention_paged[qwen2]":
+            total(qwen2["paged"], "decode_attention_paged"),
     }
     for label, c, _, path in MOE_SHAPES:
         launches[f"moe_gemm[{label}]"] = ffn_launches(
             runs[moe_run.get(label, "paged")], c, path)
     for r in records:
-        r["launches"] = launches[r["name"]]
+        r.setdefault("launches", launches.get(r["name"], 0))
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} was not launched on its "
                                  f"path")
+    if not any(r["name"].startswith("decode_attention_partial")
+               for r in records):
+        raise AssertionError("decode_attention_partial has no record")
+    phase.report()
     print(card_line())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+class Phases:
+    """Wall time of each phase (host clock through a device sync),
+    printed as each ends and together at the end; releases what the
+    phase's engines held on the card."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.t = time.perf_counter()
+        self.done = []
+
+    def __call__(self, name):
+        gc.collect()                 # the engines hold reference cycles
+        self.torch.cuda.synchronize()
+        self.torch.cuda.empty_cache()
+        now = time.perf_counter()
+        self.done.append((name, now - self.t))
+        print(f"[phase {name}: {now - self.t:.1f} s]")
+        self.t = now
+
+    def report(self):
+        print("phase wall times: " + ", ".join(
+            f"{n} {t:.1f} s" for n, t in self.done))
 
 
 if __name__ == "__main__":

@@ -35,8 +35,8 @@ class RouteState(NamedTuple):
 
     @staticmethod
     def healthy(placement: ert_lib.ExpertPlacement, num_aw: int,
-                shadow_assignment=None, num_ew: int = 0,
-                device="cpu") -> "RouteState":
+                shadow_assignment=None, num_ew: int = 0, *,
+                device) -> "RouteState":
         """The identity layout (primary slot e = expert e, shadows per
         ``shadow_assignment``); ``num_ew`` oversizes the EW-health axis."""
         if shadow_assignment is None:
@@ -62,8 +62,8 @@ class RouteState(NamedTuple):
         )
 
 
-def token_aw_owner(num_tokens: int, num_aw: int, batch: int = 0,
-                   device="cpu"):
+def token_aw_owner(num_tokens: int, num_aw: int, batch: int = 0, *,
+                   device):
     """AW owning each token (batch rows are data-parallel over AWs, so
     ownership is contiguous row blocks)."""
     batch = batch or num_tokens

@@ -15,12 +15,15 @@
 // "row" is one (position, grouped head) pair, so the G heads of a kv-head
 // share every K/V tile the block stages in shared memory. Each of the four
 // warps owns four rows; the 32 lanes split the head dimension (a head
-// dimension that is not a multiple of 32, such as 112, is zero-filled to
-// the next one in registers and shared memory) and every score is a
-// warp-wide reduction. KV tiles are a fixed 32 keys whatever the
-// padded extent, and keys are visited in ascending order; a masked key is
-// skipped, which is exactly the no-op it is in the block update, so the
-// result does not depend on how far the KV axis was padded.
+// dimension that is not a multiple of 32, such as 112 or 80, is
+// zero-filled to the next one in registers and shared memory) and every
+// score is a warp-wide reduction. KV tiles are a fixed BKV keys per head
+// dim whatever the padded extent (32; 16 at head dim 256, whose float32
+// K and V tiles would otherwise take 64 KB, above the 48 KB a block may
+// declare statically), and keys are visited one at a time in ascending
+// order, so the tile size changes no arithmetic; a masked key is skipped,
+// which is exactly the no-op it is in the block update, so the result does
+// not depend on how far the KV axis was padded.
 #include "common.cuh"
 
 namespace {
@@ -30,7 +33,6 @@ using namespace repro;
 constexpr int NWARPS = 4;
 constexpr int R = 4;                        // query rows per warp
 constexpr int ROWS = NWARPS * R;            // query rows per block
-constexpr int BKV = 32;                     // keys per shared-memory tile
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(NWARPS * 32)
@@ -41,6 +43,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   float softcap, float scale) {
   constexpr int EPL = (DH + 31) / 32;       // head elements per lane
   constexpr int DP = EPL * 32;
+  constexpr int BKV = DH > 128 ? 16 : 32;   // keys per shared-memory tile
   // whether lane element e lies inside the head (always, when DH % 32 == 0)
   auto in = [](int lane, int e) { return DH % 32 == 0 || lane + 32 * e < DH; };
   const int hk = blockIdx.y;
@@ -161,8 +164,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   switch (Dh) {
     case 32: flash_attn_kernel<T, 32><<<grid, block, 0, st>>>(FLASH_ARGS); break;
     case 64: flash_attn_kernel<T, 64><<<grid, block, 0, st>>>(FLASH_ARGS); break;
+    case 80: flash_attn_kernel<T, 80><<<grid, block, 0, st>>>(FLASH_ARGS); break;
     case 112: flash_attn_kernel<T, 112><<<grid, block, 0, st>>>(FLASH_ARGS); break;
     case 128: flash_attn_kernel<T, 128><<<grid, block, 0, st>>>(FLASH_ARGS); break;
+    case 256: flash_attn_kernel<T, 256><<<grid, block, 0, st>>>(FLASH_ARGS); break;
     default: return cudaErrorInvalidValue;
   }
 #undef FLASH_ARGS
@@ -172,9 +177,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q [B,Sq,H,Dh]; k/v [B,Sk,Hkv,Dh]; qpos [B,Sq], kpos [B,Sk] int32 (-1 =
-// invalid) -> out [B,Sq,H,Dh]; all contiguous; Dh in {32, 64, 112, 128}.
-// dtype 0 = float32,
-// 1 = bfloat16. Returns cudaGetLastError() after the launch.
+// invalid) -> out [B,Sq,H,Dh]; all contiguous; Dh as
+// flash_attention_supports says. dtype 0 = float32, 1 = bfloat16. Returns
+// cudaGetLastError() after the launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* qpos, const void* kpos, void* out,
                                int B, int Sq, int Sk, int H, int Hkv, int Dh,
@@ -193,4 +198,11 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   else
     err = cudaErrorInvalidValue;
   return (int)err;
+}
+
+// 1 if the kernel is built for head dim dh (the cases of launch), else 0.
+// Launches nothing.
+extern "C" int flash_attention_supports(int dh) {
+  return dh == 32 || dh == 64 || dh == 80 || dh == 112 || dh == 128 ||
+         dh == 256;
 }

@@ -38,6 +38,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}
 #: wall seconds of the last build_all() that compiled anything
 build_seconds: float = 0.0
+#: seconds from that build's start to the end of each source's nvcc
+build_source_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -74,20 +76,30 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             if out.exists():
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            log = tmp.with_suffix(".log")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                    str(CSRC / f"{name}.cu")]
-            procs.append((name, out, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            with open(log, "w") as fh:
+                procs.append((name, out, tmp, log, subprocess.Popen(
+                    cmd, stdout=fh, stderr=subprocess.STDOUT)))
         failed: List[str] = []
-        for name, out, tmp, proc in procs:
-            text, _ = proc.communicate()
-            build_log[name] = text
-            if proc.returncode != 0:
-                failed.append(f"--- {name}.cu (exit {proc.returncode})\n"
-                              f"{text}")
-            else:
-                os.replace(tmp, out)
+        running = list(procs)
+        while running:
+            for item in list(running):
+                name, out, tmp, log, proc = item
+                if proc.poll() is None:
+                    continue
+                running.remove(item)
+                build_source_seconds[name] = time.perf_counter() - t0
+                text = log.read_text()
+                log.unlink()
+                build_log[name] = text
+                if proc.returncode != 0:
+                    failed.append(f"--- {name}.cu (exit {proc.returncode})"
+                                  f"\n{text}")
+                else:
+                    os.replace(tmp, out)
+            time.sleep(0.05)
         if procs:
             build_seconds = time.perf_counter() - t0
         if failed:
@@ -135,6 +147,15 @@ class CudaKernel:
             raise RuntimeError(f"{self.symbol}: CUDA error {code} "
                                f"({self._err(code).decode()})")
         self.launches += 1
+
+
+def supports(source: str, symbol: str, *args: int) -> bool:
+    """What a built source's query entry ``int symbol(int, ...)`` says
+    about the shapes it was built for (it launches nothing)."""
+    fn = getattr(library(source), symbol)
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_int
+    return bool(fn(*args))
 
 
 def stream_ptr(t) -> ctypes.c_void_p:

@@ -1,12 +1,13 @@
 """GQA decode attention over a contiguous cache and over page pools: the
 CUDA kernels' wrappers and their plain versions.
 
-Both kernels are one body in ``csrc/decode_attention.cu``, which replaces
-the TPU kernels ``repro/kernels/decode_attention.py::decode_attention_fused``
-and ``::decode_attention_paged``. The plain versions are the reference's
-CPU path: cache partials (``ref.decode_attention_partial_ref``) then
-``combine_decode_partials``; the paged one gathers the pages through the
-block table first.
+The three kernels are one body in ``csrc/decode_attention.cu``, which
+replaces the TPU kernels ``repro/kernels/decode_attention.py::
+decode_attention_fused``, ``::decode_attention_paged`` and
+``::decode_attention_partial``. The plain versions are the reference's
+CPU path: cache partials (``ref.decode_attention_partial_ref``, the
+partial kernel's plain version) then ``combine_decode_partials``; the
+paged one gathers the pages through the block table first.
 """
 from __future__ import annotations
 
@@ -27,8 +28,10 @@ PAGED_KERNEL = build.CudaKernel(
     "decode_attention", "decode_attention_paged",
     [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P],
     replaces="src/repro/kernels/decode_attention.py:257")
-#: head dims the kernels are built for (112: Zamba2-7B's shared block)
-HEAD_DIMS = (32, 64, 112, 128)
+PARTIAL_KERNEL = build.CudaKernel(
+    "decode_attention", "decode_attention_partial",
+    [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    replaces="src/repro/kernels/decode_attention.py:78")
 
 
 def combine_decode_partials(q, m, l, acc, k1, v1, *, softcap: float = 0.0):
@@ -79,11 +82,34 @@ def decode_attention_paged_plain(q, pk, pv, ppos, bt, k1, v1, pos, *,
                                   softcap=softcap)
 
 
-def _check_heads(name, h, hkv, dh):
-    if h % hkv or h // hkv not in (1, 2, 4, 8) or dh not in HEAD_DIMS:
-        raise ValueError(f"{name} kernel takes G = H / Hkv in (1, 2, 4, 8) "
-                         f"and Dh in {HEAD_DIMS}; got H={h} Hkv={hkv} "
-                         f"Dh={dh}")
+def decode_attention_partial_plain(q, ck, cv, cpos, pos, *,
+                                   window: int = 0, softcap: float = 0.0):
+    """Plain PyTorch version of the partial kernel (any device): the
+    reference's ``decode_attention_partial_ref``."""
+    return kref.decode_attention_partial_ref(q, ck, cv, cpos, pos,
+                                             window=window, softcap=softcap)
+
+
+def _check_heads(name, h, hkv, dh, partial=False):
+    """Raise unless the kernels are built for (Dh, G = H / Hkv): the
+    table is the CUDA source's, read through decode_attention_supports."""
+    if h % hkv or not build.supports("decode_attention",
+                                     "decode_attention_supports", dh,
+                                     h // hkv, int(partial)):
+        raise ValueError(f"{name} kernel is not built for H={h} Hkv={hkv} "
+                         f"Dh={dh} (see decode_attention_supports in "
+                         f"csrc/decode_attention.cu)")
+
+
+def _check_cache(name, q, ck, cv, cpos, pos, partial=False):
+    b, h, dh = q.shape
+    sc, hkv = ck.shape[1], ck.shape[2]
+    if ck.shape != (b, sc, hkv, dh) or cv.shape != ck.shape or \
+            cpos.shape != (b, sc) or pos.shape != (b,):
+        raise ValueError(f"{name}: inconsistent shapes q{tuple(q.shape)} "
+                         f"ck{tuple(ck.shape)} cv{tuple(cv.shape)} "
+                         f"cpos{tuple(cpos.shape)} pos{tuple(pos.shape)}")
+    _check_heads(name, h, hkv, dh, partial)
 
 
 def decode_attention_cuda(q, ck, cv, cpos, k1, v1, pos, *, window: int = 0,
@@ -93,13 +119,10 @@ def decode_attention_cuda(q, ck, cv, cpos, k1, v1, pos, *, window: int = 0,
     [B,H,Dh] in q's dtype."""
     b, h, dh = q.shape
     sc, hkv = ck.shape[1], ck.shape[2]
-    if ck.shape != (b, sc, hkv, dh) or cv.shape != ck.shape or \
-            k1.shape != (b, hkv, dh) or v1.shape != k1.shape or \
-            cpos.shape != (b, sc) or pos.shape != (b,):
-        raise ValueError("decode_attention: inconsistent shapes "
-                         f"q{tuple(q.shape)} ck{tuple(ck.shape)} "
-                         f"cpos{tuple(cpos.shape)} k1{tuple(k1.shape)}")
-    _check_heads("decode_attention", h, hkv, dh)
+    _check_cache("decode_attention", q, ck, cv, cpos, pos)
+    if k1.shape != (b, hkv, dh) or v1.shape != k1.shape:
+        raise ValueError(f"decode_attention: k1{tuple(k1.shape)} and "
+                         f"v1{tuple(v1.shape)} must be {(b, hkv, dh)}")
     if len({t.dtype for t in (q, ck, cv, k1, v1)}) != 1:
         raise TypeError("decode_attention: q, cache and k1/v1 must share "
                         "one dtype")
@@ -151,3 +174,31 @@ def decode_attention_paged_cuda(q, pk, pv, ppos, bt, k1, v1, pos, *,
                  build.ptr(out), b, h, hkv, dh, pt, nblk, float(softcap),
                  code, build.stream_ptr(q))
     return out
+
+
+def decode_attention_partial_cuda(q, ck, cv, cpos, pos, *, window: int = 0,
+                                  softcap: float = 0.0):
+    """Launch the partial CUDA kernel. q: [B,H,Dh] (unscaled); ck/cv:
+    [B,Sc,Hkv,Dh]; cpos: [B,Sc] int32; pos: [B] int32. Returns (m
+    [B,Hkv,G], l [B,Hkv,G], acc [B,Hkv,G,Dh]) in float32; a row with no
+    valid key gives m = -1e30, l = 0, acc = 0."""
+    b, h, dh = q.shape
+    sc, hkv = ck.shape[1], ck.shape[2]
+    _check_cache("decode_attention_partial", q, ck, cv, cpos, pos,
+                 partial=True)
+    if len({t.dtype for t in (q, ck, cv)}) != 1:
+        raise TypeError("decode_attention_partial: q and the cache must "
+                        "share one dtype")
+    code = build.dtype_code(q)
+    q, ck, cv = (t.contiguous() for t in (q, ck, cv))
+    cpos = cpos.to(torch.int32).contiguous()
+    pos = pos.to(torch.int32).contiguous()
+    g = h // hkv
+    m = torch.empty((b, hkv, g), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    acc = torch.empty((b, hkv, g, dh), dtype=torch.float32, device=q.device)
+    PARTIAL_KERNEL(build.ptr(q), build.ptr(ck), build.ptr(cv),
+                   build.ptr(cpos), build.ptr(pos), build.ptr(m),
+                   build.ptr(l), build.ptr(acc), b, h, hkv, dh, sc,
+                   int(window), float(softcap), code, build.stream_ptr(q))
+    return m, l, acc

@@ -11,7 +11,6 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import HEAD_DIMS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,9 +33,11 @@ def flash_attention_cuda(q, k, v, q_pos, k_pos, *, causal: bool = True,
                          f"q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"q_pos{tuple(q_pos.shape)} "
                          f"k_pos{tuple(k_pos.shape)}")
-    if h % hkv or dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes H % Hkv == 0 and "
-                         f"Dh in {HEAD_DIMS}; got H={h} Hkv={hkv} Dh={dh}")
+    if h % hkv or not build.supports("flash_attention",
+                                     "flash_attention_supports", dh):
+        raise ValueError(f"flash_attention kernel takes H % Hkv == 0 and a "
+                         f"head dim flash_attention_supports accepts; got "
+                         f"H={h} Hkv={hkv} Dh={dh}")
     if len({t.dtype for t in (q, k, v)}) != 1:
         raise TypeError("flash_attention: q, k and v must share one dtype")
     code = build.dtype_code(q)

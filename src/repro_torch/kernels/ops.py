@@ -10,7 +10,8 @@ import torch
 
 from repro_torch.kernels.decode_attention import (
     decode_attention_cuda, decode_attention_paged_cuda,
-    decode_attention_paged_plain, decode_attention_plain)
+    decode_attention_paged_plain, decode_attention_partial_cuda,
+    decode_attention_partial_plain, decode_attention_plain)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.moe_gemm import expert_ffn_cuda, expert_ffn_plain
 from repro_torch.kernels.ref import ssm_scan_chunked_ref, ssm_scan_ref
@@ -32,6 +33,18 @@ def decode_attention(q, ck, cv, cpos, k1, v1, pos, *, window: int = 0,
     pos: [B]. Returns [B,H,Dh]."""
     fn = decode_attention_cuda if _on_cuda(q) else decode_attention_plain
     return fn(q, ck, cv, cpos, k1, v1, pos, window=window, softcap=softcap)
+
+
+def decode_attention_partial(q, ck, cv, cpos, pos, *, window: int = 0,
+                             softcap: float = 0.0):
+    """Online-softmax partials of one query token per row against the
+    cache, with no self term and no normalising (for a caller that
+    combines them: ``decode_attention.combine_decode_partials``). q:
+    [B,H,Dh] (unscaled); ck/cv: [B,Sc,Hkv,Dh]; cpos: [B,Sc]; pos: [B].
+    Returns (m, l [B,Hkv,G], acc [B,Hkv,G,Dh]) in float32."""
+    fn = decode_attention_partial_cuda if _on_cuda(q) \
+        else decode_attention_partial_plain
+    return fn(q, ck, cv, cpos, pos, window=window, softcap=softcap)
 
 
 def decode_attention_paged(q, pk, pv, ppos, bt, k1, v1, pos, *,

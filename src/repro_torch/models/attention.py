@@ -20,7 +20,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import gather_pages
 from repro_torch.kernels.ref import NEG_INF, attn_scale
-from repro_torch.models.layers import apply_rope, dense_init, matmul, norm
+from repro_torch.models.layers import (apply_rope, dense_init, matmul, norm,
+                                       rmsnorm_init)
 
 # Cached (prefill/chunk) attention pins the KV block size of the online
 # softmax, so its accumulation order does not depend on the padded extent
@@ -33,13 +34,23 @@ PREFILL_BLOCK_K = 16
 # --------------------------------------------------------------------------
 
 def attn_init(gen, cfg: ModelConfig, device):
+    """The reference's leaves: the four projections, the QKV biases
+    (zeros) with ``cfg.qkv_bias`` and the per-head q/k norms with
+    ``cfg.qk_norm``."""
     d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    return {
+    p = {
         "wq": dense_init(gen, d, h * dh, device=device),
         "wk": dense_init(gen, d, hkv * dh, device=device),
         "wv": dense_init(gen, d, hkv * dh, device=device),
         "wo": dense_init(gen, h * dh, d, device=device),
     }
+    if cfg.qkv_bias:
+        for name, n in (("bq", h * dh), ("bk", hkv * dh), ("bv", hkv * dh)):
+            p[name] = torch.zeros((n,), dtype=torch.float32, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(dh, device)
+        p["k_norm"] = rmsnorm_init(dh, device)
+    return p
 
 
 # The projections take ``blocked`` on prefill and chunk calls: their rows

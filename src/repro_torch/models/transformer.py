@@ -1,6 +1,8 @@
-"""Decoder stack for the transformer MoE family (port of
-``repro.models.transformer``), Mixtral first: whole-prompt prefill,
-chunked prefill and decode, over a contiguous or a paged KV cache.
+"""Decoder stack for the transformer family (port of
+``repro.models.transformer``): the MoE Mixtral and the dense Gemma2,
+Danube and Qwen2 (sliding-window layers keep ring caches); whole-prompt
+prefill, chunked prefill and decode, over a contiguous or a paged KV
+cache.
 
 The reference scans stacked layer params with ``lax.scan``; here the params
 hold a plain list of per-layer dicts and the stack is a Python loop. MoE

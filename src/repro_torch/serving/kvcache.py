@@ -58,6 +58,11 @@ class _SegmentOps:
     def _mapped(self, slot: int, tokens: np.ndarray) -> np.ndarray:
         return np.ones(len(tokens), bool)
 
+    def _ring_winners(self, layer, tokens: np.ndarray):
+        """Indices of the ``tokens`` a restore writes into ``layer``, or
+        None for all: only a ring layer maps two tokens to one slot."""
+        return None
+
     def extract_tokens(self, cache, slots, tokens) -> List[torch.Tensor]:
         """Checkpoint segments of the (slot, token) pairs in one batched
         gather and one device-to-host copy: host leaves
@@ -113,9 +118,14 @@ class _SegmentOps:
         t = torch.as_tensor(tokens, dtype=torch.long, device=dev)
         for li, (layer, (i0, i1)) in enumerate(zip(
                 cache["layers"], self._index(cache, s, t))):
-            layer["k"][i0, i1] = kv[:, li, 0]
-            layer["v"][i0, i1] = kv[:, li, 1]
-            layer["pos"][i0, i1] = pos[:, li]
+            lkv, lpos = kv[:, li], pos[:, li]
+            win = self._ring_winners(layer, tokens)
+            if win is not None:
+                sel = torch.as_tensor(win, dtype=torch.long, device=dev)
+                i0, i1, lkv, lpos = i0[sel], i1[sel], lkv[sel], lpos[sel]
+            layer["k"][i0, i1] = lkv[:, 0]
+            layer["v"][i0, i1] = lkv[:, 1]
+            layer["pos"][i0, i1] = lpos
         # a state leaf's segment is the whole state: the reference writes
         # the segments in token order, so the highest token's snapshot is
         # what stays. Written once, from that token: a batched scatter
@@ -133,6 +143,19 @@ class CacheLayout(_SegmentOps):
     def _index(self, cache, slots, tokens):
         return [(slots, tokens % layer["k"].shape[1])
                 for layer in cache["layers"]]
+
+    def _ring_winners(self, layer, tokens: np.ndarray):
+        """Where tokens share a ring slot (t and t + Sc once a request has
+        passed its window), the highest of them keeps it, as the
+        reference's writes in token order leave it: a batched scatter
+        with repeated indices picks no defined winner on CUDA. Host
+        arithmetic on the token list, so no device sync."""
+        ring = tokens % layer["k"].shape[1]
+        if len(np.unique(ring)) == len(ring):
+            return None
+        desc = np.argsort(tokens, kind="stable")[::-1]
+        _, first = np.unique(ring[desc], return_index=True)
+        return np.sort(desc[first])
 
     @staticmethod
     def request_state(cache, row: int) -> Dict[str, object]:

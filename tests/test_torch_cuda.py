@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import bits
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gemm as mg
@@ -377,3 +378,221 @@ def test_expert_ffn_prefill_path_small_c_rounds_once(dev, c):
                                se, cnt)
     assert bool(((got.float() - want).abs() <=
                  1e-4 + 2.0 ** -8 * want.abs()).all())
+
+
+# --------------------------------------------------------------------------
+# the dense sliding-window and softcap family: head dims 80 and 256, group
+# size 6, and the partial kernel
+# --------------------------------------------------------------------------
+
+# (H, Hkv, Dh): Gemma2-2B, H2O-Danube-1.8B, Qwen2-1.5B, the (Dh, G) pairs
+# built for the partial kernel and added for the fused and paged ones
+NEW_HEADS = [(8, 4, 256), (32, 8, 80), (12, 2, 128)]
+
+
+def _decode_case(r, b, h, hkv, dh, sc, dtype, dev):
+    q = _randn(r, (b, h, dh), dtype, dev)
+    ck, cv = (_randn(r, (b, sc, hkv, dh), dtype, dev) for _ in range(2))
+    k1, v1 = (_randn(r, (b, hkv, dh), dtype, dev) for _ in range(2))
+    pos = torch.tensor(r.integers(1, sc, size=(b,)), dtype=torch.int32,
+                       device=dev)
+    ar = torch.arange(sc, device=dev, dtype=torch.int32)[None]
+    cpos = torch.where(ar < pos[:, None], ar, torch.full_like(ar, -1))
+    return q, ck, cv, cpos, k1, v1, pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,dh", NEW_HEADS)
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (24, 50.0)])
+def test_decode_kernels_at_new_heads(dev, dtype, h, hkv, dh, window,
+                                     softcap):
+    """Fused and partial kernels against their plain versions; the
+    partials combined against the fused kernel; a row with no valid key
+    gives the plain version's partials (m = -1e30, l = 0, acc = 0)."""
+    r = np.random.default_rng(h * dh + window)
+    q, ck, cv, cpos, k1, v1, pos = _decode_case(r, 3, h, hkv, dh, 70,
+                                                dtype, dev)
+    pos[0] = -1
+    kw = dict(window=window, softcap=softcap)
+    fused = ops.decode_attention(q, ck, cv, cpos, k1, v1, pos, **kw)
+    _close(fused, da.decode_attention_plain(q, ck, cv, cpos, k1, v1, pos,
+                                            **kw), dtype)
+    n = da.PARTIAL_KERNEL.launches
+    m, l, acc = ops.decode_attention_partial(q, ck, cv, cpos, pos, **kw)
+    assert da.PARTIAL_KERNEL.launches == n + 1
+    assert m.dtype == l.dtype == acc.dtype == torch.float32
+    want = da.decode_attention_partial_plain(q, ck, cv, cpos, pos, **kw)
+    for got, w in zip((m, l, acc), want):
+        torch.testing.assert_close(got, w, rtol=2e-5, atol=2e-5)
+    assert bool((m[0] == -1e30).all()) and not l[0].any() and \
+        not acc[0].any()
+    _close(da.combine_decode_partials(q, m, l, acc, k1, v1, softcap=softcap),
+           fused, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,dh", NEW_HEADS)
+def test_paged_kernel_at_new_heads(dev, dtype, h, hkv, dh):
+    r = np.random.default_rng(h + dh)
+    args = _paged_case(r, 3, h, hkv, dh, 8, 16, dtype, dev)
+    q, pk, pv, ppos, bt, k1, v1, pos = args
+    got = ops.decode_attention_paged(*args, softcap=50.0)
+    ck, cv, cpos = da.gather_pages(pk, pv, ppos, bt)
+    assert torch.equal(got, da.decode_attention_cuda(
+        q, ck, cv, cpos, k1, v1, pos, softcap=50.0))
+    _close(got, da.decode_attention_paged_plain(*args, softcap=50.0), dtype)
+
+
+@pytest.mark.parametrize("h,hkv,dh,partial_only", [
+    (8, 1, 256, False),          # G 8 at Dh 256: neither kernel
+    (6, 1, 80, False),           # G 6 at Dh 80: neither kernel
+    (32, 8, 128, True)])         # Mixtral's pair: fused and paged only
+def test_decode_kernels_refuse_pairs_not_built(dev, h, hkv, dh,
+                                               partial_only):
+    r = np.random.default_rng(0)
+    args = _decode_case(r, 1, h, hkv, dh, 8, torch.float32, dev)
+    if not partial_only:
+        with pytest.raises(ValueError):
+            ops.decode_attention(*args)
+    q, ck, cv, cpos, _, _, pos = args
+    with pytest.raises(ValueError):
+        ops.decode_attention_partial(q, ck, cv, cpos, pos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,dh", [(1, 100, 8, 4, 256),
+                                          (2, 70, 32, 8, 80),
+                                          (2, 45, 12, 2, 128)])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (16, 50.0)])
+def test_flash_attention_at_new_heads(dev, dtype, b, s, h, hkv, dh, window,
+                                      softcap):
+    r = np.random.default_rng(s + dh)
+    q = _randn(r, (b, s, h, dh), dtype, dev)
+    k, v = (_randn(r, (b, s, hkv, dh), dtype, dev) for _ in range(2))
+    p = torch.arange(s, device=dev, dtype=torch.int32).repeat(b, 1)
+    p[-1, s - 7:] = -1                       # padded tail: rows without keys
+    kw = dict(window=window, softcap=softcap)
+    _close(ops.full_attention(q, k, v, p, p, **kw),
+           blockwise_attention(q, k, v, p, p, block_k=16, **kw), dtype)
+
+
+def test_ring_restore_keeps_the_highest_token_on_the_card(dev):
+    """Every slot of a ring layer restored from two tokens, t and t + Sc,
+    given highest first: each slot keeps token t + Sc's K/V and position
+    (a scatter with repeated indices would pick no defined winner)."""
+    from repro_torch.serving.kvcache import CacheLayout
+    sc, hkv, dh = 64, 2, 32
+    cache = {"layers": [{
+        "k": torch.zeros((2, sc, hkv, dh), device=dev),
+        "v": torch.zeros((2, sc, hkv, dh), device=dev),
+        "pos": torch.full((2, sc), -1, dtype=torch.int32, device=dev)}]}
+    tokens = list(range(2 * sc - 1, -1, -1))
+    g = torch.Generator().manual_seed(0)
+    segs = [[torch.randn((1, 2, hkv, dh), generator=g),
+             torch.full((1,), t, dtype=torch.int32)] for t in tokens]
+    CacheLayout().write_token_segments(cache, 1, tokens, segs)
+    layer = cache["layers"][0]
+    assert layer["pos"][1].tolist() == list(range(sc, 2 * sc))
+    for t, seg in zip(tokens[:sc], segs[:sc]):
+        assert torch.equal(layer["k"][1, t % sc].cpu(), seg[0][0, 0])
+        assert torch.equal(layer["v"][1, t % sc].cpu(), seg[0][0, 1])
+
+
+# --------------------------------------------------------------------------
+# the decode and flash kernels keep their earlier bits
+# --------------------------------------------------------------------------
+
+# sha256 (first 16 hex digits) of each kernel's output on the seeded inputs
+# of repro_torch.kernels.bits, at every (Dh, G) the decode kernels and every
+# head dim the flash kernel were built for before Dh 80 and 256 and G 6
+# came in. Taken on an NVIDIA H100 80GB HBM3 from the kernels built from
+# the sources before that change (``python -m repro_torch.kernels.bits
+# --csrc DIR``, which found them equal to the changed sources' in all 80
+# cases).
+EARLIER_BITS = {
+    ('fused', 32, 1, 'float32'): "20b95c6b5188d0b7",
+    ('fused', 32, 1, 'bfloat16'): "8afa7aec806a2cf1",
+    ('fused', 32, 2, 'float32'): "a83b703f676f0223",
+    ('fused', 32, 2, 'bfloat16'): "2380b83492732288",
+    ('fused', 32, 4, 'float32'): "8a361f15bcc4a76a",
+    ('fused', 32, 4, 'bfloat16'): "6b9dd65c1b48c0a6",
+    ('fused', 32, 8, 'float32'): "0ac54b10b12ec0cc",
+    ('fused', 32, 8, 'bfloat16'): "07c0103d3d2e17ff",
+    ('fused', 64, 1, 'float32'): "5c7fcae5da9e92a1",
+    ('fused', 64, 1, 'bfloat16'): "3f563fe18b210594",
+    ('fused', 64, 2, 'float32'): "a1d2902aa7e90d32",
+    ('fused', 64, 2, 'bfloat16'): "01f065beb9744231",
+    ('fused', 64, 4, 'float32'): "227a2ac26e4f0055",
+    ('fused', 64, 4, 'bfloat16'): "1ba3cf78e3892f74",
+    ('fused', 64, 8, 'float32'): "c7e68b7e3ff0e619",
+    ('fused', 64, 8, 'bfloat16'): "9a3d974288f31c9a",
+    ('fused', 112, 1, 'float32'): "19924d74089b7fbe",
+    ('fused', 112, 1, 'bfloat16'): "6b92bc3d5f1dc9cb",
+    ('fused', 112, 2, 'float32'): "a5e00deaa4fdf775",
+    ('fused', 112, 2, 'bfloat16'): "63decc9834e1a36b",
+    ('fused', 112, 4, 'float32'): "6c407aaf74b52724",
+    ('fused', 112, 4, 'bfloat16'): "23aee0d0827ec062",
+    ('fused', 112, 8, 'float32'): "880f0324ceac5f8c",
+    ('fused', 112, 8, 'bfloat16'): "88c82bc6a4107082",
+    ('fused', 128, 1, 'float32'): "463ce069e2e4d82d",
+    ('fused', 128, 1, 'bfloat16'): "0adca9a4992cc4ec",
+    ('fused', 128, 2, 'float32'): "ead1fb67621f5992",
+    ('fused', 128, 2, 'bfloat16'): "43bfa52163168443",
+    ('fused', 128, 4, 'float32'): "b6d2caf3e1ffa976",
+    ('fused', 128, 4, 'bfloat16'): "a0070fe647cb1c5e",
+    ('fused', 128, 8, 'float32'): "79813f78bd6a610a",
+    ('fused', 128, 8, 'bfloat16'): "de1e280517d69b72",
+    ('paged', 32, 1, 'float32'): "7479788e54e58a26",
+    ('paged', 32, 1, 'bfloat16'): "7f11586c2ff24e10",
+    ('paged', 32, 2, 'float32'): "7de099e2a3537a88",
+    ('paged', 32, 2, 'bfloat16'): "5bd8593af822b9b7",
+    ('paged', 32, 4, 'float32'): "9c0d30f2576fa002",
+    ('paged', 32, 4, 'bfloat16'): "f8b58aef274bd335",
+    ('paged', 32, 8, 'float32'): "708b17d4718250a4",
+    ('paged', 32, 8, 'bfloat16'): "ca6ab87a317a95f8",
+    ('paged', 64, 1, 'float32'): "9e419c52c3966137",
+    ('paged', 64, 1, 'bfloat16'): "2fceb1e9ef5f5ce6",
+    ('paged', 64, 2, 'float32'): "00e2def337a93830",
+    ('paged', 64, 2, 'bfloat16'): "f88e00c8dd0140b9",
+    ('paged', 64, 4, 'float32'): "94745f8286bf3be9",
+    ('paged', 64, 4, 'bfloat16'): "c783903abad5e007",
+    ('paged', 64, 8, 'float32'): "b2a1b04a6b5f72a8",
+    ('paged', 64, 8, 'bfloat16'): "a3e3a87fe6737ef7",
+    ('paged', 112, 1, 'float32'): "02bd33b4132e54a0",
+    ('paged', 112, 1, 'bfloat16'): "a4a1374a41afe717",
+    ('paged', 112, 2, 'float32'): "f133ea5409908cef",
+    ('paged', 112, 2, 'bfloat16'): "41759851290c9027",
+    ('paged', 112, 4, 'float32'): "30993a7033e313f1",
+    ('paged', 112, 4, 'bfloat16'): "6deef564a8c08ccf",
+    ('paged', 112, 8, 'float32'): "b3e1da9c1cb6fe89",
+    ('paged', 112, 8, 'bfloat16'): "8e469dd13152248b",
+    ('paged', 128, 1, 'float32'): "9e01e5fec9be958a",
+    ('paged', 128, 1, 'bfloat16'): "9ad3007df81d0917",
+    ('paged', 128, 2, 'float32'): "c356bb18714d2f04",
+    ('paged', 128, 2, 'bfloat16'): "fd9d8602c2c1bc26",
+    ('paged', 128, 4, 'float32'): "cd5dfbade7a011b7",
+    ('paged', 128, 4, 'bfloat16'): "540cc52d9273456a",
+    ('paged', 128, 8, 'float32'): "d17ef2e6127d53a1",
+    ('paged', 128, 8, 'bfloat16'): "6321042e12ab1016",
+    ('flash', 32, 1, 'float32'): "a2894d79f3663eb5",
+    ('flash', 32, 1, 'bfloat16'): "47059998f848e534",
+    ('flash', 32, 4, 'float32'): "b453b54c2f1d21c2",
+    ('flash', 32, 4, 'bfloat16'): "1bbe0671ce7a1d39",
+    ('flash', 64, 1, 'float32'): "efa46a09c1859931",
+    ('flash', 64, 1, 'bfloat16'): "c14bccd860171382",
+    ('flash', 64, 4, 'float32'): "aad47be4bdfa430c",
+    ('flash', 64, 4, 'bfloat16'): "0045068aa3e41ef1",
+    ('flash', 112, 1, 'float32'): "08d687b4377ce018",
+    ('flash', 112, 1, 'bfloat16'): "1fc5ad3d30114623",
+    ('flash', 112, 4, 'float32'): "91c4e8989eeb1cd7",
+    ('flash', 112, 4, 'bfloat16'): "306a89c75f67e16e",
+    ('flash', 128, 1, 'float32'): "e28f7bce12fcaf57",
+    ('flash', 128, 1, 'bfloat16'): "acb2e167bd26b0c2",
+    ('flash', 128, 4, 'float32'): "0436e3108e2cdae2",
+    ('flash', 128, 4, 'bfloat16'): "4fbfbd2f23cd7984",
+}
+
+
+@pytest.mark.parametrize("case", bits.CASES, ids=str)
+def test_attention_kernels_keep_their_earlier_bits(dev, case):
+    assert bits.digest(bits.run_port(case)) == EARLIER_BITS[case]

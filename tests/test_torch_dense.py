@@ -1,0 +1,267 @@
+"""The port's dense sliding-window and softcap family (Gemma2-2B,
+H2O-Danube-1.8B, Qwen2-1.5B) against the JAX package on the CPU, float32,
+reduced configs, fed the reference's params through
+``repro_torch.convert``:
+
+  * the configs match the reference field for field, full and reduced,
+    ``param_count`` included; the port's own init draws the reference's
+    leaf names and shapes (QKV biases, and q/k norms with ``qk_norm``);
+  * prefill and decode logits to 1e-4 with prompts longer than the
+    reduced 16-token window (ring caches written inside prefill), Qwen2
+    with random QKV biases;
+  * the engine's greedy streams equal the JAX engine's, and with
+    ``fail_aw(0)`` after the rings wrapped they equal both the
+    failure-free streams and the JAX engine's under the same failure;
+  * Qwen2: paged equals contiguous and chunked equals whole-prompt, bit
+    for bit, and the paged engine under ``fail_aw(0)`` equals its
+    failure-free run;
+  * a restore that writes two tokens sharing a ring slot leaves the
+    higher token's K/V and position, whatever order it is given them in.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.models import get_model as jget_model
+from repro.serving.api import RequestSpec as JSpec
+from repro.serving.engine import EngineConfig as JEngineConfig
+from repro.serving.engine import InferenceEngine as JEngine
+from repro_torch.configs import get_config as tget_config
+from repro_torch.convert import params_from_reference
+from repro_torch.models import get_model as tget_model
+from repro_torch.serving.api import RequestSpec
+from repro_torch.serving.engine import EngineConfig, InferenceEngine
+from repro_torch.serving.kvcache import CacheLayout
+
+ARCHS = ("gemma2_2b", "h2o_danube_1_8b", "qwen2_1_5b")
+TOL = dict(rtol=1e-4, atol=1e-4)
+LENS = (6, 12, 20, 20)
+MAX_NEW = 12
+FAIL_AT = 6
+ECFG = dict(max_batch=4, max_seq=48, num_aw=2, num_ew=1)
+# seed 8: every greedy choice along these streams wins by >= 1.8e-3 in
+# all three reduced models
+PROMPT_SEED = 8
+
+
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_shapes(v) for v in tree]
+    return (tuple(tree.shape), tree.dtype)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_match(arch):
+    j, t = jget_config(arch), tget_config(arch)
+    for cj, ct in ((j, t), (j.reduced(), t.reduced())):
+        for f in dataclasses.fields(ct):
+            if f.name in ("moe", "ssm"):
+                assert getattr(ct, f.name).__dict__ == \
+                    getattr(cj, f.name).__dict__, f.name
+            else:
+                assert getattr(ct, f.name) == getattr(cj, f.name), f.name
+        assert ct.head_dim_ == cj.head_dim_
+        assert ct.param_count == cj.param_count
+    assert (t.head_dim_, t.num_heads // t.num_kv_heads) == \
+        {"gemma2_2b": (256, 2), "h2o_danube_1_8b": (80, 4),
+         "qwen2_1_5b": (128, 6)}[arch]
+
+
+@pytest.mark.parametrize("arch,qk_norm", [(a, False) for a in ARCHS] +
+                         [("qwen2_1_5b", True)])
+def test_own_init_draws_the_reference_leaves(arch, qk_norm):
+    jcfg = dataclasses.replace(jget_config(arch).reduced(), qk_norm=qk_norm)
+    tcfg = dataclasses.replace(tget_config(arch).reduced(), qk_norm=qk_norm)
+    jp = jget_model(jcfg).init_params(jax.random.PRNGKey(0))
+    ref = params_from_reference(jp, device="cpu")
+    own = tget_model(tcfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    assert _shapes(own) == _shapes(ref)
+    attn = own["layers"][0]["attn"]
+    assert ("bq" in attn) == tcfg.qkv_bias == (arch == "qwen2_1_5b")
+    assert ("q_norm" in attn) == ("k_norm" in attn) == qk_norm
+
+
+def _random_biases(params, seed):
+    """The reference's params with every QKV bias drawn at random (the
+    init draws zeros, which would leave the bias path untested)."""
+    r = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = getattr(path[-1], "key", None)
+        if name in ("bq", "bk", "bv"):
+            return jnp.asarray(r.normal(size=leaf.shape).astype(np.float32)
+                               * 0.5)
+        return leaf
+    return jax.tree_util.tree_map_with_path(draw, params)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_logits(arch):
+    jcfg, tcfg = jget_config(arch).reduced(), tget_config(arch).reduced()
+    japi = jget_model(jcfg, num_aw=2, num_ew=1)
+    tapi = tget_model(tcfg, num_aw=2, num_ew=1, device="cpu")
+    jp = _random_biases(japi.init_params(jax.random.PRNGKey(0)), 1)
+    tp = params_from_reference(jp, device="cpu")
+    if tcfg.qkv_bias:
+        assert float(tp["layers"][0]["attn"]["bk"].abs().max()) > 0
+    r = np.random.default_rng(3)
+    s = 24                          # longer than the reduced window (16)
+    assert s > tcfg.sliding_window
+    toks = r.integers(0, jcfg.vocab_size, (2, s)).astype(np.int32)
+    jl, jc = japi.prefill(jp, {"tokens": jnp.asarray(toks)},
+                          japi.init_route_state(), 48)
+    tl, tc, _ = tapi.prefill(tp, torch.from_numpy(toks),
+                             tapi.init_route_state(), 48)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    ring = [c["k"].shape[1] for c in tc["layers"]]
+    assert min(ring) == (tcfg.sliding_window or 48)
+    pos = np.array([s, s], np.int32)
+    for _ in range(3):
+        nt = r.integers(0, jcfg.vocab_size, (2,)).astype(np.int32)
+        jl, jc = japi.decode(jp, jnp.asarray(nt), jnp.asarray(pos), jc,
+                             japi.init_route_state())
+        tl, tc, _ = tapi.decode(tp, torch.from_numpy(nt),
+                                torch.from_numpy(pos), tc,
+                                tapi.init_route_state())
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        pos = pos + 1
+
+
+def _serve(engine, spec_cls, prompts, tag, fail_at=None):
+    """Every prompt to the end; with ``fail_at``, ``fail_aw(0)`` before
+    that step, recover, one step, provision. Returns the streams and the
+    largest position AW0 held when it failed."""
+    handles = [engine.client.submit(spec_cls(rid=f"{tag}{i}", prompt=p,
+                                             max_new=MAX_NEW))
+               for i, p in enumerate(prompts)]
+    steps, aw0_pos = 0, None
+    while not all(h.done() for h in handles):
+        if fail_at is not None and steps == fail_at:
+            aw0_pos = max(r.pos for r in engine.requests.values()
+                          if r.aw == 0 and not r.done)
+            engine.fail_aw(0)
+            engine.recover_aw_requests(now=float(engine.steps))
+            engine.step()
+            engine.provision_aw(0)
+        engine.step()
+        steps += 1
+    out = [h.tokens() for h in handles]
+    for h in reversed(handles):        # restore the slot free lists
+        engine.release_request(h.rid)
+    return out, aw0_pos
+
+
+@functools.lru_cache(maxsize=len(ARCHS))
+def _runs(arch):
+    """The JAX and the port engine on one reduced model: streams with and
+    without the failure, and the smallest greedy gap along them."""
+    jcfg, tcfg = jget_config(arch).reduced(), tget_config(arch).reduced()
+    je = JEngine(jcfg, JEngineConfig(**ECFG, telemetry=False,
+                                     flight_recorder=False),
+                 jax.random.PRNGKey(0))
+    params = params_from_reference(je.params, device="cpu")
+    te = InferenceEngine(tcfg, EngineConfig(**ECFG), params=params,
+                         device="cpu")
+    r = np.random.default_rng(PROMPT_SEED)
+    prompts = [r.integers(1, jcfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in LENS]
+    out = {"jax": _serve(je, JSpec, prompts, "a")[0],
+           "port": _serve(te, RequestSpec, prompts, "a")[0],
+           "jax_fail": _serve(je, JSpec, prompts, "f", FAIL_AT)[0]}
+    out["port_fail"], out["aw0_pos"] = _serve(te, RequestSpec, prompts, "f",
+                                              FAIL_AT)
+    fwd = jax.jit(je.api.forward_train)
+    gaps = []
+    for p, toks in zip(prompts, out["jax"]):
+        seq = np.concatenate([p, np.asarray(toks[:-1], np.int32)])[None]
+        lg = np.asarray(fwd(je.params, {"tokens": jnp.asarray(seq)},
+                            je.api.init_route_state())[0])[0]
+        top2 = np.sort(lg[len(p) - 1:], axis=-1)[:, -2:]
+        gaps.append(float((top2[:, 1] - top2[:, 0]).min()))
+    out["min_gap"] = min(gaps)
+    return tcfg, params, prompts, out, te
+
+
+@pytest.fixture(params=ARCHS)
+def runs(request):
+    return _runs(request.param)
+
+
+def test_greedy_streams_equal_reference(runs):
+    _, _, _, out, te = runs
+    assert all(len(s) == MAX_NEW for s in out["jax"])
+    assert out["min_gap"] > 1e-3      # a mismatch is a fault, not a tie
+    assert out["port"] == out["jax"]
+    # the ring layers take the exact whole-prompt scheme, as the reference
+    assert te.prefill_paddable == (not te.cfg.sliding_window)
+
+
+def test_streams_equal_reference_under_aw_failure(runs):
+    tcfg, _, _, out, te = runs
+    assert out["jax_fail"] == out["jax"]
+    assert out["port_fail"] == out["port"] == out["jax"]
+    if tcfg.sliding_window:           # a restored request had wrapped
+        assert out["aw0_pos"] > tcfg.sliding_window
+    assert te.failed_aws == set() and te.gateway.depth() == 0
+    assert te.store.stats.restores >= 2
+
+
+def test_qwen2_paged_and_chunked_streams_are_bitwise():
+    tcfg, params, prompts, out, _ = _runs("qwen2_1_5b")
+    chunked = InferenceEngine(tcfg, EngineConfig(**ECFG,
+                                                 chunk_token_budget=8),
+                              params=params, device="cpu")
+    paged = InferenceEngine(tcfg, EngineConfig(**ECFG, chunk_token_budget=8,
+                                               kv_page_tokens=16),
+                            params=params, device="cpu")
+    assert chunked.chunked is not None and paged.pages is not None
+    got_chunked = _serve(chunked, RequestSpec, prompts, "c")[0]
+    got_paged = _serve(paged, RequestSpec, prompts, "p")[0]
+    assert got_paged == got_chunked
+    assert got_chunked == out["port"]
+    assert _serve(paged, RequestSpec, prompts, "q", FAIL_AT)[0] == got_paged
+    paged.pages.check()
+
+
+def test_ring_restore_keeps_the_highest_token():
+    """Tokens t and t + Sc share slot t % Sc of a ring layer: the restore
+    leaves token t + Sc's K/V and position there, as the reference's
+    in-order writes do, though the segments come highest first. A
+    full-attention layer keeps both."""
+    cfg = tget_config("gemma2_2b").reduced()
+    api = tget_model(cfg, num_aw=2, num_ew=1, device="cpu")
+    cache = api.init_cache(2, 48)
+    sc = cache["layers"][0]["k"].shape[1]
+    assert sc == cfg.sliding_window == 16
+    assert cache["layers"][1]["k"].shape[1] == 48
+    hkv, dh = cfg.num_kv_heads, cfg.head_dim_
+    n_layers = len(cache["layers"])
+    t = 3
+    tokens = [t + sc, t]
+    g = torch.Generator().manual_seed(0)
+    segs = [[torch.randn((n_layers, 2, hkv, dh), generator=g),
+             torch.full((n_layers,), tok, dtype=torch.int32)]
+            for tok in tokens]
+    CacheLayout().write_token_segments(cache, 1, tokens, segs)
+    ring, full = cache["layers"]
+    assert int(ring["pos"][1, t]) == t + sc
+    assert torch.equal(ring["k"][1, t], segs[0][0][0, 0])
+    assert torch.equal(ring["v"][1, t], segs[0][0][0, 1])
+    for tok, seg in zip(tokens, segs):
+        assert int(full["pos"][1, tok]) == tok
+        assert torch.equal(full["k"][1, tok], seg[0][1, 0])
+    # ascending order gives the same cache
+    again = api.init_cache(2, 48)
+    CacheLayout().write_token_segments(again, 1, tokens[::-1], segs[::-1])
+    for a, b in zip(cache["layers"], again["layers"]):
+        for k in ("k", "v", "pos"):
+            assert torch.equal(a[k], b[k])

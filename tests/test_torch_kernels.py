@@ -10,13 +10,16 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro.kernels.decode_attention import decode_attention_fused
+from repro.kernels.decode_attention import (decode_attention_fused,
+                                            decode_attention_partial)
 from repro.kernels.flash_attention import flash_attention
 from repro.kernels.moe_gemm import moe_gemm
 from repro.models.attention import blockwise_attention as jblockwise
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.decode_attention import decode_attention_plain
+from repro_torch.kernels.decode_attention import (
+    combine_decode_partials, decode_attention_partial_plain,
+    decode_attention_plain)
 from repro_torch.kernels.moe_gemm import expert_ffn_plain
 from repro_torch.models.attention import blockwise_attention
 
@@ -81,6 +84,92 @@ def test_decode_plain_vs_pallas_fused(window, softcap):
                                   block_k=16, interpret=True)
     got = decode_attention_plain(*_t(*args), window=window, softcap=softcap)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("dh", [80, 128, 256])
+@pytest.mark.parametrize("g", [1, 2, 4, 6])
+def test_decode_partial_plain_vs_reference_and_pallas(dh, g):
+    """The partial kernel's plain version (what the CUDA kernel is held
+    to) against the reference's oracle and the TPU kernel itself
+    (interpret mode), at the head dims and group sizes of Gemma2 (256,
+    G 2), Danube (80, G 4) and Qwen2 (128, G 6), with a window and a
+    softcap."""
+    args = _decode_inputs(dh + g, 2, 2 * g, 2, dh, 48)
+    q, ck, cv, cpos, _, _, pos = args
+    kw = dict(window=24, softcap=50.0)
+    got = decode_attention_partial_plain(*_t(q, ck, cv, cpos, pos), **kw)
+    want = jref.decode_attention_partial_ref(*_j(q, ck, cv, cpos, pos), **kw)
+    for w, t in zip(want, got):
+        np.testing.assert_allclose(t.numpy(), np.asarray(w), **TOL)
+    want = decode_attention_partial(*_j(q, ck, cv, cpos, pos), block_k=16,
+                                    interpret=True, **kw)
+    for w, t in zip(want, got):
+        np.testing.assert_allclose(t.numpy(), np.asarray(w), **TOL)
+    assert [tuple(t.shape) for t in got] == [(2, 2, g), (2, 2, g),
+                                            (2, 2, g, dh)]
+
+
+def _merge_partials(parts):
+    """Partials of disjoint cache slices merged in log-sum-exp form (what
+    a caller of the partial kernel does with a cache split along Sc)."""
+    m = parts[0][0]
+    for pm, _, _ in parts[1:]:
+        m = torch.maximum(m, pm)
+    l = sum(pl * torch.exp(pm - m) for pm, pl, _ in parts)
+    acc = sum(pa * torch.exp(pm - m)[..., None] for pm, _, pa in parts)
+    return m, l, acc
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (24, 50.0)])
+def test_decode_partials_split_along_sc_merge_to_the_whole(window, softcap):
+    """The partial kernel's one use: a cache split in two along Sc, each
+    half's partials merged and then combined, gives the reference's
+    decode attention over the whole cache."""
+    args = _decode_inputs(11, 2, 12, 2, 80, 64)
+    q, ck, cv, cpos, k1, v1, pos = _t(*args)
+    kw = dict(window=window, softcap=softcap)
+    parts = [decode_attention_partial_plain(q, ck[:, a:z], cv[:, a:z],
+                                            cpos[:, a:z], pos, **kw)
+             for a, z in ((0, 32), (32, 64))]
+    got = combine_decode_partials(q, *_merge_partials(parts), k1, v1,
+                                  softcap=softcap)
+    want = jref.decode_attention_ref(*_j(*args), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_decode_partial_row_without_keys():
+    """A row with no valid key (pos -1): the plain version (and the CUDA
+    kernel) gives m = -1e30, l = 0, acc = 0; the TPU kernel l = Sc and acc
+    = the sum of V, its masked scores having counted exp(0) while m was
+    still -1e30. The combine sends both to the same output, since the
+    correction exp(-1e30 - s_self) is 0; rows with a key agree."""
+    q, ck, cv, cpos, k1, v1, pos = _decode_inputs(5, 2, 4, 2, 32, 64)
+    pos[0] = -1
+    plain = decode_attention_partial_plain(*_t(q, ck, cv, cpos, pos))
+    tpu = decode_attention_partial(*_j(q, ck, cv, cpos, pos), block_k=16,
+                                   interpret=True)
+    m, l, acc = (t.numpy() for t in plain)
+    np.testing.assert_array_equal(m[0], np.full_like(m[0], -1e30))
+    np.testing.assert_array_equal(l[0], 0.0)
+    np.testing.assert_array_equal(acc[0], 0.0)
+    tm, tl, tacc = (np.asarray(t) for t in tpu)
+    np.testing.assert_array_equal(tm[0], np.full_like(tm[0], -1e30))
+    np.testing.assert_array_equal(tl[0], 64.0)
+    np.testing.assert_allclose(
+        tacc[0], np.broadcast_to(cv[0].sum(0)[:, None], tacc[0].shape),
+        rtol=1e-5, atol=1e-4)
+    for a, b in zip(plain, tpu):          # rows with a valid key
+        np.testing.assert_allclose(a.numpy()[1], np.asarray(b)[1],
+                                   rtol=2e-6, atol=2e-6)
+    tq, tk1, tv1 = _t(q, k1, v1)
+    out_plain = combine_decode_partials(tq, *plain, tk1, tv1)
+    out_tpu = combine_decode_partials(
+        tq, *(torch.tensor(np.asarray(t)) for t in tpu), tk1, tv1)
+    np.testing.assert_array_equal(out_plain.numpy()[0], out_tpu.numpy()[0])
+    # a row with no cached key attends to its own token alone
+    np.testing.assert_allclose(
+        out_plain.numpy()[0],
+        np.repeat(v1[0], 2, axis=0), rtol=1e-6, atol=1e-6)
 
 
 def _prefill_inputs(seed, b, s, h, hkv, dh):

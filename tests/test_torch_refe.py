@@ -30,7 +30,7 @@ def _states(num_experts, num_ew, num_aw):
     assert jp == tp or (jp.num_slots, jp.num_shadow_slots) == \
         (tp.num_slots, tp.num_shadow_slots)
     return (jp, jrefe.RouteState.healthy(jp, num_aw),
-            tp, trefe.RouteState.healthy(tp, num_aw))
+            tp, trefe.RouteState.healthy(tp, num_aw, device="cpu"))
 
 
 def _route_both(logits, js, ts, jp, tp, *, top_k=2, cf=1.25, capacity=None,
@@ -199,3 +199,16 @@ def test_shadow_reroute_is_bitwise_in_the_port():
     healthy = run(ts)
     failed = run(theal.fail_ew(ts, 0))
     assert torch.equal(healthy, failed)
+
+
+def test_route_state_needs_a_device():
+    """No CPU default: a caller names the device of the routing state."""
+    tp = tert.default_placement(8, 2)
+    with pytest.raises(TypeError):
+        trefe.RouteState.healthy(tp, 2)
+    with pytest.raises(TypeError):
+        trefe.token_aw_owner(8, 2)
+    rs = trefe.RouteState.healthy(tp, 2, device="cpu")
+    assert rs.candidates.device.type == "cpu"
+    assert trefe.token_aw_owner(8, 2, device="cpu").tolist() == \
+        [0, 0, 0, 0, 1, 1, 1, 1]
