@@ -12,7 +12,11 @@
 
 Phases, each of which raises on failure (exit code != 0):
   1. card     — ``nvidia-smi`` name and power limit, then the kernel build
-                (one nvcc per CUDA source, all started together).
+                (one nvcc per CUDA source, all started together; each
+                source's nvcc time, ptxas's registers, static shared
+                memory and spills of every tensor-core kernel, and the
+                HGMMA (wgmma) instructions in the built flash and
+                expert-FFN libraries, which must not be 0).
   2. kernels  — each hand-written kernel at the shapes the serving paths
                 give it (bfloat16) and in float32, held to its plain
                 PyTorch version on the card (bf16 2e-2, fp32 2e-5, atol
@@ -47,8 +51,10 @@ Phases, each of which raises on failure (exit code != 0):
                 through ``engine.client.submit`` and ``engine.step()``;
                 every kernel of the path must be launched. Launches are
                 read per phase (the prefills run inside ``client.submit``,
-                the decode steps inside ``step()``) and the expert FFN's
-                also per kernel path. Every step checkpoints its KV.
+                the decode steps inside ``step()``), the flash kernel's and
+                the expert FFN's also per kernel path; every run fails if
+                a (bf16) flash call took the CUDA-core path. Every step
+                checkpoints its KV.
   5. failover — the same requests with ``engine.fail_ew(0)`` after 8
                 decode steps; every stream must equal the failure-free one
                 bit for bit.
@@ -107,8 +113,11 @@ Phases, each of which raises on failure (exit code != 0):
                 chunk) with seeded bf16 q/k/v, against the bf16 plain
                 version and the float32 one; then one record per path,
                 timed at the largest shape its run gave the kernel, with
-                the run's launches at that shape. main() fails on a shape
-                not checked.
+                the run's launches at that shape (and, beside the CUDA-event
+                time of one call, the time of one call of the kernel and of
+                SDPA replayed back to back from a CUDA graph: at the small
+                shapes a call's host time outweighs its kernel). main()
+                fails on a shape not checked.
 Each phase prints its wall time.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -175,23 +184,37 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn`` with a 64 MiB L2 flush before each
-    run (outside the timed span)."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(warmup):
-        fn()
+def time_ms(torch, fn) -> float:
+    """Median CUDA-event time of one call of ``fn`` (20 after 3 warm-up
+    calls, a 64 MiB L2 flush before each, outside the timed span): the
+    kernels' timer, ``repro_torch.kernels.bits.time_ms``."""
+    from repro_torch.kernels import bits
+    return bits.time_ms(fn)
+
+
+def graph_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
+    """The device time of one call of ``fn`` without the host's launch
+    time: ``calls`` calls captured in one CUDA graph, replayed back to
+    back (median of ``reps`` CUDA-event timings, divided by ``calls``).
+    At the small shapes a call's host time outweighs its kernels, and the
+    CUDA-event window of ``time_ms`` includes it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -741,6 +764,7 @@ def flash_record(torch, g, records, name, run, phase, errs, *, window=None):
     shape = max(shapes, key=lambda sh: (sh.sq * sh.sk, sh.b))
     q, k, v, qp, kp, kern, plain = flash_case(torch, g, shape)
     ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
+    dev_ms, lib_dev_ms = graph_ms(torch, kern), None
     lib_ms, library = None, "none: SDPA has no tanh softcap"
     mask = flash_mask(shape, qp, kp)
     if not shape.softcap:
@@ -751,11 +775,14 @@ def flash_record(torch, g, records, name, run, phase, errs, *, window=None):
         ar = torch.arange(shape.sq, device="cuda", dtype=torch.int32)
         if shape.sq == shape.sk and shape.causal and not shape.window and \
                 bool((qp == ar).all()) and bool((kp == ar).all()):
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qq, kk, vv, is_causal=True))
+            def sdpa():
+                return F.scaled_dot_product_attention(qq, kk, vv,
+                                                      is_causal=True)
         else:
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qq, kk, vv, attn_mask=mask[:, None]))
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qq, kk, vv, attn_mask=mask[:, None])
+        lib_ms, lib_dev_ms = time_ms(torch, sdpa), graph_ms(torch, sdpa)
         library = "SDPA"
     live = (qp >= 0).any(1)
     keys = int(((kp >= 0) & live[:, None]).sum().item())
@@ -769,13 +796,16 @@ def flash_record(torch, g, records, name, run, phase, errs, *, window=None):
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces=fa.KERNEL.replaces, max_abs_err=errs[shape], ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        library=library, launches=shapes[shape],
+        library=library, launches=shapes[shape], graph_ms=dev_ms,
+        library_graph_ms=lib_dev_ms,
         shape=f"{shape.tag()} bf16, {int((qp >= 0).sum())} query rows with "
               f"a position (served; {sum(shapes.values())} launches over "
               f"{len(shapes)} shapes in this phase)"))
     print(f"  {name}: {shape.tag()}, {shapes[shape]} launches: time "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          + (f"SDPA {lib_ms:.4f} ms" if lib_ms is not None else library)
+          f"{ms:.4f} ms (in a CUDA graph {dev_ms:.4f}), plain "
+          f"{plain_ms:.4f} ms, "
+          + (f"SDPA {lib_ms:.4f} ms (in a CUDA graph {lib_dev_ms:.4f})"
+             if lib_ms is not None else library)
           + f", bound {b_ms:.4f} ms ({b_by})")
 
 
@@ -995,9 +1025,12 @@ def all_kernels():
 
 
 def launch_counts():
-    """Every kernel's launch count, and the expert FFN's per path."""
-    from repro_torch.kernels import moe_gemm
+    """Every kernel's launch count, and the flash kernel's and the expert
+    FFN's per path."""
+    from repro_torch.kernels import flash_attention, moe_gemm
     counts = {k.symbol: k.launches for k in all_kernels()}
+    counts.update({f"flash_attention/{k}": v
+                   for k, v in flash_attention.path_launches.items()})
     counts.update({f"moe_ffn/{k}": v
                    for k, v in moe_gemm.path_launches.items()})
     return counts
@@ -1083,11 +1116,12 @@ def observe_kernel_shapes():
 
 
 def reset_counts():
-    from repro_torch.kernels import moe_gemm
+    from repro_torch.kernels import flash_attention, moe_gemm
     for k in all_kernels():
         k.launches = 0
-    for k in moe_gemm.path_launches:
-        moe_gemm.path_launches[k] = 0
+    for paths in (flash_attention.path_launches, moe_gemm.path_launches):
+        for k in paths:
+            paths[k] = 0
 
 
 def delta(a, b):
@@ -1189,7 +1223,12 @@ class Run:
         SEEN["run"] = None
         if at_end is not None:          # the engine's final caches
             at_end(engine)
-        n_ffn = delta(c0, c2)["moe_ffn"]
+        ran = delta(c0, c2)
+        if ran["flash_attention/cuda_core"]:
+            raise AssertionError(f"{ran['flash_attention/cuda_core']} "
+                                 f"bf16 serving flash calls took the "
+                                 f"CUDA-core path")
+        n_ffn = ran["moe_ffn"]
         if n_ffn != sum(sum(c.values()) for c in self.ffn_c.values()):
             raise AssertionError(f"{n_ffn} expert FFN launches, not all "
                                  f"seen through ops.expert_ffn_cuda: "
@@ -1892,20 +1931,24 @@ def profile_decode(torch, engine, prompts, out_dir, chrome=True):
             pr.export_chrome_trace(str(out_dir / f"trace_{tag}.json"))
 
 
-# the attention instantiations this slice added that the runs use:
-# (Dh, G) of Gemma2-2B, H2O-Danube-1.8B and Qwen2-1.5B, and the flash
-# kernel's new head dims (mangled template arguments)
-NEW_INSTANTIATIONS = ("Li256ELi2E", "Li80ELi4E", "Li128ELi6E", "Li80EEv",
-                      "Li256EEv")
+def readable(name: str) -> str:
+    """A kernel's mangled name, demangled where c++filt exists."""
+    try:
+        out = subprocess.run(["c++filt", name], capture_output=True,
+                             text=True, timeout=30).stdout.strip()
+    except OSError:
+        return name
+    return out.replace("(anonymous namespace)::", "") or name
 
 
 def print_ptxas(build_log):
-    """Registers and spills per kernel from nvcc's -Xptxas=-v output: a
-    summary per source, then every kernel that spills or takes 200 or
-    more registers, and the new instantiations the runs use."""
+    """Registers, static shared memory and spills per kernel from nvcc's
+    -Xptxas=-v output: a summary per source, then every tensor-core
+    kernel (the wgmma bodies of flash_attention.cu and moe_gemm.cu) and
+    every kernel that spills or takes 200 or more registers."""
     import re
     for src, log in sorted(build_log.items()):
-        entries, name, spill = [], None, (0, 0)
+        entries, name, spill, smem = [], None, (0, 0), 0
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
@@ -1916,18 +1959,48 @@ def print_ptxas(build_log):
                 spill = (int(m.group(1)), int(m.group(2)))
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
-                entries.append((name, int(m.group(1)), spill))
+                m2 = re.search(r"(\d+) bytes smem", line)
+                smem = int(m2.group(1)) if m2 else 0
+                entries.append((name, int(m.group(1)), spill, smem))
                 name = None
         if not entries:
             continue
         regs = [e[1] for e in entries]
         print(f"  {src}: {len(entries)} kernels, {min(regs)}-{max(regs)} "
               f"registers, {sum(1 for e in entries if any(e[2]))} spill")
-        for n, r, sp in entries:
-            if any(sp) or r >= 200 or any(k in n for k in
-                                          NEW_INSTANTIATIONS):
-                print(f"    {n[:90]}: {r} registers, spill stores/loads "
-                      f"{sp[0]}/{sp[1]} bytes")
+        for n, r, sp, sm in entries:
+            if "_tc_kernel" in n or any(sp) or r >= 200:
+                print(f"    {readable(n)[:110]}: {r} registers, static smem "
+                      f"{sm} bytes, spill stores/loads {sp[0]}/{sp[1]} "
+                      f"bytes")
+
+
+def print_hgmma(build):
+    """Count the HGMMA (wgmma) instructions of each kernel in the built
+    flash and expert-FFN libraries (cuobjdump -sass, where the toolkit
+    has it); fail if either library has none."""
+    import os
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
+        "cuobjdump"
+    if not tool.exists():
+        print(f"  HGMMA count: not measured ({tool} not in the toolkit)")
+        return
+    for src in ("flash_attention", "moe_gemm"):
+        sass = subprocess.run([str(tool), "-sass", str(build._target(src))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        per, fn = Counter(), None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+            elif "HGMMA" in line and fn:
+                per[fn] += 1
+        print(f"  {src}: {sum(per.values())} HGMMA instructions (cuobjdump "
+              f"-sass) in {len(per)} kernels: " + ", ".join(
+                  f"{readable(f)[:60]} {n}" for f, n in sorted(per.items())))
+        if not per:
+            raise AssertionError(f"{src}: no wgmma (HGMMA) instruction in "
+                                 f"the built library")
 
 
 def main():
@@ -1963,6 +2036,7 @@ def main():
               f"{k} {v:.1f} s" for k, v in
               sorted(build.build_source_seconds.items())) + ")")
     print_ptxas(build.build_log)
+    print_hgmma(build)
 
     observe_kernel_shapes()
     records = []

@@ -13,10 +13,8 @@
 //
 // What bounds it on an H100: at decode (C = capacity of a few tokens per
 // slot) bytes -- every active slot streams 3 * D * F weights once for ~2C
-// flops each; at prefill (C in the tens to hundreds) operations. The
-// prefill path uses the tensor cores through wmma (the warp-level mma.sync
-// instructions), without the asynchronous wgmma/TMA pipeline that would
-// approach the card's peak; that comes later.
+// flops each; at prefill (C in the tens to hundreds) operations, which
+// the tensor-core path runs through wgmma fed by asynchronous copies.
 //
 // Design: the TPU kernel accumulates the down projection across sequential
 // F tiles; blocks here run in parallel, so the FFN is two GEMM-shaped
@@ -30,11 +28,11 @@
 //     in a fixed order by small finalize kernels (deterministic, no
 //     atomics);
 //   * tensor-core tile (bf16: every prefill and chunk call, whatever
-//     its C, and decode steps at C > 4): wmma 16x16x16 bf16
-//     fragments with float32 accumulators, 64 x 64 tiles per block; the
-//     hidden activation stays float32 between the two passes, as in the
-//     TPU kernel, and enters the down product as a hi + lo pair of bf16
-//     tiles (two mma per step);
+//     its C, and decode steps at C > 4): wgmma (m64n128k16, float32
+//     accumulators) on operand tiles that cp.async keeps several stages
+//     ahead in shared memory; the hidden activation stays float32 between
+//     the two passes, as in the TPU kernel, and enters the down product
+//     as a hi + lo pair of bf16 operands (two wgmma per step);
 //   * CUDA-core tile (float32, and shapes the other paths cannot take):
 //     one block per (128 columns, BM-row tile, slot), x staged in shared
 //     memory, one column per thread with BM float32 sums in registers
@@ -46,13 +44,13 @@
 // take it, and a token's bits in a prefill or chunk call never depend on
 // how many tokens share the call (chunked == whole-prompt prefill).
 #include <cuda_bf16.h>
-#include <mma.h>
 
 #include <algorithm>
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -390,262 +388,380 @@ cudaError_t launch_bm(const void* x, const void* wg, const void* wu,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core tile path (bf16, C > 4: prefill). One block of 4 warps per
-// (64 rows, 64 columns, slot) tile; 32-deep k steps staged in shared
-// memory with 16-byte loads; each warp owns a 32 x 32 quarter as 2 x 2
-// wmma 16x16x16 bf16 fragments with float32 accumulators (gate and up
-// share the fragment layout, so act(g) * u is taken element by element).
-// The hidden activation is stored in float32, in a row-padded [P, Cpad, F]
-// layout (padded rows are zero because their x rows are). The down product
-// splits each staged hidden value h into hi = bf16(h) and lo = bf16(h - hi)
-// and accumulates hi @ wd + lo @ wd: hi + lo carries h to about 16
+// Tensor-core tile path (bf16: prefill and chunk calls at every C, decode
+// steps at C > 4), on wgmma. Each consumer warpgroup owns a 64-row x
+// 128-column output tile; a block of WM x WN warpgroups owns BM = 64 WM
+// rows and BN = 128 WN columns of one slot. Small C (<= 64: one M tile)
+// takes 1 x 2, so each weight row is read as 512 contiguous bytes; larger
+// C takes 2 x 1, so two warpgroups share each weight tile. Operand tiles
+// go through a ring of shared-memory stages filled by cp.async, STAGES -
+// 2 tiles ahead of the multiply while one multiply stays in flight: at
+// small C the path streams the slot's weights (bytes-bound) and needs
+// many loads in flight; at large C the multiply is the limit. x (A) is
+// K-major, the weights (B) MN-major, both in the canonical no-swizzle
+// layout (sm90.cuh); rows past C and columns past D or F are zero-filled
+// by the copies and never read from memory. Gate and up: both weight
+// tiles sit in one stage and share the x tile; act(g) * u is taken in the
+// accumulators' registers and stored in float32, [P, C, F]. Down: the
+// float32 hidden tile is staged as it is and each thread splits its A
+// fragment into hi = bf16(h) and lo = bf16(h - hi) in registers, two
+// wgmma per k step on the same wd tile: hi + lo carries h to about 16
 // significant bits and each product is exact in float32, so the result
 // matches a float32 hidden @ bf16 wd to float32 summation order, where a
-// single bf16 hidden would cost up to 2^-8 of each term.
+// single bf16 hidden would cost up to 2^-8 of each term. Every C uses the
+// one instruction shape (m64n128k16) and the one k order, so a row's bits
+// do not depend on C, on the block shape or on the rows beside it.
 // ---------------------------------------------------------------------------
-
-constexpr int TC_BM = 64, TC_BN = 64, TC_BK = 32, TC_NT = 128;
-constexpr int A_LD = TC_BK + 8;     // bf16 row pitch of the A tile
-constexpr int B_LD = TC_BN + 8;     // bf16 row pitch of the B tiles
-constexpr int C_LD = TC_BN + 4;     // float row pitch of the output tile
 
 using bf16 = __nv_bfloat16;
 
-// A [rows x 32] tile (row-major, leading dim lda) -> shared; rows past
-// nrows and columns past kvalid are zero (kvalid is a multiple of 8)
-__device__ __forceinline__ void stage_a(bf16* dst, const bf16* src, int lda,
-                                        int nrows, int kvalid) {
-  for (int c = threadIdx.x; c < TC_BM * TC_BK / 8; c += TC_NT) {
-    const int r = c / (TC_BK / 8);
-    const int k8 = (c % (TC_BK / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows && k8 < kvalid)
-      v = __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * lda + k8));
-    *reinterpret_cast<uint4*>(dst + r * A_LD + k8) = v;
-  }
+constexpr int WG_N = 128;                   // output columns per warpgroup
+
+// stages of a ring in the shared memory a block may take (less 1 KB to
+// align the ring to 1024 bytes), at most cap
+constexpr int STAGES_FOR(int stage_bytes, int cap) {
+  return (sm90::SMEM_MAX - 1024) / stage_bytes < cap
+             ? (sm90::SMEM_MAX - 1024) / stage_bytes : cap;
 }
 
-// B [32 x 64] tile (row-major, leading dim ldb) -> shared; rows past
-// kvalid and columns past nvalid (a multiple of 8) are zero
-__device__ __forceinline__ void stage_b(bf16* dst, const bf16* src, int ldb,
-                                        int kvalid, int nvalid) {
-  for (int c = threadIdx.x; c < TC_BK * TC_BN / 8; c += TC_NT) {
-    const int r = c / (TC_BN / 8);
-    const int n8 = (c % (TC_BN / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < kvalid && n8 < nvalid)
-      v = __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * ldb + n8));
-    *reinterpret_cast<uint4*>(dst + r * B_LD + n8) = v;
-  }
-}
+// Tile shapes, chosen on the card: the streaming tiles (one M tile, small
+// C) take deep k steps and a deep ring, the compute tiles (two M tiles)
+// shorter ones.
+template <int WM, int WN>
+struct TcTile {
+  static constexpr int NT = 128 * WM * WN, BM = 64 * WM, BN = WG_N * WN;
+  static constexpr int BK_GU = WM == 1 ? 64 : 32;   // k depth per stage
+  static constexpr int BK_DN = 64;
+  static constexpr int CAP_GU = WM == 1 ? 8 : 4;    // at most this many stages
+  static constexpr int CAP_DN = WM == 1 ? 8 : 4;
+};
 
-// A [64 x 32] float32 tile (row-major, leading dim lda) -> shared as two
-// bf16 tiles, hi = bf16(a) and lo = bf16(a - hi); columns past kvalid (a
-// multiple of 8) are zero
-__device__ __forceinline__ void stage_a_split(bf16* hi, bf16* lo,
-                                              const float* src, int lda,
-                                              int kvalid) {
-  for (int c = threadIdx.x; c < TC_BM * TC_BK / 4; c += TC_NT) {
-    const int r = c / (TC_BK / 4);
-    const int k4 = (c % (TC_BK / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k4 < kvalid)
-      v = __ldg(reinterpret_cast<const float4*>(src + (size_t)r * lda + k4));
-    const float a[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const bf16 h = __float2bfloat16(a[i]);
-      hi[r * A_LD + k4 + i] = h;
-      lo[r * A_LD + k4 + i] = __float2bfloat16(a[i] - __bfloat162float(h));
-    }
-  }
-}
+template <int WM, int WN, bool GATED>
+struct GateUpCfg : TcTile<WM, WN> {
+  using T = TcTile<WM, WN>;
+  static constexpr int BK = T::BK_GU;
+  static constexpr int A_BYTES = T::BM * BK * 2;
+  static constexpr int B_BYTES = BK * T::BN * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + (GATED ? 2 : 1) * B_BYTES;
+  static constexpr int STAGES = STAGES_FOR(STAGE_BYTES, T::CAP_GU);
+  static_assert(STAGES >= 3, "one load ahead and one multiply in flight");
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;  // + alignment
+};
 
-using FragA = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16,
-                                     bf16, nvcuda::wmma::row_major>;
-using FragB = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16,
-                                     bf16, nvcuda::wmma::row_major>;
-using FragC = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
-                                     float>;
+template <int WM, int WN>
+struct DownCfg : TcTile<WM, WN> {
+  using T = TcTile<WM, WN>;
+  static constexpr int BK = T::BK_DN;
+  static constexpr int PITCH = BK + 8;      // floats per staged hidden row
+  static constexpr int A_BYTES = (T::BM * PITCH * 4 + 1023) / 1024 * 1024;
+  static constexpr int B_BYTES = BK * T::BN * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int STAGES = STAGES_FOR(STAGE_BYTES, T::CAP_DN);
+  static_assert(STAGES >= 3, "one load ahead and one multiply in flight");
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;  // + alignment
+};
 
-// acc[i][j] += A[rows wr*32 + 16i] @ B[cols wc*32 + 16j] over one k step
-__device__ __forceinline__ void mma_step(FragC (&acc)[2][2], const bf16* as,
-                                         const bf16* bs, int wr, int wc) {
-#pragma unroll
-  for (int kk = 0; kk < TC_BK; kk += 16) {
-    FragA a[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      nvcuda::wmma::load_matrix_sync(a[i], as + (wr * 32 + i * 16) * A_LD + kk,
-                                     A_LD);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      FragB b;
-      nvcuda::wmma::load_matrix_sync(b, bs + kk * B_LD + wc * 32 + j * 16,
-                                     B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        nvcuda::wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-    }
-  }
-}
-
-template <bool GATED>
-__global__ void __launch_bounds__(TC_NT)
+template <bool GATED, int WM, int WN>
+__global__ void __launch_bounds__(128 * WM * WN, 1)
 moe_gate_up_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
                       const bf16* __restrict__ wu,
                       const int* __restrict__ slot_expert,
                       const int* __restrict__ counts,
-                      float* __restrict__ hidden, int C, int Cpad, int D,
-                      int F, int act) {
+                      float* __restrict__ hidden, int C, int D, int F,
+                      int act) {
+  using Cfg = GateUpCfg<WM, WN, GATED>;
+  constexpr int NT = Cfg::NT, BK = Cfg::BK, BN = Cfg::BN;
+  constexpr int STAGES = Cfg::STAGES;
+  extern __shared__ __align__(1024) char smem_raw[];
+  char* smem = sm90::align1024(smem_raw);
   const int p = blockIdx.z;
   if (counts[p] <= 0) return;                   // block-uniform
   const int e = max(slot_expert[p], 0);
-  const int m0 = blockIdx.y * TC_BM;
-  const int n0 = blockIdx.x * TC_BN;
-  const int warp = threadIdx.x >> 5;
-  const int wr = warp >> 1, wc = warp & 1;
+  const int m0 = blockIdx.x * Cfg::BM;
+  const int n0 = blockIdx.y * BN;
+  const bf16* xp = x + (size_t)p * C * D;
+  const bf16* wgp = wg + (size_t)e * D * F;
+  const bf16* wup = wu + (size_t)e * D * F;
+  const int nk = (D + BK - 1) / BK;
 
-  __shared__ __align__(32) bf16 xs[TC_BM * A_LD];
-  __shared__ __align__(32) bf16 gs[TC_BK * B_LD];
-  __shared__ __align__(32) bf16 us[TC_BK * B_LD];
-  __shared__ __align__(32) float cs[TC_BM * C_LD];
-
-  FragC ag[2][2], au[2][2];
+  auto load = [&](int s, int kt) {
+    char* st = smem + s * Cfg::STAGE_BYTES;
+    const int k0 = kt * BK;
+    sm90::stage_tile<Cfg::BM, BK, NT>(
+        reinterpret_cast<bf16*>(st), [&](int r, int cg, bool& ok) {
+          const int row = m0 + r, k = k0 + cg * 8;
+          ok = row < C && k < D;
+          return xp + (ok ? (size_t)row * D + k : 0);
+        });
+    auto wsrc = [&](const bf16* w) {
+      return [=](int r, int cg, bool& ok) {
+        const int k = k0 + r, n = n0 + cg * 8;
+        ok = k < D && n < F;
+        return w + (ok ? (size_t)k * F + n : 0);
+      };
+    };
+    sm90::stage_tile_sw128<BK, BN, NT>(
+        reinterpret_cast<bf16*>(st + Cfg::A_BYTES), wsrc(wup));
+    if (GATED)
+      sm90::stage_tile_sw128<BK, BN, NT>(
+          reinterpret_cast<bf16*>(st + Cfg::A_BYTES + Cfg::B_BYTES),
+          wsrc(wgp));
+  };
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      nvcuda::wmma::fill_fragment(ag[i][j], 0.f);
-      nvcuda::wmma::fill_fragment(au[i][j], 0.f);
-    }
-  const bf16* xp = x + ((size_t)p * C + m0) * D;
-  const int nrows = min(TC_BM, C - m0);
-  for (int k0 = 0; k0 < D; k0 += TC_BK) {
-    const size_t woff = ((size_t)e * D + k0) * F + n0;
-    stage_a(xs, xp + k0, D, nrows, D - k0);
-    stage_b(us, wu + woff, F, min(TC_BK, D - k0), F - n0);
-    if (GATED) stage_b(gs, wg + woff, F, min(TC_BK, D - k0), F - n0);
-    __syncthreads();
-    mma_step(au, xs, us, wr, wc);
-    if (GATED) mma_step(ag, xs, gs, wr, wc);
-    __syncthreads();
+  for (int s = 0; s < STAGES - 2; ++s) {
+    if (s < nk) load(s, s);
+    sm90::cp_async_commit();
   }
+
+  // this warpgroup's rows wm * 64.. and columns wn * 128.. of the block
+  const int w = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int wm = w / WN, wn = w % WN;
+  float au[WG_N / 2], ag[GATED ? WG_N / 2 : 1];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < WG_N / 2; ++i) au[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+  for (int i = 0; i < (GATED ? WG_N / 2 : 1); ++i) ag[i] = 0.f;
+  // one multiply stays in flight across the barrier: tile kt's wgmma runs
+  // while tile kt + 1 is waited for, and stage (kt - 2) % STAGES, whose
+  // multiply every warpgroup has waited for, takes the next load
+  for (int kt = 0; kt < nk; ++kt) {
+    sm90::cp_async_wait<STAGES - 3>();
+    sm90::fence_proxy_async();
+    __syncthreads();                            // tile kt landed
+    if (kt + STAGES - 2 < nk) load((kt + STAGES - 2) % STAGES, kt + STAGES - 2);
+    sm90::cp_async_commit();
+    const char* st = smem + (kt % STAGES) * Cfg::STAGE_BYTES;
+    const uint64_t da = sm90::desc(st + wm * 64 * BK * 2, 128, BK * 16);
+    // this warpgroup's two 64-column atoms of each weight tile
+    const char* bu = st + Cfg::A_BYTES + wn * 2 * BK * 128;
+    const uint64_t du = sm90::desc_sw128(bu, BK * 128);
+    const uint64_t dg = sm90::desc_sw128(bu + Cfg::B_BYTES, BK * 128);
+    sm90::wgmma_fence();
 #pragma unroll
-      for (int t = 0; t < au[i][j].num_elements; ++t)
-        au[i][j].x[t] = GATED ? act_fn(ag[i][j].x[t], act) * au[i][j].x[t]
-                              : act_fn(au[i][j].x[t], act);
-      nvcuda::wmma::store_matrix_sync(
-          cs + (wr * 32 + i * 16) * C_LD + wc * 32 + j * 16, au[i][j], C_LD,
-          nvcuda::wmma::mem_row_major);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      sm90::wgmma_ss_n128(au, da + kk * 16, du + kk * (2048 >> 4), 1);
+      if constexpr (GATED)
+        sm90::wgmma_ss_n128(ag, da + kk * 16, dg + kk * (2048 >> 4), 1);
     }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TC_BM * TC_BN; idx += TC_NT) {
-    const int r = idx / TC_BN, c = idx % TC_BN;
-    if (n0 + c < F)
-      hidden[((size_t)p * Cpad + m0 + r) * F + n0 + c] = cs[r * C_LD + c];
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();                      // tile kt - 1's multiply
+  }
+  sm90::wgmma_wait<0>();
+  sm90::pin(au);
+  sm90::pin(ag);
+  sm90::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < WG_N / 2; i += 2) {
+    const int row = m0 + wm * 64 + sm90::frag_row(t, i);
+    const int col = n0 + wn * WG_N + sm90::frag_col(t, i);
+    if (row < C && col < F) {
+      float2 h;
+      if constexpr (GATED) {
+        h.x = act_fn(ag[i], act) * au[i];
+        h.y = act_fn(ag[i + 1], act) * au[i + 1];
+      } else {
+        h.x = act_fn(au[i], act);
+        h.y = act_fn(au[i + 1], act);
+      }
+      *reinterpret_cast<float2*>(hidden + ((size_t)p * C + row) * F + col) =
+          h;
+    }
   }
 }
 
-__global__ void __launch_bounds__(TC_NT)
+template <int WM, int WN>
+__global__ void __launch_bounds__(128 * WM * WN, 1)
 moe_down_tc_kernel(const float* __restrict__ hidden,
                    const bf16* __restrict__ wd,
                    const int* __restrict__ slot_expert,
                    const int* __restrict__ counts, bf16* __restrict__ y,
-                   int C, int Cpad, int D, int F) {
+                   int C, int D, int F) {
+  using Cfg = DownCfg<WM, WN>;
+  constexpr int NT = Cfg::NT, BK = Cfg::BK, BN = Cfg::BN;
+  constexpr int STAGES = Cfg::STAGES;
+  extern __shared__ __align__(1024) char smem_raw[];
+  char* smem = sm90::align1024(smem_raw);
   const int p = blockIdx.z;
-  const int m0 = blockIdx.y * TC_BM;
-  const int n0 = blockIdx.x * TC_BN;
+  const int m0 = blockIdx.x * Cfg::BM;
+  const int n0 = blockIdx.y * BN;
   if (counts[p] <= 0) {                         // block-uniform
-    for (int idx = threadIdx.x; idx < TC_BM * TC_BN; idx += TC_NT) {
-      const int r = idx / TC_BN, c = idx % TC_BN;
+    for (int idx = threadIdx.x; idx < Cfg::BM * BN; idx += NT) {
+      const int r = idx / BN, c = idx % BN;
       if (m0 + r < C && n0 + c < D)
         y[((size_t)p * C + m0 + r) * D + n0 + c] = __float2bfloat16(0.f);
     }
     return;
   }
   const int e = max(slot_expert[p], 0);
-  const int warp = threadIdx.x >> 5;
-  const int wr = warp >> 1, wc = warp & 1;
+  const float* hp = hidden + (size_t)p * C * F;
+  const bf16* wdp = wd + (size_t)e * F * D;
+  const int nk = (F + BK - 1) / BK;
 
-  __shared__ __align__(32) bf16 hs[TC_BM * A_LD];
-  __shared__ __align__(32) bf16 hl[TC_BM * A_LD];
-  __shared__ __align__(32) bf16 ds[TC_BK * B_LD];
-  __shared__ __align__(32) float cs[TC_BM * C_LD];
-
-  FragC acc[2][2];
+  auto load = [&](int s, int kt) {
+    char* st = smem + s * Cfg::STAGE_BYTES;
+    const int k0 = kt * BK;
+    float* as = reinterpret_cast<float*>(st);
+    for (int c = threadIdx.x; c < Cfg::BM * BK / 4; c += NT) {
+      const int r = c / (BK / 4), k = (c % (BK / 4)) * 4;
+      const bool ok = m0 + r < C && k0 + k < F;
+      sm90::cp_async16(as + r * Cfg::PITCH + k,
+                       hp + (ok ? (size_t)(m0 + r) * F + k0 + k : 0), ok);
+    }
+    sm90::stage_tile_sw128<BK, BN, NT>(
+        reinterpret_cast<bf16*>(st + Cfg::A_BYTES),
+        [&](int r, int cg, bool& ok) {
+          const int k = k0 + r, n = n0 + cg * 8;
+          ok = k < F && n < D;
+          return wdp + (ok ? (size_t)k * D + n : 0);
+        });
+  };
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
-  const float* hp = hidden + ((size_t)p * Cpad + m0) * F;
-  for (int k0 = 0; k0 < F; k0 += TC_BK) {
-    stage_a_split(hs, hl, hp + k0, F, F - k0);
-    stage_b(ds, wd + ((size_t)e * F + k0) * D + n0, D, min(TC_BK, F - k0),
-            D - n0);
-    __syncthreads();
-    mma_step(acc, hs, ds, wr, wc);
-    mma_step(acc, hl, ds, wr, wc);
-    __syncthreads();
+  for (int s = 0; s < STAGES - 2; ++s) {
+    if (s < nk) load(s, s);
+    sm90::cp_async_commit();
   }
+
+  const int w = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int wm = w / WN, wn = w % WN;
+  const int ra = wm * 64 + sm90::frag_row(t, 0), rb = ra + 8;
+  float acc[WG_N / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < WG_N / 2; ++i) acc[i] = 0.f;
+  using Frag = uint32_t[BK / 16][4];
+  // one k step: wait for its tile, split this thread's A fragments into
+  // hi and lo (into the buffer the multiply of kt - 2 read, which is done)
+  // and issue its multiply; the multiply of kt - 1 is then waited for, and
+  // its buffer (prev) pinned, so the compiler keeps the two buffers apart
+  // while a multiply reads one
+  auto step = [&](int kt, Frag& hi, Frag& lo, Frag& hi_prev, Frag& lo_prev) {
+    sm90::cp_async_wait<STAGES - 3>();
+    sm90::fence_proxy_async();
+    __syncthreads();                            // tile kt landed
+    if (kt + STAGES - 2 < nk) load((kt + STAGES - 2) % STAGES, kt + STAGES - 2);
+    sm90::cp_async_commit();
+    const char* st = smem + (kt % STAGES) * Cfg::STAGE_BYTES;
+    const float* as = reinterpret_cast<const float*>(st);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      nvcuda::wmma::store_matrix_sync(
-          cs + (wr * 32 + i * 16) * C_LD + wc * 32 + j * 16, acc[i][j], C_LD,
-          nvcuda::wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TC_BM * TC_BN; idx += TC_NT) {
-    const int r = idx / TC_BN, c = idx % TC_BN;
-    if (m0 + r < C && n0 + c < D)
-      y[((size_t)p * C + m0 + r) * D + n0 + c] =
-          __float2bfloat16(cs[r * C_LD + c]);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const int c = kk * 16 + (t & 3) * 2;
+      const float2 v[4] = {
+          *reinterpret_cast<const float2*>(as + ra * Cfg::PITCH + c),
+          *reinterpret_cast<const float2*>(as + rb * Cfg::PITCH + c),
+          *reinterpret_cast<const float2*>(as + ra * Cfg::PITCH + c + 8),
+          *reinterpret_cast<const float2*>(as + rb * Cfg::PITCH + c + 8)};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bf16 hx = __float2bfloat16(v[j].x), hy = __float2bfloat16(v[j].y);
+        hi[kk][j] = sm90::pack_bf16(__bfloat162float(hx),
+                                    __bfloat162float(hy));
+        lo[kk][j] = sm90::pack_bf16(v[j].x - __bfloat162float(hx),
+                                    v[j].y - __bfloat162float(hy));
+      }
+    }
+    const uint64_t db =
+        sm90::desc_sw128(st + Cfg::A_BYTES + wn * 2 * BK * 128, BK * 128);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      sm90::wgmma_rs(acc, hi[kk], db + kk * (2048 >> 4), 1);
+      sm90::wgmma_rs(acc, lo[kk], db + kk * (2048 >> 4), 1);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();                      // tile kt - 1's multiply
+    sm90::pin(hi_prev);
+    sm90::pin(lo_prev);
+  };
+  // two fragment buffers, so no register a multiply in flight reads is
+  // written before it is waited for
+  Frag hi0, lo0, hi1 = {}, lo1 = {};
+#pragma unroll 1
+  for (int kt = 0; kt < nk; kt += 2) {
+    step(kt, hi0, lo0, hi1, lo1);
+    if (kt + 1 < nk) step(kt + 1, hi1, lo1, hi0, lo0);
+  }
+  sm90::wgmma_wait<0>();
+  sm90::pin(acc);
+  sm90::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < WG_N / 2; i += 2) {
+    const int row = m0 + wm * 64 + sm90::frag_row(t, i);
+    const int col = n0 + wn * WG_N + sm90::frag_col(t, i);
+    if (row < C && col < D)
+      *reinterpret_cast<uint32_t*>(y + ((size_t)p * C + row) * D + col) =
+          sm90::pack_bf16(acc[i], acc[i + 1]);
   }
 }
 
-int padded_rows(int C) { return (C + TC_BM - 1) / TC_BM * TC_BM; }
+// Raise a kernel's dynamic shared-memory limit once, then launch it.
+template <typename Kernel, typename... Args>
+cudaError_t launch_big(Kernel kernel, bool& sized, dim3 grid, int nt,
+                       int smem, cudaStream_t st, Args... args) {
+  const cudaError_t err = sm90::allow_smem(kernel, sized);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, nt, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+template <int WM, int WN>
+cudaError_t launch_gate_up(const void* x, const void* wg, const void* wu,
+                           const int* se, const int* counts, float* hidden,
+                           int P, int C, int D, int F, int gated, int act,
+                           cudaStream_t st) {
+  using Tile = TcTile<WM, WN>;
+  static bool sized[2];
+  const dim3 grid((C + Tile::BM - 1) / Tile::BM, (F + Tile::BN - 1) / Tile::BN,
+                  P);
+  if (gated)
+    return launch_big(moe_gate_up_tc_kernel<true, WM, WN>, sized[0], grid,
+                      Tile::NT, GateUpCfg<WM, WN, true>::SMEM, st,
+                      (const bf16*)x, (const bf16*)wg, (const bf16*)wu, se,
+                      counts, hidden, C, D, F, act);
+  return launch_big(moe_gate_up_tc_kernel<false, WM, WN>, sized[1], grid,
+                    Tile::NT, GateUpCfg<WM, WN, false>::SMEM, st,
+                    (const bf16*)x, (const bf16*)wu, (const bf16*)wu, se,
+                    counts, hidden, C, D, F, act);
+}
+
+template <int WM, int WN>
+cudaError_t launch_down(const float* hidden, const void* wd, const int* se,
+                        const int* counts, void* y, int P, int C, int D,
+                        int F, cudaStream_t st) {
+  using Tile = TcTile<WM, WN>;
+  static bool sized;
+  const dim3 grid((C + Tile::BM - 1) / Tile::BM, (D + Tile::BN - 1) / Tile::BN,
+                  P);
+  return launch_big(moe_down_tc_kernel<WM, WN>, sized, grid, Tile::NT,
+                    DownCfg<WM, WN>::SMEM, st, hidden, (const bf16*)wd, se,
+                    counts, (bf16*)y, C, D, F);
+}
 
 cudaError_t launch_tc(const void* x, const void* wg, const void* wu,
                       const void* wd, const int* se, const int* counts,
-                      float* ws, void* y, int P, int C, int D, int F,
+                      float* hidden, void* y, int P, int C, int D, int F,
                       int gated, int act, cudaStream_t st) {
-  const int Cpad = padded_rows(C);
-  float* hidden = ws;
-  const dim3 g1((F + TC_BN - 1) / TC_BN, Cpad / TC_BM, P);
-  if (gated)
-    moe_gate_up_tc_kernel<true><<<g1, TC_NT, 0, st>>>(
-        (const bf16*)x, (const bf16*)wg, (const bf16*)wu, se, counts, hidden,
-        C, Cpad, D, F, act);
-  else
-    moe_gate_up_tc_kernel<false><<<g1, TC_NT, 0, st>>>(
-        (const bf16*)x, (const bf16*)wu, (const bf16*)wu, se, counts, hidden,
-        C, Cpad, D, F, act);
-  cudaError_t err = cudaGetLastError();
+  const bool small = C <= 64;
+  cudaError_t err =
+      small ? launch_gate_up<1, 2>(x, wg, wu, se, counts, hidden, P, C, D, F,
+                                   gated, act, st)
+            : launch_gate_up<2, 1>(x, wg, wu, se, counts, hidden, P, C, D, F,
+                                   gated, act, st);
   if (err != cudaSuccess) return err;
-  const dim3 g2((D + TC_BN - 1) / TC_BN, Cpad / TC_BM, P);
-  moe_down_tc_kernel<<<g2, TC_NT, 0, st>>>(hidden, (const bf16*)wd, se,
-                                           counts, (bf16*)y, C, Cpad, D, F);
-  return cudaGetLastError();
+  return small ? launch_down<1, 2>(hidden, wd, se, counts, y, P, C, D, F, st)
+               : launch_down<2, 2>(hidden, wd, se, counts, y, P, C, D, F, st);
 }
 
 bool tc_shapes_ok(int D, int F) { return D % 8 == 0 && F % 8 == 0; }
 
-// float32 workspace the launch needs: the hidden activation (with padded
-// rows on the tensor-core path), plus the split partials on the skinny
-// path
+// float32 workspace the launch needs: the hidden activation, plus the
+// split partials on the skinny path
 template <typename T>
 size_t workspace_floats(int P, int C, int D, int F, int decode) {
   size_t need = (size_t)P * C * F;
   const SkinnyPlan pl = skinny_plan<T>(P, C, D, F);
   if (pl.use && decode)
     need += 2 * (size_t)pl.s1 * P * C * F + (size_t)pl.s2 * P * C * D;
-  if (std::is_same<T, bf16>::value && tc_shapes_ok(D, F))
-    need = std::max(need, (size_t)P * padded_rows(C) * F);
   return need;
 }
 

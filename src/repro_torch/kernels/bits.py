@@ -1,26 +1,37 @@
-"""Digests of the attention kernels' outputs on seeded inputs, to show that
-a change to a kernel's source kept the bits of the shapes it had before.
+"""Digests of the attention kernels' and the expert FFN's outputs on seeded
+inputs, to show that a change to a kernel's source kept the bits of the
+shapes it had before; and, against another copy of the sources, both
+trees' times at the serving shapes.
 
-The cases are the (Dh, G) pairs the decode kernels (fused and paged) were
-built for before head dims 80 and 256 and group size 6 came in (Dh 32,
-64, 112, 128 at G 1, 2, 4, 8) and the flash kernel's head dims of that
-time, each in float32 and bfloat16, with a window, a softcap and masked
-positions. Inputs come from numpy, seeded per case, so every machine
+The attention cases are the (Dh, G) pairs the decode kernels (fused and
+paged) were built for before head dims 80 and 256 and group size 6 came in
+(Dh 32, 64, 112, 128 at G 1, 2, 4, 8) and the flash kernel's head dims of
+that time, each in float32 and bfloat16, with a window, a softcap and
+masked positions. The expert FFN's cases run its skinny, tensor-core and
+CUDA-core paths. Inputs come from numpy, seeded per case, so every machine
 gives the kernels the same bits.
 
     PYTHONPATH=src python -m repro_torch.kernels.bits               # digests
     PYTHONPATH=src python -m repro_torch.kernels.bits --csrc DIR    # and DIR's
+    PYTHONPATH=src python -m repro_torch.kernels.bits --csrc DIR --time
 
-With ``--csrc DIR`` it also builds ``DIR/decode_attention.cu`` and
-``DIR/flash_attention.cu`` (another copy of the sources, e.g. an earlier
-commit's, with the same C entry points) and fails unless every digest
-equals this checkout's. Needs an NVIDIA GPU and nvcc.
+With ``--csrc DIR`` it also builds ``DIR/decode_attention.cu``,
+``DIR/flash_attention.cu`` and ``DIR/moe_gemm.cu`` (another copy of the
+sources, e.g. an earlier commit's, with the same C entry points) and
+compares every digest with this checkout's. It fails unless the cases in
+``KEPT`` are equal; the others (bf16 flash, whose tensor-core body rounds
+per key tile, and the expert FFN, whose tensor-core path was redesigned)
+are reported. ``--time`` then times both trees' flash and expert-FFN
+entry points at the serving shapes (``TIMED``), in turns on one card:
+DIR's, this checkout's, this checkout's, DIR's. Needs an NVIDIA GPU and
+nvcc.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import hashlib
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -39,8 +50,16 @@ CASES = ([(k, dh, g, dt) for k in ("fused", "paged") for dh in DECODE_DH
           for g in DECODE_G for dt in DTYPES]
          + [("flash", dh, g, dt) for dh in FLASH_DH for g in (1, 4)
             for dt in DTYPES])
+#: (kernel, C, decode, dtype): the expert FFN's skinny path (decode at C
+#: 2), its tensor-core path (bf16 otherwise) and its CUDA-core path (fp32)
+MOE_CASES = [("moe", c, dec, dt) for c, dec in ((2, True), (2, False),
+                                                (40, False), (130, False))
+             for dt in DTYPES]
+#: the cases whose bits a change to the sources must keep
+KEPT = [c for c in CASES if c[0] != "flash" or c[3] == "float32"]
 B, HKV, SC, PT, NBLK, S = 3, 2, 70, 16, 5, 45
 WINDOW, SOFTCAP = 24, 30.0
+MOE_P, MOE_D, MOE_F, MOE_E = 4, 96, 160, 3
 
 
 def inputs(case):
@@ -53,6 +72,13 @@ def inputs(case):
 
     def randn(*shape):
         return r.normal(size=shape).astype(np.float32)
+    if kernel == "moe":
+        c = dh
+        x = randn(MOE_P, c, MOE_D)
+        w = [randn(MOE_E, MOE_D, MOE_F) * 0.1 for _ in range(2)]
+        return (x, w[0], w[1], randn(MOE_E, MOE_F, MOE_D) * 0.1,
+                np.array([0, 2, 1, 2], np.int32),
+                np.array([c, 1, c, 0], np.int32))
     if kernel == "flash":
         p = np.tile(np.arange(S, dtype=np.int32), (B, 1))
         p[-1, S - 7:] = -1
@@ -93,7 +119,10 @@ def run_port(case):
     """The case through the port's wrappers."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gemm as mg
     args = _tensors(case)
+    if case[0] == "moe":
+        return mg.expert_ffn_cuda(*args, decode=case[2])
     if case[0] == "fused":
         return da.decode_attention_cuda(*args, window=WINDOW,
                                         softcap=SOFTCAP)
@@ -103,11 +132,13 @@ def run_port(case):
 
 
 def run_library(case, libs):
-    """The case through the C entry points of ``libs`` (``decode`` and
-    ``flash`` CDLLs built from another copy of the sources)."""
+    """The case through the C entry points of ``libs`` (``decode``,
+    ``flash`` and ``moe`` CDLLs built from another copy of the sources)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     args = _tensors(case)
+    if case[0] == "moe":
+        return moe_call(libs["moe"], *args, decode=case[2])()
     code = build.DTYPE_CODES[f"torch.{case[3]}"]
     ptrs = [build.ptr(t) for t in args]
     stream = build.stream_ptr(args[0])
@@ -145,12 +176,39 @@ def digest(t) -> str:
     return hashlib.sha256(a.numpy().tobytes()).hexdigest()[:16]
 
 
+def moe_call(lib, x, wg, wu, wd, se, cnt, *, decode):
+    """A closure that runs ``lib``'s ``moe_ffn`` (any copy of the
+    source) on these arguments, with the workspace that copy asks for."""
+    from repro_torch.kernels import moe_gemm as mg
+    p, c, d = x.shape
+    f = wu.shape[2]
+    code = build.DTYPE_CODES[str(x.dtype)]
+    ws_fn = lib.moe_ffn_workspace
+    ws_fn.argtypes, ws_fn.restype = [ctypes.c_int] * 6, ctypes.c_longlong
+    ws = torch.empty((int(ws_fn(p, c, d, f, code, int(decode))),),
+                     dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    fn = lib.moe_ffn
+    fn.argtypes, fn.restype = mg.KERNEL.argtypes, ctypes.c_int
+    call = [build.ptr(t) for t in (x, wg, wu, wd, se, cnt, ws, y)] + [
+        p, c, d, f, 1, 0, code, int(decode), build.stream_ptr(x)]
+
+    def run():
+        err = fn(*call)
+        if err:
+            raise RuntimeError(f"moe_ffn: CUDA error {err}")
+        return y
+    run.workspace = ws         # the kernel writes it: keep it allocated
+    return run
+
+
 def build_other(csrc: Path, out_dir: Path):
-    """Build DIR's decode and flash sources (the port's nvcc flags)."""
+    """Build DIR's decode, flash and expert-FFN sources (the port's nvcc
+    flags)."""
     out_dir.mkdir(parents=True, exist_ok=True)
     libs, procs = {}, []
     for key, name in (("decode", "decode_attention"),
-                      ("flash", "flash_attention")):
+                      ("flash", "flash_attention"), ("moe", "moe_gemm")):
         so = out_dir / f"lib{name}.so"
         procs.append((key, so, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
@@ -164,27 +222,189 @@ def build_other(csrc: Path, out_dir: Path):
     return libs
 
 
+#: (name, kind, shape) of every shape ``--time`` runs both trees at: the
+#: flash rows and the expert-FFN rows of the serving paths (Mixtral-8x7B's
+#: expert bank, 8 of 16 slots active)
+TIMED = ([
+    ("flash gemma2 local S4160", "flash",
+     dict(s=4160, h=8, hkv=4, dh=256, window=4096, softcap=50.0)),
+    ("flash gemma2 global S4160", "flash",
+     dict(s=4160, h=8, hkv=4, dh=256, softcap=50.0)),
+    ("flash danube S4160", "flash", dict(s=4160, h=32, hkv=8, dh=80,
+                                         window=4096)),
+    ("flash qwen2 S624 (621 tokens)", "flash", dict(s=624, valid=621, h=12,
+                                                    hkv=2, dh=128)),
+    ("flash mixtral S128", "flash", dict(s=128, h=32, hkv=8, dh=128)),
+    ("flash zamba2 S128", "flash", dict(s=128, h=32, hkv=32, dh=112)),
+    ("flash mixtral chunk B8 C128 Sk512", "chunk",
+     dict(b=8, c=128, sk=512, h=32, hkv=8, dh=128, starts=(0, 200))),
+    ("flash qwen2 chunk B8 C256 Sk1024", "chunk",
+     dict(b=8, c=256, sk=1024, h=12, hkv=2, dh=128, starts=(512,))),
+] + [(f"moe C{c}" + (" decode" if dec else ""), "moe", dict(c=c, decode=dec))
+     for c, dec in ((2, True), (2, False), (4, False), (8, False),
+                    (64, False), (128, False), (256, False))])
+
+
+def time_ms(fn, reps: int = 20) -> float:
+    """Median CUDA-event time of one call of ``fn`` after 3 warm-up
+    calls, with a 64 MiB L2 flush before each (outside the timed span);
+    ``chip_smoke.py`` times every kernel with it too."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def flash_call(lib, q, k, v, qp, kp, *, window=0, softcap=0.0):
+    """A closure that runs ``lib``'s ``flash_attention`` (causal)."""
+    from repro_torch.kernels import flash_attention as fa
+    b, sq, h, dh = q.shape
+    out = torch.empty_like(q)
+    fn = lib.flash_attention
+    fn.argtypes, fn.restype = fa.KERNEL.argtypes, ctypes.c_int
+    call = [build.ptr(t) for t in (q, k, v, qp, kp, out)] + [
+        b, sq, k.shape[1], h, k.shape[2], dh, 1, window, softcap,
+        build.DTYPE_CODES[str(q.dtype)], build.stream_ptr(q)]
+
+    def run():
+        err = fn(*call)
+        if err:
+            raise RuntimeError(f"flash_attention: CUDA error {err}")
+        return out
+    return run
+
+
+def timed_inputs(kind, shape, g):
+    """bf16 inputs of a TIMED shape (seeded on the card) as the keyword
+    arguments of flash_call or moe_call after the library."""
+    def randn(*sh, scale=1.0):
+        return (torch.randn(sh, generator=g, device="cuda") *
+                scale).bfloat16()
+    if kind == "moe":
+        c, d, f = shape["c"], 4096, 14336
+        x = randn(16, c, d)
+        x[8:] = 0
+        return dict(x=x, wg=randn(8, d, f, scale=d ** -0.5),
+                    wu=randn(8, d, f, scale=d ** -0.5),
+                    wd=randn(8, f, d, scale=f ** -0.5),
+                    se=torch.tensor(list(range(8)) + [0, 1, 2, 3] * 2,
+                                    dtype=torch.int32, device="cuda"),
+                    cnt=torch.tensor([c] * 8 + [0] * 8, dtype=torch.int32,
+                                     device="cuda"),
+                    decode=shape["decode"])
+    h, hkv, dh = shape["h"], shape["hkv"], shape["dh"]
+    kw = dict(window=shape.get("window", 0),
+              softcap=shape.get("softcap", 0.0))
+    if kind == "flash":
+        s = shape["s"]
+        p = torch.arange(s, device="cuda", dtype=torch.int32)[None]
+        p = torch.where(p < shape.get("valid", s), p, torch.full_like(p, -1))
+        return dict(q=randn(1, s, h, dh), k=randn(1, s, hkv, dh),
+                    v=randn(1, s, hkv, dh), qp=p, kp=p, **kw)
+    # a chunk call: row i (i < len(starts)) extends a sequence by the chunk
+    # [start, start + C) over its cache view; the other rows are idle
+    b, c, sk = shape["b"], shape["c"], shape["sk"]
+    ar = torch.arange(sk, device="cuda", dtype=torch.int32)
+    qp = torch.full((b, c), -1, device="cuda", dtype=torch.int32)
+    kp = torch.where(ar < 100, ar, torch.full_like(ar, -1)).repeat(b, 1)
+    for i, start in enumerate(shape["starts"]):
+        qp[i] = torch.arange(start, start + c, device="cuda",
+                             dtype=torch.int32)
+        kp[i] = torch.where(ar < start + c, ar, torch.full_like(ar, -1))
+    return dict(q=randn(b, c, h, dh), k=randn(b, sk, hkv, dh),
+                v=randn(b, sk, hkv, dh), qp=qp, kp=kp, **kw)
+
+
+def plain(kind, kw):
+    """The plain version's output (float32) on a TIMED shape's inputs;
+    the expert FFN's on all slots, its active ones computed on their own
+    (the 16-slot gather of the bank would take 22 GiB)."""
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.models.attention import blockwise_attention
+    if kind == "moe":
+        live = kw["cnt"] > 0
+        y = torch.zeros_like(kw["x"], dtype=torch.float32)
+        y[live] = mg.expert_ffn_plain(
+            kw["x"][live], kw["wg"], kw["wu"], kw["wd"], kw["se"][live],
+            kw["cnt"][live]).float()
+        return y
+    return blockwise_attention(kw["q"], kw["k"], kw["v"], kw["qp"], kw["kp"],
+                               window=kw["window"], softcap=kw["softcap"],
+                               block_q=kw["q"].shape[1],
+                               block_k=16).float()
+
+
+def time_trees(libs_other, libs_mine):
+    """Both trees at every TIMED shape, in turns (other, mine, mine,
+    other); prints each time and each tree's largest error against the
+    plain version."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name, kind, shape in TIMED:
+        kw = timed_inputs(kind, shape, g)
+        if kind == "moe":
+            mk = lambda libs: moe_call(libs["moe"], **kw)  # noqa: E731
+        else:
+            mk = lambda libs: flash_call(libs["flash"], **kw)  # noqa: E731
+        other, mine = mk(libs_other), mk(libs_mine)
+        want = plain(kind, kw)
+        errs = [(fn().float() - want).abs().max().item()
+                for fn in (other, mine)]
+        del want
+        t = [time_ms(fn) for fn in (other, mine, mine, other)]
+        print(f"  {name}: other {t[0]:.4f} / {t[3]:.4f} ms, this checkout "
+              f"{t[1]:.4f} / {t[2]:.4f} ms (x{(t[0] + t[3]) / (t[1] + t[2]):.2f}"
+              f"); max abs err against the bf16 plain version: other "
+              f"{errs[0]:.3e}, this checkout {errs[1]:.3e}")
+        del kw, other, mine
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--csrc", type=Path, default=None,
                     help="another copy of the CUDA sources to compare with")
+    ap.add_argument("--time", action="store_true",
+                    help="with --csrc: time both trees at the serving "
+                    "shapes, in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bits: no CUDA device visible", file=sys.stderr)
         return 2
     build.build_all()
-    mine = {case: digest(run_port(case)) for case in CASES}
+    cases = CASES + MOE_CASES
+    mine = {case: digest(run_port(case)) for case in cases}
     for case, d in mine.items():
         print(f"{case}: {d}")
     if args.csrc is None:
         return 0
     libs = build_other(args.csrc, build.BUILD_DIR / "bits_other")
-    other = {case: digest(run_library(case, libs)) for case in CASES}
-    differ = [case for case in CASES if other[case] != mine[case]]
-    print(f"{len(CASES) - len(differ)} of {len(CASES)} cases bitwise equal "
+    other = {case: digest(run_library(case, libs)) for case in cases}
+    differ = [case for case in cases if other[case] != mine[case]]
+    lost = [case for case in KEPT if case in differ]
+    print(f"{len(cases) - len(differ)} of {len(cases)} cases bitwise equal "
           f"to {args.csrc}'s kernels" + (f"; differ: {differ}" if differ
                                          else ""))
-    return 1 if differ else 0
+    print(f"{len(KEPT) - len(lost)} of the {len(KEPT)} cases to keep "
+          f"(decode, float32 flash) equal" + (f"; LOST: {lost}" if lost
+                                              else ""))
+    if args.time:
+        print(f"times at the serving shapes, {torch.cuda.get_device_name(0)}"
+              f" (median of 20 CUDA-event runs, L2 flushed), "
+              f"{args.csrc}'s tree against this checkout's, in turns:")
+        time_trees(libs, {"flash": build.library("flash_attention"),
+                          "moe": build.library("moe_gemm")})
+    return 1 if lost else 0
 
 
 if __name__ == "__main__":

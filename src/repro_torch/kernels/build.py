@@ -15,6 +15,7 @@ otherwise adds one to its launch count.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -149,9 +150,11 @@ class CudaKernel:
         self.launches += 1
 
 
+@functools.lru_cache(maxsize=None)
 def supports(source: str, symbol: str, *args: int) -> bool:
     """What a built source's query entry ``int symbol(int, ...)`` says
-    about the shapes it was built for (it launches nothing)."""
+    about the shapes it was built for (it launches nothing; the answer is
+    fixed for the process, so it is asked once per arguments)."""
     fn = getattr(library(source), symbol)
     fn.argtypes = [ctypes.c_int] * len(args)
     fn.restype = ctypes.c_int
@@ -159,9 +162,11 @@ def supports(source: str, symbol: str, *args: int) -> bool:
 
 
 def stream_ptr(t) -> ctypes.c_void_p:
-    """The current CUDA stream of tensor ``t``'s device, as a pointer."""
+    """The current CUDA stream of tensor ``t``'s device, as a pointer
+    (read without building a Stream object: a launch's host time counts
+    at the small shapes)."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.get_device()))
 
 
 def ptr(t) -> ctypes.c_void_p:

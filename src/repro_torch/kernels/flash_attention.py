@@ -2,11 +2,14 @@
 
 The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``. Its plain version is
-``models.attention.blockwise_attention``, the reference's CPU path.
+``models.attention.blockwise_attention``, the reference's CPU path. bfloat16
+runs on the tensor cores (wgmma), float32 on the CUDA cores; the launches
+of each are counted in ``path_launches``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -18,6 +21,19 @@ KERNEL = build.CudaKernel(
     "flash_attention", "flash_attention",
     [_P] * 6 + [_I] * 8 + [ctypes.c_float, _I, _P],
     replaces="src/repro/kernels/flash_attention.py:82")
+#: the kernel's paths, in the order of the C source's codes
+PATHS = ("tensor_core", "cuda_core")
+#: launches per path, counted with ``KERNEL.launches``
+path_launches = dict.fromkeys(PATHS, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _path(code: int) -> str:
+    """The path the kernel takes for a dtype code, as it chooses it."""
+    fn = build.library("flash_attention").flash_attention_path
+    fn.argtypes = [_I]
+    fn.restype = _I
+    return PATHS[fn(code)]
 
 
 def flash_attention_cuda(q, k, v, q_pos, k_pos, *, causal: bool = True,
@@ -38,7 +54,7 @@ def flash_attention_cuda(q, k, v, q_pos, k_pos, *, causal: bool = True,
         raise ValueError(f"flash_attention kernel takes H % Hkv == 0 and a "
                          f"head dim flash_attention_supports accepts; got "
                          f"H={h} Hkv={hkv} Dh={dh}")
-    if len({t.dtype for t in (q, k, v)}) != 1:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k and v must share one dtype")
     code = build.dtype_code(q)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -49,4 +65,5 @@ def flash_attention_cuda(q, k, v, q_pos, k_pos, *, causal: bool = True,
            build.ptr(k_pos), build.ptr(out), b, sq, sk, h, hkv, dh,
            int(bool(causal)), int(window), float(softcap), code,
            build.stream_ptr(q))
+    path_launches[_path(code)] += 1
     return out

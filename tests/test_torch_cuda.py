@@ -363,6 +363,28 @@ def test_expert_ffn_prefill_path_rows_do_not_depend_on_c(dev):
                            ref[:, off:off + c])
 
 
+@pytest.mark.parametrize("c", [63, 64, 65, 200])
+def test_expert_ffn_rows_keep_their_bits_across_tile_shapes(dev, c):
+    """C <= 64 takes the streaming tiles (one 64-row M tile, two
+    warpgroups side by side in N), larger C the compute tiles (two M
+    tiles): one instruction shape and one k order, so a row has the same
+    bits either way, with ragged D and F (not multiples of the tiles)."""
+    r = np.random.default_rng(c)
+    d, f = 200, 344
+    wg, wu = (_randn(r, (2, d, f), torch.bfloat16, dev, d ** -0.5)
+              for _ in range(2))
+    wd = _randn(r, (2, f, d), torch.bfloat16, dev, f ** -0.5)
+    se = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    xs = _randn(r, (2, 256, d), torch.bfloat16, dev)
+
+    def ffn(x):
+        cnt = torch.full((2,), x.shape[1], dtype=torch.int32, device=dev)
+        return ops.expert_ffn(x, wg, wu, wd, se, cnt, decode=False)
+    ref = ffn(xs)
+    off = 256 - c
+    assert torch.equal(ffn(xs[:, off:].contiguous()), ref[:, off:])
+
+
 @pytest.mark.parametrize("c", [2, 4])
 def test_expert_ffn_prefill_path_small_c_rounds_once(dev, c):
     r = np.random.default_rng(c)
@@ -476,6 +498,71 @@ def test_flash_attention_at_new_heads(dev, dtype, b, s, h, hkv, dh, window,
            blockwise_attention(q, k, v, p, p, block_k=16, **kw), dtype)
 
 
+# --------------------------------------------------------------------------
+# the flash kernel's tensor-core path (bfloat16)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("g", [1, 2, 4, 6, 8])
+@pytest.mark.parametrize("dh", [32, 64, 80, 112, 128, 256])
+def test_flash_tensor_core_row_bits_do_not_depend_on_the_call(dev, dh, g):
+    """bf16 flash with a window and a softcap, at every head dim the
+    kernel is built for: every row is within half a bf16 ulp + 1e-4 of the
+    float32 plain version, and a row has the same bits in a whole-prompt
+    call and in a chunk call over a cache view padded to another Sk beside
+    idle batch rows, whether it is row 0, 63 or 127 of its query tile."""
+    r = np.random.default_rng(dh * 10 + g)
+    hkv, s, sk, c, target = 2, 300, 384, 136, 150
+    h = g * hkv
+    kw = dict(window=72, softcap=30.0)
+    q = _randn(r, (1, s, h, dh), torch.bfloat16, dev)
+    k, v = (_randn(r, (1, s, hkv, dh), torch.bfloat16, dev)
+            for _ in range(2))
+    pos = torch.arange(s, device=dev, dtype=torch.int32)[None]
+    n = dict(fa.path_launches)
+    whole = ops.full_attention(q, k, v, pos, pos, **kw)
+    assert fa.path_launches["tensor_core"] == n["tensor_core"] + 1
+    want = blockwise_attention(q.float(), k.float(), v.float(), pos, pos,
+                               block_k=16, **kw)
+    assert bool(((whole.float() - want).abs() <=
+                 1e-4 + 2.0 ** -8 * want.abs()).all())
+    # batch row 1 is the prompt's cache view; rows 0 and 2 are idle (no
+    # query position) beside live keys
+    ck, cv = (_randn(r, (3, sk, hkv, dh), torch.bfloat16, dev)
+              for _ in range(2))
+    ck[1, :s], cv[1, :s] = k[0], v[0]
+    ar = torch.arange(sk, device=dev, dtype=torch.int32)
+    for row in (0, 63, 127):
+        # the chunk [c0, c0 + c) that puts (target, row % g) at local row
+        # `row` of the call's first query tile
+        c0 = target - row // g
+        kp = torch.where(ar < 90, ar, torch.full_like(ar, -1)).repeat(3, 1)
+        kp[1] = torch.where(ar < c0 + c, ar, torch.full_like(ar, -1))
+        qp = torch.full((3, c), -1, device=dev, dtype=torch.int32)
+        qp[1] = torch.arange(c0, c0 + c, device=dev, dtype=torch.int32)
+        qc = _randn(r, (3, c, h, dh), torch.bfloat16, dev)
+        qc[1] = q[0, c0:c0 + c]
+        out = ops.full_attention(qc, ck, cv, qp, kp, **kw)
+        assert torch.equal(out[1], whole[0, c0:c0 + c])
+        assert not out[0].any() and not out[2].any()
+
+
+def test_flash_path_counts(dev):
+    """bfloat16 takes the tensor-core path and float32 the CUDA-core
+    path; each launch counts once in KERNEL.launches and once in its
+    path."""
+    r = np.random.default_rng(0)
+    p = torch.arange(40, device=dev, dtype=torch.int32)[None]
+    for dtype, path in ((torch.bfloat16, "tensor_core"),
+                        (torch.float32, "cuda_core")):
+        q = _randn(r, (1, 40, 8, 64), dtype, dev)
+        k, v = (_randn(r, (1, 40, 2, 64), dtype, dev) for _ in range(2))
+        n, paths = fa.KERNEL.launches, dict(fa.path_launches)
+        ops.full_attention(q, k, v, p, p)
+        assert fa.KERNEL.launches == n + 1
+        assert {key for key, val in fa.path_launches.items()
+                if val != paths[key]} == {path}
+
+
 def test_ring_restore_keeps_the_highest_token_on_the_card(dev):
     """Every slot of a ring layer restored from two tokens, t and t + Sc,
     given highest first: each slot keeps token t + Sc's K/V and position
@@ -508,7 +595,10 @@ def test_ring_restore_keeps_the_highest_token_on_the_card(dev):
 # came in. Taken on an NVIDIA H100 80GB HBM3 from the kernels built from
 # the sources before that change (``python -m repro_torch.kernels.bits
 # --csrc DIR``, which found them equal to the changed sources' in all 80
-# cases).
+# cases). The 8 bfloat16 flash digests are those of the tensor-core body
+# that replaced the CUDA-core one for bfloat16 (per-tile softmax, P as hi
+# + lo bf16 operands of wgmma); float32 flash and every decode case keep
+# their earlier digests.
 EARLIER_BITS = {
     ('fused', 32, 1, 'float32'): "20b95c6b5188d0b7",
     ('fused', 32, 1, 'bfloat16'): "8afa7aec806a2cf1",
@@ -575,21 +665,21 @@ EARLIER_BITS = {
     ('paged', 128, 8, 'float32'): "d17ef2e6127d53a1",
     ('paged', 128, 8, 'bfloat16'): "6321042e12ab1016",
     ('flash', 32, 1, 'float32'): "a2894d79f3663eb5",
-    ('flash', 32, 1, 'bfloat16'): "47059998f848e534",
+    ('flash', 32, 1, 'bfloat16'): "0f1e6a8e02f3b7d5",
     ('flash', 32, 4, 'float32'): "b453b54c2f1d21c2",
-    ('flash', 32, 4, 'bfloat16'): "1bbe0671ce7a1d39",
+    ('flash', 32, 4, 'bfloat16'): "aeb542d226068b10",
     ('flash', 64, 1, 'float32'): "efa46a09c1859931",
-    ('flash', 64, 1, 'bfloat16'): "c14bccd860171382",
+    ('flash', 64, 1, 'bfloat16'): "28203f67ea0fe61f",
     ('flash', 64, 4, 'float32'): "aad47be4bdfa430c",
-    ('flash', 64, 4, 'bfloat16'): "0045068aa3e41ef1",
+    ('flash', 64, 4, 'bfloat16'): "9d8f1cbcf4653998",
     ('flash', 112, 1, 'float32'): "08d687b4377ce018",
-    ('flash', 112, 1, 'bfloat16'): "1fc5ad3d30114623",
+    ('flash', 112, 1, 'bfloat16'): "bf15f21b3054c59b",
     ('flash', 112, 4, 'float32'): "91c4e8989eeb1cd7",
-    ('flash', 112, 4, 'bfloat16'): "306a89c75f67e16e",
+    ('flash', 112, 4, 'bfloat16'): "3c1b012358ce6e2b",
     ('flash', 128, 1, 'float32'): "e28f7bce12fcaf57",
-    ('flash', 128, 1, 'bfloat16'): "acb2e167bd26b0c2",
+    ('flash', 128, 1, 'bfloat16'): "8d2e75c618824844",
     ('flash', 128, 4, 'float32'): "0436e3108e2cdae2",
-    ('flash', 128, 4, 'bfloat16'): "4fbfbd2f23cd7984",
+    ('flash', 128, 4, 'bfloat16'): "b39f47405d1cf23d",
 }
 
 
