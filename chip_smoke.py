@@ -14,8 +14,9 @@ Phases, each of which raises on failure (exit code != 0):
   1. card     — ``nvidia-smi`` name and power limit, then the kernel build
                 (one nvcc per CUDA source, all started together; each
                 source's nvcc time, ptxas's registers, static shared
-                memory and spills of every tensor-core kernel, and the
-                HGMMA (wgmma) instructions in the built flash and
+                memory and spills of every tensor-core kernel and of every
+                split decode kernel (with its dynamic shared memory), and
+                the HGMMA (wgmma) instructions in the built flash and
                 expert-FFN libraries, which must not be 0).
   2. kernels  — each hand-written kernel at the shapes the serving paths
                 give it (bfloat16) and in float32, held to its plain
@@ -38,8 +39,12 @@ Phases, each of which raises on failure (exit code != 0):
                 and each attention kernel at every (Dh, G) (CHECKED),
                 all checked after the runs; kernel, plain-version and
                 library-call times by CUDA events (median of 20 after
-                warm-up, L2 flushed before each run). The flash kernel's
-                records come from phase 12.
+                warm-up, L2 flushed before each run), and for decode
+                attention also the kernel's and SDPA's time in a CUDA graph
+                (device time, no host time; the calls take copies of
+                their inputs in turn, so they read them from HBM, not
+                L2). The flash kernel's records
+                come from phase 12.
   3. reference — a reduced float32 Mixtral, a reduced float32 Zamba2 with
                 a trailing block, and reduced float32 Gemma2, Danube and
                 Qwen2 (24-token prompts past their 16-token windows), on
@@ -134,6 +139,7 @@ from pathlib import Path
 from typing import NamedTuple
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+L2_BYTES = 50 * 2 ** 20            # H100 SXM L2
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 FP32_FLOPS_PER_S = 67e12           # H100 SXM float32 on the CUDA cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
@@ -197,7 +203,9 @@ def graph_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
     time: ``calls`` calls captured in one CUDA graph, replayed back to
     back (median of ``reps`` CUDA-event timings, divided by ``calls``).
     At the small shapes a call's host time outweighs its kernels, and the
-    CUDA-event window of ``time_ms`` includes it."""
+    CUDA-event window of ``time_ms`` includes it. The calls share their
+    inputs, so an input that fits in L2 is read from L2 after the first
+    call: ``cold_graph_ms`` keeps it in HBM."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -216,6 +224,21 @@ def graph_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def cold_graph_ms(torch, fn, tensors, calls: int = 20) -> float:
+    """``graph_ms`` of ``fn(*tensors)`` with its inputs read from HBM: the
+    captured calls take copies of ``tensors`` in turn, enough of them
+    (at most ``calls``) that the other copies read between two calls on
+    one copy hold at least twice the L2 (four times, counting every
+    allocated byte as read). What a decode step sees: each layer's call
+    reads another layer's cache."""
+    import itertools
+    per = sum(t.numel() * t.element_size() for t in tensors)
+    n = max(1, min(calls, -(-4 * L2_BYTES // per)))
+    turn = itertools.cycle([tuple(tensors)] + [
+        tuple(t.clone() for t in tensors) for _ in range(n - 1)])
+    return graph_ms(torch, lambda: fn(*next(turn)), calls)
 
 
 def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S):
@@ -336,12 +359,18 @@ def decode_attention_at(torch, g, records, name, b, h, hkv, dh, sc, *,
                                       else t for t in args), **kw),
           atol=ROUND_ATOL, rtol=ROUND_RTOL)
     CHECKED.add(("decode_attention_fused", dh, h // hkv))
-    ms = time_ms(torch, lambda: da.decode_attention_cuda(*args, **kw))
+
+    def kern():
+        return da.decode_attention_cuda(*args, **kw)
+    ms = time_ms(torch, kern)
+    dev_ms = cold_graph_ms(
+        torch, lambda *a: da.decode_attention_cuda(*a, **kw), args)
     plain_ms = time_ms(torch, lambda: da.decode_attention_plain(*args,
                                                                 **kw))
     ok = valid_keys(cpos, pos, window)
     grp = h // hkv
-    lib_ms, library = None, "none: SDPA has no tanh softcap"
+    lib_ms, lib_dev_ms = None, None
+    library = "none: SDPA has no tanh softcap"
     if not softcap:
         # library yardstick: SDPA over cache + current token, heads
         # expanded, the window in the mask
@@ -353,8 +382,11 @@ def decode_attention_at(torch, g, records, name, b, h, hkv, dh, sc, *,
                                          device="cuda")], 1)
         mask = mask[:, None, None, :]
         qq = q[:, :, None, :]
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qq, kk, vv, attn_mask=mask))
+
+        def sdpa(qq=qq, kk=kk, vv=vv, mask=mask):
+            return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+        lib_ms = time_ms(torch, sdpa)
+        lib_dev_ms = cold_graph_ms(torch, sdpa, (qq, kk, vv, mask))
         library = "SDPA"
     valid = int(ok.sum().item())
     el = 2
@@ -367,22 +399,13 @@ def decode_attention_at(torch, g, records, name, b, h, hkv, dh, sc, *,
         source="src/repro_torch/csrc/decode_attention.cu",
         replaces=da.KERNEL.replaces, max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, library=library, shape=f"{tag} bf16"))
-    print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          + (f"SDPA {lib_ms:.4f} ms" if lib_ms is not None else library)
+        library_ms=lib_ms, library=library, graph_ms=dev_ms,
+        library_graph_ms=lib_dev_ms, shape=f"{tag} bf16"))
+    print(f"  time {ms:.4f} ms (in a CUDA graph, L2 cold {dev_ms:.4f}), "
+          f"plain {plain_ms:.4f} ms, "
+          + (f"SDPA {lib_ms:.4f} ms (in a CUDA graph, L2 cold "
+             f"{lib_dev_ms:.4f})" if lib_ms is not None else library)
           + f", bound {b_ms:.4f} ms ({b_by})")
-
-
-def merge_partials(torch, parts):
-    """Partials (m, l, acc) of disjoint slices of one cache, merged in
-    log-sum-exp form into the whole cache's partials (what a caller of
-    the partial kernel does with a cache split along Sc)."""
-    m = parts[0][0]
-    for pm, _, _ in parts[1:]:
-        m = torch.maximum(m, pm)
-    l = sum(pl * torch.exp(pm - m) for pm, pl, _ in parts)
-    acc = sum(pa * torch.exp(pm - m)[..., None] for pm, _, pa in parts)
-    return m, l, acc
 
 
 def check_partials(name, got, want):
@@ -524,7 +547,11 @@ def kernel_decode_attention_paged(torch, g, records, name, b, h, hkv, dh,
                              "on the gathered pages (bf16)")
     print("  bf16: bitwise equal to the fused kernel on the gathered pages")
     CHECKED.add(("decode_attention_paged", dh, h // hkv))
-    ms = time_ms(torch, lambda: da.decode_attention_paged_cuda(*args))
+
+    def kern():
+        return da.decode_attention_paged_cuda(*args)
+    ms = time_ms(torch, kern)
+    dev_ms = cold_graph_ms(torch, da.decode_attention_paged_cuda, args)
     plain_ms = time_ms(torch, lambda: da.decode_attention_paged_plain(*args))
     # library yardstick: SDPA over the pre-gathered view + current token
     # (the gather itself excluded: no single PyTorch call walks a block
@@ -538,8 +565,11 @@ def kernel_decode_attention_paged(torch, g, records, name, b, h, hkv, dh,
     mask = torch.cat([valid, torch.ones((b, 1), dtype=torch.bool,
                                         device="cuda")], 1)[:, None, None]
     qq = q[:, :, None, :]
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mask))
+
+    def sdpa(qq=qq, kk=kk, vv=vv, mask=mask):
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+    lib_ms = time_ms(torch, sdpa)
+    lib_dev_ms = cold_graph_ms(torch, sdpa, (qq, kk, vv, mask))
     # bytes of the valid pages: every (page, offset) some row attends to,
     # once, with the positions of the pages read and the block table
     bt_h, cpos_h = bt.cpu().numpy(), cpos.cpu().numpy()
@@ -559,9 +589,13 @@ def kernel_decode_attention_paged(torch, g, records, name, b, h, hkv, dh,
         replaces=da.PAGED_KERNEL.replaces, max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         library="SDPA on the pre-gathered view, gather excluded",
+        graph_ms=dev_ms, library_graph_ms=lib_dev_ms,
         shape=f"{shape} bf16, {int(cpos_h.shape[1])}-token view"))
-    print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the "
-          f"pre-gathered view {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    print(f"  time {ms:.4f} ms (in a CUDA graph, L2 cold {dev_ms:.4f}), "
+          f"plain {plain_ms:.4f} ms, SDPA on the pre-gathered view "
+          f"{lib_ms:.4f} ms (in a CUDA graph, L2 cold {lib_dev_ms:.4f}), "
+          f"bound {b_ms:.4f} ms "
+          f"({b_by})")
 
 
 def kernel_flash_chunk(torch, g, b, sk, h, hkv, dh, c_big):
@@ -1735,7 +1769,7 @@ def served_partials(torch, engine, out):
             q, ck[:, a:z], cv[:, a:z], cpos[:, a:z], pos, **kw)
             for a, z in ((0, half), (half, sc))]
         check(f"{tag} two Sc halves merged, combined vs the fused kernel",
-              da.combine_decode_partials(q, *merge_partials(torch, parts),
+              da.combine_decode_partials(q, *da.merge_split_partials(parts),
                                          k1, v1, softcap=cfg.attn_softcap),
               fused, "bfloat16")
         out[kind] = da.PARTIAL_KERNEL.launches - n0
@@ -1941,12 +1975,15 @@ def readable(name: str) -> str:
     return out.replace("(anonymous namespace)::", "") or name
 
 
-def print_ptxas(build_log):
+def print_ptxas(build_log, build):
     """Registers, static shared memory and spills per kernel from nvcc's
     -Xptxas=-v output: a summary per source, then every tensor-core
-    kernel (the wgmma bodies of flash_attention.cu and moe_gemm.cu) and
-    every kernel that spills or takes 200 or more registers."""
+    kernel (the wgmma bodies of flash_attention.cu and moe_gemm.cu), every
+    split decode kernel (bf16 fused and paged, with the dynamic shared
+    memory it launches with) and every kernel that spills or takes 200 or
+    more registers."""
     import re
+    smem_of = build.library("decode_attention").decode_attention_split_smem
     for src, log in sorted(build_log.items()):
         entries, name, spill, smem = [], None, (0, 0), 0
         for line in log.splitlines():
@@ -1969,9 +2006,13 @@ def print_ptxas(build_log):
         print(f"  {src}: {len(entries)} kernels, {min(regs)}-{max(regs)} "
               f"registers, {sum(1 for e in entries if any(e[2]))} spill")
         for n, r, sp, sm in entries:
-            if "_tc_kernel" in n or any(sp) or r >= 200:
-                print(f"    {readable(n)[:110]}: {r} registers, static smem "
-                      f"{sm} bytes, spill stores/loads {sp[0]}/{sp[1]} "
+            name = readable(n)
+            split = re.search(r"decode_split_kernel<(\d+), (\d+)", name)
+            if "_tc_kernel" in n or split or any(sp) or r >= 200:
+                dyn = (f", dynamic smem {smem_of(*map(int, split.groups()))}"
+                       f" bytes" if split else "")
+                print(f"    {name[:110]}: {r} registers, static smem {sm} "
+                      f"bytes{dyn}, spill stores/loads {sp[0]}/{sp[1]} "
                       f"bytes")
 
 
@@ -2035,7 +2076,7 @@ def main():
           f"started together: " + ", ".join(
               f"{k} {v:.1f} s" for k, v in
               sorted(build.build_source_seconds.items())) + ")")
-    print_ptxas(build.build_log)
+    print_ptxas(build.build_log, build)
     print_hgmma(build)
 
     observe_kernel_shapes()

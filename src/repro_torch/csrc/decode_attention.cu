@@ -1,4 +1,4 @@
-// GQA decode attention for Hopper (sm_90a): one kernel body, two cache
+// GQA decode attention for Hopper (sm_90a): two kernel bodies, two cache
 // layouts and two ways to finish.
 //
 // Replaces three TPU kernels of src/repro/kernels/decode_attention.py:
@@ -18,38 +18,73 @@
 // kernel writes the partials as they are. Accumulation is float32.
 //
 // What bounds it on an H100: bytes. Each (row, kv-head) reads its valid
-// cache slice once (2 * Dh values per position) and does ~4 flops per
-// value read, far below the ~295 flops/byte where the tensor cores would
-// matter. At serving batch sizes the grid is small (B * Hkv blocks), so in
-// practice latency bounds it: the design keeps many independent loads and
-// reductions in flight per warp.
+// cache slice once (2 * Dh values per position) and does ~G flops per
+// byte read (G = 1-8 query heads per kv-head), far below the ~295
+// flops/byte where the tensor cores would matter: they are not the lever,
+// and neither body uses them. What keeps a kernel from the byte bound is
+// latency: too few blocks, or too few bytes in flight per SM.
 //
-// Design: one block per (kv-head, row). The G query heads that share the
-// kv-head are packed into the block, so each K/V element is read from
-// device memory once for all G of them. Eight warps take groups of NJ = 4
-// consecutive cache positions round-robin; inside a warp the 32 lanes
-// split the head dimension (lane l owns elements l, l+32, ...: coalesced
-// loads; a head dimension that is not a multiple of 32, such as Zamba2's
-// 112 or Danube's 80, leaves the last group's upper lanes holding zeros,
-// which add nothing to any sum), the 4 * G scores of a group are warp-wide
-// reductions interleaved for instruction-level parallelism, and the warp's
-// online softmax (m, l, acc) takes one rescale per group. A masked
-// position contributes exactly nothing (probability 0, max unchanged), as
-// in the block update. The warps' partials merge through shared memory,
-// and the epilogue (the Out parameter) finishes each query head. The TPU
-// kernel's sequential kv-block grid axis becomes the loop inside the
-// block; nothing crosses blocks. block_k is TPU tiling and is dropped.
+// Two bodies share the layouts and the finish:
+//
+// * The split body (bfloat16 fused and paged, the serving paths):
+//   flash-decoding. The grid is (split, kv-head, row); split s reduces the
+//   fixed logical positions [s * SPLIT, (s + 1) * SPLIT) of its row to
+//   float32 partials (m, l, acc) for the G query heads of its kv-head, and
+//   the last block of a (kv-head, row) to finish (an atomic ticket in a
+//   counter of the call's scratch, zeroed on the stream by the launch)
+//   merges the splits' partials in split
+//   order from split 0 up (all its threads, a float4 of acc each), folds
+//   (k1, v1) in and normalises with Fused::finish's arithmetic
+//   (finish_row), q, k1 and v1 read from shared memory. One launch a
+//   call, no host sync, scratch sized by the shapes alone. A block first
+//   reads its split's positions (and, paged, block-table rows) and skips
+//   every tile of TJ positions with no valid key without loading it; a
+//   split with none writes m = NEG_INF only and the merge skips it, so it
+//   is an exact no-op. The valid tiles stream through a ring of 2-4
+//   shared-memory stages that 16-byte cp.async copies fill, every stage
+//   before the first wait (masked positions zero-filled, not read).
+//   Scores: the lanes of a position (NSEG = 128 / TJ adjacent lanes) take
+//   16-byte chunks of its key row in turn and meet in a fixed butterfly,
+//   so head dims 80 and 112 waste no lane; q comes from shared memory as a
+//   broadcast. A tile's max over its valid scores moves every head's
+//   running max once; each p = exp(s - m) is computed once, by its
+//   position's lanes. P V: thread (r, c) owns 16-byte chunk c of every
+//   head for the positions r, r + R, ... of each tile (R = 128 / (Dh /
+//   8)), and the R sums meet in order at the split's end.
+//   SPLIT = 128 and a ring of at most 48 KB: of the splits 128, 256 and
+//   512 and rings of 32-64 KB, the fastest summed over the served decode
+//   shapes on an H100 (PERF.md); longer splits were faster only on the
+//   4096-token rings, whose grids then fit in one wave. What the split
+//   body still loses to the byte bound there is per-block latency: the
+//   positions' round trip, the first tiles' wait while every block loads
+//   at once, the ticket's fence and the merge.
+//   Row invariance: tiles, splits and every sum follow logical positions
+//   from index 0 and skip exactly the tiles and splits without a valid key,
+//   so a row's bits depend on its own cache content and pos only: not on
+//   B, the other rows, Sc or the layout. Paged == contiguous, failover ==
+//   failure-free and chunked == whole-prompt rest on it.
+// * The warp body (float32 fused and paged, and the partial kernel in both
+//   dtypes; the first design, kept for its bits): one block per (kv-head,
+//   row). Eight warps take groups of NJ = 4 consecutive cache positions
+//   round-robin; inside a warp the 32 lanes split the head dimension (lane
+//   l owns elements l, l+32, ...; a head dimension that is not a multiple
+//   of 32 leaves the last group's upper lanes holding zeros), the 4 * G
+//   scores of a group are warp-wide reductions interleaved for
+//   instruction-level parallelism, and the warp's online softmax (m, l,
+//   acc) takes one rescale per group. A group with no valid key is
+//   skipped. The warps' partials merge through shared memory, and the
+//   epilogue (the Out parameter) finishes each query head.
+// In both, a masked position contributes exactly nothing (probability 0,
+// max unchanged), and the TPU kernel's block_k (TPU tiling) is dropped.
 //
 // The layout is a template parameter that only says where logical cache
 // position j of row b lives: row b * Sc + j of the contiguous cache, or
-// row bt[b, j / pt] * pt + j % pt of the page pool (Sc = nblk * pt). The
-// warps visit the same logical positions in the same order and do the
-// same arithmetic in both, so the paged kernel is bitwise equal to the
+// row bt[b, j / pt] * pt + j % pt of the page pool (Sc = nblk * pt). Both
+// bodies visit the same logical positions in the same order and do the
+// same arithmetic in both, so each paged kernel is bitwise equal to its
 // contiguous one on the same logical content (the property the TPU kernel
 // states at block_k == page_tokens). Each block reads its own block-table
-// row, which replaces the TPU kernel's scalar prefetch: with pt a multiple
-// of NJ a group of positions never straddles a page, so the indirection
-// costs one dependent load per group of NJ positions.
+// row, which replaces the TPU kernel's scalar prefetch.
 //
 // A row with no valid key finishes with m = -1e30, l = 0, acc = 0 in the
 // partial kernel (the plain version's values; the TPU kernel leaves l =
@@ -61,10 +96,13 @@
 // paged kernels: Dh in {32, 64, 112, 128} at G in {1, 2, 4, 8} (the pairs
 // built before Dh 80 and 256 came in), plus (80, 4) for H2O-Danube-1.8B,
 // (128, 6) for Qwen2-1.5B and (256, 2) for Gemma2-2B. The partial kernel:
-// those three new pairs only, where it is called. At Dh 256 the merge
-// array sm_acc[8][G][Dh] of float32 takes 16 KB at G 2 (48 KB static
-// limit).
+// those three new pairs only, where it is called. At Dh 256 the warp
+// body's merge array sm_acc[8][G][Dh] of float32 takes 16 KB at G 2 (48
+// KB static limit); the split body takes dynamic shared memory.
+#include <type_traits>
+
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -89,6 +127,36 @@ constexpr bool partial_ok(int dh, int g) {
 template <typename Out>
 constexpr bool built(int dh, int g) {
   return Out::kPartial ? partial_ok(dh, g) : fused_ok(dh, g);
+}
+
+// The one place a call's (Dh, G) becomes template arguments: returns f(dh,
+// g) with dh and g as std::integral_constant, where Dh is in {32, 64, 80,
+// 112, 128, 256} and G in {1, 2, 4, 6, 8}; else cudaErrorInvalidValue. f
+// itself refuses the pairs its body is not built for.
+template <int DH, typename F>
+int by_g(int g, F& f) {
+  using D = std::integral_constant<int, DH>;
+  switch (g) {
+    case 1: return f(D{}, std::integral_constant<int, 1>{});
+    case 2: return f(D{}, std::integral_constant<int, 2>{});
+    case 4: return f(D{}, std::integral_constant<int, 4>{});
+    case 6: return f(D{}, std::integral_constant<int, 6>{});
+    case 8: return f(D{}, std::integral_constant<int, 8>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename F>
+int by_dh_g(int dh, int g, F&& f) {
+  switch (dh) {
+    case 32: return by_g<32>(g, f);
+    case 64: return by_g<64>(g, f);
+    case 80: return by_g<80>(g, f);
+    case 112: return by_g<112>(g, f);
+    case 128: return by_g<128>(g, f);
+    case 256: return by_g<256>(g, f);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // whether lane element e lies inside the head (always, when DH % 32 == 0)
@@ -116,6 +184,35 @@ struct Paged {
   }
 };
 
+// Fold the current token (k1, v1) into a query head's merged partials
+// (mm, ll, a) and normalise into out: one warp, lane owning elements
+// lane + 32 e of the head (q, k1, v1 and out point at the head's rows,
+// in global or shared memory).
+template <int DH, int EPL, typename T>
+__device__ __forceinline__ void finish_row(const T* q, const T* k1,
+                                           const T* v1, T* out, int lane,
+                                           float scale, float softcap,
+                                           float mm, float ll,
+                                           const float (&a)[EPL]) {
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < EPL; ++e)
+    if (lane_in<DH>(lane, e))
+      s += to_f(q[lane + 32 * e]) * scale * to_f(k1[lane + 32 * e]);
+  s = warp_sum(s);
+  if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
+  const float m_f = fmaxf(mm, s);
+  const float corr = expf(mm - m_f);
+  const float ps = expf(s - m_f);
+  const float denom = fmaxf(ll * corr + ps, 1e-30f);
+#pragma unroll
+  for (int e = 0; e < EPL; ++e) {
+    if (!lane_in<DH>(lane, e)) continue;
+    const float o = (a[e] * corr + ps * to_f(v1[lane + 32 * e])) / denom;
+    store(&out[lane + 32 * e], o);
+  }
+}
+
 // How a block finishes query head r = b * H + hk * G + g from its merged
 // partials (mm, ll, a): lane owns elements lane + 32 e of the head.
 template <typename T>
@@ -129,25 +226,8 @@ struct Fused {                              // fold (k1, v1), normalise
                                          int lane, float scale,
                                          float softcap, float mm, float ll,
                                          const float (&a)[EPL]) const {
-    const size_t qoff = r * DH + lane;
-    const size_t koff = kvrow * DH + lane;
-    float s = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e)
-      if (lane_in<DH>(lane, e))
-        s += to_f(q[qoff + 32 * e]) * scale * to_f(k1[koff + 32 * e]);
-    s = warp_sum(s);
-    if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-    const float m_f = fmaxf(mm, s);
-    const float corr = expf(mm - m_f);
-    const float ps = expf(s - m_f);
-    const float denom = fmaxf(ll * corr + ps, 1e-30f);
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      if (!lane_in<DH>(lane, e)) continue;
-      const float o = (a[e] * corr + ps * to_f(v1[koff + 32 * e])) / denom;
-      store(&out[qoff + 32 * e], o);
-    }
+    finish_row<DH, EPL>(q + r * DH, k1 + kvrow * DH, v1 + kvrow * DH,
+                        out + r * DH, lane, scale, softcap, mm, ll, a);
   }
 };
 
@@ -297,42 +377,473 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ ck,
   }
 }
 
-template <typename T, int DH, int G, typename Layout, typename Out>
-cudaError_t launch_dg(const T* q, const T* ck, const T* cv, const int* cpos,
-                      const int* pos, int B, int H, int Hkv, int Sc,
-                      int window, float softcap, Layout layout, Out fin,
-                      cudaStream_t st) {
-  if constexpr (!built<Out>(DH, G)) {
-    return cudaErrorInvalidValue;
-  } else {
-    const float scale = 1.0f / sqrtf((float)DH);
-    decode_attn_kernel<T, DH, G, Layout, Out>
-        <<<dim3(Hkv, B), dim3(NWARPS * 32), 0, st>>>(
-            q, ck, cv, cpos, pos, H, Hkv, Sc, window, softcap, scale, layout,
-            fin);
-    return cudaGetLastError();
+// --------------------------------------------------------------------------
+// The split body (bfloat16 fused and paged)
+// --------------------------------------------------------------------------
+
+namespace split {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int NT = 128;                     // threads a block
+constexpr int NW = NT / 32;
+constexpr int SPLIT = 128;                  // cache positions a block
+
+// shared-memory bytes of one cached row: at least Dh * 2, and with the
+// NSEG lanes of a position reading 16 * NSEG bytes of its row at a time,
+// the 8 / NSEG rows that one 8-lane phase of a 16-byte load reads fall on
+// disjoint banks (row bytes an odd multiple of 16 * NSEG)
+constexpr int row_bytes(int dh, int nseg) {
+  if (nseg >= 8) return dh * 2;
+  const int unit = 16 * nseg;
+  const int u = (dh * 2 + unit - 1) / unit;
+  return (u % 2 ? u : u + 1) * unit;
+}
+
+constexpr int clamp(int x, int lo, int hi) {
+  return x < lo ? lo : x > hi ? hi : x;
+}
+
+template <int DH, int G>
+struct Cfg {
+  static constexpr int NCH = DH / 8;                  // 16-byte chunks a row
+  static constexpr int TJ = DH <= 112 ? 64 : DH <= 128 ? 32 : 16;
+  static constexpr int NSEG = NT / TJ;                // lanes a position
+  static constexpr int ROWB = row_bytes(DH, NSEG);
+  static constexpr int TILE = TJ * ROWB;              // K (or V) of a tile
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int STAGES = clamp(49152 / STAGE, 2, 4);
+  static constexpr int NTILES = SPLIT / TJ;
+  static constexpr int R = NT / NCH;                  // P V position groups
+  static constexpr int GW = (G + NW - 1) / NW;        // heads a warp merges
+  static constexpr int EPL = (DH + 31) / 32;
+  // the ring, then (the same bytes) the position groups' sums, then the
+  // merge's weights and sums
+  static constexpr int RED = R * G * DH * 4 + R * G * 4;
+  static constexpr int RING = STAGES * STAGE > RED ? STAGES * STAGE : RED;
+  static constexpr int OFF_Q = RING;                  // q: G x Dh bf16
+  static constexpr int OFF_KV1 = OFF_Q + G * DH * 2;  // k1, v1: Dh bf16
+  static constexpr int OFF_P = OFF_KV1 + 2 * DH * 2;  // p: TJ x G float
+  static constexpr int OFF_WMAX = OFF_P + TJ * G * 4; // NW x G float
+  static constexpr int OFF_ROW = OFF_WMAX + NW * G * 4;  // SPLIT int
+  static constexpr int OFF_OK = OFF_ROW + SPLIT * 4;  // SPLIT bytes
+  static constexpr int OFF_MISC = OFF_OK + SPLIT;     // tile mask, ticket
+  static constexpr int BYTES = OFF_MISC + 16;
+  static_assert(DH % 16 == 0 && NCH % NSEG == 0, "head dim");
+  static_assert(NT % TJ == 0 && SPLIT % TJ == 0 && SPLIT % NT == 0 &&
+                NTILES <= 32, "tiles");
+  static_assert(R >= 1 && (32 * G + G * DH) * 4 <= RING,
+                "position groups; the merge's weights and sums");
+};
+
+// the eight floats of a 16-byte chunk of bf16
+__device__ __forceinline__ void unpack8(const uint4 w, float (&f)[8]) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
   }
 }
 
-template <typename T, int DH, typename Layout, typename Out>
-cudaError_t launch_d(const T* q, const T* ck, const T* cv, const int* cpos,
-                     const int* pos, int B, int H, int Hkv, int Sc,
-                     int window, float softcap, Layout layout, Out fin,
-                     cudaStream_t st) {
-#define DECODE_G(G)                                                        \
-  case G:                                                                  \
-    return launch_dg<T, DH, G>(q, ck, cv, cpos, pos, B, H, Hkv, Sc, window, \
-                               softcap, layout, fin, st)
-  switch (H / Hkv) {
-    DECODE_G(1);
-    DECODE_G(2);
-    DECODE_G(4);
-    DECODE_G(6);
-    DECODE_G(8);
-    default: return cudaErrorInvalidValue;
-  }
-#undef DECODE_G
+// Scratch of a call: acc [B, Hkv, nsplit, G, Dh] then (m, l) [B, Hkv,
+// nsplit, 2, G], float32, then the ticket counters [B, Hkv], int32.
+__host__ __device__ inline size_t acc_floats(int B, int Hkv, int nsplit,
+                                             int G, int DH) {
+  return (size_t)B * Hkv * nsplit * G * DH;
 }
+
+template <int DH, int G, typename Layout>
+__global__ void __launch_bounds__(NT)
+decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ck,
+                    const bf16* __restrict__ cv, const int* __restrict__ cpos,
+                    const int* __restrict__ pos, int H, int Hkv, int Sc,
+                    int window, float softcap, float scale, Layout layout,
+                    Fused<bf16> fin, float* __restrict__ ws,
+                    int* __restrict__ tickets) {
+  using C = Cfg<DH, G>;
+  extern __shared__ __align__(128) char smem[];
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int nsplit = gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int p = pos[b];
+  const int pair = b * Hkv + hk;
+  int* rowidx = reinterpret_cast<int*>(smem + C::OFF_ROW);
+  unsigned char* ok = reinterpret_cast<unsigned char*>(smem + C::OFF_OK);
+  unsigned* misc = reinterpret_cast<unsigned*>(smem + C::OFF_MISC);
+  float* acc_ws = ws + ((size_t)pair * nsplit + split) * G * DH;
+  float* ml_ws = ws + acc_floats(gridDim.z, Hkv, nsplit, G, DH) +
+                 ((size_t)pair * nsplit + split) * 2 * G;
+
+  // 1. q, k1 and v1 of the (kv-head, row) into shared memory (the finish
+  // reads them there); the split's positions: cache rows, validity, tiles
+  // with a valid key
+  char* qs = smem + C::OFF_Q;
+  const bf16* k1s = reinterpret_cast<const bf16*>(smem + C::OFF_KV1);
+  const bf16* v1s = k1s + DH;
+  {
+    const bf16* qg = q + ((size_t)b * H + (size_t)hk * G) * DH;
+    for (int c = tid; c < (G + 2) * C::NCH; c += NT) {
+      const bf16* src = c < G * C::NCH ? qg + c * 8
+                      : (c < (G + 1) * C::NCH ? fin.k1 : fin.v1) +
+                            (size_t)pair * DH + (c % C::NCH) * 8;
+      sm90::cp_async16(qs + c * 16, src, true);
+    }
+    sm90::cp_async_commit();
+  }
+  if (tid == 0) misc[0] = 0u;
+  int rows[SPLIT / NT], cps[SPLIT / NT];
+#pragma unroll
+  for (int k = 0; k < SPLIT / NT; ++k) {
+    const int j = split * SPLIT + k * NT + tid;
+    rows[k] = j < Sc ? (int)layout.group(b, j) : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < SPLIT / NT; ++k)
+    cps[k] = split * SPLIT + k * NT + tid < Sc ? __ldg(&cpos[rows[k]]) : -1;
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < SPLIT / NT; ++k) {
+    const int jj = k * NT + tid;
+    const int cp = cps[k];
+    const bool v = cp >= 0 && cp <= p && (!window || cp > p - window);
+    rowidx[jj] = rows[k];
+    ok[jj] = v;
+    const unsigned bal = __ballot_sync(0xffffffffu, v);
+    if (lane == 0 && bal) {
+      constexpr int W = C::TJ < 32 ? C::TJ : 32;
+      constexpr unsigned SEG = W == 32 ? 0xffffffffu : (1u << W) - 1u;
+#pragma unroll
+      for (int o = 0; o < 32; o += W)
+        if ((bal >> o) & SEG)
+          atomicOr(&misc[0], 1u << ((jj - lane + o) / C::TJ));
+    }
+  }
+  __syncthreads();
+  const unsigned tiles = misc[0];
+
+  float m[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) m[g] = NEG_INF;
+
+  if (tiles) {
+    float* ps = reinterpret_cast<float*>(smem + C::OFF_P);
+    float* wmax = reinterpret_cast<float*>(smem + C::OFF_WMAX);
+
+    // K and V of tile `tile` into ring stage `stage`
+    auto issue = [&](int tile, int stage) {
+      char* kt = smem + stage * C::STAGE;
+      char* vt = kt + C::TILE;
+#pragma unroll 4
+      for (int c = tid; c < C::TJ * C::NCH; c += NT) {
+        const int jj = c / C::NCH, ch = c % C::NCH;
+        const int js = tile * C::TJ + jj;
+        const size_t off =
+            ((size_t)rowidx[js] * Hkv + hk) * DH + (size_t)ch * 8;
+        sm90::cp_async16(kt + jj * C::ROWB + ch * 16, ck + off, ok[js]);
+        sm90::cp_async16(vt + jj * C::ROWB + ch * 16, cv + off, ok[js]);
+      }
+    };
+
+    // P V: thread (r, ch) owns chunk ch of every head for positions r,
+    // r + R, ... of each tile
+    const bool pv = tid < C::R * C::NCH;
+    const int r = tid / C::NCH, ch = tid % C::NCH;
+    float l[G], acc[G][8];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      l[g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+    }
+    // scores: the NSEG lanes of position sj take its chunks seg, seg +
+    // NSEG, ...
+    const int sj = tid / C::NSEG, seg = tid % C::NSEG;
+
+    // Every stage filled before the first wait (one commit group a tile);
+    // then, from i = 1, tile i - 1 + STAGES goes into the stage tile i - 1
+    // freed. At the wait of iteration i the groups after tile i's are the
+    // STAGES - 1 (i = 0) or STAGES - 2 (i > 0) tiles issued after it.
+    unsigned to_issue = tiles, to_do = tiles;
+#pragma unroll
+    for (int s = 0; s < C::STAGES; ++s) {
+      if (to_issue) {
+        issue(__ffs(to_issue) - 1, s);
+        to_issue &= to_issue - 1;
+      }
+      sm90::cp_async_commit();
+    }
+    for (int i = 0; to_do; ++i) {
+      const int tile = __ffs(to_do) - 1;
+      to_do &= to_do - 1;
+      if (i)
+        sm90::cp_async_wait<C::STAGES - 2>();
+      else
+        sm90::cp_async_wait<C::STAGES - 1>();
+      __syncthreads();                      // tile i landed; tile i-1 done
+      if (i) {
+        if (to_issue) {
+          issue(__ffs(to_issue) - 1, (i - 1) % C::STAGES);
+          to_issue &= to_issue - 1;
+        }
+        sm90::cp_async_commit();
+      }
+      const char* kt = smem + (i % C::STAGES) * C::STAGE;
+      const char* vt = kt + C::TILE;
+
+      const bool v = ok[tile * C::TJ + sj];
+      float s[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) s[g] = 0.f;
+      if (v) {
+#pragma unroll
+        for (int n = 0; n < C::NCH / C::NSEG; ++n) {
+          const int c = seg + n * C::NSEG;
+          float kf[8];
+          unpack8(*reinterpret_cast<const uint4*>(kt + sj * C::ROWB + c * 16),
+                  kf);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            float qf[8];
+            unpack8(*reinterpret_cast<const uint4*>(qs + (g * DH + c * 8) * 2),
+                    qf);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) s[g] = fmaf(qf[e], kf[e], s[g]);
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < C::NSEG; o <<= 1)
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          s[g] += __shfl_xor_sync(0xffffffffu, s[g], o);
+      float t[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        s[g] *= scale;
+        if (softcap > 0.f) s[g] = tanhf(s[g] / softcap) * softcap;
+        t[g] = v ? s[g] : NEG_INF;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          t[g] = fmaxf(t[g], __shfl_xor_sync(0xffffffffu, t[g], o));
+      if (lane < G) {
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          if (lane == g) wmax[warp * G + g] = t[g];
+      }
+      __syncthreads();                      // the warps' maxima
+      float corr[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float mn = m[g];
+#pragma unroll
+        for (int w = 0; w < NW; ++w) mn = fmaxf(mn, wmax[w * G + g]);
+        corr[g] = expf(m[g] - mn);
+        m[g] = mn;
+        if (g % C::NSEG == seg)
+          ps[sj * G + g] = v ? expf(s[g] - mn) : 0.f;
+      }
+      __syncthreads();                      // p of the tile
+      if (pv) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          l[g] *= corr[g];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[g][e] *= corr[g];
+        }
+        for (int jj = r; jj < C::TJ; jj += C::R) {
+          float vf[8];
+          unpack8(*reinterpret_cast<const uint4*>(vt + jj * C::ROWB + ch * 16),
+                  vf);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float pj = ps[jj * G + g];
+            l[g] += pj;
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pj, vf[e], acc[g][e]);
+          }
+        }
+      }
+    }
+
+    // the position groups' sums meet in order r = 0, 1, ... in the ring
+    sm90::cp_async_wait<0>();
+    __syncthreads();
+    float* red = reinterpret_cast<float*>(smem);
+    float* red_l = red + C::R * G * DH;
+    if (pv) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float4* d = reinterpret_cast<float4*>(red + (r * G + g) * DH + ch * 8);
+        d[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+        d[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+        if (ch == 0) red_l[r * G + g] = l[g];
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < G * DH / 4; i += NT) {
+      float4 a = reinterpret_cast<const float4*>(red)[i];
+      for (int rr = 1; rr < C::R; ++rr) {
+        const float4 x =
+            reinterpret_cast<const float4*>(red)[rr * G * DH / 4 + i];
+        a.x += x.x;
+        a.y += x.y;
+        a.z += x.z;
+        a.w += x.w;
+      }
+      reinterpret_cast<float4*>(acc_ws)[i] = a;
+    }
+    if (tid < G) {
+      float ll = red_l[tid];
+      for (int rr = 1; rr < C::R; ++rr) ll += red_l[rr * G + tid];
+      ml_ws[G + tid] = ll;
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)               // NEG_INF: no valid key
+    if (tid == g) ml_ws[g] = m[g];
+
+  // 2. the last block of the (kv-head, row) to finish merges the splits
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int ticket = atomicAdd(&tickets[pair], 1);
+    misc[1] = ticket == nsplit - 1;
+  }
+  __syncthreads();
+  sm90::cp_async_wait<0>();                 // an empty split's q, k1, v1
+  if (!misc[1]) return;
+  __threadfence();
+
+  const float* acc_all = ws + (size_t)pair * nsplit * G * DH;
+  const float* ml_all = ws + acc_floats(gridDim.z, Hkv, nsplit, G, DH) +
+                        (size_t)pair * nsplit * 2 * G;
+  // head g = warp + gi * NW: mm the largest m of all splits, ll the sum of
+  // l exp(m - mm) in split order
+  float mm[C::GW], ll[C::GW];
+#pragma unroll
+  for (int gi = 0; gi < C::GW; ++gi) {
+    const int g = warp + gi * NW;
+    float x = NEG_INF;
+    if (g < G)
+      for (int s = lane; s < nsplit; s += 32)
+        x = fmaxf(x, __ldcg(&ml_all[s * 2 * G + g]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+    mm[gi] = x;
+    ll[gi] = 0.f;
+  }
+  // acc, 32 splits at a time: the weights c = exp(m - mm) of a chunk (0 for
+  // a split without a valid key, which is skipped) to shared memory, then
+  // each thread sums its float4s of acc over the chunk in split order
+  float* cw = reinterpret_cast<float*>(smem);          // [32][G]
+  float* merged = cw + 32 * G;                         // [G][Dh]
+  constexpr int NV = G * DH / 4, KV = (NV + NT - 1) / NT;
+  float4 acc4[KV];
+#pragma unroll
+  for (int k = 0; k < KV; ++k) acc4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s0 = 0; s0 < nsplit; s0 += 32) {
+    const int nc = min(32, nsplit - s0);
+    __syncthreads();                        // the last chunk's weights used
+#pragma unroll
+    for (int gi = 0; gi < C::GW; ++gi) {
+      const int g = warp + gi * NW;
+      if (g >= G) continue;
+      float c = 0.f, lc = 0.f;
+      if (lane < nc) {
+        const float m_s = __ldcg(&ml_all[(s0 + lane) * 2 * G + g]);
+        if (m_s != NEG_INF) {
+          c = expf(m_s - mm[gi]);
+          lc = __ldcg(&ml_all[(s0 + lane) * 2 * G + G + g]) * c;
+        }
+      }
+      cw[lane * G + g] = c;
+      for (int k = 0; k < nc; ++k)
+        ll[gi] += __shfl_sync(0xffffffffu, lc, k);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < KV; ++k) {
+      const int i = tid + k * NT;
+      if (i >= NV) continue;
+      const int g = i * 4 / DH;
+      const float4* src = reinterpret_cast<const float4*>(acc_all) +
+                          (size_t)s0 * NV + i;
+#pragma unroll 8
+      for (int j = 0; j < nc; ++j) {
+        const float4 x = __ldcg(src + (size_t)j * NV);
+        const float c = cw[j * G + g];
+        if (c == 0.f) continue;
+        acc4[k].x += x.x * c;
+        acc4[k].y += x.y * c;
+        acc4[k].z += x.z * c;
+        acc4[k].w += x.w * c;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < KV; ++k)
+    if (tid + k * NT < NV)
+      reinterpret_cast<float4*>(merged)[tid + k * NT] = acc4[k];
+  __syncthreads();
+#pragma unroll
+  for (int gi = 0; gi < C::GW; ++gi) {
+    const int g = warp + gi * NW;
+    if (g >= G) continue;
+    float a[C::EPL];
+#pragma unroll
+    for (int e = 0; e < C::EPL; ++e)
+      a[e] = lane_in<DH>(lane, e) ? merged[g * DH + lane + 32 * e] : 0.f;
+    finish_row<DH, C::EPL>(
+        reinterpret_cast<const bf16*>(qs) + g * DH, k1s, v1s,
+        fin.out + ((size_t)b * H + (size_t)hk * G + g) * DH, lane, scale,
+        softcap, mm[gi], ll[gi], a);
+  }
+}
+
+// The split body's launch: the call's ticket counters (the B * Hkv int32
+// after the partials in ws) zeroed on the stream, then one kernel.
+template <typename Layout>
+int launch(const void* q, const void* ck, const void* cv, const void* cpos,
+           const void* pos, int B, int H, int Hkv, int Dh, int Sc,
+           int window, float softcap, Layout layout, Fused<bf16> fin,
+           void* ws, void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || !ws) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nsplit = Sc > SPLIT ? (Sc + SPLIT - 1) / SPLIT : 1;
+  const int G = H / Hkv;
+  int* tickets = reinterpret_cast<int*>(
+      (float*)ws + acc_floats(B, Hkv, nsplit, G, Dh) +
+      (size_t)B * Hkv * nsplit * 2 * G);
+  return by_dh_g(Dh, G, [&](auto dh, auto g) -> int {
+    constexpr int DH = decltype(dh)::value, GG = decltype(g)::value;
+    if constexpr (!fused_ok(DH, GG)) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      auto kernel = decode_split_kernel<DH, GG, Layout>;
+      static bool sized = false;
+      cudaError_t err = sm90::allow_smem(kernel, sized);
+      if (err == cudaSuccess)
+        err = cudaMemsetAsync(tickets, 0, (size_t)B * Hkv * sizeof(int), st);
+      if (err != cudaSuccess) return (int)err;
+      kernel<<<dim3(nsplit, Hkv, B), dim3(NT), Cfg<DH, GG>::BYTES, st>>>(
+          (const bf16*)q, (const bf16*)ck, (const bf16*)cv, (const int*)cpos,
+          (const int*)pos, H, Hkv, Sc, window, softcap,
+          1.0f / sqrtf((float)DH), layout, fin, (float*)ws, tickets);
+      return (int)cudaGetLastError();
+    }
+  });
+}
+
+}  // namespace split
+
+// --------------------------------------------------------------------------
+// The warp body's launch (float32 fused and paged; the partial kernel)
+// --------------------------------------------------------------------------
 
 template <typename T, typename Layout, typename Out>
 int launch(const void* q, const void* ck, const void* cv, const void* cpos,
@@ -340,21 +851,19 @@ int launch(const void* q, const void* ck, const void* cv, const void* cpos,
            int window, float softcap, Layout layout, Out fin, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DECODE_D(DH)                                                       \
-  case DH:                                                                 \
-    return (int)launch_d<T, DH>((const T*)q, (const T*)ck, (const T*)cv,   \
-                                (const int*)cpos, (const int*)pos, B, H,   \
-                                Hkv, Sc, window, softcap, layout, fin, st)
-  switch (Dh) {
-    DECODE_D(32);
-    DECODE_D(64);
-    DECODE_D(80);
-    DECODE_D(112);
-    DECODE_D(128);
-    DECODE_D(256);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef DECODE_D
+  return by_dh_g(Dh, H / Hkv, [&](auto dh, auto g) -> int {
+    constexpr int DH = decltype(dh)::value, G = decltype(g)::value;
+    if constexpr (!built<Out>(DH, G)) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      decode_attn_kernel<T, DH, G, Layout, Out>
+          <<<dim3(Hkv, B), dim3(NWARPS * 32), 0, st>>>(
+              (const T*)q, (const T*)ck, (const T*)cv, (const int*)cpos,
+              (const int*)pos, H, Hkv, Sc, window, softcap,
+              1.0f / sqrtf((float)DH), layout, fin);
+      return (int)cudaGetLastError();
+    }
+  });
 }
 
 // Calls f with a value of the element type that ``dtype`` names (0 =
@@ -368,44 +877,75 @@ int by_dtype(int dtype, F&& f) {
 
 }  // namespace
 
+// 4-byte words of scratch the fused (Sc = the cache's) or paged (Sc = nblk
+// * pt) kernel needs for one call: the split body's float32 partials and
+// its int32 ticket counters in bfloat16, none in float32. Launches nothing.
+extern "C" long long decode_attention_workspace(int B, int H, int Hkv,
+                                                int Dh, int Sc, int dtype) {
+  if (dtype != 1 || B <= 0 || Hkv <= 0 || H % Hkv != 0) return 0;
+  const int nsplit =
+      Sc > split::SPLIT ? (Sc + split::SPLIT - 1) / split::SPLIT : 1;
+  return (long long)split::acc_floats(B, Hkv, nsplit, H / Hkv, Dh) +
+         (long long)B * Hkv * nsplit * 2 * (H / Hkv) + (long long)B * Hkv;
+}
+
 // q [B,H,Dh]; ck/cv [B,Sc,Hkv,Dh]; cpos [B,Sc] int32; k1/v1 [B,Hkv,Dh];
 // pos [B] int32 -> out [B,H,Dh]; all contiguous. (Dh, G = H / Hkv) as
-// decode_attention_supports says. dtype 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError() after the launch.
+// decode_attention_supports says. dtype 0 = float32, 1 = bfloat16. In
+// bfloat16 (the split body) ws holds decode_attention_workspace words,
+// whose ticket counters the launch zeroes on the stream first; float32 reads
+// none (it may be null). Returns the first CUDA error of the launch.
 extern "C" int decode_attention_fused(const void* q, const void* ck,
                                       const void* cv, const void* cpos,
                                       const void* k1, const void* v1,
-                                      const void* pos, void* out, int B,
-                                      int H, int Hkv, int Dh, int Sc,
-                                      int window, float softcap, int dtype,
+                                      const void* pos, void* out, void* ws,
+                                      int B, int H, int Hkv,
+                                      int Dh, int Sc, int window,
+                                      float softcap, int dtype,
                                       void* stream) {
-  return by_dtype(dtype, [&](auto tag) {
-    using T = decltype(tag);
-    return launch<T>(q, ck, cv, cpos, pos, B, H, Hkv, Dh, Sc, window,
-                     softcap, Contiguous{Sc},
-                     Fused<T>{(const T*)k1, (const T*)v1, (T*)out}, stream);
-  });
+  using bf16 = __nv_bfloat16;
+  if (dtype == 1)
+    return split::launch(q, ck, cv, cpos, pos, B, H, Hkv, Dh, Sc, window,
+                         softcap, Contiguous{Sc},
+                         Fused<bf16>{(const bf16*)k1, (const bf16*)v1,
+                                     (bf16*)out},
+                         ws, stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return launch<float>(q, ck, cv, cpos, pos, B, H, Hkv, Dh, Sc, window,
+                       softcap, Contiguous{Sc},
+                       Fused<float>{(const float*)k1, (const float*)v1,
+                                    (float*)out},
+                       stream);
 }
 
 // q [B,H,Dh]; pk/pv [P,pt,Hkv,Dh] page pools; ppos [P,pt] int32; bt
 // [B,nblk] int32 with entries in [0, P); k1/v1 [B,Hkv,Dh]; pos [B] int32
 // -> out [B,H,Dh]; all contiguous. pt a multiple of 4; no window. Same
-// (Dh, G) and dtype codes as decode_attention_fused.
+// (Dh, G), dtype codes and scratch (Sc = nblk * pt) as
+// decode_attention_fused.
 extern "C" int decode_attention_paged(const void* q, const void* pk,
                                       const void* pv, const void* ppos,
                                       const void* bt, const void* k1,
                                       const void* v1, const void* pos,
-                                      void* out, int B, int H, int Hkv,
-                                      int Dh, int pt, int nblk,
-                                      float softcap, int dtype,
+                                      void* out, void* ws,
+                                      int B, int H, int Hkv, int Dh, int pt,
+                                      int nblk, float softcap, int dtype,
                                       void* stream) {
+  using bf16 = __nv_bfloat16;
   if (pt <= 0 || pt % NJ != 0) return (int)cudaErrorInvalidValue;
-  return by_dtype(dtype, [&](auto tag) {
-    using T = decltype(tag);
-    return launch<T>(q, pk, pv, ppos, pos, B, H, Hkv, Dh, nblk * pt, 0,
-                     softcap, Paged{(const int*)bt, nblk, pt},
-                     Fused<T>{(const T*)k1, (const T*)v1, (T*)out}, stream);
-  });
+  const Paged layout{(const int*)bt, nblk, pt};
+  if (dtype == 1)
+    return split::launch(q, pk, pv, ppos, pos, B, H, Hkv, Dh, nblk * pt, 0,
+                         softcap, layout,
+                         Fused<bf16>{(const bf16*)k1, (const bf16*)v1,
+                                     (bf16*)out},
+                         ws, stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return launch<float>(q, pk, pv, ppos, pos, B, H, Hkv, Dh, nblk * pt, 0,
+                       softcap, layout,
+                       Fused<float>{(const float*)k1, (const float*)v1,
+                                    (float*)out},
+                       stream);
 }
 
 // q [B,H,Dh] (unscaled); ck/cv [B,Sc,Hkv,Dh]; cpos [B,Sc] int32; pos [B]
@@ -424,6 +964,20 @@ extern "C" int decode_attention_partial(const void* q, const void* ck,
     return launch<T>(q, ck, cv, cpos, pos, B, H, Hkv, Dh, Sc, window,
                      softcap, Contiguous{Sc},
                      Partial{(float*)m, (float*)l, (float*)acc}, stream);
+  });
+}
+
+// Dynamic shared memory (bytes) of the split body (bfloat16 fused and
+// paged) at head dim dh and group size g; 0 where it is not built.
+// Launches nothing.
+extern "C" int decode_attention_split_smem(int dh, int g) {
+  if (!fused_ok(dh, g)) return 0;
+  return by_dh_g(dh, g, [](auto d, auto gg) -> int {
+    constexpr int DH = decltype(d)::value, G = decltype(gg)::value;
+    if constexpr (fused_ok(DH, G))
+      return split::Cfg<DH, G>::BYTES;
+    else
+      return 0;
   });
 }
 

@@ -17,14 +17,17 @@ gives the kernels the same bits.
 
 With ``--csrc DIR`` it also builds ``DIR/decode_attention.cu``,
 ``DIR/flash_attention.cu`` and ``DIR/moe_gemm.cu`` (another copy of the
-sources, e.g. an earlier commit's, with the same C entry points) and
-compares every digest with this checkout's. It fails unless the cases in
-``KEPT`` are equal; the others (bf16 flash, whose tensor-core body rounds
-per key tile, and the expert FFN, whose tensor-core path was redesigned)
-are reported. ``--time`` then times both trees' flash and expert-FFN
-entry points at the serving shapes (``TIMED``), in turns on one card:
-DIR's, this checkout's, this checkout's, DIR's. Needs an NVIDIA GPU and
-nvcc.
+sources, e.g. an earlier commit's, with the same C entry points; a decode
+source without ``decode_attention_workspace`` is called without the split
+body's scratch) and compares every digest with this checkout's. It fails
+unless the cases in ``KEPT`` are equal: the 40 float32 attention cases,
+whose bodies no later change touched. The others are reported: bf16 flash
+(its tensor-core body rounds per key tile), bf16 decode (its split body
+sums per tile and per split) and the expert FFN (its tensor-core path was
+redesigned). ``--time`` then times both trees' decode, paged, flash and
+expert-FFN entry points at the serving shapes (``TIMED``), in turns on one
+card: DIR's, this checkout's, this checkout's, DIR's. Needs an NVIDIA GPU
+and nvcc.
 """
 from __future__ import annotations
 
@@ -56,7 +59,7 @@ MOE_CASES = [("moe", c, dec, dt) for c, dec in ((2, True), (2, False),
                                                 (40, False), (130, False))
              for dt in DTYPES]
 #: the cases whose bits a change to the sources must keep
-KEPT = [c for c in CASES if c[0] != "flash" or c[3] == "float32"]
+KEPT = [c for c in CASES if c[3] == "float32"]
 B, HKV, SC, PT, NBLK, S = 3, 2, 70, 16, 5, 45
 WINDOW, SOFTCAP = 24, 30.0
 MOE_P, MOE_D, MOE_F, MOE_E = 4, 96, 160, 3
@@ -134,38 +137,51 @@ def run_port(case):
 def run_library(case, libs):
     """The case through the C entry points of ``libs`` (``decode``,
     ``flash`` and ``moe`` CDLLs built from another copy of the sources)."""
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
     args = _tensors(case)
     if case[0] == "moe":
         return moe_call(libs["moe"], *args, decode=case[2])()
-    code = build.DTYPE_CODES[f"torch.{case[3]}"]
-    ptrs = [build.ptr(t) for t in args]
-    stream = build.stream_ptr(args[0])
-    kernel, dh, g, _ = case
-    h = g * HKV
-    if kernel == "flash":
-        fn, argtypes = libs["flash"].flash_attention, fa.KERNEL.argtypes
-        out = torch.empty_like(args[0])
-        tail = (B, S, S, h, HKV, dh, 1, WINDOW, SOFTCAP, code, stream)
-        call = ptrs + [build.ptr(out)] + list(tail)
-    elif kernel == "fused":
-        fn, argtypes = libs["decode"].decode_attention_fused, \
-            da.KERNEL.argtypes
-        out = torch.empty_like(args[0])
-        call = ptrs + [build.ptr(out), B, h, HKV, dh, SC, WINDOW, SOFTCAP,
-                       code, stream]
-    else:
-        fn, argtypes = libs["decode"].decode_attention_paged, \
-            da.PAGED_KERNEL.argtypes
-        out = torch.empty_like(args[0])
-        call = ptrs + [build.ptr(out), B, h, HKV, dh, PT, NBLK, SOFTCAP,
-                       code, stream]
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    err = fn(*call)
-    if err:
-        raise RuntimeError(f"{case}: CUDA error {err}")
-    return out
+    if case[0] == "flash":
+        return flash_call(libs["flash"], *args, window=WINDOW,
+                          softcap=SOFTCAP)()
+    return decode_call(libs["decode"], *args, window=WINDOW,
+                       softcap=SOFTCAP)()
+
+
+def decode_call(lib, q, kv, *rest, window=0, softcap=0.0):
+    """A closure that runs ``lib``'s fused (args q, ck, cv, cpos, k1, v1,
+    pos) or paged (q, pk, pv, ppos, bt, k1, v1, pos) decode entry on
+    these arguments, with the split body's scratch where that copy of the
+    source takes it (``decode_attention_workspace``)."""
+    from repro_torch.kernels import decode_attention as da
+    paged = len(rest) == 6
+    b, h, dh = q.shape
+    hkv = kv.shape[2]
+    sc = rest[2].shape[1] * kv.shape[1] if paged else kv.shape[1]
+    code = build.DTYPE_CODES[str(q.dtype)]
+    out = torch.empty_like(q)
+    scratch = []
+    if hasattr(lib, "decode_attention_workspace"):
+        ws_fn = lib.decode_attention_workspace
+        ws_fn.argtypes, ws_fn.restype = [ctypes.c_int] * 6, ctypes.c_longlong
+        n = int(ws_fn(b, h, hkv, dh, sc, code))
+        scratch = [torch.empty(max(n, 1), dtype=torch.float32,
+                               device=q.device)]
+    fn = lib.decode_attention_paged if paged else lib.decode_attention_fused
+    fn.argtypes = [ctypes.c_void_p] * (3 + len(rest) + len(scratch)) + \
+        da.KERNEL.argtypes[-9:]
+    fn.restype = ctypes.c_int
+    tail = [b, h, hkv, dh] + ([kv.shape[1], rest[2].shape[1], softcap]
+                              if paged else [sc, window, softcap])
+    call = [build.ptr(t) for t in (q, kv, *rest, out, *scratch)] + tail + [
+        code, build.stream_ptr(q)]
+
+    def run():
+        err = fn(*call)
+        if err:
+            raise RuntimeError(f"decode attention: CUDA error {err}")
+        return out
+    run.scratch = scratch      # the kernel writes it: keep it allocated
+    return run
 
 
 def digest(t) -> str:
@@ -223,9 +239,29 @@ def build_other(csrc: Path, out_dir: Path):
 
 
 #: (name, kind, shape) of every shape ``--time`` runs both trees at: the
-#: flash rows and the expert-FFN rows of the serving paths (Mixtral-8x7B's
-#: expert bank, 8 of 16 slots active)
+#: decode rows (fused and paged; rows' next positions drawn in [lo, Sc -
+#: 1), or in [ring] over a wrapped ring), the flash rows and the
+#: expert-FFN rows of the serving paths (Mixtral-8x7B's expert bank, 8 of
+#: 16 slots active)
 TIMED = ([
+    ("decode mixtral B8 Sc512", "decode",
+     dict(b=8, h=32, hkv=8, dh=128, sc=512, lo=128)),
+    ("decode zamba2 B8 Sc256 Dh112", "decode",
+     dict(b=8, h=32, hkv=32, dh=112, sc=256, lo=128)),
+    ("decode gemma2 local B8 Sc4096 ring", "decode",
+     dict(b=8, h=8, hkv=4, dh=256, sc=4096, window=4096, softcap=50.0,
+          ring=(4100, 4200))),
+    ("decode gemma2 global B8 Sc4608", "decode",
+     dict(b=8, h=8, hkv=4, dh=256, sc=4608, softcap=50.0, lo=128)),
+    ("decode danube B4 Sc4096 ring", "decode",
+     dict(b=4, h=32, hkv=8, dh=80, sc=4096, window=4096, ring=(4100, 4200))),
+    ("decode qwen2 B8 Sc1024", "decode",
+     dict(b=8, h=12, hkv=2, dh=128, sc=1024, lo=128)),
+    ("paged mixtral B8 nblk32", "paged",
+     dict(b=8, h=32, hkv=8, dh=128, nblk=32, lo=128)),
+    ("paged qwen2 B8 nblk64", "paged",
+     dict(b=8, h=12, hkv=2, dh=128, nblk=64, lo=128)),
+] + [
     ("flash gemma2 local S4160", "flash",
      dict(s=4160, h=8, hkv=4, dh=256, window=4096, softcap=50.0)),
     ("flash gemma2 global S4160", "flash",
@@ -306,6 +342,8 @@ def timed_inputs(kind, shape, g):
     h, hkv, dh = shape["h"], shape["hkv"], shape["dh"]
     kw = dict(window=shape.get("window", 0),
               softcap=shape.get("softcap", 0.0))
+    if kind in ("decode", "paged"):
+        return dict(args=decode_inputs(kind, shape, randn, g), **kw)
     if kind == "flash":
         s = shape["s"]
         p = torch.arange(s, device="cuda", dtype=torch.int32)[None]
@@ -326,12 +364,58 @@ def timed_inputs(kind, shape, g):
                 v=randn(b, sk, hkv, dh), qp=qp, kp=kp, **kw)
 
 
+def decode_inputs(kind, shape, randn, g):
+    """The fused (q, ck, cv, cpos, k1, v1, pos) or paged (q, pk, pv, ppos,
+    bt, k1, v1, pos) arguments of a TIMED decode shape. Paged: 16-token
+    pages, each row's blocks up to its position mapped to distinct pages
+    in a random order, the rest to the null page 0."""
+    b, h, hkv, dh = shape["b"], shape["h"], shape["hkv"], shape["dh"]
+    q, k1, v1 = randn(b, h, dh), randn(b, hkv, dh), randn(b, hkv, dh)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    if kind == "paged":
+        pt, nblk = 16, shape["nblk"]
+        npages = 1 + b * nblk
+        pos = torch.randint(shape["lo"], nblk * pt - 1, (b,), generator=g,
+                            **i32)
+        ids = (torch.randperm(npages - 1, generator=g, device="cuda") + 1)
+        blk = torch.arange(nblk, **i32)
+        used = (pos + pt - 1) // pt
+        bt = torch.where(blk[None] < used[:, None], ids.view(b, nblk).int(),
+                         torch.zeros_like(blk)[None])
+        ppos = torch.full((npages, pt), -1, **i32)
+        pages, first = bt.reshape(-1), (blk * pt).repeat(b)
+        live = pages > 0
+        ppos[pages[live].long()] = first[live][:, None] + \
+            torch.arange(pt, **i32)[None]
+        return (q, randn(npages, pt, hkv, dh), randn(npages, pt, hkv, dh),
+                ppos, bt.contiguous(), k1, v1, pos)
+    sc = shape["sc"]
+    ar = torch.arange(sc, **i32)[None]
+    if "ring" in shape:
+        # slot j holds the latest earlier position congruent to j mod Sc
+        pos = torch.randint(*shape["ring"], (b,), generator=g, **i32)
+        last = (pos - 1)[:, None]
+        cpos = (last - torch.remainder(last - ar, sc)).to(torch.int32)
+    else:
+        pos = torch.randint(shape["lo"], sc - 1, (b,), generator=g, **i32)
+        cpos = torch.where(ar < pos[:, None], ar, torch.full_like(ar, -1))
+    return (q, randn(b, sc, hkv, dh), randn(b, sc, hkv, dh), cpos, k1, v1,
+            pos)
+
+
 def plain(kind, kw):
     """The plain version's output (float32) on a TIMED shape's inputs;
     the expert FFN's on all slots, its active ones computed on their own
     (the 16-slot gather of the bank would take 22 GiB)."""
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.models.attention import blockwise_attention
+    if kind == "decode":
+        return da.decode_attention_plain(*kw["args"], window=kw["window"],
+                                         softcap=kw["softcap"]).float()
+    if kind == "paged":
+        return da.decode_attention_paged_plain(
+            *kw["args"], softcap=kw["softcap"]).float()
     if kind == "moe":
         live = kw["cnt"] > 0
         y = torch.zeros_like(kw["x"], dtype=torch.float32)
@@ -354,6 +438,10 @@ def time_trees(libs_other, libs_mine):
         kw = timed_inputs(kind, shape, g)
         if kind == "moe":
             mk = lambda libs: moe_call(libs["moe"], **kw)  # noqa: E731
+        elif kind in ("decode", "paged"):
+            mk = lambda libs: decode_call(  # noqa: E731
+                libs["decode"], *kw["args"], window=kw["window"],
+                softcap=kw["softcap"])
         else:
             mk = lambda libs: flash_call(libs["flash"], **kw)  # noqa: E731
         other, mine = mk(libs_other), mk(libs_mine)
@@ -396,13 +484,14 @@ def main(argv=None) -> int:
           f"to {args.csrc}'s kernels" + (f"; differ: {differ}" if differ
                                          else ""))
     print(f"{len(KEPT) - len(lost)} of the {len(KEPT)} cases to keep "
-          f"(decode, float32 flash) equal" + (f"; LOST: {lost}" if lost
+          f"(float32 decode and flash) equal" + (f"; LOST: {lost}" if lost
                                               else ""))
     if args.time:
         print(f"times at the serving shapes, {torch.cuda.get_device_name(0)}"
               f" (median of 20 CUDA-event runs, L2 flushed), "
               f"{args.csrc}'s tree against this checkout's, in turns:")
-        time_trees(libs, {"flash": build.library("flash_attention"),
+        time_trees(libs, {"decode": build.library("decode_attention"),
+                          "flash": build.library("flash_attention"),
                           "moe": build.library("moe_gemm")})
     return 1 if lost else 0
 

@@ -151,14 +151,25 @@ class CudaKernel:
 
 
 @functools.lru_cache(maxsize=None)
+def _query(source: str, symbol: str, restype, *args: int) -> int:
+    fn = getattr(library(source), symbol)
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = restype
+    return int(fn(*args))
+
+
 def supports(source: str, symbol: str, *args: int) -> bool:
     """What a built source's query entry ``int symbol(int, ...)`` says
     about the shapes it was built for (it launches nothing; the answer is
     fixed for the process, so it is asked once per arguments)."""
-    fn = getattr(library(source), symbol)
-    fn.argtypes = [ctypes.c_int] * len(args)
-    fn.restype = ctypes.c_int
-    return bool(fn(*args))
+    return bool(_query(source, symbol, ctypes.c_int, *args))
+
+
+def size(source: str, symbol: str, *args: int) -> int:
+    """What a built source's query entry ``long long symbol(int, ...)``
+    answers: a scratch size (launches nothing; asked once per
+    arguments)."""
+    return _query(source, symbol, ctypes.c_longlong, *args)
 
 
 def stream_ptr(t) -> ctypes.c_void_p:

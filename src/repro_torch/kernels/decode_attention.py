@@ -1,13 +1,23 @@
 """GQA decode attention over a contiguous cache and over page pools: the
 CUDA kernels' wrappers and their plain versions.
 
-The three kernels are one body in ``csrc/decode_attention.cu``, which
-replaces the TPU kernels ``repro/kernels/decode_attention.py::
+The three kernels live in ``csrc/decode_attention.cu``, which replaces
+the TPU kernels ``repro/kernels/decode_attention.py::
 decode_attention_fused``, ``::decode_attention_paged`` and
-``::decode_attention_partial``. The plain versions are the reference's
-CPU path: cache partials (``ref.decode_attention_partial_ref``, the
-partial kernel's plain version) then ``combine_decode_partials``; the
-paged one gathers the pages through the block table first.
+``::decode_attention_partial``. In bfloat16 the fused and paged kernels
+split the cache across blocks (a fixed number of logical positions each)
+and the last block of each (kv-head, row) merges the splits' partials in
+split order: the wrapper hands them one scratch buffer per call
+(``torch.empty``, sized by the shapes alone) for the float32 partials and
+the int32 ticket counters that the launch zeroes on the call's stream, so
+a call never syncs with the host and can be captured in a CUDA graph.
+
+The plain versions are the reference's CPU path: cache partials
+(``ref.decode_attention_partial_ref``, the partial kernel's plain version)
+then ``combine_decode_partials``; the paged one gathers the pages through
+the block table first. ``merge_split_partials`` merges the partials of
+consecutive ranges of a cache as the bf16 kernels merge their splits,
+for the tests and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -22,11 +32,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = build.CudaKernel(
     "decode_attention", "decode_attention_fused",
-    [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P],
     replaces="src/repro/kernels/decode_attention.py:317")
 PAGED_KERNEL = build.CudaKernel(
     "decode_attention", "decode_attention_paged",
-    [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _P],
     replaces="src/repro/kernels/decode_attention.py:257")
 PARTIAL_KERNEL = build.CudaKernel(
     "decode_attention", "decode_attention_partial",
@@ -52,6 +62,24 @@ def combine_decode_partials(q, m, l, acc, k1, v1, *, softcap: float = 0.0):
         v1.float()[:, :, None, :]
     out = acc_new / torch.clamp(l_new[..., None], min=1e-30)
     return out.reshape(b, h, dh).to(q.dtype)
+
+
+def merge_split_partials(parts):
+    """Partials (m, l, acc) of consecutive ranges of one cache, merged in
+    range order as the bf16 kernels' last block merges its splits: the
+    largest m first, then the sums from range 0 up, a range whose m is
+    NEG_INF (no valid key) skipped."""
+    m = parts[0][0]
+    for pm, _, _ in parts[1:]:
+        m = torch.maximum(m, pm)
+    l = torch.zeros_like(parts[0][1])
+    acc = torch.zeros_like(parts[0][2])
+    for pm, pl, pa in parts:
+        live = pm != kref.NEG_INF
+        c = torch.where(live, torch.exp(pm - m), torch.zeros_like(pm))
+        l = torch.where(live, l + pl * c, l)
+        acc = torch.where(live[..., None], acc + pa * c[..., None], acc)
+    return m, l, acc
 
 
 def decode_attention_plain(q, ck, cv, cpos, k1, v1, pos, *, window: int = 0,
@@ -112,6 +140,18 @@ def _check_cache(name, q, ck, cv, cpos, pos, partial=False):
     _check_heads(name, h, hkv, dh, partial)
 
 
+def _scratch(q, b, h, hkv, dh, sc, code):
+    """A null pointer where the call takes no scratch (float32), else the
+    bf16 kernels' scratch for one call: 4-byte words, as many as
+    ``decode_attention_workspace`` says."""
+    n = build.size("decode_attention", "decode_attention_workspace", b, h,
+                   hkv, dh, sc, code)
+    if not n:
+        return _P(None), None
+    ws = torch.empty(n, dtype=torch.float32, device=q.device)
+    return build.ptr(ws), ws
+
+
 def decode_attention_cuda(q, ck, cv, cpos, k1, v1, pos, *, window: int = 0,
                           softcap: float = 0.0):
     """Launch the CUDA kernel. q: [B,H,Dh]; ck/cv: [B,Sc,Hkv,Dh];
@@ -131,9 +171,10 @@ def decode_attention_cuda(q, ck, cv, cpos, k1, v1, pos, *, window: int = 0,
     cpos = cpos.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    ws_ptr, _ws = _scratch(q, b, h, hkv, dh, sc, code)
     KERNEL(build.ptr(q), build.ptr(ck), build.ptr(cv), build.ptr(cpos),
            build.ptr(k1), build.ptr(v1), build.ptr(pos), build.ptr(out),
-           b, h, hkv, dh, sc, int(window), float(softcap), code,
+           ws_ptr, b, h, hkv, dh, sc, int(window), float(softcap), code,
            build.stream_ptr(q))
     return out
 
@@ -169,10 +210,11 @@ def decode_attention_paged_cuda(q, pk, pv, ppos, bt, k1, v1, pos, *,
                                    (q, pk, pv, k1, v1, ppos, bt))
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    ws_ptr, _ws = _scratch(q, b, h, hkv, dh, nblk * pt, code)
     PAGED_KERNEL(build.ptr(q), build.ptr(pk), build.ptr(pv), build.ptr(ppos),
                  build.ptr(bt), build.ptr(k1), build.ptr(v1), build.ptr(pos),
-                 build.ptr(out), b, h, hkv, dh, pt, nblk, float(softcap),
-                 code, build.stream_ptr(q))
+                 build.ptr(out), ws_ptr, b, h, hkv, dh, pt, nblk,
+                 float(softcap), code, build.stream_ptr(q))
     return out
 
 

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import bits
+from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gemm as mg
@@ -586,6 +587,191 @@ def test_ring_restore_keeps_the_highest_token_on_the_card(dev):
 
 
 # --------------------------------------------------------------------------
+# the split body of the bf16 fused and paged decode kernels
+# --------------------------------------------------------------------------
+
+# every (Dh, G) the fused and paged kernels are built for
+DECODE_PAIRS = [(dh, g) for dh in (32, 64, 112, 128) for g in (1, 2, 4, 8)] \
+    + [(80, 4), (128, 6), (256, 2)]
+
+
+def _bf16(r, shape, dev):
+    return _randn(r, shape, torch.bfloat16, dev)
+
+
+def _causal(sc, pos, dev):
+    ar = torch.arange(sc, device=dev, dtype=torch.int32)[None]
+    return torch.where(ar < pos[:, None], ar, torch.full_like(ar, -1))
+
+
+@pytest.mark.parametrize("dh,g", DECODE_PAIRS)
+def test_decode_row_bits_do_not_depend_on_the_call(dev, dh, g):
+    """A row's bf16 output has the same bits alone, inside a batch of 8
+    rows of its length, inside a batch whose other rows have other
+    lengths, in a cache with a larger Sc (the extra positions masked) and
+    through a block table over 16-token pages in a shuffled order."""
+    r = np.random.default_rng(dh * 10 + g)
+    hkv, sc, n, row = 2, 600, 530, 5
+    h = g * hkv
+    q = _bf16(r, (8, h, dh), dev)
+    ck, cv = (_bf16(r, (8, sc, hkv, dh), dev) for _ in range(2))
+    k1, v1 = (_bf16(r, (8, hkv, dh), dev) for _ in range(2))
+    kw = dict(softcap=30.0)
+
+    def one(pos, ck=ck, cv=cv, sc=sc):
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        return ops.decode_attention(q, ck, cv, _causal(sc, pos, dev), k1, v1,
+                                    pos, **kw)
+    lens = [int(x) for x in r.integers(1, sc, size=8)]
+    lens[row] = n
+    alone = ops.decode_attention(
+        q[row:row + 1], ck[row:row + 1], cv[row:row + 1],
+        _causal(sc, torch.tensor([n], dtype=torch.int32, device=dev), dev),
+        k1[row:row + 1], v1[row:row + 1],
+        torch.tensor([n], dtype=torch.int32, device=dev), **kw)
+    assert torch.equal(one([n] * 8)[row], alone[0])
+    assert torch.equal(one(lens)[row], alone[0])
+    big = 1500
+    ckb, cvb = (torch.cat([c, _bf16(r, (8, big - sc, hkv, dh), dev)], 1)
+                for c in (ck, cv))
+    assert torch.equal(one(lens, ckb, cvb, big)[row], alone[0])
+    # the same logical rows through a block table (pages shuffled)
+    pt = 16
+    nblk = -(-sc // pt)
+    order = torch.from_numpy(r.permutation(8 * nblk) + 1).to(dev)
+    bt = order.view(8, nblk).int()
+    pk = torch.zeros((1 + 8 * nblk, pt, hkv, dh), dtype=torch.bfloat16,
+                     device=dev)
+    pv = torch.zeros_like(pk)
+    ppos = torch.full((1 + 8 * nblk, pt), -1, dtype=torch.int32, device=dev)
+    pad = nblk * pt - sc
+    pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cpos = torch.cat([_causal(sc, pos, dev),
+                      torch.full((8, pad), -1, dtype=torch.int32,
+                                 device=dev)], 1)
+    for c, pool in ((ck, pk), (cv, pv)):
+        full = torch.cat([c, torch.zeros((8, pad, hkv, dh), dtype=c.dtype,
+                                         device=dev)], 1)
+        pool[bt.reshape(-1).long()] = full.reshape(8 * nblk, pt, hkv, dh)
+    ppos[bt.reshape(-1).long()] = cpos.reshape(8 * nblk, pt)
+    n0 = da.PAGED_KERNEL.launches
+    paged = ops.decode_attention_paged(q, pk, pv, ppos, bt, k1, v1, pos,
+                                       **kw)
+    assert da.PAGED_KERNEL.launches == n0 + 1
+    assert torch.equal(paged[row], alone[0])
+
+
+@pytest.mark.parametrize("dh,g", [(128, 4), (80, 4), (256, 2), (128, 6)])
+def test_decode_early_exit_is_an_exact_no_op(dev, dh, g):
+    """A row whose keys end at position 100 gives the same bits in a
+    112-position cache and in a 1,024-position one whose later positions
+    are masked, whether as empty slots (position -1, K and V NaN: never
+    read, no split or tile of them takes part) or as future positions
+    (past the row's position, with finite K and V)."""
+    r = np.random.default_rng(dh + g)
+    b, hkv, n = 3, 2, 100
+    h = g * hkv
+    q = _bf16(r, (b, h, dh), dev)
+    k1, v1 = (_bf16(r, (b, hkv, dh), dev) for _ in range(2))
+    ck, cv = (_bf16(r, (b, 1024, hkv, dh), dev) for _ in range(2))
+    pos = torch.full((b,), n, dtype=torch.int32, device=dev)
+    short = ops.decode_attention(q, ck[:, :112].contiguous(),
+                                 cv[:, :112].contiguous(),
+                                 _causal(112, pos, dev), k1, v1, pos)
+    ar = torch.arange(1024, device=dev, dtype=torch.int32)[None].repeat(b, 1)
+    future = ops.decode_attention(q, ck, cv, torch.where(ar < n, ar, ar + 1),
+                                  k1, v1, pos)
+    ckn, cvn = ck.clone(), cv.clone()
+    ckn[:, n:] = float("nan")
+    cvn[:, n:] = float("nan")
+    empty = ops.decode_attention(q, ckn, cvn, _causal(1024, pos, dev), k1,
+                                 v1, pos)
+    assert torch.equal(future, short) and torch.equal(empty, short)
+
+
+@pytest.mark.parametrize("name,kind,shape",
+                         [t for t in bits.TIMED if t[1] in ("decode",
+                                                            "paged")],
+                         ids=lambda x: x if isinstance(x, str) else "")
+def test_decode_bf16_rounds_once_at_the_served_shapes(dev, name, kind,
+                                                      shape):
+    """bf16 fused and paged decode at the serving paths' shapes, within
+    half a bf16 ulp + 1e-4 of the float32 plain version on the same
+    inputs: float32 inside, one rounding at the output."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*sh):
+        return torch.randn(sh, generator=g, device="cuda").bfloat16()
+    args = bits.decode_inputs(kind, shape, randn, g)
+    kw = dict(softcap=shape.get("softcap", 0.0))
+    if kind == "decode":
+        kw["window"] = shape.get("window", 0)
+        got = ops.decode_attention(*args, **kw)
+        want = da.decode_attention_plain(*(
+            t.float() if t.is_floating_point() else t for t in args), **kw)
+    else:
+        got = ops.decode_attention_paged(*args, **kw)
+        want = da.decode_attention_paged_plain(*(
+            t.float() if t.is_floating_point() else t for t in args), **kw)
+    assert bool(((got.float() - want).abs() <=
+                 1e-4 + 2.0 ** -8 * want.abs()).all())
+
+
+def test_decode_split_scratch_is_sized_by_the_shapes(dev):
+    """The split body's scratch, as decode_attention_workspace sizes it:
+    per split of each (row, kv-head) G * Dh acc and 2 * G (m, l) floats,
+    then B * Hkv int32 ticket counters. The positions per split, read off
+    where a 1-head call's scratch grows, are one of the split sizes at
+    which test_torch_kernels.py holds the plain split arithmetic to the
+    fused reference (16, 64, 128, 256)."""
+    def words(sc, b=1):
+        return kbuild.size("decode_attention", "decode_attention_workspace",
+                           b, 1, 1, 32, sc, 1)
+    split = next(sc for sc in range(1, 1025) if words(sc + 1) > words(sc))
+    assert split in (16, 64, 128, 256)
+    assert words(1) == words(split) == 34 + 1
+    assert words(split + 1) == 2 * 34 + 1
+    assert words(1, b=3) == 3 * (34 + 1)
+
+
+@pytest.mark.parametrize("kind", ["decode", "paged"])
+def test_decode_split_calls_own_their_counters(dev, kind):
+    """Each bf16 call carries its own ticket counters, zeroed on its stream:
+    calls on two streams at once, and calls replayed from a CUDA graph,
+    give the bits of the same calls made one after another; a scratch
+    buffer left full of other values changes nothing."""
+    shape = dict(b=4, h=8, hkv=2, dh=128, sc=1024, nblk=64, lo=96)
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*sh):
+        return torch.randn(sh, generator=g, device="cuda").bfloat16()
+    cases = [bits.decode_inputs(kind, shape, randn, g) for _ in range(2)]
+    fn = ops.decode_attention if kind == "decode" else \
+        ops.decode_attention_paged
+    want = [fn(*args) for args in cases]
+    junk = torch.full((1 << 24,), -7, dtype=torch.int32, device="cuda")
+    del junk                              # the cached blocks hold -7s
+    streams = [torch.cuda.Stream() for _ in cases]
+    torch.cuda.synchronize()
+    got = [None, None]
+    for _ in range(20):
+        for i, (st, args) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(st):
+                got[i] = fn(*args)
+        torch.cuda.synchronize()
+        for w, o in zip(want, got):
+            assert torch.equal(w, o)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(*args) for args in cases]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for w, o in zip(want, outs):
+            assert torch.equal(w, o)
+
+
+# --------------------------------------------------------------------------
 # the decode and flash kernels keep their earlier bits
 # --------------------------------------------------------------------------
 
@@ -595,10 +781,13 @@ def test_ring_restore_keeps_the_highest_token_on_the_card(dev):
 # came in. Taken on an NVIDIA H100 80GB HBM3 from the kernels built from
 # the sources before that change (``python -m repro_torch.kernels.bits
 # --csrc DIR``, which found them equal to the changed sources' in all 80
-# cases). The 8 bfloat16 flash digests are those of the tensor-core body
-# that replaced the CUDA-core one for bfloat16 (per-tile softmax, P as hi
-# + lo bf16 operands of wgmma); float32 flash and every decode case keep
-# their earlier digests.
+# cases). The 40 float32 digests (decode and flash) keep those values. The
+# 8 bfloat16 flash digests are those of the tensor-core body that replaced
+# the CUDA-core one for bfloat16 (per-tile softmax, P as hi + lo bf16
+# operands of wgmma); the 32 bfloat16 decode digests are those of the split
+# body that replaced the warp body for bfloat16 (per-tile and per-split
+# sums of 128-position splits): 7 of them changed, the other 25 rounded to
+# the same bf16 outputs.
 EARLIER_BITS = {
     ('fused', 32, 1, 'float32'): "20b95c6b5188d0b7",
     ('fused', 32, 1, 'bfloat16'): "8afa7aec806a2cf1",
@@ -619,9 +808,9 @@ EARLIER_BITS = {
     ('fused', 112, 1, 'float32'): "19924d74089b7fbe",
     ('fused', 112, 1, 'bfloat16'): "6b92bc3d5f1dc9cb",
     ('fused', 112, 2, 'float32'): "a5e00deaa4fdf775",
-    ('fused', 112, 2, 'bfloat16'): "63decc9834e1a36b",
+    ('fused', 112, 2, 'bfloat16'): "34e48d83b4dbff26",
     ('fused', 112, 4, 'float32'): "6c407aaf74b52724",
-    ('fused', 112, 4, 'bfloat16'): "23aee0d0827ec062",
+    ('fused', 112, 4, 'bfloat16'): "535f87a642185f30",
     ('fused', 112, 8, 'float32'): "880f0324ceac5f8c",
     ('fused', 112, 8, 'bfloat16'): "88c82bc6a4107082",
     ('fused', 128, 1, 'float32'): "463ce069e2e4d82d",
@@ -631,7 +820,7 @@ EARLIER_BITS = {
     ('fused', 128, 4, 'float32'): "b6d2caf3e1ffa976",
     ('fused', 128, 4, 'bfloat16'): "a0070fe647cb1c5e",
     ('fused', 128, 8, 'float32'): "79813f78bd6a610a",
-    ('fused', 128, 8, 'bfloat16'): "de1e280517d69b72",
+    ('fused', 128, 8, 'bfloat16'): "a8a8a4a8f24b67f2",
     ('paged', 32, 1, 'float32'): "7479788e54e58a26",
     ('paged', 32, 1, 'bfloat16'): "7f11586c2ff24e10",
     ('paged', 32, 2, 'float32'): "7de099e2a3537a88",
@@ -639,7 +828,7 @@ EARLIER_BITS = {
     ('paged', 32, 4, 'float32'): "9c0d30f2576fa002",
     ('paged', 32, 4, 'bfloat16'): "f8b58aef274bd335",
     ('paged', 32, 8, 'float32'): "708b17d4718250a4",
-    ('paged', 32, 8, 'bfloat16'): "ca6ab87a317a95f8",
+    ('paged', 32, 8, 'bfloat16'): "7a7e9153f14bd3e6",
     ('paged', 64, 1, 'float32'): "9e419c52c3966137",
     ('paged', 64, 1, 'bfloat16'): "2fceb1e9ef5f5ce6",
     ('paged', 64, 2, 'float32'): "00e2def337a93830",
@@ -647,7 +836,7 @@ EARLIER_BITS = {
     ('paged', 64, 4, 'float32'): "94745f8286bf3be9",
     ('paged', 64, 4, 'bfloat16'): "c783903abad5e007",
     ('paged', 64, 8, 'float32'): "b2a1b04a6b5f72a8",
-    ('paged', 64, 8, 'bfloat16'): "a3e3a87fe6737ef7",
+    ('paged', 64, 8, 'bfloat16'): "e716b7deb289012d",
     ('paged', 112, 1, 'float32'): "02bd33b4132e54a0",
     ('paged', 112, 1, 'bfloat16'): "a4a1374a41afe717",
     ('paged', 112, 2, 'float32'): "f133ea5409908cef",
@@ -661,9 +850,9 @@ EARLIER_BITS = {
     ('paged', 128, 2, 'float32'): "c356bb18714d2f04",
     ('paged', 128, 2, 'bfloat16'): "fd9d8602c2c1bc26",
     ('paged', 128, 4, 'float32'): "cd5dfbade7a011b7",
-    ('paged', 128, 4, 'bfloat16'): "540cc52d9273456a",
+    ('paged', 128, 4, 'bfloat16'): "95563fc85c69c500",
     ('paged', 128, 8, 'float32'): "d17ef2e6127d53a1",
-    ('paged', 128, 8, 'bfloat16'): "6321042e12ab1016",
+    ('paged', 128, 8, 'bfloat16'): "439fa3b3d9dbaedf",
     ('flash', 32, 1, 'float32'): "a2894d79f3663eb5",
     ('flash', 32, 1, 'bfloat16'): "0f1e6a8e02f3b7d5",
     ('flash', 32, 4, 'float32'): "b453b54c2f1d21c2",

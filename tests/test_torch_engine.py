@@ -190,3 +190,39 @@ def test_gateway_admission_order_matches_reference(policy):
     assert got == want and len(got) == 4
     assert [e.rid for e in tg.queue] == \
         [e.rid for e in jg.queue]
+
+
+def test_provision_aw_frees_each_slot_once():
+    """A request that finished on AW0 and is not yet released keeps its
+    slot through ``fail_aw(0)``, recovery, a step and ``provision_aw(0)``;
+    its release then frees the slot once. AW0's free list holds each slot
+    once, and the next two admissions there get different slots. (The
+    reference re-provisions with the slots of ``active_requests()``, which
+    leaves the finished request out, and lists its slot twice.)"""
+    cfg = _quickstart(tget_config("mixtral_8x7b").reduced())
+    te = InferenceEngine(cfg, EngineConfig(max_batch=4, max_seq=32,
+                                           num_aw=2, num_ew=2),
+                         device="cpu")
+    prompt = np.arange(1, 7, dtype=np.int32)
+    h = te.client.submit(RequestSpec(rid="done0", prompt=prompt, max_new=2))
+    aw0, slot = te.requests["done0"]._aw, te.requests["done0"].slot
+    while not h.done():
+        te.step()
+    te.fail_aw(aw0)
+    busy = [te.client.submit(RequestSpec(rid=f"busy{i}", prompt=prompt,
+                                          max_new=24))
+            for i in range(2)]           # AW1 full: the next go to AW0
+    assert {te.requests[b.rid]._aw for b in busy} == {1 - aw0}
+    te.recover_aw_requests()
+    te.step()
+    te.provision_aw(aw0)
+    te.release_request("done0")
+    free = list(te.aws[aw0].slots._free)
+    assert sorted(free) == sorted(set(free)) and len(free) == 2
+    assert slot in free
+    new = [te.client.submit(RequestSpec(rid=f"new{i}", prompt=prompt,
+                                         max_new=2)) for i in range(2)]
+    placed = [(te.requests[n.rid]._aw, te.requests[n.rid].slot)
+              for n in new]
+    assert [a for a, _ in placed] == [aw0, aw0]
+    assert placed[0][1] != placed[1][1]

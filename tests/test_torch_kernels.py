@@ -19,7 +19,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import (
     combine_decode_partials, decode_attention_partial_plain,
-    decode_attention_plain)
+    decode_attention_plain, merge_split_partials)
 from repro_torch.kernels.moe_gemm import expert_ffn_plain
 from repro_torch.models.attention import blockwise_attention
 
@@ -109,17 +109,6 @@ def test_decode_partial_plain_vs_reference_and_pallas(dh, g):
                                             (2, 2, g, dh)]
 
 
-def _merge_partials(parts):
-    """Partials of disjoint cache slices merged in log-sum-exp form (what
-    a caller of the partial kernel does with a cache split along Sc)."""
-    m = parts[0][0]
-    for pm, _, _ in parts[1:]:
-        m = torch.maximum(m, pm)
-    l = sum(pl * torch.exp(pm - m) for pm, pl, _ in parts)
-    acc = sum(pa * torch.exp(pm - m)[..., None] for pm, _, pa in parts)
-    return m, l, acc
-
-
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (24, 50.0)])
 def test_decode_partials_split_along_sc_merge_to_the_whole(window, softcap):
     """The partial kernel's one use: a cache split in two along Sc, each
@@ -131,7 +120,7 @@ def test_decode_partials_split_along_sc_merge_to_the_whole(window, softcap):
     parts = [decode_attention_partial_plain(q, ck[:, a:z], cv[:, a:z],
                                             cpos[:, a:z], pos, **kw)
              for a, z in ((0, 32), (32, 64))]
-    got = combine_decode_partials(q, *_merge_partials(parts), k1, v1,
+    got = combine_decode_partials(q, *merge_split_partials(parts), k1, v1,
                                   softcap=softcap)
     want = jref.decode_attention_ref(*_j(*args), **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -170,6 +159,78 @@ def test_decode_partial_row_without_keys():
     np.testing.assert_allclose(
         out_plain.numpy()[0],
         np.repeat(v1[0], 2, axis=0), rtol=1e-6, atol=1e-6)
+
+
+def _split_case(kind):
+    """Three rows over a 640-position cache: row 0 without a valid key
+    (pos -1), row 1 whose keys end at position 100 (every later split
+    all masked), row 2 over the whole cache; "ring": a wrapped 640-slot
+    ring of a 200-token window (row 2 at position 1500, row 1 not yet
+    wrapped), "softcap": the contiguous cache with a softcap of 30."""
+    q, ck, cv, cpos, k1, v1, _ = _decode_inputs(17, 3, 8, 2, 32, 640)
+    ar = np.arange(640)[None]
+    if kind == "ring":
+        pos = np.array([-1, 100, 1500], np.int32)
+        last = np.maximum(pos - 1, 0)[:, None]
+        cpos = np.where(ar <= last, last - (last - ar) % 640, -1)
+        return (q, ck, cv, cpos.astype(np.int32), k1, v1, pos), \
+            dict(window=200)
+    pos = np.array([-1, 100, 639], np.int32)
+    cpos = np.where(ar < pos[:, None], ar, -1).astype(np.int32)
+    cpos[2, 300:340] = -1                 # a hole: a masked tile mid-cache
+    return (q, ck, cv, cpos, k1, v1, pos), \
+        dict(softcap=30.0 if kind == "softcap" else 0.0)
+
+
+@pytest.mark.parametrize("split", [16, 64, 128, 256])
+@pytest.mark.parametrize("kind", ["contiguous", "ring", "softcap"])
+def test_split_partials_merge_to_the_fused_reference(split, kind):
+    """The bf16 kernels' arithmetic in plain float32 (at their split size,
+    128, and others): the cache's plain partials per range of ``split``
+    positions from index 0, merged in range order and combined with the
+    current token, against the JAX
+    fused kernel (interpret mode) and its reference at 2e-5; rows with no
+    valid key, with every later split masked, a window over a wrapped
+    ring and a softcap."""
+    args, kw = _split_case(kind)
+    q, ck, cv, cpos, k1, v1, pos = _t(*args)
+    parts = [decode_attention_partial_plain(
+        q, ck[:, a:a + split], cv[:, a:a + split], cpos[:, a:a + split], pos,
+        **kw) for a in range(0, 640, split)]
+    got = combine_decode_partials(q, *merge_split_partials(parts), k1, v1,
+                                  softcap=kw.get("softcap", 0.0))
+    want = decode_attention_fused(*_j(*args), block_k=128, interpret=True,
+                                  **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    want = jref.decode_attention_ref(*_j(*args), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_array_equal(got.numpy()[0],
+                                  np.repeat(args[5][0], 4, axis=0))
+
+
+@pytest.mark.parametrize("at", ["end", "middle", "front"])
+def test_an_all_masked_split_changes_no_bit(at):
+    """A split with no valid key (m = NEG_INF, l = 0, acc = 0) is skipped
+    by the merge: adding one (a larger cache, a masked range) changes no
+    bit of the merged partials or of the output."""
+    args, kw = _split_case("contiguous")
+    q, ck, cv, cpos, k1, v1, pos = _t(*args)
+    parts = [decode_attention_partial_plain(q, ck[:, a:a + 64],
+                                            cv[:, a:a + 64],
+                                            cpos[:, a:a + 64], pos)
+             for a in range(0, 640, 64)]
+    masked = decode_attention_partial_plain(q, ck[:, :64], cv[:, :64],
+                                            torch.full_like(cpos[:, :64], -1),
+                                            pos)
+    assert bool((masked[0] == tref.NEG_INF).all()) and \
+        not masked[1].any() and not masked[2].any()
+    i = {"end": len(parts), "middle": 4, "front": 0}[at]
+    base = merge_split_partials(parts)
+    more = merge_split_partials(parts[:i] + [masked] + parts[i:])
+    for a, b in zip(base, more):
+        assert torch.equal(a, b)
+    assert torch.equal(combine_decode_partials(q, *base, k1, v1),
+                       combine_decode_partials(q, *more, k1, v1))
 
 
 def _prefill_inputs(seed, b, s, h, hkv, dh):
