@@ -40,10 +40,12 @@ Phases, each of which raises on failure (exit code != 0):
                 all checked after the runs; kernel, plain-version and
                 library-call times by CUDA events (median of 20 after
                 warm-up, L2 flushed before each run), and for decode
-                attention also the kernel's and SDPA's time in a CUDA graph
-                (device time, no host time; the calls take copies of
-                their inputs in turn, so they read them from HBM, not
-                L2). The flash kernel's records
+                attention, the expert FFN and the SSD scan also the
+                kernel's (and SDPA's or the bmm chain's) time in a CUDA
+                graph (device time, no host time; the decode-attention and
+                scan calls take copies of their inputs in turn, so they
+                read them from HBM, not L2; the FFN's 2.8 GB bank never
+                fits L2). The flash kernel's records
                 come from phase 12.
   3. reference — a reduced float32 Mixtral, a reduced float32 Zamba2 with
                 a trailing block, and reduced float32 Gemma2, Danube and
@@ -152,16 +154,17 @@ PAGE_TOKENS = 16
 # the expert FFN's capacities C on the serving paths, each with the kind
 # of call (decode step or not) and the kernel path it must take: serve
 # decode and whole-prompt prefill at capacity factor 1.25; the KV-plane
-# decode (and chunk calls at C 8), whole-prompt prefill, chunk calls and
-# chunk tails at 4.0 (C 128 and 256 span two and four 64-row M tiles).
-# Only decode steps take the skinny path: prefill and chunk calls take the
-# tensor-core path at every C, chunk tails at C 2 and 4 included, so a
-# token rounds one way whatever its call's C. main() fails if a run gives
-# the kernel a (C, path) that is not here.
+# decode, whole-prompt prefill, chunk calls (C 256 and 8) and chunk tails
+# at 4.0 (C 128 and 256 span two and four 64-row M tiles). Only decode
+# steps take the decode path ("skinny", C <= 8): prefill and chunk calls
+# take the tensor-core path at every C, chunk calls at C 8 and tails at C
+# 2 and 4 included, so a token rounds one way whatever its call's C.
+# main() fails if a run gives the kernel a (C, path) that is not here.
 MOE_SHAPES = [("decode", 2, True, "skinny"),
               ("prefill", 64, False, "tensor_core"),
-              ("decode-kv", 8, True, "tensor_core"),
+              ("decode-kv", 8, True, "skinny"),
               ("prefill-kv", 128, False, "tensor_core"),
+              ("chunk-8", 8, False, "tensor_core"),
               ("chunk-tail", 4, False, "tensor_core"),
               ("chunk-tail-2", 2, False, "tensor_core"),
               ("chunk", 256, False, "tensor_core")]
@@ -864,7 +867,7 @@ def kernel_ssm_scan(torch, g, records, shapes):
     from repro_torch.kernels import ssm_scan as ss
     print("ssm_scan (Mamba2/SSD chunked scan, csrc/ssm_scan.cu)")
     h, p, n, chunk = 112, 64, 64, 64
-    for bs, s_ in ((1, 1), (1, 127), (2, 96)):
+    for bs, s_ in ((1, 1), (1, 127), (2, 96), (1, 192)):
         args = scan_inputs(torch, g, bs, s_, 8, p, n, torch.float32)
         y, hf = ss.ssm_scan_cuda(*args, chunk=chunk)
         wy, wh = kref.ssm_scan_chunked_ref(*args, chunk=chunk)
@@ -888,6 +891,10 @@ def kernel_ssm_scan(torch, g, records, shapes):
         check(f"bf16 {tag} h_final vs float32 plain", hf, wh, atol=2e-4,
               rtol=2e-4)
         ms = time_ms(torch, lambda: ss.ssm_scan_cuda(*args, chunk=chunk))
+        # in a CUDA graph, the calls taking copies of the inputs in turn
+        # (they fit in L2): device time read from HBM, no host time
+        dev_ms = cold_graph_ms(
+            torch, lambda *t: ss.ssm_scan_cuda(*t, chunk=chunk), args)
         plain_ms = time_ms(torch, lambda: kref.ssm_scan_chunked_ref(
             *args, chunk=chunk))
         t = kref.scan_chunk(s_, chunk)
@@ -905,10 +912,12 @@ def kernel_ssm_scan(torch, g, records, shapes):
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None,
             library="none: no single PyTorch call computes the SSD scan",
+            cold_graph_ms=dev_ms,
             shape=f"{tag} chunk {t} bf16 x, float32 math (bound at the "
                   f"67 TFLOP/s float32 peak)"))
-        print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, no library "
-              f"call, bound {b_ms:.4f} ms ({b_by}, float32 peak)")
+        print(f"  time {ms:.4f} ms (in a CUDA graph, inputs from HBM, "
+              f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, no library call, "
+              f"bound {b_ms:.4f} ms ({b_by}, float32 peak)")
         del args, args32
 
 
@@ -977,14 +986,21 @@ def kernel_moe_gemm(torch, g, records, shapes):
               atol=ROUND_ATOL, rtol=ROUND_RTOL)
         del got
         torch.cuda.empty_cache()
-        ms = time_ms(torch, kern)
         plain_ms = time_ms(torch, plain)
         # library yardstick: the per-slot matmul chain over active slots
         xa = x[:8]
         wg8, wu8, wd8 = bank[0][:8], bank[1][:8], wdn[:8]
-        lib_ms = time_ms(torch, lambda: torch.bmm(
-            torch.nn.functional.silu(torch.bmm(xa, wg8)) *
-            torch.bmm(xa, wu8), wd8))
+
+        def chain():
+            return torch.bmm(torch.nn.functional.silu(torch.bmm(xa, wg8)) *
+                             torch.bmm(xa, wu8), wd8)
+        # in turns (kernel, chain, chain, kernel), each the mean of its
+        # two medians: the card's first timings after the plain version's
+        # float32 work can run slow for a while
+        t = [time_ms(torch, fn) for fn in (kern, chain, chain, kern)]
+        ms, lib_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        # in a CUDA graph: no host time; the 2.8 GB bank never fits L2
+        dev_ms, lib_dev_ms = graph_ms(torch, kern), graph_ms(torch, chain)
         active = int((cnt > 0).sum().item())  # the kernel skips the rest
         nbytes = active * (3 * d * f + 2 * c * d) * 2 + 2 * n_slot * 4
         flops = active * 2.0 * c * d * f * 3
@@ -994,12 +1010,15 @@ def kernel_moe_gemm(torch, g, records, shapes):
             source="src/repro_torch/csrc/moe_gemm.cu",
             replaces=mg.KERNEL.replaces, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms,
+            library_ms=lib_ms, library="bmm chain", graph_ms=dev_ms,
+            library_graph_ms=lib_dev_ms,
             shape=f"P{n_slot} (8 active) C{c} D{d} F{f} bf16, "
                   f"{'decode step' if decode else 'prefill/chunk call'}, "
                   f"{path} path"))
-        print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, bmm chain "
-              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        print(f"  time {ms:.4f} ms ({t[0]:.4f} / {t[3]:.4f}; in a CUDA "
+              f"graph {dev_ms:.4f}), plain {plain_ms:.4f} ms, bmm chain "
+              f"{lib_ms:.4f} ms ({t[1]:.4f} / {t[2]:.4f}; in a CUDA graph "
+              f"{lib_dev_ms:.4f}), bound {b_ms:.4f} ms ({b_by})")
         del x, cnt
     del bank, wdn
     torch.cuda.empty_cache()
@@ -1629,15 +1648,22 @@ def mixtral_kv_plane(torch, engine, prompts):
     """The KV plane on the serve phase's weights at capacity factor 4.0
     (capacity >= tokens in every call: no token is ever dropped, so a
     stream does not depend on its slot or on how its prompt is chunked):
-    every expert FFN launch of the paged decode steps on the tensor-core
-    path, and the row-count probe. Returns the failure-free Runs."""
+    in every engine each expert FFN launch of a decode step on the decode
+    path ("skinny", C 8) and each of a prefill or chunk call on the
+    tensor-core path; then the row-count probe. Returns the failure-free
+    Runs."""
     runs, _ = kv_plane_phase(torch, "kv plane",
                              mixtral_8_layers(capacity_factor=4.0), prompts,
                              params=engine.params)
-    dec = runs["paged"].launches["decode"]
-    if dec["moe_ffn"] <= 0 or dec["moe_ffn/tensor_core"] != dec["moe_ffn"]:
-        raise AssertionError(f"the paged decode steps' expert FFN did not "
-                             f"all take the tensor-core path: {dec}")
+    for name, run in runs.items():
+        for phase, n in run.launches.items():
+            path = "skinny" if phase == "decode" else "tensor_core"
+            if n["moe_ffn"] and n[f"moe_ffn/{path}"] != n["moe_ffn"]:
+                raise AssertionError(f"the {name} engine's {phase} expert "
+                                     f"FFN launches did not all take the "
+                                     f"{path} path: {n}")
+    if runs["paged"].launches["decode"]["moe_ffn"] <= 0:
+        raise AssertionError("the paged decode steps launched no expert FFN")
     row_count_probe(torch, engine.params)
     return runs
 
@@ -1949,11 +1975,23 @@ def profile_decode(torch, engine, prompts, out_dir, chrome=True):
         # device-side events only (kernels, copies): an operator's own row
         # repeats the time of the kernels it launched
         kern = [e for e in ka if e.device_type == DeviceType.CUDA]
-        busy = sum(dev_us(e) for e in kern) / 1e3 / n
+        summed = sum(dev_us(e) for e in kern) / 1e3 / n
         n_kern = sum(e.count for e in kern) / n
+        # busy: the union of the device events' spans, so kernels that
+        # overlap (a programmatic dependent launch starts before the
+        # kernel it waits for ends) count once
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in pr.events()
+                       if e.device_type == DeviceType.CUDA)
+        busy_us, end = 0.0, float("-inf")
+        for s0, s1 in spans:
+            busy_us += max(0.0, s1 - max(s0, end))
+            end = max(end, s1)
+        busy = busy_us / 1e3 / n
         print(f"  profile {name}: wall {w * 1e3:.2f} ms, device busy "
-              f"{busy:.2f} ms ({100 * busy / (w * 1e3):.1f}%), "
-              f"{n_kern:.0f} device ops per call")
+              f"{busy:.2f} ms ({100 * busy / (w * 1e3):.1f}%; the device "
+              f"events' times summed: {summed:.2f} ms), {n_kern:.0f} device "
+              f"ops per call")
         top = sorted(kern, key=dev_us, reverse=True)[:8]
         for e in top:
             print(f"    {dev_us(e) / 1e3 / n:8.3f} ms  x{e.count / n:5.0f}  "
@@ -1978,10 +2016,11 @@ def readable(name: str) -> str:
 def print_ptxas(build_log, build):
     """Registers, static shared memory and spills per kernel from nvcc's
     -Xptxas=-v output: a summary per source, then every tensor-core
-    kernel (the wgmma bodies of flash_attention.cu and moe_gemm.cu), every
-    split decode kernel (bf16 fused and paged, with the dynamic shared
-    memory it launches with) and every kernel that spills or takes 200 or
-    more registers."""
+    kernel (the wgmma bodies of flash_attention.cu and moe_gemm.cu, the
+    expert FFN's decode kernels among them), every split decode kernel
+    (bf16 fused and paged, with the dynamic shared memory it launches
+    with), the SSD scan's kernels and every kernel that spills or takes
+    200 or more registers."""
     import re
     smem_of = build.library("decode_attention").decode_attention_split_smem
     for src, log in sorted(build_log.items()):
@@ -2008,7 +2047,8 @@ def print_ptxas(build_log, build):
         for n, r, sp, sm in entries:
             name = readable(n)
             split = re.search(r"decode_split_kernel<(\d+), (\d+)", name)
-            if "_tc_kernel" in n or split or any(sp) or r >= 200:
+            if ("_tc_kernel" in n or "moe_decode" in n or "ssm_scan" in n
+                    or split or any(sp) or r >= 200):
                 dyn = (f", dynamic smem {smem_of(*map(int, split.groups()))}"
                        f" bytes" if split else "")
                 print(f"    {name[:110]}: {r} registers, static smem {sm} "

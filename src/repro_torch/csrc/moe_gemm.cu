@@ -18,31 +18,35 @@
 //
 // Design: the TPU kernel accumulates the down projection across sequential
 // F tiles; blocks here run in parallel, so the FFN is two GEMM-shaped
-// passes with the hidden activation in scratch between them (act(g) * u
-// applied when the gate/up sums are complete). Three paths, chosen from
-// the kind of call (the caller says whether it is a decode step), the
-// dtype, C and alignment:
-//   * skinny (decode steps at C <= 4; bytes-bound): each thread streams
-//     16-byte vectors of weight columns, the reduction axis is split over
-//     blocks so enough loads are in flight, and split partials are summed
+// passes with the hidden activation in float32 scratch between them
+// (act(g) * u applied when the gate/up sums are complete). Three paths,
+// chosen from the kind of call (the caller says whether it is a decode
+// step), the dtype, C and alignment:
+//   * skinny, the decode path (decode steps only; bytes-bound): in bf16 at
+//     C <= 8, two persistent launches over the live slots' tiles (the
+//     down pass a programmatic dependent launch of the gate/up pass) that
+//     stream the weights through a TMA-fed ring into the swapped wgmma
+//     (64 weight columns as M, the tokens padded to 8 as N); in float32 at
+//     C <= 4, threads that stream 16-byte vectors of weight columns with
+//     the reduction axis split over blocks and the split partials summed
 //     in a fixed order by small finalize kernels (deterministic, no
 //     atomics);
 //   * tensor-core tile (bf16: every prefill and chunk call, whatever
-//     its C, and decode steps at C > 4): wgmma (m64n128k16, float32
+//     its C, and decode steps at C > 8): wgmma (m64n128k16, float32
 //     accumulators) on operand tiles that cp.async keeps several stages
-//     ahead in shared memory; the hidden activation stays float32 between
-//     the two passes, as in the TPU kernel, and enters the down product
-//     as a hi + lo pair of bf16 operands (two wgmma per step);
+//     ahead in shared memory; the hidden activation enters the down
+//     product as a hi + lo pair of bf16 operands (two wgmma per step);
 //   * CUDA-core tile (float32, and shapes the other paths cannot take):
 //     one block per (128 columns, BM-row tile, slot), x staged in shared
 //     memory, one column per thread with BM float32 sums in registers
 //     (BM = 16 or 64 from C).
 // Every path computes a slot only from its expert's rows and its own x, so
-// a shadow slot reproduces its primary bit for bit. The tile paths give a
-// token's row the same bits whatever C and whichever row of the slot it
-// takes, and the skinny path rounds otherwise: so only a decode step may
-// take it, and a token's bits in a prefill or chunk call never depend on
-// how many tokens share the call (chunked == whole-prompt prefill).
+// a shadow slot reproduces its primary bit for bit, and gives a token's
+// row the same bits whatever C and whichever row of the slot it takes.
+// The decode path and the tile paths round differently: so only a decode
+// step may take the decode path, and a token's bits in a prefill or chunk
+// call never depend on how many tokens share the call (chunked ==
+// whole-prompt prefill).
 #include <cuda_bf16.h>
 
 #include <algorithm>
@@ -168,49 +172,37 @@ moe_down_kernel(const float* __restrict__ hidden, const T* __restrict__ wd,
 }
 
 // ---------------------------------------------------------------------------
-// Skinny path (C <= 4, the decode step): bytes-bound weight streaming.
-// Each thread owns 16 bytes of columns (8 bf16 or 4 float32 values, one
+// Float32 skinny path (decode steps at C <= 4): bytes-bound weight
+// streaming. Each thread owns 16 bytes of columns (4 float32 values, one
 // vector load per weight row) and the reduction axis is split over
 // blockIdx.y so that enough loads are in flight to approach the memory
 // rate. Split partials go to float32 scratch and are summed in split order
 // by the finalize kernels: deterministic, and independent of which slot
 // serves an expert (so a shadow slot reproduces its primary bit for bit).
+// bf16 decode steps take the decode path further down.
 // ---------------------------------------------------------------------------
 
 constexpr int SK_NT = 128;            // threads per skinny block
 constexpr int TARGET_BLOCKS = 2048;   // blocks to aim for per launch
 constexpr int MAX_KCHUNK = 2048;      // BM * MAX_KCHUNK floats of smem
 
-template <typename T> struct Vec;
-template <> struct Vec<float> { static constexpr int N = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
+constexpr int V = 4;                  // float32 columns per thread
 
 __device__ __forceinline__ void load16(const float* p, float* out) {
   const float4 v = __ldg(reinterpret_cast<const float4*>(p));
   out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
 
 // part[s, p, m, n] = sum over k in split s of A[p, m, k] * W[e, k, n]
 // (and the same for W1 when DUAL). A: [P, C, K]; W: [E, K, N].
-template <typename T, typename AT, int BM, bool DUAL>
+template <int BM, bool DUAL>
 __global__ void __launch_bounds__(SK_NT)
-skinny_partial_kernel(const AT* __restrict__ A, const T* __restrict__ W0,
-                      const T* __restrict__ W1,
+skinny_partial_kernel(const float* __restrict__ A, const float* __restrict__ W0,
+                      const float* __restrict__ W1,
                       const int* __restrict__ slot_expert,
                       const int* __restrict__ counts,
                       float* __restrict__ part0, float* __restrict__ part1,
                       int P, int C, int K, int N, int kchunk) {
-  constexpr int V = Vec<T>::N;
   const int p = blockIdx.z;
   if (counts[p] <= 0) return;                   // block-uniform
   const int s = blockIdx.y;
@@ -223,8 +215,7 @@ skinny_partial_kernel(const AT* __restrict__ A, const T* __restrict__ W0,
   for (int idx = threadIdx.x; idx < BM * kchunk; idx += SK_NT) {
     const int m = idx / kchunk;
     const int kk = idx % kchunk;
-    as[idx] = (m < C && kk < kn)
-                  ? to_f(A[((size_t)p * C + m) * K + k0 + kk]) : 0.f;
+    as[idx] = (m < C && kk < kn) ? A[((size_t)p * C + m) * K + k0 + kk] : 0.f;
   }
   __syncthreads();
   if (n0 >= N) return;
@@ -235,8 +226,8 @@ skinny_partial_kernel(const AT* __restrict__ A, const T* __restrict__ W0,
 #pragma unroll
     for (int v = 0; v < V; ++v) acc0[m][v] = acc1[m][v] = 0.f;
 
-  const T* w0 = W0 + ((size_t)e * K + k0) * N + n0;
-  const T* w1 = DUAL ? W1 + ((size_t)e * K + k0) * N + n0 : nullptr;
+  const float* w0 = W0 + ((size_t)e * K + k0) * N + n0;
+  const float* w1 = DUAL ? W1 + ((size_t)e * K + k0) * N + n0 : nullptr;
 #pragma unroll 4
   for (int kk = 0; kk < kn; ++kk) {
     float a[V], b[V];
@@ -284,18 +275,17 @@ __global__ void finalize_hidden_kernel(const float* __restrict__ part0,
   hidden[idx] = gated ? act_fn(a, act) * b : act_fn(a, act);
 }
 
-template <typename T>
 __global__ void finalize_out_kernel(const float* __restrict__ part,
                                     const int* __restrict__ counts,
-                                    T* __restrict__ y, int P, int C, int D,
-                                    int S) {
+                                    float* __restrict__ y, int P, int C,
+                                    int D, int S) {
   const size_t n = (size_t)P * C * D;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
   float acc = 0.f;
   if (counts[idx / ((size_t)C * D)] > 0)
     for (int s = 0; s < S; ++s) acc += part[s * n + idx];
-  store(&y[idx], acc);
+  y[idx] = acc;
 }
 
 struct SkinnyPlan {
@@ -304,9 +294,7 @@ struct SkinnyPlan {
   int s2 = 1, kc2 = 1;      // down: splits of F and their length
 };
 
-template <typename T>
 SkinnyPlan skinny_plan(int P, int C, int D, int F) {
-  constexpr int V = Vec<T>::N;
   SkinnyPlan pl;
   pl.use = C <= 4 && D % V == 0 && F % V == 0;
   auto split = [&](int K, int N, int& S, int& kc) {
@@ -321,13 +309,12 @@ SkinnyPlan skinny_plan(int P, int C, int D, int F) {
   return pl;
 }
 
-template <typename T, int BM>
+template <int BM>
 cudaError_t launch_skinny(const SkinnyPlan& pl, const void* x,
                           const void* wg, const void* wu, const void* wd,
                           const int* se, const int* counts, float* ws,
                           void* y, int P, int C, int D, int F, int gated,
                           int act, cudaStream_t st) {
-  constexpr int V = Vec<T>::N;
   float* hidden = ws;
   float* p0 = hidden + (size_t)P * C * F;
   float* p1 = p0 + (size_t)pl.s1 * P * C * F;
@@ -335,13 +322,13 @@ cudaError_t launch_skinny(const SkinnyPlan& pl, const void* x,
   const dim3 g1((F + V * SK_NT - 1) / (V * SK_NT), pl.s1, P);
   const size_t sm1 = (size_t)BM * pl.kc1 * sizeof(float);
   if (gated)
-    skinny_partial_kernel<T, T, BM, true><<<g1, SK_NT, sm1, st>>>(
-        (const T*)x, (const T*)wg, (const T*)wu, se, counts, p0, p1, P, C,
-        D, F, pl.kc1);
+    skinny_partial_kernel<BM, true><<<g1, SK_NT, sm1, st>>>(
+        (const float*)x, (const float*)wg, (const float*)wu, se, counts, p0,
+        p1, P, C, D, F, pl.kc1);
   else
-    skinny_partial_kernel<T, T, BM, false><<<g1, SK_NT, sm1, st>>>(
-        (const T*)x, (const T*)wu, nullptr, se, counts, p0, nullptr, P, C,
-        D, F, pl.kc1);
+    skinny_partial_kernel<BM, false><<<g1, SK_NT, sm1, st>>>(
+        (const float*)x, (const float*)wu, nullptr, se, counts, p0, nullptr,
+        P, C, D, F, pl.kc1);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t nh = (size_t)P * C * F;
@@ -350,13 +337,13 @@ cudaError_t launch_skinny(const SkinnyPlan& pl, const void* x,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 g2((D + V * SK_NT - 1) / (V * SK_NT), pl.s2, P);
   const size_t sm2 = (size_t)BM * pl.kc2 * sizeof(float);
-  skinny_partial_kernel<T, float, BM, false><<<g2, SK_NT, sm2, st>>>(
-      hidden, (const T*)wd, nullptr, se, counts, p2, nullptr, P, C, F, D,
+  skinny_partial_kernel<BM, false><<<g2, SK_NT, sm2, st>>>(
+      hidden, (const float*)wd, nullptr, se, counts, p2, nullptr, P, C, F, D,
       pl.kc2);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t ny = (size_t)P * C * D;
-  finalize_out_kernel<T><<<(unsigned)((ny + 255) / 256), 256, 0, st>>>(
-      p2, counts, (T*)y, P, C, D, pl.s2);
+  finalize_out_kernel<<<(unsigned)((ny + 255) / 256), 256, 0, st>>>(
+      p2, counts, (float*)y, P, C, D, pl.s2);
   return cudaGetLastError();
 }
 
@@ -389,7 +376,7 @@ cudaError_t launch_bm(const void* x, const void* wg, const void* wu,
 
 // ---------------------------------------------------------------------------
 // Tensor-core tile path (bf16: prefill and chunk calls at every C, decode
-// steps at C > 4), on wgmma. Each consumer warpgroup owns a 64-row x
+// steps at C > 8), on wgmma. Each consumer warpgroup owns a 64-row x
 // 128-column output tile; a block of WM x WN warpgroups owns BM = 64 WM
 // rows and BN = 128 WN columns of one slot. Small C (<= 64: one M tile)
 // takes 1 x 2, so each weight row is read as 512 contiguous bytes; larger
@@ -754,14 +741,501 @@ cudaError_t launch_tc(const void* x, const void* wg, const void* wu,
 
 bool tc_shapes_ok(int D, int F) { return D % 8 == 0 && F % 8 == 0; }
 
+// ---------------------------------------------------------------------------
+// Decode path (bf16 decode steps at C <= 8): bytes-bound weight streaming
+// on the tensor cores. Two persistent launches over the live slots only,
+// each block (one warpgroup) walking a fixed share of the work items (it
+// reads counts itself: empty slots launch nothing):
+//   gate/up, one block an SM: an item is (live slot, 128 columns of F),
+//     the whole of D, so act(g) * u is taken in the accumulators'
+//     registers and the float32 hidden is written once (no split of D, no
+//     partials);
+//   down, two blocks an SM: an item is (live slot, 128 columns of D), the
+//     whole of F: 256 items at Mixtral's widths, so no split of F either
+//     (nothing to merge); the float32 hidden is split into hi + lo bf16
+//     rows as it lands, so y matches a float32 hidden @ bf16 wd to
+//     float32 summation order (the tensor-core path's rule). One block an
+//     SM streamed slower here: it converts the hidden and multiplies every
+//     16 KB weight tile, where gate/up multiplies every 32 KB; a second
+//     block on the SM hides that.
+// The product is the swapped one, y^T = W^T x^T: wgmma with a 64-column
+// weight tile as the MN-major A operand (128-byte swizzle, a warp reads
+// 256 contiguous bytes of a weight row) and the tokens, C padded to 8 with
+// zero rows, as the K-major B operand (m64n8k16; for down m64n16k16, the
+// hi rows then the lo rows, so each weight tile is read once and a token's
+// hi and lo sums are added at the end), float32 accumulators: the tensor
+// cores take the FMA work, which at C 8 would hold the CUDA cores for
+// about 40% of the byte time (22.5 GFLOP a call at Mixtral's widths
+// against 67 TFLOP/s, before the bf16 conversions).
+// Weight tiles (64 rows of k) and the tokens' k slice go through one ring
+// of shared-memory stages, STAGES - 2 ahead: one thread issues the weight
+// tiles as TMA copies (a 64-column box an atom, from a tensor map of the
+// bank made once per bank, 128-byte swizzled by the copy, zero past the
+// matrix) that complete on the stage's mbarrier, and every thread copies
+// its 16 bytes of the token (or hidden) slice by cp.async. The ring runs
+// on across a block's items, so the stream does not drain between them. The down pass is a programmatic dependent launch
+// (the overlap chosen over one persistent launch, whose down items would
+// have to wait on other blocks' gate/up items): the gate/up blocks let it
+// start at once, its blocks take SMs as gate/up blocks finish and fill
+// their ring with wd tiles, and only the hidden's loads wait for the
+// gate/up grid (griddepcontrol.wait). Every C from 1 to 8 takes the one
+// instruction shape and the one k order, and nothing depends on P,
+// counts, the SM count or which block takes an item: a row's bits depend
+// only on its own x and its slot's expert (a shadow slot gives its
+// primary's bits). No atomics, no scratch beyond the hidden, no host sync
+// (capturable in a CUDA graph).
+// ---------------------------------------------------------------------------
+
+namespace dec {
+constexpr int NT = 128;                  // one consumer warpgroup
+constexpr int N = 8;                     // tokens a product takes (wgmma N)
+constexpr int COLS = 128;                // weight columns of an item
+constexpr int ATOMS = COLS / 64;         // 64-column A operands an item
+constexpr int BK = 64;                   // weight rows (k) a ring stage
+constexpr int W_BYTES = BK * COLS * 2;   // one weight tile, 16 KB
+constexpr int X_BYTES = N * BK * 2;      // 8 token rows' k slice, 1 KB
+constexpr int MAX_P = 512;               // slots the live list holds
+constexpr int LIVE_BYTES = MAX_P * 4 + 16 * 8;  // live list, mbarriers
+constexpr int SM_SMEM = 233472;          // shared memory of an SM, 228 KB
+
+constexpr int round1024(int bytes) { return (bytes + 1023) / 1024 * 1024; }
+
+// shared memory a block may take when `blocks` blocks share an SM (each
+// less 1 KB for the system)
+constexpr int block_smem(int blocks) {
+  return SM_SMEM / blocks - 1024 < sm90::SMEM_MAX ? SM_SMEM / blocks - 1024
+                                                  : sm90::SMEM_MAX;
+}
+
+// stages of a ring that fit beside the live list and 1 KB to align the
+// ring to 1024 bytes, at most cap
+constexpr int ring_stages(int stage_bytes, int blocks, int cap) {
+  return (block_smem(blocks) - 1024 - LIVE_BYTES) / stage_bytes < cap
+             ? (block_smem(blocks) - 1024 - LIVE_BYTES) / stage_bytes
+             : cap;
+}
+
+// gate/up, one block an SM: [wu tile][wg tile][x slice] a stage
+template <bool GATED>
+struct GateUp {
+  static constexpr int BLOCKS_PER_SM = 1;
+  static constexpr int STAGE =
+      round1024((GATED ? 2 : 1) * W_BYTES + X_BYTES);
+  static constexpr int STAGES = ring_stages(STAGE, BLOCKS_PER_SM, 8);
+  static_assert(STAGES >= 3, "one load ahead and one multiply in flight");
+  // the ring, the live list after it, and 1024 bytes to align the ring
+  static constexpr int SMEM = STAGES * STAGE + LIVE_BYTES + 1024;
+};
+
+// down, two blocks an SM (one warpgroup alone streams slower: it converts
+// the hidden and multiplies every 16 KB weight tile):
+// [wd tile][hidden slice, float32][hi slice][lo slice] a stage
+struct Down {
+  static constexpr int BLOCKS_PER_SM = 2;
+  static constexpr int RAW_BYTES = N * BK * 4;
+  static constexpr int STAGE = round1024(W_BYTES + RAW_BYTES + 2 * X_BYTES);
+  static constexpr int STAGES = ring_stages(STAGE, BLOCKS_PER_SM, 10);
+  static_assert(STAGES >= 3, "one load ahead and one multiply in flight");
+  static constexpr int SMEM = STAGES * STAGE + LIVE_BYTES + 1024;
+};
+
+// The live slots (counts > 0) in slot order, into live[]; their number.
+__device__ __forceinline__ int live_slots(const int* __restrict__ counts,
+                                          int P, int* live) {
+  __shared__ int n_live;
+  if (threadIdx.x < 32) {
+    int n = 0;
+    for (int base = 0; base < P; base += 32) {
+      const int p = base + threadIdx.x;
+      const bool on = p < P && counts[p] > 0;
+      const unsigned m = __ballot_sync(0xffffffffu, on);
+      if (on) live[n + __popc(m & ((1u << threadIdx.x) - 1))] = p;
+      n += __popc(m);
+    }
+    if (threadIdx.x == 0) n_live = n;
+  }
+  __syncthreads();
+  return n_live;
+}
+
+// Descriptors of a stage's operands: atom a (64 columns) of a weight tile
+// at k step kk, and k step kk of a [8 x BK] token slice (of 16 rows: its
+// next 8 follow at BK * 16 bytes).
+__device__ __forceinline__ uint64_t wdesc(const char* tile, int a, int kk) {
+  return sm90::desc_sw128(tile + a * BK * 128 + kk * 2048, BK * 128);
+}
+__device__ __forceinline__ uint64_t xdesc(const char* slice, int kk) {
+  return sm90::desc(slice + kk * 256, 128, BK * 16);
+}
+
+// Issue (one thread) the TMA copies of a weight tile: rows k0.. k0 + BK
+// of expert e's matrix in the tensor map, columns n0..n0 + COLS, one box a
+// 64-column atom (zero-filled past the matrix), completing on bar.
+__device__ __forceinline__ void load_weights(char* dst, const CUtensorMap* tm,
+                                             uint64_t* bar, int e, int k0,
+                                             int n0) {
+#pragma unroll
+  for (int a = 0; a < ATOMS; ++a)
+    sm90::tma_load_3d(dst + a * BK * 128, tm, bar, n0 + a * 64, k0, e);
+}
+
+// The ring's full barriers (one a stage) after the live list; thread 0
+// initialises them (one arrival each: the thread that issues the copies).
+template <int STAGES>
+__device__ __forceinline__ uint64_t* ring_barriers(int* live) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(live + MAX_P);
+  static_assert(STAGES <= 16, "barrier space");
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) sm90::mbar_init(&full[s], 1);
+    sm90::fence_mbar_init();
+  }
+  return full;
+}
+
+template <bool GATED>
+__global__ void __launch_bounds__(NT, GateUp<GATED>::BLOCKS_PER_SM)
+moe_decode_gate_up_kernel(const bf16* __restrict__ x,
+                          const __grid_constant__ CUtensorMap tm_g,
+                          const __grid_constant__ CUtensorMap tm_u,
+                          const int* __restrict__ slot_expert,
+                          const int* __restrict__ counts,
+                          float* __restrict__ hidden, int P, int C, int D,
+                          int F, int act) {
+  using Cfg = GateUp<GATED>;
+  constexpr int STAGES = Cfg::STAGES;
+  constexpr int XOFF = (GATED ? 2 : 1) * W_BYTES;
+  extern __shared__ __align__(1024) char smem_raw[];
+  char* smem = sm90::align1024(smem_raw);
+  int* live = reinterpret_cast<int*>(smem + STAGES * Cfg::STAGE);
+  uint64_t* full = ring_barriers<STAGES>(live);   // (live_slots syncs)
+  sm90::griddep_launch_dependents();   // the down pass may take freed SMs
+  const int nft = (F + COLS - 1) / COLS;          // column tiles a slot
+  const int nk = (D + BK - 1) / BK;               // k tiles an item
+  const int items = live_slots(counts, P, live) * nft;
+  const int mine = items > (int)blockIdx.x
+                       ? (items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                       : 0;
+  const int total = mine * nk;                    // this block's k tiles
+  // the k tile g of this block's walk: item blockIdx.x + (g / nk) *
+  // gridDim.x, its tile g % nk
+  auto item = [&](int g) { return (int)blockIdx.x + g / nk * (int)gridDim.x; };
+  auto load = [&](int s, int g) {
+    const int it = item(g), p = live[it / nft];
+    const int e = max(slot_expert[p], 0);
+    const int k0 = (g % nk) * BK, n0 = (it % nft) * COLS;
+    char* st = smem + s * Cfg::STAGE;
+    if (threadIdx.x == 0) {
+      sm90::mbar_arrive_expect_tx(&full[s], (GATED ? 2 : 1) * W_BYTES);
+      load_weights(st, &tm_u, &full[s], e, k0, n0);
+      if (GATED) load_weights(st + W_BYTES, &tm_g, &full[s], e, k0, n0);
+    }
+    const bf16* xp = x + (size_t)p * C * D;
+    sm90::stage_tile<N, BK, NT>(
+        reinterpret_cast<bf16*>(st + XOFF), [&](int r, int cg, bool& ok) {
+          const int k = k0 + cg * 8;
+          ok = r < C && k < D;
+          return xp + (ok ? (size_t)r * D + k : 0);
+        });
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 2; ++s) {
+    if (s < total) load(s, s);
+    sm90::cp_async_commit();
+  }
+
+  const int t = threadIdx.x;
+  float au[ATOMS][4] = {}, ag[ATOMS][4] = {};
+  for (int g = 0; g < total; ++g) {
+    sm90::cp_async_wait<STAGES - 3>();            // this thread's x slice
+    sm90::mbar_wait(&full[g % STAGES], (g / STAGES) & 1);  // the weights
+    sm90::fence_proxy_async();
+    __syncthreads();                              // tile g landed
+    if (g + STAGES - 2 < total) load((g + STAGES - 2) % STAGES, g + STAGES - 2);
+    sm90::cp_async_commit();
+    const char* st = smem + (g % STAGES) * Cfg::STAGE;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t dx = xdesc(st + XOFF, kk);
+#pragma unroll
+      for (int a = 0; a < ATOMS; ++a) {
+        sm90::wgmma_ss_n8_mn_a(au[a], wdesc(st, a, kk), dx, 1);
+        if constexpr (GATED)
+          sm90::wgmma_ss_n8_mn_a(ag[a], wdesc(st + W_BYTES, a, kk), dx, 1);
+      }
+    }
+    sm90::wgmma_commit();
+    if (g % nk != nk - 1) {
+      sm90::wgmma_wait<1>();                      // tile g - 1's multiply
+      continue;
+    }
+    // the item's last tile: act(g) * u in float32, into the hidden
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a) {
+      sm90::pin(au[a]);
+      sm90::pin(ag[a]);
+    }
+    const int it = item(g), p = live[it / nft];
+    const int n0 = (it % nft) * COLS;
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int f = n0 + a * 64 + sm90::frag_row(t, i);
+        const int m = sm90::frag_col(t, i);
+        if (m < C && f < F)
+          hidden[((size_t)p * C + m) * F + f] =
+              GATED ? act_fn(ag[a][i], act) * au[a][i] : act_fn(au[a][i], act);
+        au[a][i] = ag[a][i] = 0.f;
+      }
+  }
+  sm90::cp_async_wait<0>();
+}
+
+__global__ void __launch_bounds__(NT, Down::BLOCKS_PER_SM)
+moe_decode_down_kernel(const float* __restrict__ hidden,
+                       const __grid_constant__ CUtensorMap tm_d,
+                       const int* __restrict__ slot_expert,
+                       const int* __restrict__ counts, bf16* __restrict__ y,
+                       int P, int C, int D, int F) {
+  using Cfg = Down;
+  constexpr int STAGES = Cfg::STAGES;
+  constexpr int RAW = W_BYTES, HI = RAW + Cfg::RAW_BYTES, LO = HI + X_BYTES;
+  static_assert(LO - HI == BK * 16, "lo rows 8-15 of the hi slice's B");
+  extern __shared__ __align__(1024) char smem_raw[];
+  char* smem = sm90::align1024(smem_raw);
+  int* live = reinterpret_cast<int*>(smem + STAGES * Cfg::STAGE);
+  uint64_t* full = ring_barriers<STAGES>(live);   // (live_slots syncs)
+  const int t = threadIdx.x;
+  // empty slots give 0: this pass alone writes y, so before the wait
+  {
+    const size_t per = (size_t)C * D / 8;         // 16-byte vectors a slot
+    for (size_t v = (size_t)blockIdx.x * NT + t; v < (size_t)P * per;
+         v += (size_t)gridDim.x * NT)
+      if (counts[v / per] <= 0)
+        reinterpret_cast<uint4*>(y)[v] = make_uint4(0, 0, 0, 0);
+  }
+  const int ndt = (D + COLS - 1) / COLS;          // column tiles a slot
+  const int nk = (F + BK - 1) / BK;               // k tiles an item
+  const int items = live_slots(counts, P, live) * ndt;
+  const int mine = items > (int)blockIdx.x
+                       ? (items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                       : 0;
+  const int total = mine * nk;
+  auto item = [&](int g) { return (int)blockIdx.x + g / nk * (int)gridDim.x; };
+  auto load_w = [&](int s, int g) {
+    if (threadIdx.x != 0) return;
+    const int it = item(g), p = live[it / ndt];
+    const int e = max(slot_expert[p], 0);
+    sm90::mbar_arrive_expect_tx(&full[s], W_BYTES);
+    load_weights(smem + s * Cfg::STAGE, &tm_d, &full[s], e, (g % nk) * BK,
+                 (it % ndt) * COLS);
+  };
+  // the hidden's k slice, [8 rows][BK] floats, in 16-byte chunks: thread
+  // t copies (and later splits) chunks t, t + NT, ...: row q / (BK / 4),
+  // k (q % (BK / 4)) * 4
+  constexpr int HCH = N * BK / 4;
+  auto load_h = [&](int s, int g) {
+    const int p = live[item(g) / ndt];
+#pragma unroll
+    for (int q = t; q < HCH; q += NT) {
+      const int hm = q / (BK / 4), hk = (q % (BK / 4)) * 4;
+      const int k = (g % nk) * BK + hk;
+      const bool ok = hm < C && k < F;
+      sm90::cp_async16(smem + s * Cfg::STAGE + RAW + q * 16,
+                       hidden + (ok ? ((size_t)p * C + hm) * F + k : 0), ok);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 2; ++s) {
+    if (s < total) load_w(s, s);
+    sm90::cp_async_commit();
+  }
+  sm90::griddep_wait();                           // the hidden is complete
+  for (int s = 0; s < STAGES - 2 && s < total; ++s) load_h(s, s);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+
+  // per atom, columns 0-7 sum the hi products, 8-15 the lo ones
+  float acc[ATOMS][8] = {};
+  for (int g = 0; g < total; ++g) {
+    sm90::cp_async_wait<STAGES - 3>();            // this thread's hidden
+    sm90::mbar_wait(&full[g % STAGES], (g / STAGES) & 1);  // the weights
+    char* st = smem + (g % STAGES) * Cfg::STAGE;
+#pragma unroll
+    for (int q = t; q < HCH; q += NT) {
+      // this thread's 4 hidden values of tile g: hi = bf16(h), lo =
+      // bf16(h - hi), into the K-major core matrices of the hi and lo
+      // slices (core matrix hk / 8, row hm)
+      const int hm = q / (BK / 4), hk = (q % (BK / 4)) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(st + RAW + q * 16);
+      const float h[4] = {v.x, v.y, v.z, v.w};
+      float hi[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        hi[j] = __bfloat162float(__float2bfloat16(h[j]));
+      const int off = (hk >> 3) * 128 + hm * 16 + (hk & 7) * 2;
+      *reinterpret_cast<uint2*>(st + HI + off) = make_uint2(
+          sm90::pack_bf16(hi[0], hi[1]), sm90::pack_bf16(hi[2], hi[3]));
+      *reinterpret_cast<uint2*>(st + LO + off) = make_uint2(
+          sm90::pack_bf16(h[0] - hi[0], h[1] - hi[1]),
+          sm90::pack_bf16(h[2] - hi[2], h[3] - hi[3]));
+    }
+    sm90::fence_proxy_async();
+    __syncthreads();                              // tile g landed and split
+    if (g + STAGES - 2 < total) {
+      load_w((g + STAGES - 2) % STAGES, g + STAGES - 2);
+      load_h((g + STAGES - 2) % STAGES, g + STAGES - 2);
+    }
+    sm90::cp_async_commit();
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // the lo slice follows the hi slice: one B operand of 16 rows
+      const uint64_t dh = xdesc(st + HI, kk);
+#pragma unroll
+      for (int a = 0; a < ATOMS; ++a)
+        sm90::wgmma_ss_n16_mn_a(acc[a], wdesc(st, a, kk), dh, 1);
+    }
+    sm90::wgmma_commit();
+    if (g % nk != nk - 1) {
+      sm90::wgmma_wait<1>();
+      continue;
+    }
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a) sm90::pin(acc[a]);
+    const int it = item(g), p = live[it / ndt];
+    const int n0 = (it % ndt) * COLS;
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d = n0 + a * 64 + sm90::frag_row(t, i);
+        const int m = sm90::frag_col(t, i);
+        if (m < C && d < D)
+          y[((size_t)p * C + m) * D + d] =
+              __float2bfloat16(acc[a][i] + acc[a][i + 4]);
+        acc[a][i] = acc[a][i + 4] = 0.f;
+      }
+  }
+  sm90::cp_async_wait<0>();
+}
+
+}  // namespace dec
+
+bool decode_shapes_ok(int P, int C, int D, int F) {
+  return C <= dec::N && P <= dec::MAX_P && D % 8 == 0 && F % 8 == 0;
+}
+
+// SMs of the current device (asked once per device)
+cudaError_t sm_count(int* n) {
+  static int count[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (count[dev] == 0 &&
+      (err = cudaDeviceGetAttribute(&count[dev],
+                                    cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return err;
+  *n = count[dev];
+  return cudaSuccess;
+}
+
+// The tensor map of one expert bank [E][K][Nw] in the decode path's
+// boxes, made once per (bank, K, Nw) and kept (a model's banks are few and
+// live as long as the process): a map is host work, and the decode step
+// is host-bound. E is not passed to the kernel's entry, so the map spans
+// as many experts as a tensor map may (a box only ever reads an expert of
+// slot_expert, which the bank holds).
+cudaError_t tensor_map(CUtensorMap* out, const void* w, int K, int Nw) {
+  struct Entry {
+    const void* w;
+    int K, Nw;
+    CUtensorMap map;
+  };
+  static Entry cache[64];
+  static int next = 0;
+  for (const Entry& c : cache)
+    if (c.w == w && c.K == K && c.Nw == Nw) {
+      *out = c.map;
+      return cudaSuccess;
+    }
+  Entry& c = cache[next];
+  const cudaError_t err =
+      sm90::make_tma_3d(&c.map, w, 1 << 16, K, Nw, dec::BK);
+  if (err != cudaSuccess) return err;
+  c.w = w, c.K = K, c.Nw = Nw;
+  next = (next + 1) % 64;
+  *out = c.map;
+  return cudaSuccess;
+}
+
+cudaError_t launch_decode(const void* x, const void* wg, const void* wu,
+                          const void* wd, const int* se, const int* counts,
+                          float* hidden, void* y, int P, int C, int D, int F,
+                          int gated, int act, cudaStream_t st) {
+  using GU = dec::GateUp<true>;
+  using GU1 = dec::GateUp<false>;
+  using DN = dec::Down;
+  static bool sized[3];
+  CUtensorMap tm_g, tm_u, tm_d;
+  cudaError_t err;
+  if ((err = tensor_map(&tm_u, wu, D, F)) != cudaSuccess ||
+      (err = tensor_map(&tm_g, gated ? wg : wu, D, F)) != cudaSuccess ||
+      (err = tensor_map(&tm_d, wd, F, D)) != cudaSuccess)
+    return err;
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
+  const int gu_items = P * ((F + dec::COLS - 1) / dec::COLS);
+  const int dn_items = P * ((D + dec::COLS - 1) / dec::COLS);
+  if ((err = sm90::allow_smem(dec::moe_decode_gate_up_kernel<true>,
+                              sized[0])) != cudaSuccess ||
+      (err = sm90::allow_smem(dec::moe_decode_gate_up_kernel<false>,
+                              sized[1])) != cudaSuccess ||
+      (err = sm90::allow_smem(dec::moe_decode_down_kernel, sized[2])) !=
+          cudaSuccess)
+    return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(std::min(GU::BLOCKS_PER_SM * sms, gu_items));
+  cfg.blockDim = dim3(dec::NT);
+  cfg.dynamicSmemBytes = gated ? GU::SMEM : GU1::SMEM;
+  cfg.stream = st;
+  err = gated ? cudaLaunchKernelEx(&cfg, dec::moe_decode_gate_up_kernel<true>,
+                                   (const bf16*)x, tm_g, tm_u, se, counts,
+                                   hidden, P, C, D, F, act)
+              : cudaLaunchKernelEx(&cfg, dec::moe_decode_gate_up_kernel<false>,
+                                   (const bf16*)x, tm_g, tm_u, se, counts,
+                                   hidden, P, C, D, F, act);
+  if (err != cudaSuccess) return err;
+  // the down pass, a programmatic dependent launch of the gate/up pass
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.gridDim = dim3(std::min(DN::BLOCKS_PER_SM * sms, dn_items));
+  cfg.dynamicSmemBytes = DN::SMEM;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, dec::moe_decode_down_kernel,
+                           (const float*)hidden, tm_d, se, counts, (bf16*)y, P,
+                           C, D, F);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 // float32 workspace the launch needs: the hidden activation, plus the
-// split partials on the skinny path
+// split partials on the float32 skinny path
 template <typename T>
 size_t workspace_floats(int P, int C, int D, int F, int decode) {
   size_t need = (size_t)P * C * F;
-  const SkinnyPlan pl = skinny_plan<T>(P, C, D, F);
-  if (pl.use && decode)
-    need += 2 * (size_t)pl.s1 * P * C * F + (size_t)pl.s2 * P * C * D;
+  if (std::is_same<T, float>::value && decode) {
+    const SkinnyPlan pl = skinny_plan(P, C, D, F);
+    if (pl.use)
+      need += 2 * (size_t)pl.s1 * P * C * F + (size_t)pl.s2 * P * C * D;
+  }
   return need;
 }
 
@@ -771,16 +1245,20 @@ bool aligned16(const void* p) {
 
 enum Path { SKINNY = 0, TENSOR_CORE = 1, CUDA_CORE = 2 };
 
+// SKINNY is the decode path: the float32 skinny kernels, or for bf16 the
+// decode kernels above
 template <typename T>
 Path choose_path(const void* x, const void* wg, const void* wu,
                  const void* wd, int P, int C, int D, int F, int gated,
                  int decode) {
+  constexpr bool is_bf16 = std::is_same<T, bf16>::value;
   const bool weights_aligned =
       aligned16(wu) && aligned16(wd) && (!gated || aligned16(wg));
-  if (decode && skinny_plan<T>(P, C, D, F).use && weights_aligned)
+  if (decode && weights_aligned &&
+      (is_bf16 ? decode_shapes_ok(P, C, D, F) && aligned16(x)
+               : skinny_plan(P, C, D, F).use))
     return SKINNY;
-  if (std::is_same<T, bf16>::value && tc_shapes_ok(D, F) && weights_aligned &&
-      aligned16(x))
+  if (is_bf16 && tc_shapes_ok(D, F) && weights_aligned && aligned16(x))
     return TENSOR_CORE;
   return CUDA_CORE;
 }
@@ -792,12 +1270,15 @@ cudaError_t launch(const void* x, const void* wg, const void* wu,
                    int gated, int act, int decode, cudaStream_t st) {
   const Path path = choose_path<T>(x, wg, wu, wd, P, C, D, F, gated, decode);
   if (path == SKINNY) {
-    const SkinnyPlan pl = skinny_plan<T>(P, C, D, F);
+    if constexpr (std::is_same<T, bf16>::value)
+      return launch_decode(x, wg, wu, wd, se, counts, hidden, y, P, C, D, F,
+                           gated, act, st);
+    const SkinnyPlan pl = skinny_plan(P, C, D, F);
     if (C <= 2)
-      return launch_skinny<T, 2>(pl, x, wg, wu, wd, se, counts, hidden, y,
-                                 P, C, D, F, gated, act, st);
-    return launch_skinny<T, 4>(pl, x, wg, wu, wd, se, counts, hidden, y, P,
-                               C, D, F, gated, act, st);
+      return launch_skinny<2>(pl, x, wg, wu, wd, se, counts, hidden, y, P, C,
+                              D, F, gated, act, st);
+    return launch_skinny<4>(pl, x, wg, wu, wd, se, counts, hidden, y, P, C,
+                            D, F, gated, act, st);
   }
   if (path == TENSOR_CORE)
     return launch_tc(x, wg, wu, wd, se, counts, hidden, y, P, C, D, F, gated,
@@ -820,7 +1301,7 @@ extern "C" long long moe_ffn_workspace(int P, int C, int D, int F,
                                                            decode));
 }
 
-// The path moe_ffn takes for these arguments: 0 = skinny (decode steps),
+// The path moe_ffn takes for these arguments: 0 = skinny (the decode path),
 // 1 = tensor-core tile, 2 = CUDA-core tile; -1 for an unknown dtype.
 extern "C" int moe_ffn_path(const void* x, const void* wg, const void* wu,
                             const void* wd, int P, int C, int D, int F,
@@ -838,7 +1319,7 @@ extern "C" int moe_ffn_path(const void* x, const void* wg, const void* wu,
 // reference's gather); counts [P] int32; workspace: float32 scratch of
 // moe_ffn_workspace() elements; -> y [P,C,D]; all contiguous. act 0 =
 // silu, 1 = gelu (tanh form). dtype 0 = float32, 1 = bfloat16. decode 1
-// = a decode step (may take the skinny path), 0 = a prefill or chunk call.
+// = a decode step (may take the decode path), 0 = a prefill or chunk call.
 // Returns cudaGetLastError().
 extern "C" int moe_ffn(const void* x, const void* wg, const void* wu,
                        const void* wd, const void* slot_expert,

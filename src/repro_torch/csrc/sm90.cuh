@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels:
-// asynchronous global -> shared copies (cp.async, with zero fill), the
-// warpgroup matrix multiply (wgmma) with its descriptors and fences.
+// asynchronous global -> shared copies (cp.async, with zero fill; TMA
+// tensor copies with their mbarriers and tensor maps), the warpgroup
+// matrix multiply (wgmma) with its descriptors and fences, and
+// programmatic dependent launch.
 //
 // Shared-memory operand layout. Every wgmma operand here is stored in
 // the no-swizzle ("interleave") canonical layout: the tile is cut into
@@ -21,6 +23,8 @@
 
 #include <cstdint>
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -273,6 +277,143 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+#endif
+}
+
+// D[64 x 8] (+)= A[64 x 16] * B[16 x 8]; A MN-major (the 128-byte
+// swizzled layout of stage_tile_sw128: 64 M-elements a row, rows are K),
+// B K-major (no-swizzle core matrices), both from shared memory. The
+// "swapped" product of a decode step: A is a tile of 64 weight columns,
+// B the (at most 8) tokens.
+__device__ __forceinline__ void wgmma_ss_n8_mn_a(float (&d)[4], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+#endif
+}
+
+// D[64 x 16] (+)= A[64 x 16] * B[16 x 16]; A MN-major (128-byte swizzle),
+// B K-major (no swizzle), both from shared memory: wgmma_ss_n8_mn_a's
+// product on two groups of 8 B rows at once.
+__device__ __forceinline__ void wgmma_ss_n16_mn_a(float (&d)[8], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+#endif
+}
+
+// mbarrier: a shared-memory barrier that completes a phase when its
+// arrivals and its expected transaction bytes (the bytes a TMA copy
+// delivers) are all in. Initialise with the arrival count, then make the
+// initialisation visible to the async proxy before the first copy.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+#endif
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+#endif
+}
+
+// one arrival that also expects `bytes` more transaction bytes this phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+      :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+#endif
+}
+
+// wait until the phase of parity `phase` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
+#if defined(__CUDA_ARCH__)
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(phase) : "memory");
+#endif
+}
+
+// TMA: copy the box at coordinates (c0, c1, c2) of a 3-D tensor map into
+// shared memory at dst (laid out and swizzled as the map says); the bytes
+// complete on bar's current phase. One thread issues it.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(map), "r"(smem_addr(bar)), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+#endif
+}
+
+// Host: a 3-D tensor map of the bf16 array w[E][K][Nw] (Nw contiguous),
+// boxes of 64 columns x `rows` rows of one matrix, 128-byte swizzled in
+// shared memory (the layout of stage_tile_sw128, one 64-column atom a
+// box); boxes past K or Nw are zero-filled. The encoder,
+// cuTensorMapEncodeTiled, is looked up through the runtime, so nothing
+// links against libcuda.
+inline cudaError_t make_tma_3d(CUtensorMap* map, const void* w, int E, int K,
+                               int Nw, int rows) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
+        cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || encode == nullptr)
+      return cudaErrorNotSupported;
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)Nw, (cuuint64_t)K, (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)Nw * 2, (cuuint64_t)K * Nw * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Programmatic dependent launch. A primary kernel's blocks call
+// launch_dependents to let the next kernel on the stream (launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization) start on SMs they
+// free; that kernel calls wait before it reads what the primary wrote
+// (it returns once the primary grid has completed and its writes are
+// visible; at once when there is no primary).
+__device__ __forceinline__ void griddep_launch_dependents() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+#endif
+}
+
+__device__ __forceinline__ void griddep_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 #endif
 }
 

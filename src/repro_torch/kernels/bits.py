@@ -1,31 +1,34 @@
-"""Digests of the attention kernels' and the expert FFN's outputs on seeded
-inputs, to show that a change to a kernel's source kept the bits of the
-shapes it had before; and, against another copy of the sources, both
-trees' times at the serving shapes.
+"""Digests of the attention kernels', the expert FFN's and the SSD scan's
+outputs on seeded inputs, to show that a change to a kernel's source kept
+the bits of the shapes it had before; and, against another copy of the
+sources, both trees' times at the serving shapes.
 
 The attention cases are the (Dh, G) pairs the decode kernels (fused and
 paged) were built for before head dims 80 and 256 and group size 6 came in
 (Dh 32, 64, 112, 128 at G 1, 2, 4, 8) and the flash kernel's head dims of
 that time, each in float32 and bfloat16, with a window, a softcap and
-masked positions. The expert FFN's cases run its skinny, tensor-core and
-CUDA-core paths. Inputs come from numpy, seeded per case, so every machine
-gives the kernels the same bits.
+masked positions. The expert FFN's cases run its decode ("skinny"),
+tensor-core and CUDA-core paths; the scan's cases take 2, 3 and 127
+chunks (y and the final state in one digest). Inputs come from numpy,
+seeded per case, so every machine gives the kernels the same bits.
 
     PYTHONPATH=src python -m repro_torch.kernels.bits               # digests
     PYTHONPATH=src python -m repro_torch.kernels.bits --csrc DIR    # and DIR's
     PYTHONPATH=src python -m repro_torch.kernels.bits --csrc DIR --time
 
 With ``--csrc DIR`` it also builds ``DIR/decode_attention.cu``,
-``DIR/flash_attention.cu`` and ``DIR/moe_gemm.cu`` (another copy of the
-sources, e.g. an earlier commit's, with the same C entry points; a decode
-source without ``decode_attention_workspace`` is called without the split
-body's scratch) and compares every digest with this checkout's. It fails
-unless the cases in ``KEPT`` are equal: the 40 float32 attention cases,
-whose bodies no later change touched. The others are reported: bf16 flash
-(its tensor-core body rounds per key tile), bf16 decode (its split body
-sums per tile and per split) and the expert FFN (its tensor-core path was
-redesigned). ``--time`` then times both trees' decode, paged, flash and
-expert-FFN entry points at the serving shapes (``TIMED``), in turns on one
+``DIR/flash_attention.cu``, ``DIR/moe_gemm.cu`` and ``DIR/ssm_scan.cu``
+(another copy of the sources, e.g. an earlier commit's, with the same C
+entry points; a decode source without ``decode_attention_workspace`` is
+called without the split body's scratch) and compares every digest with
+this checkout's. It fails unless the cases in ``KEPT`` are equal: the 40
+float32 attention cases, whose bodies no later change touched, and the 6
+scan cases (its chunk-parallel form keeps every element's order of
+sums). The others are reported: bf16 flash (its tensor-core body rounds
+per key tile), bf16 decode (its split body sums per tile and per split)
+and the expert FFN (its tensor-core and decode paths were redesigned).
+``--time`` then times both trees' decode, paged, flash, expert-FFN and
+scan entry points at the serving shapes (``TIMED``), in turns on one
 card: DIR's, this checkout's, this checkout's, DIR's. Needs an NVIDIA GPU
 and nvcc.
 """
@@ -53,13 +56,19 @@ CASES = ([(k, dh, g, dt) for k in ("fused", "paged") for dh in DECODE_DH
           for g in DECODE_G for dt in DTYPES]
          + [("flash", dh, g, dt) for dh in FLASH_DH for g in (1, 4)
             for dt in DTYPES])
-#: (kernel, C, decode, dtype): the expert FFN's skinny path (decode at C
-#: 2), its tensor-core path (bf16 otherwise) and its CUDA-core path (fp32)
-MOE_CASES = [("moe", c, dec, dt) for c, dec in ((2, True), (2, False),
-                                                (40, False), (130, False))
+#: (kernel, C, decode, dtype): the expert FFN's decode path (decode steps
+#: at C 2 and 8; float32 at C 8 takes the CUDA-core path), its
+#: tensor-core path (bf16 otherwise) and its CUDA-core path (fp32)
+MOE_CASES = [("moe", c, dec, dt) for c, dec in ((2, True), (8, True),
+                                                (2, False), (40, False),
+                                                (130, False))
              for dt in DTYPES]
+#: (kernel, S, B, dtype): the SSD scan at chunk 64 (S 127 runs 127 chunks
+#: of 1 step), H 4, P = N = 64
+SCAN_CASES = [("scan", s, 2, dt) for s in (128, 192, 127) for dt in DTYPES]
+SCAN_H, SCAN_PN, SCAN_CHUNK = 4, 64, 64
 #: the cases whose bits a change to the sources must keep
-KEPT = [c for c in CASES if c[3] == "float32"]
+KEPT = [c for c in CASES if c[3] == "float32"] + SCAN_CASES
 B, HKV, SC, PT, NBLK, S = 3, 2, 70, 16, 5, 45
 WINDOW, SOFTCAP = 24, 30.0
 MOE_P, MOE_D, MOE_F, MOE_E = 4, 96, 160, 3
@@ -75,6 +84,12 @@ def inputs(case):
 
     def randn(*shape):
         return r.normal(size=shape).astype(np.float32)
+    if kernel == "scan":
+        s, bs = dh, g
+        return (randn(bs, s, SCAN_H, SCAN_PN),
+                np.log1p(np.exp(randn(bs, s, SCAN_H))),
+                -np.exp(randn(SCAN_H) * 0.5),
+                randn(bs, s, SCAN_PN) * 0.3, randn(bs, s, SCAN_PN) * 0.3)
     if kernel == "moe":
         c = dh
         x = randn(MOE_P, c, MOE_D)
@@ -112,10 +127,13 @@ def inputs(case):
 
 
 def _tensors(case):
+    """The case's arguments on the card, floats in the case's dtype (the
+    scan's dt, a, b and c stay float32)."""
     dtype = getattr(torch, case[3])
-    return [torch.from_numpy(a).cuda().to(dtype)
-            if a.dtype == np.float32 else torch.from_numpy(a).cuda()
-            for a in inputs(case)]
+    args = [torch.from_numpy(a).cuda() for a in inputs(case)]
+    n = 1 if case[0] == "scan" else len(args)
+    return [a.to(dtype) if i < n and a.dtype == torch.float32 else a
+            for i, a in enumerate(args)]
 
 
 def run_port(case):
@@ -123,7 +141,10 @@ def run_port(case):
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels import ssm_scan as ss
     args = _tensors(case)
+    if case[0] == "scan":
+        return ss.ssm_scan_cuda(*args, chunk=SCAN_CHUNK)
     if case[0] == "moe":
         return mg.expert_ffn_cuda(*args, decode=case[2])
     if case[0] == "fused":
@@ -136,8 +157,11 @@ def run_port(case):
 
 def run_library(case, libs):
     """The case through the C entry points of ``libs`` (``decode``,
-    ``flash`` and ``moe`` CDLLs built from another copy of the sources)."""
+    ``flash``, ``moe`` and ``scan`` CDLLs built from another copy of the
+    sources)."""
     args = _tensors(case)
+    if case[0] == "scan":
+        return scan_call(libs["scan"], *args)()
     if case[0] == "moe":
         return moe_call(libs["moe"], *args, decode=case[2])()
     if case[0] == "flash":
@@ -185,11 +209,38 @@ def decode_call(lib, q, kv, *rest, window=0, softcap=0.0):
 
 
 def digest(t) -> str:
-    """The first 16 hex digits of the sha256 of the tensor's bytes."""
-    a = t.contiguous().cpu()
-    if a.dtype == torch.bfloat16:
-        a = a.view(torch.int16)
-    return hashlib.sha256(a.numpy().tobytes()).hexdigest()[:16]
+    """The first 16 hex digits of the sha256 of the tensor's bytes (of
+    each tensor's in turn, for a tuple)."""
+    h = hashlib.sha256()
+    for a in (t if isinstance(t, tuple) else (t,)):
+        a = a.contiguous().cpu()
+        if a.dtype == torch.bfloat16:
+            a = a.view(torch.int16)
+        h.update(a.numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def scan_call(lib, x, dt, a, b, c, *, chunk=SCAN_CHUNK):
+    """A closure that runs ``lib``'s ``ssm_scan`` on these arguments."""
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels.ref import scan_chunk
+    bs, s, h, p = x.shape
+    n = b.shape[-1]
+    y = torch.empty_like(x)
+    hf = torch.empty((bs, h, p, n), dtype=torch.float32, device=x.device)
+    fn = lib.ssm_scan
+    fn.argtypes, fn.restype = ss.KERNEL.argtypes, ctypes.c_int
+    call = [build.ptr(t) for t in (x, dt, a, b, c, y, hf)] + [
+        bs, s, h, p, n, scan_chunk(s, chunk),
+        build.DTYPE_CODES[str(x.dtype)], build.stream_ptr(x)]
+
+    def run():
+        call[-1] = build.stream_ptr(x)      # the current stream: graphs
+        err = fn(*call)
+        if err:
+            raise RuntimeError(f"ssm_scan: CUDA error {err}")
+        return y, hf
+    return run
 
 
 def moe_call(lib, x, wg, wu, wd, se, cnt, *, decode):
@@ -210,6 +261,7 @@ def moe_call(lib, x, wg, wu, wd, se, cnt, *, decode):
         p, c, d, f, 1, 0, code, int(decode), build.stream_ptr(x)]
 
     def run():
+        call[-1] = build.stream_ptr(x)      # the current stream: graphs
         err = fn(*call)
         if err:
             raise RuntimeError(f"moe_ffn: CUDA error {err}")
@@ -219,12 +271,13 @@ def moe_call(lib, x, wg, wu, wd, se, cnt, *, decode):
 
 
 def build_other(csrc: Path, out_dir: Path):
-    """Build DIR's decode, flash and expert-FFN sources (the port's nvcc
-    flags)."""
+    """Build DIR's decode, flash, expert-FFN and scan sources (the port's
+    nvcc flags)."""
     out_dir.mkdir(parents=True, exist_ok=True)
     libs, procs = {}, []
     for key, name in (("decode", "decode_attention"),
-                      ("flash", "flash_attention"), ("moe", "moe_gemm")):
+                      ("flash", "flash_attention"), ("moe", "moe_gemm"),
+                      ("scan", "ssm_scan")):
         so = out_dir / f"lib{name}.so"
         procs.append((key, so, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
@@ -240,9 +293,9 @@ def build_other(csrc: Path, out_dir: Path):
 
 #: (name, kind, shape) of every shape ``--time`` runs both trees at: the
 #: decode rows (fused and paged; rows' next positions drawn in [lo, Sc -
-#: 1), or in [ring] over a wrapped ring), the flash rows and the
-#: expert-FFN rows of the serving paths (Mixtral-8x7B's expert bank, 8 of
-#: 16 slots active)
+#: 1), or in [ring] over a wrapped ring), the flash rows, the expert-FFN
+#: rows of the serving paths (Mixtral-8x7B's expert bank, 8 of 16 slots
+#: active) and the SSD scan at Zamba2-7B's prefill of one prompt
 TIMED = ([
     ("decode mixtral B8 Sc512", "decode",
      dict(b=8, h=32, hkv=8, dh=128, sc=512, lo=128)),
@@ -277,8 +330,9 @@ TIMED = ([
     ("flash qwen2 chunk B8 C256 Sk1024", "chunk",
      dict(b=8, c=256, sk=1024, h=12, hkv=2, dh=128, starts=(512,))),
 ] + [(f"moe C{c}" + (" decode" if dec else ""), "moe", dict(c=c, decode=dec))
-     for c, dec in ((2, True), (2, False), (4, False), (8, False),
-                    (64, False), (128, False), (256, False))])
+     for c, dec in ((2, True), (8, True), (2, False), (4, False),
+                    (8, False), (64, False), (128, False), (256, False))
+] + [("scan zamba2 B1 S128 H112", "scan", dict(b=1, s=128, h=112))])
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -327,6 +381,15 @@ def timed_inputs(kind, shape, g):
     def randn(*sh, scale=1.0):
         return (torch.randn(sh, generator=g, device="cuda") *
                 scale).bfloat16()
+    if kind == "scan":
+        bs, s, h = shape["b"], shape["s"], shape["h"]
+        f32 = dict(generator=g, device="cuda")
+        return dict(x=randn(bs, s, h, 64),
+                    dt=torch.nn.functional.softplus(torch.randn(bs, s, h,
+                                                                **f32)),
+                    a=-torch.exp(torch.randn(h, **f32) * 0.5),
+                    b=torch.randn(bs, s, 64, **f32) * 0.3,
+                    c=torch.randn(bs, s, 64, **f32) * 0.3)
     if kind == "moe":
         c, d, f = shape["c"], 4096, 14336
         x = randn(16, c, d)
@@ -409,7 +472,11 @@ def plain(kind, kw):
     (the 16-slot gather of the bank would take 22 GiB)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels import ref as kref
     from repro_torch.models.attention import blockwise_attention
+    if kind == "scan":
+        kw = dict(kw, x=kw["x"].float())
+        return kref.ssm_scan_chunked_ref(**kw, chunk=SCAN_CHUNK)[0]
     if kind == "decode":
         return da.decode_attention_plain(*kw["args"], window=kw["window"],
                                          softcap=kw["softcap"]).float()
@@ -429,6 +496,39 @@ def plain(kind, kw):
                                block_k=16).float()
 
 
+def graph_ms(fns, calls: int = 20, reps: int = 5) -> float:
+    """The device time of one call, without host time: ``calls`` calls,
+    taking the closures ``fns`` in turn, captured in one CUDA graph and
+    replayed back to back (median of ``reps`` CUDA-event timings, divided
+    by ``calls``); closures over copies of the inputs keep each call's
+    reads out of L2."""
+    seq = [fns[i % len(fns)] for i in range(calls)]
+    for fn in seq:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in seq:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def out(result):
+    """A call's output: y of the scan's (y, h_final)."""
+    return result[0] if isinstance(result, tuple) else result
+
+
 def time_trees(libs_other, libs_mine):
     """Both trees at every TIMED shape, in turns (other, mine, mine,
     other); prints each time and each tree's largest error against the
@@ -438,6 +538,8 @@ def time_trees(libs_other, libs_mine):
         kw = timed_inputs(kind, shape, g)
         if kind == "moe":
             mk = lambda libs: moe_call(libs["moe"], **kw)  # noqa: E731
+        elif kind == "scan":
+            mk = lambda libs: scan_call(libs["scan"], **kw)  # noqa: E731
         elif kind in ("decode", "paged"):
             mk = lambda libs: decode_call(  # noqa: E731
                 libs["decode"], *kw["args"], window=kw["window"],
@@ -446,7 +548,7 @@ def time_trees(libs_other, libs_mine):
             mk = lambda libs: flash_call(libs["flash"], **kw)  # noqa: E731
         other, mine = mk(libs_other), mk(libs_mine)
         want = plain(kind, kw)
-        errs = [(fn().float() - want).abs().max().item()
+        errs = [(out(fn()).float() - want).abs().max().item()
                 for fn in (other, mine)]
         del want
         t = [time_ms(fn) for fn in (other, mine, mine, other)]
@@ -454,6 +556,21 @@ def time_trees(libs_other, libs_mine):
               f"{t[1]:.4f} / {t[2]:.4f} ms (x{(t[0] + t[3]) / (t[1] + t[2]):.2f}"
               f"); max abs err against the bf16 plain version: other "
               f"{errs[0]:.3e}, this checkout {errs[1]:.3e}")
+        if kind in ("moe", "scan"):
+            # the scan's inputs fit in L2: 20 copies, one a call
+            copies = [kw] + ([{k: v.clone() if torch.is_tensor(v) else v
+                               for k, v in kw.items()} for _ in range(19)]
+                             if kind == "scan" else [])
+            trees = {"other": libs_other, "mine": libs_mine}
+            fns = {k: [(scan_call(lib["scan"], **c) if kind == "scan" else
+                        moe_call(lib["moe"], **c)) for c in copies]
+                   for k, lib in trees.items()}
+            gt = [graph_ms(fns[k]) for k in ("other", "mine", "mine",
+                                               "other")]
+            print(f"    in a CUDA graph (no host time): other {gt[0]:.4f} / "
+                  f"{gt[3]:.4f} ms, this checkout {gt[1]:.4f} / "
+                  f"{gt[2]:.4f} ms")
+            del copies, fns
         del kw, other, mine
         torch.cuda.empty_cache()
 
@@ -470,7 +587,7 @@ def main(argv=None) -> int:
         print("bits: no CUDA device visible", file=sys.stderr)
         return 2
     build.build_all()
-    cases = CASES + MOE_CASES
+    cases = CASES + MOE_CASES + SCAN_CASES
     mine = {case: digest(run_port(case)) for case in cases}
     for case, d in mine.items():
         print(f"{case}: {d}")
@@ -484,15 +601,16 @@ def main(argv=None) -> int:
           f"to {args.csrc}'s kernels" + (f"; differ: {differ}" if differ
                                          else ""))
     print(f"{len(KEPT) - len(lost)} of the {len(KEPT)} cases to keep "
-          f"(float32 decode and flash) equal" + (f"; LOST: {lost}" if lost
-                                              else ""))
+          f"(float32 decode and flash, the scan) equal"
+          + (f"; LOST: {lost}" if lost else ""))
     if args.time:
         print(f"times at the serving shapes, {torch.cuda.get_device_name(0)}"
               f" (median of 20 CUDA-event runs, L2 flushed), "
               f"{args.csrc}'s tree against this checkout's, in turns:")
         time_trees(libs, {"decode": build.library("decode_attention"),
                           "flash": build.library("flash_attention"),
-                          "moe": build.library("moe_gemm")})
+                          "moe": build.library("moe_gemm"),
+                          "scan": build.library("ssm_scan")})
     return 1 if lost else 0
 
 

@@ -11,6 +11,7 @@ per slot) makes empty slots produce 0 and, in the kernel, cost nothing.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,29 +25,37 @@ KERNEL = build.CudaKernel(
     "moe_gemm", "moe_ffn", [_P] * 8 + [_I] * 8 + [_P],
     replaces="src/repro/kernels/moe_gemm.py:72")
 ACT_CODES = {"silu": 0, "gelu": 1}
-#: the kernel's paths, in the order of the C source's codes
+#: the kernel's paths, in the order of the C source's codes ("skinny" is
+#: the decode path: bf16 decode steps at C <= 8, float32 at C <= 4)
 PATHS = ("skinny", "tensor_core", "cuda_core")
 #: launches per path, counted with ``KERNEL.launches``
 path_launches = dict.fromkeys(PATHS, 0)
+#: (P, C, D, F, dtype code, decode, gated, x aligned, weights aligned) ->
+#: (float32 workspace elements, path), as the C source computes them
+_plans: dict = {}
 
 
-def _workspace_floats(p: int, c: int, d: int, f: int, code: int,
-                      decode: int) -> int:
-    """Float32 scratch the launch needs (hidden activation and, on the
-    decode path, split partials), as the CUDA source computes it."""
-    fn = build.library("moe_gemm").moe_ffn_workspace
-    fn.argtypes = [_I] * 6
-    fn.restype = ctypes.c_longlong
-    return int(fn(p, c, d, f, code, decode))
-
-
-def _path(x, w_gate, w_up, w_down, p, c, d, f, gated, code, decode) -> str:
-    """The path the kernel takes for these arguments, as it chooses it."""
+@functools.lru_cache(maxsize=None)
+def _path_fn():
     fn = build.library("moe_gemm").moe_ffn_path
     fn.argtypes = [_P] * 4 + [_I] * 7
     fn.restype = _I
-    return PATHS[fn(build.ptr(x), build.ptr(w_gate), build.ptr(w_up),
-                    build.ptr(w_down), p, c, d, f, gated, code, decode)]
+    return fn
+
+
+def _plan(ptrs, p, c, d, f, gated, code, dec):
+    """The workspace size and path of a launch, asked of the C source once
+    per shape, kind and alignment (16-byte alignment of x and of the
+    weights is all the path reads of the pointers)."""
+    key = (p, c, d, f, code, dec, gated, ptrs[0] % 16 == 0,
+           (ptrs[1] | ptrs[2] | ptrs[3]) % 16 == 0)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = (
+            build.size("moe_gemm", "moe_ffn_workspace", p, c, d, f, code,
+                       dec),
+            PATHS[_path_fn()(*ptrs, p, c, d, f, gated, code, dec)])
+    return plan
 
 
 def expert_ffn_plain(x, w_gate, w_up, w_down, slot_expert, counts, *,
@@ -67,8 +76,8 @@ def expert_ffn_cuda(x, w_gate, w_up, w_down, slot_expert, counts, *,
                     decode: bool, act: str = "silu"):
     """Launch the CUDA kernel; same contract as ``expert_ffn_plain``.
     ``decode`` False (a prefill or chunk call) keeps the kernel off its
-    skinny path, which rounds unlike the tile paths: a token's bits then
-    do not depend on the capacity C of its call."""
+    decode path ("skinny"), which rounds unlike the tile paths: a token's
+    bits then do not depend on the capacity C of its call."""
     p, c, d = x.shape
     e, _, f = w_up.shape
     if w_up.shape != (e, d, f) or w_down.shape != (e, f, d) or \
@@ -86,17 +95,20 @@ def expert_ffn_cuda(x, w_gate, w_up, w_down, slot_expert, counts, *,
     x = x.contiguous()
     w_up, w_down = w_up.contiguous(), w_down.contiguous()
     w_gate = w_up if w_gate is None else w_gate.contiguous()
-    slot_expert = slot_expert.to(torch.int32).contiguous()
-    counts = counts.to(torch.int32).contiguous()
+    if slot_expert.dtype != torch.int32:
+        slot_expert = slot_expert.to(torch.int32)
+    if counts.dtype != torch.int32:
+        counts = counts.to(torch.int32)
+    slot_expert, counts = slot_expert.contiguous(), counts.contiguous()
     dec = int(bool(decode))
-    workspace = torch.empty((_workspace_floats(p, c, d, f, code, dec),),
-                            dtype=torch.float32, device=x.device)
-    y = torch.empty_like(x)
     gated = int(len(ws) == 3)
-    path = _path(x, w_gate, w_up, w_down, p, c, d, f, gated, code, dec)
-    KERNEL(build.ptr(x), build.ptr(w_gate), build.ptr(w_up),
-           build.ptr(w_down), build.ptr(slot_expert), build.ptr(counts),
-           build.ptr(workspace), build.ptr(y), p, c, d, f, gated,
+    ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            w_down.data_ptr())
+    floats, path = _plan(ptrs, p, c, d, f, gated, code, dec)
+    workspace = torch.empty((floats,), dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    KERNEL(*ptrs, slot_expert.data_ptr(), counts.data_ptr(),
+           workspace.data_ptr(), y.data_ptr(), p, c, d, f, gated,
            ACT_CODES[act], code, dec, build.stream_ptr(x))
     path_launches[path] += 1
     return y

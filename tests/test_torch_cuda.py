@@ -107,7 +107,7 @@ def test_expert_ffn_kernel(dev, dtype, c, gated, act):
 
 @pytest.mark.parametrize("c,path", [(2, "skinny"), (12, "tensor_core"),
                                     (40, "tensor_core"),
-                                    (130, "tensor_core")])
+                                    (130, "tensor_core"), (8, "skinny")])
 def test_expert_ffn_bf16_rounds_once(dev, c, path):
     """In bfloat16 each path keeps float32 inside (hidden activation
     included) and rounds once, at the output: within half an ulp of the
@@ -129,7 +129,7 @@ def test_expert_ffn_bf16_rounds_once(dev, c, path):
                  1e-4 + 2.0 ** -8 * want.abs()).all())
 
 
-@pytest.mark.parametrize("c", [4, 24])
+@pytest.mark.parametrize("c", [4, 24, 1, 8])
 def test_shadow_slot_is_bitwise_the_primary(dev, c):
     """A shadow slot that holds expert e computes bitwise what e's primary
     slot computes: the failover invariant at the kernel level, on the
@@ -142,6 +142,134 @@ def test_shadow_slot_is_bitwise_the_primary(dev, c):
     cnt = torch.tensor([c, c], dtype=torch.int32, device=dev)
     y = mg.expert_ffn_cuda(x, w[0], w[1], wd, se, cnt, decode=True)
     assert torch.equal(y[0], y[1])
+
+
+def _decode_ffn_case(r, dev, d=256, f=512, e=3):
+    """A bf16 bank of e experts at widths (d, f) that take the decode
+    path's ragged column tiles (f not a multiple of 128)."""
+    wg, wu = (_randn(r, (e, d, f), torch.bfloat16, dev, d ** -0.5)
+              for _ in range(2))
+    wd = _randn(r, (e, f, d), torch.bfloat16, dev, f ** -0.5)
+    return wg, wu, wd
+
+
+def _decode_ffn(x, wg, wu, wd, se, cnt):
+    n = dict(mg.path_launches)
+    y = mg.expert_ffn_cuda(x, wg, wu, wd, se, cnt, decode=True)
+    assert {k for k, v in mg.path_launches.items() if v != n[k]} == \
+        {"skinny"}
+    return y
+
+
+def test_decode_ffn_row_bits_do_not_depend_on_c_or_its_row(dev):
+    """The decode path (bf16, C <= 8) pads C to 8 and takes one product
+    shape and one k order: a token's row has the same bits alone and in a
+    slot of any C from 1 to 8, at every row index, whatever the other
+    rows hold."""
+    r = np.random.default_rng(7)
+    wg, wu, wd = _decode_ffn_case(r, dev, d=264, f=712)
+    se = torch.tensor([2], dtype=torch.int32, device=dev)
+    tok = _randn(r, (1, 1, 264), torch.bfloat16, dev)
+    alone = _decode_ffn(tok, wg, wu, wd, se,
+                        torch.ones(1, dtype=torch.int32, device=dev))
+    for c in range(1, 9):
+        for row in range(c):
+            x = _randn(r, (1, c, 264), torch.bfloat16, dev)
+            x[0, row] = tok[0, 0]
+            cnt = torch.full((1,), c, dtype=torch.int32, device=dev)
+            y = _decode_ffn(x, wg, wu, wd, se, cnt)
+            assert torch.equal(y[0, row], alone[0, 0]), (c, row)
+
+
+def test_decode_ffn_live_pattern_changes_no_bits(dev):
+    """16 slots (shadows of the primaries, a -1 slot) in one call: under
+    every pattern of live and empty slots tried (each slot alone, each
+    left out, all, none, alternating and 24 drawn at random), a live
+    slot's rows have the bits of the all-live call and an empty slot's
+    (counts 0) are exact zeros."""
+    r = np.random.default_rng(8)
+    wg, wu, wd = _decode_ffn_case(r, dev, e=4)
+    se = torch.tensor([0, 1, 2, 3, 0, 1, 2, 3, 0, 1, 2, 3, -1, 1, 2, 3],
+                      dtype=torch.int32, device=dev)
+    x = _randn(r, (16, 4, 256), torch.bfloat16, dev)
+    full = _decode_ffn(x, wg, wu, wd, se,
+                       torch.full((16,), 4, dtype=torch.int32, device=dev))
+    eye = np.eye(16, dtype=bool)
+    pats = list(eye) + list(~eye) + [np.ones(16, bool), np.zeros(16, bool),
+                                     np.arange(16) % 2 == 0]
+    pats += list(r.random((24, 16)) < 0.5)
+    for live in pats:
+        cnt = torch.from_numpy(np.where(live, 4, 0).astype(np.int32)).to(dev)
+        y = _decode_ffn(x, wg, wu, wd, se, cnt)
+        for p_ in range(16):
+            if live[p_]:
+                assert torch.equal(y[p_], full[p_]), (live, p_)
+            else:
+                assert not y[p_].float().abs().max().item(), (live, p_)
+    # a shadow slot gives its primary's bits, -1 reads expert 0
+    x = x[:1].repeat(16, 1, 1)
+    y = _decode_ffn(x, wg, wu, wd, se,
+                    torch.full((16,), 4, dtype=torch.int32, device=dev))
+    for p_ in range(4, 16):
+        assert torch.equal(y[p_], y[max(int(se[p_]), 0)])
+
+
+def test_decode_ffn_runs_streams_and_graphs_agree(dev):
+    """Two runs, two streams at once, and a replayed CUDA graph give the
+    decode path the same bits (the down pass is a programmatic dependent
+    launch of the gate/up pass; nothing is shared between calls)."""
+    r = np.random.default_rng(9)
+    wg, wu, wd = _decode_ffn_case(r, dev, d=512, f=1024, e=4)
+    se = torch.tensor([0, 1, 2, 3, 0, 1], dtype=torch.int32, device=dev)
+    cases = []
+    for c in (2, 8):
+        x = _randn(r, (6, c, 512), torch.bfloat16, dev)
+        cases.append((x, torch.tensor([c, c, 0, c, 1, c], dtype=torch.int32,
+                                      device=dev)))
+    want = [_decode_ffn(x, wg, wu, wd, se, cnt) for x, cnt in cases]
+    assert all(torch.equal(w, _decode_ffn(x, wg, wu, wd, se, cnt))
+               for w, (x, cnt) in zip(want, cases))
+    streams = [torch.cuda.Stream() for _ in cases]
+    torch.cuda.synchronize()
+    for _ in range(10):
+        got = []
+        for st, (x, cnt) in zip(streams, cases):
+            with torch.cuda.stream(st):
+                got.append(_decode_ffn(x, wg, wu, wd, se, cnt))
+        torch.cuda.synchronize()
+        assert all(torch.equal(w, g) for w, g in zip(want, got))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [_decode_ffn(x, wg, wu, wd, se, cnt) for x, cnt in cases]
+    for _ in range(3):
+        for o in outs:
+            o.fill_(1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(w, o) for w, o in zip(want, outs))
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+def test_decode_ffn_rounds_once_at_mixtral_widths(dev, c):
+    """bf16 within half an ulp + 1e-4 of the float32 plain version at
+    Mixtral-8x7B's widths (D 4096, F 14336, 16 slots, 8 live), on the
+    live slots (the float32 bank is held only for them)."""
+    g = torch.Generator(device="cuda").manual_seed(c)
+    d, f = 4096, 14336
+    bank = [(torch.randn((8, d, f), generator=g, device="cuda") *
+             d ** -0.5).bfloat16() for _ in range(2)]
+    wdn = (torch.randn((8, f, d), generator=g, device="cuda") *
+           f ** -0.5).bfloat16()
+    se = torch.tensor(list(range(8)) + [0, 1, 2, 3] * 2, dtype=torch.int32,
+                      device="cuda")
+    cnt = torch.tensor([c] * 8 + [0] * 8, dtype=torch.int32, device="cuda")
+    x = torch.randn((16, c, d), generator=g, device="cuda").bfloat16()
+    got = _decode_ffn(x, bank[0], bank[1], wdn, se, cnt)
+    assert not got[8:].float().abs().max().item()
+    want = mg.expert_ffn_plain(x[:8].float(), bank[0].float(),
+                               bank[1].float(), wdn.float(), se[:8], cnt[:8])
+    assert bool(((got[:8].float() - want).abs() <=
+                 1e-4 + 2.0 ** -8 * want.abs()).all())
 
 
 def _paged_case(r, b, h, hkv, dh, nblk, pt, dtype, dev):
@@ -252,6 +380,8 @@ def _scan_inputs(r, bs, s, h, p, n, dtype, dev):
     (1, 1, 8, 64, 64, 64),         # one step
     (1, 127, 4, 64, 64, 64),       # odd: the chunk halves down to 1
     (2, 21, 2, 16, 16, 64),        # odd: one chunk of 21
+    (1, 64, 4, 64, 64, 64),        # one full chunk
+    (2, 192, 4, 64, 64, 64),       # three chunks
 ])
 def test_ssm_scan_kernel(dev, bs, s, h, p, n, chunk):
     """float32 within 2e-4 of the plain chunked scan (the bar the Pallas
@@ -269,15 +399,36 @@ def test_ssm_scan_kernel(dev, bs, s, h, p, n, chunk):
     torch.testing.assert_close(hf, sh, rtol=2e-4, atol=2e-4)
 
 
-def test_ssm_scan_kernel_bf16_rounds_once(dev):
+@pytest.mark.parametrize("s", [128, 1, 64, 127, 192])
+def test_ssm_scan_kernel_bf16_rounds_once(dev, s):
     """bfloat16 x: float32 inside, one rounding of y at the output."""
     r = np.random.default_rng(1)
-    args = _scan_inputs(r, 1, 128, 112, 64, 64, torch.bfloat16, dev)
+    args = _scan_inputs(r, 1, s, 112, 64, 64, torch.bfloat16, dev)
     y, hf = ss.ssm_scan_cuda(*args, chunk=64)
     assert y.dtype == torch.bfloat16 and hf.dtype == torch.float32
     wy, wh = kref.ssm_scan_chunked_ref(args[0].float(), *args[1:], chunk=64)
     assert bool(((y.float() - wy).abs() <= 1e-4 + 2.0 ** -8 * wy.abs()).all())
     torch.testing.assert_close(hf, wh, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [127, 192])
+def test_ssm_scan_rows_do_not_depend_on_the_call(dev, dtype, s):
+    """The chunks of a (b, h) run side by side in one cluster: y and the
+    final state of each (b, h) have the same bits whatever B and H of the
+    call (each (b, h) alone against the whole call)."""
+    r = np.random.default_rng(s)
+    bs, h = 3, 5
+    x, dt, a, b, c = _scan_inputs(r, bs, s, h, 64, 64, dtype, dev)
+    y, hf = ss.ssm_scan_cuda(x, dt, a, b, c)
+    for i in range(bs):
+        for j in range(h):
+            yi, hi = ss.ssm_scan_cuda(
+                x[i:i + 1, :, j:j + 1].contiguous(),
+                dt[i:i + 1, :, j:j + 1].contiguous(), a[j:j + 1].contiguous(),
+                b[i:i + 1].contiguous(), c[i:i + 1].contiguous())
+            assert torch.equal(yi[0, :, 0], y[i, :, j])
+            assert torch.equal(hi[0, 0], hf[i, j])
 
 
 def test_ssm_scan_refuses_what_it_does_not_take(dev):

@@ -293,20 +293,40 @@ def test_moe_gemm_ref(gated, act):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("gated,act", [(True, "silu"), (False, "gelu")])
-def test_expert_ffn_plain_vs_pallas(gated, act):
+# (gated, act, C, slot layout): the prefill-sized call of six slots, and
+# the decode shapes (C 1, 2, 4 and 8) over 16 slots: 4 primaries, their
+# shadows, a -1 slot and empty slots
+FFN_CASES = [(True, "silu", 16, "six"), (False, "gelu", 16, "six")] + [
+    (gated, act, c, "shadows") for c in (1, 2, 4, 8)
+    for gated, act in ((True, "silu"), (False, "gelu"))]
+FFN_SLOTS = {
+    "six": ([0, 1, 2, 3, 1, -1], [3, 0, 16, 1, 2, 5]),
+    "shadows": ([0, 1, 2, 3, 0, 1, 2, 3, 0, 1, 2, 3, -1, 1, 2, 3],
+                [8, 1, 0, 8, 8, 0, 0, 2, 0, 0, 0, 0, 5, 0, 8, 0]),
+}
+
+
+@pytest.mark.parametrize(
+    "gated,act,c,slots", FFN_CASES,
+    ids=[f"{g}-{a}" + ("" if sl == "six" else f"-decode-C{c}")
+         for g, a, c, sl in FFN_CASES])
+def test_expert_ffn_plain_vs_pallas(gated, act, c, slots):
     """The port's expert FFN takes the stored bank plus slot_expert; the
     reference's model path gathers the slot bank first and then runs the
     TPU kernel. Slots with count 0 are 0 in both, and a -1 slot reads
-    expert 0 as the reference's gather does."""
-    r = np.random.default_rng(5)
-    p, c, d, f, e = 6, 16, 32, 64, 4
+    expert 0 as the reference's gather does; a shadow slot's rows equal
+    its primary's on the same tokens."""
+    r = np.random.default_rng(5 if slots == "six" else 5 + c)
+    d, f, e = 32, 64, 4
+    slot_expert = np.array(FFN_SLOTS[slots][0], np.int32)
+    counts = np.minimum(np.array(FFN_SLOTS[slots][1], np.int32), c)
+    p = len(slot_expert)
     x = r.normal(size=(p, c, d)).astype(np.float32)
+    if slots == "shadows":
+        x[4:8] = x[:4]                  # shadows see their primaries' tokens
     bank = {k: (r.normal(size=shape) * 0.1).astype(np.float32)
             for k, shape in (("wg", (e, d, f)), ("wu", (e, d, f)),
                              ("wd", (e, f, d)))}
-    slot_expert = np.array([0, 1, 2, 3, 1, -1], np.int32)
-    counts = np.array([3, 0, 16, 1, 2, 5], np.int32)
     idx = np.maximum(slot_expert, 0)
     want = moe_gemm(jnp.asarray(x),
                     jnp.asarray(bank["wg"][idx]) if gated else None,
@@ -318,14 +338,18 @@ def test_expert_ffn_plain_vs_pallas(gated, act):
         torch.from_numpy(bank["wu"]), torch.from_numpy(bank["wd"]),
         torch.from_numpy(slot_expert), torch.from_numpy(counts), act=act)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    assert float(got[1].abs().max()) == 0.0
-    # ops dispatch: a [P, G, C, D] batch flattens and comes back
-    got4 = tops.expert_ffn(torch.from_numpy(x).reshape(p, 2, c // 2, d),
+    for q in np.flatnonzero(counts == 0):
+        assert float(got[q].abs().max()) == 0.0
+    if slots == "shadows":
+        assert torch.equal(got[4], got[0]) and torch.equal(got[7], got[3])
+    # ops dispatch: a [P, G, C / G, D] batch flattens and comes back
+    grp = 2 if c % 2 == 0 else 1
+    got4 = tops.expert_ffn(torch.from_numpy(x).reshape(p, grp, c // grp, d),
                            torch.from_numpy(bank["wg"]) if gated else None,
                            torch.from_numpy(bank["wu"]),
                            torch.from_numpy(bank["wd"]),
                            torch.from_numpy(slot_expert),
-                           torch.from_numpy(counts), decode=False,
+                           torch.from_numpy(counts), decode=c <= 8,
                            act=act)
     np.testing.assert_allclose(got4.reshape(p, c, d).numpy(), got.numpy(),
                                rtol=0, atol=0)

@@ -49,6 +49,7 @@ def _j(arrs):
     (2, 96, 1, 4, 8, 16),     # non-pow2 length
     (1, 1, 2, 8, 16, 64),     # one step
     (2, 21, 2, 8, 16, 64),    # odd length: one chunk of 21
+    (2, 192, 2, 8, 16, 64),   # three chunks
 ])
 def test_plain_scans_match_reference_and_pallas(bs, s, h, p, n, chunk):
     arrs = _inputs(bs, s, h, p, n, seed=s + h)
