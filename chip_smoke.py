@@ -32,8 +32,9 @@ Phases, each of which raises on failure (exit code != 0):
                 and a global cache; Danube: Dh 80, G 4, window 4096;
                 Qwen2: Dh 128, G 6, contiguous and paged decode; flash
                 for each on a 128-token prompt); the partial decode
-                kernel at both Gemma2 decode shapes (m and l, and acc / l,
-                to the float32 bar; combined, against the fused kernel);
+                kernel at Mixtral's and both Gemma2 decode shapes (m and
+                l, and acc / l, to the float32 bar; combined, against the
+                fused kernel; timed also in a CUDA graph from HBM);
                 the expert FFN at every (C, path) a later phase gives it
                 (MOE_SHAPES), the SSD scan at every (B, S) (SCAN_SHAPES)
                 and each attention kernel at every (Dh, G) (CHECKED),
@@ -61,7 +62,8 @@ Phases, each of which raises on failure (exit code != 0):
                 the decode steps inside ``step()``), the flash kernel's and
                 the expert FFN's also per kernel path; every run fails if
                 a (bf16) flash call took the CUDA-core path. Every step
-                checkpoints its KV.
+                checkpoints its KV. The partial kernel on the final caches
+                of the first layer, as in phase 9.
   5. failover — the same requests with ``engine.fail_ew(0)`` after 8
                 decode steps; every stream must equal the failure-free one
                 bit for bit.
@@ -98,9 +100,10 @@ Phases, each of which raises on failure (exit code != 0):
                 rings wrap inside prefill), 32 greedy new tokens; TTFT,
                 TBT, the per-step and install checkpoint copies. The
                 partial kernel on the final caches of one local and one
-                global layer: against the plain partials, combined against
-                the fused kernel, and two Sc halves merged in log-sum-exp
-                form and combined against the fused kernel. Then
+                global layer: against the plain partials, each row bit for
+                bit the call on that row alone, combined against the fused
+                kernel, and two Sc halves merged in log-sum-exp form and
+                combined against the fused kernel. Then
                 ``fail_aw(0)`` once every request has 16 tokens, recover,
                 provision: streams bitwise equal, and AW0 must have held a
                 request of each long kind, its ring wrapped.
@@ -303,6 +306,9 @@ def kernel_decode_attention(torch, g, records):
     # the serving shape: 8 rows, Mixtral heads, a 512-token cache
     decode_attention_at(torch, g, records, "decode_attention_fused",
                         8, 32, 8, 128, 512)
+    print("decode_attention_partial at Mixtral's decode shape")
+    partial_at(torch, g, records, "decode_attention_partial[mixtral]", 8, 32,
+               8, 128, 512)
 
 
 def ring_decode_inputs(torch, g, b, h, hkv, dh, sc, dtype, lo, hi):
@@ -427,8 +433,9 @@ def partial_at(torch, g, records, name, b, h, hkv, dh, sc, *, window=0,
                softcap=0.0, ring=None):
     """The partial kernel at a serving shape: against the plain partials
     in float32 and on bf16 inputs (its outputs are float32 either way),
-    and combined against the fused kernel; times. No single PyTorch call
-    returns softmax partials."""
+    and combined against the fused kernel; times, also in a CUDA graph
+    with its inputs read from HBM. No single PyTorch call returns softmax
+    partials."""
     from repro_torch.kernels import decode_attention as da
     kw = dict(window=window, softcap=softcap)
     tag = (f"B{b} H{h} Hkv{hkv} Dh{dh} Sc{sc}"
@@ -455,6 +462,9 @@ def partial_at(torch, g, records, name, b, h, hkv, dh, sc, *, window=0,
     CHECKED.add(("decode_attention_partial", dh, h // hkv))
     ms = time_ms(torch, lambda: da.decode_attention_partial_cuda(
         q, ck, cv, cpos, pos, **kw))
+    dev_ms = cold_graph_ms(
+        torch, lambda *a: da.decode_attention_partial_cuda(*a, **kw),
+        (q, ck, cv, cpos, pos))
     plain_ms = time_ms(torch, lambda: da.decode_attention_partial_plain(
         q, ck, cv, cpos, pos, **kw))
     valid = int(valid_keys(cpos, pos, window).sum().item())
@@ -469,9 +479,10 @@ def partial_at(torch, g, records, name, b, h, hkv, dh, sc, *, window=0,
         replaces=da.PARTIAL_KERNEL.replaces, max_abs_err=errs[-1], ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         library="none: no single PyTorch call returns softmax partials",
-        shape=f"{tag} bf16 in, float32 partials out"))
-    print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, no library call, "
-          f"bound {b_ms:.4f} ms ({b_by})")
+        graph_ms=dev_ms, shape=f"{tag} bf16 in, float32 partials out"))
+    print(f"  time {ms:.4f} ms (in a CUDA graph, L2 cold {dev_ms:.4f}), "
+          f"plain {plain_ms:.4f} ms, no library call, bound {b_ms:.4f} ms "
+          f"({b_by})")
 
 
 def paged_inputs(torch, g, b, h, hkv, dh, nblk, pt, dtype, min_len):
@@ -1358,8 +1369,14 @@ def serve_phase(torch, profile_dir=None):
     Run(torch, engine, prompts, 2)
     reset_counts()
     steps0, calls0 = engine.steps, engine.scheduler.stats.calls
-    run = Run(torch, engine, prompts, max_new)
-    launches = launch_counts()
+    part = {}
+    run = Run(torch, engine, prompts, max_new,
+              at_end=lambda eng: served_partials(torch, eng, part,
+                                                 ((0, "mixtral"),)))
+    # the run's own launches (the partial checks on its final caches come
+    # after them)
+    launches = {k: sum(ph[k] for ph in run.launches.values())
+                for k in run.launches["decode"]}
     print(f"  main path launches: {launches} "
           f"({engine.scheduler.stats.calls - calls0} prefill calls, "
           f"{engine.steps - steps0} decode steps)")
@@ -1410,7 +1427,7 @@ def serve_phase(torch, profile_dir=None):
     engine.provision_ew(0)
     if profile_dir is not None:
         profile_decode(torch, engine, prompts, profile_dir)
-    return engine, prompts, run
+    return engine, prompts, run, part
 
 
 def host_ms(torch, fn, reps: int = 20) -> float:
@@ -1751,14 +1768,17 @@ def hybrid_phase(torch, profile_dir=None):
     return run
 
 
-def served_partials(torch, engine, out):
-    """The partial kernel on a served engine's final caches, one local
-    (ring) and one global layer, with seeded q/k1/v1 of the model's
-    shapes: the partials against the plain partials; the partials
-    combined against the fused kernel; the cache split in two halves
-    along Sc, each half's partials merged in log-sum-exp form, then
+def served_partials(torch, engine, out, layers):
+    """The partial kernel on a served engine's final caches, at each
+    (layer index, label) of ``layers`` (Gemma2: one local (ring) and one
+    global layer; Mixtral: its first layer), with seeded q/k1/v1 of the
+    model's shapes: the partials against the plain partials; each row of
+    the batched call bit for bit the call on that row alone (B 1); the
+    partials combined against the fused kernel; the cache split in two
+    halves along Sc, each half's partials merged in log-sum-exp form, then
     combined, against the fused kernel. Adds each layer's partial-kernel
-    launches to ``out``."""
+    launches (all of them: the batched call, the row calls and the
+    halves) to ``out`` under its label."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.models.transformer import layer_windows
     cfg = engine.cfg
@@ -1773,7 +1793,7 @@ def served_partials(torch, engine, out):
     k1, v1 = (torch.randn((b, hkv, dh), generator=g,
                           device="cuda").bfloat16() for _ in range(2))
     windows = layer_windows(cfg)
-    for li, kind in ((0, "local"), (1, "global")):
+    for li, kind in layers:
         layer = engine.cache["layers"][li]
         ck, cv, cpos = layer["k"], layer["v"], layer["pos"]
         sc = ck.shape[1]
@@ -1785,6 +1805,16 @@ def served_partials(torch, engine, out):
         check_partials(f"{tag} partials vs plain", got,
                        da.decode_attention_partial_plain(q, ck, cv, cpos,
                                                          pos, **kw))
+        alone = [da.decode_attention_partial_cuda(
+            q[i:i + 1], ck[i:i + 1], cv[i:i + 1], cpos[i:i + 1],
+            pos[i:i + 1], **kw) for i in range(b)]
+        differ = [i for i in range(b) if not all(
+            torch.equal(t[i], a[0]) for t, a in zip(got, alone[i]))]
+        print(f"  {tag} each of the {b} rows bitwise the call on that row "
+              f"alone (B 1): {'ok' if not differ else 'FAIL'}")
+        if differ:
+            raise AssertionError(f"{tag}: partials of rows {differ} differ "
+                                 f"from the same rows called alone")
         fused = da.decode_attention_cuda(q, ck, cv, cpos, k1, v1, pos, **kw)
         check(f"{tag} partials combined vs the fused kernel",
               da.combine_decode_partials(q, *got, k1, v1,
@@ -1798,7 +1828,7 @@ def served_partials(torch, engine, out):
               da.combine_decode_partials(q, *da.merge_split_partials(parts),
                                          k1, v1, softcap=cfg.attn_softcap),
               fused, "bfloat16")
-        out[kind] = da.PARTIAL_KERNEL.launches - n0
+        out[kind] = out.get(kind, 0) + da.PARTIAL_KERNEL.launches - n0
 
 
 def dense_ring_phase(torch, label, cfg, ecfg, lens, *, max_new=32,
@@ -1835,7 +1865,8 @@ def dense_ring_phase(torch, label, cfg, ecfg, lens, *, max_new=32,
     calls0, steps0 = engine.scheduler.stats.calls, engine.steps
     part = {}
     run = Run(torch, engine, prompts, max_new,
-              at_end=(lambda eng: served_partials(torch, eng, part))
+              at_end=(lambda eng: served_partials(
+                  torch, eng, part, ((0, "local"), (1, "global"))))
               if partials else None)
     calls = engine.scheduler.stats.calls - calls0
     steps = engine.steps - steps0
@@ -2153,7 +2184,8 @@ def main():
         reference_phase(torch, get_config(arch).reduced())
     phase("reference")
     print("serve: Mixtral-8x7B widths, 8 layers, bf16, contiguous KV")
-    engine, prompts, serve = serve_phase(torch, profile_dir=args.profile)
+    engine, prompts, serve, serve_part = serve_phase(
+        torch, profile_dir=args.profile)
     phase("serve + failover")
     print(f"kv plane: the same weights at capacity factor 4.0, chunked "
           f"prefill ({CHUNK_BUDGET} tokens/step), paged KV "
@@ -2251,6 +2283,7 @@ def main():
             attn(gemma2, "decode_attention_fused", True),
         "decode_attention_fused[gemma2 global]":
             attn(gemma2, "decode_attention_fused", False),
+        "decode_attention_partial[mixtral]": serve_part.get("mixtral", 0),
         "decode_attention_partial[gemma2 local]": part.get("local", 0),
         "decode_attention_partial[gemma2 global]": part.get("global", 0),
         "decode_attention_fused[danube]":

@@ -24,18 +24,20 @@
 // and neither body uses them. What keeps a kernel from the byte bound is
 // latency: too few blocks, or too few bytes in flight per SM.
 //
-// Two bodies share the layouts and the finish:
+// Two bodies share the layouts and the epilogues:
 //
-// * The split body (bfloat16 fused and paged, the serving paths):
+// * The split body (bfloat16 fused, paged and partial, the serving paths):
 //   flash-decoding. The grid is (split, kv-head, row); split s reduces the
 //   fixed logical positions [s * SPLIT, (s + 1) * SPLIT) of its row to
 //   float32 partials (m, l, acc) for the G query heads of its kv-head, and
 //   the last block of a (kv-head, row) to finish (an atomic ticket in a
 //   counter of the call's scratch, zeroed on the stream by the launch)
 //   merges the splits' partials in split
-//   order from split 0 up (all its threads, a float4 of acc each), folds
-//   (k1, v1) in and normalises with Fused::finish's arithmetic
-//   (finish_row), q, k1 and v1 read from shared memory. One launch a
+//   order from split 0 up (all its threads, a float4 of acc each). Its
+//   epilogue (the Out parameter) then either folds (k1, v1) in and
+//   normalises with Fused::finish's arithmetic (finish_row), q, k1 and v1
+//   read from shared memory, or writes the merged partials as they are
+//   (Partial: the block stages q only). One launch a
 //   call, no host sync, scratch sized by the shapes alone. A block first
 //   reads its split's positions (and, paged, block-table rows) and skips
 //   every tile of TJ positions with no valid key without loading it; a
@@ -62,9 +64,11 @@
 //   from index 0 and skip exactly the tiles and splits without a valid key,
 //   so a row's bits depend on its own cache content and pos only: not on
 //   B, the other rows, Sc or the layout. Paged == contiguous, failover ==
-//   failure-free and chunked == whole-prompt rest on it.
-// * The warp body (float32 fused and paged, and the partial kernel in both
-//   dtypes; the first design, kept for its bits): one block per (kv-head,
+//   failure-free and chunked == whole-prompt rest on it. The partial
+//   kernel's (m, l, acc) are the floats the fused kernel folds (k1, v1)
+//   into: the two epilogues share everything before them.
+// * The warp body (float32 fused, paged and partial; the first design,
+//   kept for its bits): one block per (kv-head,
 //   row). Eight warps take groups of NJ = 4 consecutive cache positions
 //   round-robin; inside a warp the 32 lanes split the head dimension (lane
 //   l owns elements l, l+32, ...; a head dimension that is not a multiple
@@ -89,14 +93,16 @@
 // A row with no valid key finishes with m = -1e30, l = 0, acc = 0 in the
 // partial kernel (the plain version's values; the TPU kernel leaves l =
 // Sc there, since its masked scores contribute exp(0) while m is still
-// -1e30). The combine sends both to the same output.
+// -1e30): in the split body every split of such a row is NEG_INF, so the
+// merge keeps mm = NEG_INF and adds nothing. The combine sends both to
+// the same output.
 //
 // (Dh, G) built: one table, `built` below, which the C entry
 // decode_attention_supports hands to the Python wrappers. The fused and
 // paged kernels: Dh in {32, 64, 112, 128} at G in {1, 2, 4, 8} (the pairs
 // built before Dh 80 and 256 came in), plus (80, 4) for H2O-Danube-1.8B,
 // (128, 6) for Qwen2-1.5B and (256, 2) for Gemma2-2B. The partial kernel:
-// those three new pairs only, where it is called. At Dh 256 the warp
+// those three new pairs and Mixtral-8x7B's (128, 4). At Dh 256 the warp
 // body's merge array sm_acc[8][G][Dh] of float32 takes 16 KB at G 2 (48
 // KB static limit); the split body takes dynamic shared memory.
 #include <type_traits>
@@ -119,8 +125,8 @@ constexpr bool fused_ok(int dh, int g) {
 }
 
 constexpr bool partial_ok(int dh, int g) {
-  return (dh == 80 && g == 4) || (dh == 128 && g == 6) ||
-         (dh == 256 && g == 2);
+  return (dh == 80 && g == 4) || (dh == 128 && g == 4) ||
+         (dh == 128 && g == 6) || (dh == 256 && g == 2);
 }
 
 // whether (Dh, G) is built for the epilogue Out (Out::kPartial)
@@ -378,7 +384,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ ck,
 }
 
 // --------------------------------------------------------------------------
-// The split body (bfloat16 fused and paged)
+// The split body (bfloat16 fused, paged and partial)
 // --------------------------------------------------------------------------
 
 namespace split {
@@ -453,13 +459,15 @@ __host__ __device__ inline size_t acc_floats(int B, int Hkv, int nsplit,
   return (size_t)B * Hkv * nsplit * G * DH;
 }
 
-template <int DH, int G, typename Layout>
+// Out: Fused<bf16> (fold (k1, v1), normalise) or Partial (the merged
+// partials as they are)
+template <int DH, int G, typename Layout, typename Out>
 __global__ void __launch_bounds__(NT)
 decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ck,
                     const bf16* __restrict__ cv, const int* __restrict__ cpos,
                     const int* __restrict__ pos, int H, int Hkv, int Sc,
                     int window, float softcap, float scale, Layout layout,
-                    Fused<bf16> fin, float* __restrict__ ws,
+                    Out fin, float* __restrict__ ws,
                     int* __restrict__ tickets) {
   using C = Cfg<DH, G>;
   extern __shared__ __align__(128) char smem[];
@@ -475,18 +483,19 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ck,
   float* ml_ws = ws + acc_floats(gridDim.z, Hkv, nsplit, G, DH) +
                  ((size_t)pair * nsplit + split) * 2 * G;
 
-  // 1. q, k1 and v1 of the (kv-head, row) into shared memory (the finish
-  // reads them there); the split's positions: cache rows, validity, tiles
-  // with a valid key
+  // 1. q (and, fused, k1 and v1) of the (kv-head, row) into shared memory
+  // (the scores and the finish read them there); the split's positions:
+  // cache rows, validity, tiles with a valid key
   char* qs = smem + C::OFF_Q;
-  const bf16* k1s = reinterpret_cast<const bf16*>(smem + C::OFF_KV1);
-  const bf16* v1s = k1s + DH;
   {
     const bf16* qg = q + ((size_t)b * H + (size_t)hk * G) * DH;
-    for (int c = tid; c < (G + 2) * C::NCH; c += NT) {
-      const bf16* src = c < G * C::NCH ? qg + c * 8
-                      : (c < (G + 1) * C::NCH ? fin.k1 : fin.v1) +
-                            (size_t)pair * DH + (c % C::NCH) * 8;
+    constexpr int NROW = Out::kPartial ? G : G + 2;
+    for (int c = tid; c < NROW * C::NCH; c += NT) {
+      const bf16* src = qg + c * 8;
+      if constexpr (!Out::kPartial)
+        if (c >= G * C::NCH)
+          src = (c < (G + 1) * C::NCH ? fin.k1 : fin.v1) +
+                (size_t)pair * DH + (c % C::NCH) * 8;
       sm90::cp_async16(qs + c * 16, src, true);
     }
     sm90::cp_async_commit();
@@ -714,7 +723,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ck,
     misc[1] = ticket == nsplit - 1;
   }
   __syncthreads();
-  sm90::cp_async_wait<0>();                 // an empty split's q, k1, v1
+  sm90::cp_async_wait<0>();                 // an empty split's staging
   if (!misc[1]) return;
   __threadfence();
 
@@ -741,7 +750,6 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ck,
   // a split without a valid key, which is skipped) to shared memory, then
   // each thread sums its float4s of acc over the chunk in split order
   float* cw = reinterpret_cast<float*>(smem);          // [32][G]
-  float* merged = cw + 32 * G;                         // [G][Dh]
   constexpr int NV = G * DH / 4, KV = (NV + NT - 1) / NT;
   float4 acc4[KV];
 #pragma unroll
@@ -785,33 +793,53 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ck,
       }
     }
   }
+  if constexpr (Out::kPartial) {
+    // the merged partials as they are: acc [G][Dh] of the (kv-head, row)
+    // from each thread's float4s, m and l from each head's warp
+    float4* acc_out = reinterpret_cast<float4*>(fin.acc) + (size_t)pair * NV;
 #pragma unroll
-  for (int k = 0; k < KV; ++k)
-    if (tid + k * NT < NV)
-      reinterpret_cast<float4*>(merged)[tid + k * NT] = acc4[k];
-  __syncthreads();
+    for (int k = 0; k < KV; ++k)
+      if (tid + k * NT < NV) acc_out[tid + k * NT] = acc4[k];
 #pragma unroll
-  for (int gi = 0; gi < C::GW; ++gi) {
-    const int g = warp + gi * NW;
-    if (g >= G) continue;
-    float a[C::EPL];
+    for (int gi = 0; gi < C::GW; ++gi) {
+      const int g = warp + gi * NW;
+      if (g < G && lane == 0) {
+        fin.m[(size_t)pair * G + g] = mm[gi];
+        fin.l[(size_t)pair * G + g] = ll[gi];
+      }
+    }
+  } else {
+    float* merged = cw + 32 * G;                       // [G][Dh]
 #pragma unroll
-    for (int e = 0; e < C::EPL; ++e)
-      a[e] = lane_in<DH>(lane, e) ? merged[g * DH + lane + 32 * e] : 0.f;
-    finish_row<DH, C::EPL>(
-        reinterpret_cast<const bf16*>(qs) + g * DH, k1s, v1s,
-        fin.out + ((size_t)b * H + (size_t)hk * G + g) * DH, lane, scale,
-        softcap, mm[gi], ll[gi], a);
+    for (int k = 0; k < KV; ++k)
+      if (tid + k * NT < NV)
+        reinterpret_cast<float4*>(merged)[tid + k * NT] = acc4[k];
+    __syncthreads();
+    const bf16* k1s = reinterpret_cast<const bf16*>(smem + C::OFF_KV1);
+    const bf16* v1s = k1s + DH;
+#pragma unroll
+    for (int gi = 0; gi < C::GW; ++gi) {
+      const int g = warp + gi * NW;
+      if (g >= G) continue;
+      float a[C::EPL];
+#pragma unroll
+      for (int e = 0; e < C::EPL; ++e)
+        a[e] = lane_in<DH>(lane, e) ? merged[g * DH + lane + 32 * e] : 0.f;
+      finish_row<DH, C::EPL>(
+          reinterpret_cast<const bf16*>(qs) + g * DH, k1s, v1s,
+          fin.out + ((size_t)b * H + (size_t)hk * G + g) * DH, lane, scale,
+          softcap, mm[gi], ll[gi], a);
+    }
   }
 }
 
 // The split body's launch: the call's ticket counters (the B * Hkv int32
 // after the partials in ws) zeroed on the stream, then one kernel.
-template <typename Layout>
+template <typename Layout, typename Out>
 int launch(const void* q, const void* ck, const void* cv, const void* cpos,
            const void* pos, int B, int H, int Hkv, int Dh, int Sc,
-           int window, float softcap, Layout layout, Fused<bf16> fin,
-           void* ws, void* stream) {
+           int window, float softcap, Layout layout, Out fin, void* ws,
+           void* stream) {
   if (Hkv <= 0 || H % Hkv != 0 || !ws) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nsplit = Sc > SPLIT ? (Sc + SPLIT - 1) / SPLIT : 1;
@@ -821,10 +849,10 @@ int launch(const void* q, const void* ck, const void* cv, const void* cpos,
       (size_t)B * Hkv * nsplit * 2 * G);
   return by_dh_g(Dh, G, [&](auto dh, auto g) -> int {
     constexpr int DH = decltype(dh)::value, GG = decltype(g)::value;
-    if constexpr (!fused_ok(DH, GG)) {
+    if constexpr (!built<Out>(DH, GG)) {
       return (int)cudaErrorInvalidValue;
     } else {
-      auto kernel = decode_split_kernel<DH, GG, Layout>;
+      auto kernel = decode_split_kernel<DH, GG, Layout, Out>;
       static bool sized = false;
       cudaError_t err = sm90::allow_smem(kernel, sized);
       if (err == cudaSuccess)
@@ -842,7 +870,7 @@ int launch(const void* q, const void* ck, const void* cv, const void* cpos,
 }  // namespace split
 
 // --------------------------------------------------------------------------
-// The warp body's launch (float32 fused and paged; the partial kernel)
+// The warp body's launch (float32 fused, paged and partial)
 // --------------------------------------------------------------------------
 
 template <typename T, typename Layout, typename Out>
@@ -864,15 +892,6 @@ int launch(const void* q, const void* ck, const void* cv, const void* cpos,
       return (int)cudaGetLastError();
     }
   });
-}
-
-// Calls f with a value of the element type that ``dtype`` names (0 =
-// float32, 1 = bfloat16).
-template <typename F>
-int by_dtype(int dtype, F&& f) {
-  if (dtype == 0) return f(float{});
-  if (dtype == 1) return f(__nv_bfloat16{});
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -948,27 +967,40 @@ extern "C" int decode_attention_paged(const void* q, const void* pk,
                        stream);
 }
 
+// 4-byte words of scratch the partial kernel needs for one call: the
+// fused kernel's at the same shapes (the split body in bfloat16, none in
+// float32). Launches nothing.
+extern "C" long long decode_attention_partial_workspace(int B, int H, int Hkv,
+                                                        int Dh, int Sc,
+                                                        int dtype) {
+  return decode_attention_workspace(B, H, Hkv, Dh, Sc, dtype);
+}
+
 // q [B,H,Dh] (unscaled); ck/cv [B,Sc,Hkv,Dh]; cpos [B,Sc] int32; pos [B]
 // int32 -> m, l [B,Hkv,G] and acc [B,Hkv,G,Dh], float32, contiguous. (Dh,
 // G) as decode_attention_supports says; dtype codes (of q and the cache) as
-// decode_attention_fused.
+// decode_attention_fused. In bfloat16 (the split body) ws holds
+// decode_attention_partial_workspace words, whose ticket counters the
+// launch zeroes on the stream first; float32 (the warp body) reads none.
 extern "C" int decode_attention_partial(const void* q, const void* ck,
                                         const void* cv, const void* cpos,
                                         const void* pos, void* m, void* l,
-                                        void* acc, int B, int H, int Hkv,
-                                        int Dh, int Sc, int window,
+                                        void* acc, void* ws, int B, int H,
+                                        int Hkv, int Dh, int Sc, int window,
                                         float softcap, int dtype,
                                         void* stream) {
-  return by_dtype(dtype, [&](auto tag) {
-    using T = decltype(tag);
-    return launch<T>(q, ck, cv, cpos, pos, B, H, Hkv, Dh, Sc, window,
-                     softcap, Contiguous{Sc},
-                     Partial{(float*)m, (float*)l, (float*)acc}, stream);
-  });
+  const Partial fin{(float*)m, (float*)l, (float*)acc};
+  if (dtype == 1)
+    return split::launch(q, ck, cv, cpos, pos, B, H, Hkv, Dh, Sc, window,
+                         softcap, Contiguous{Sc}, fin, ws, stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return launch<float>(q, ck, cv, cpos, pos, B, H, Hkv, Dh, Sc, window,
+                       softcap, Contiguous{Sc}, fin, stream);
 }
 
-// Dynamic shared memory (bytes) of the split body (bfloat16 fused and
-// paged) at head dim dh and group size g; 0 where it is not built.
+// Dynamic shared memory (bytes) of the split body (bfloat16 fused, paged
+// and partial: one layout) at head dim dh and group size g; 0 where it is
+// not built.
 // Launches nothing.
 extern "C" int decode_attention_split_smem(int dh, int g) {
   if (!fused_ok(dh, g)) return 0;

@@ -5,9 +5,11 @@ sources, both trees' times at the serving shapes.
 
 The attention cases are the (Dh, G) pairs the decode kernels (fused and
 paged) were built for before head dims 80 and 256 and group size 6 came in
-(Dh 32, 64, 112, 128 at G 1, 2, 4, 8) and the flash kernel's head dims of
-that time, each in float32 and bfloat16, with a window, a softcap and
-masked positions. The expert FFN's cases run its decode ("skinny"),
+(Dh 32, 64, 112, 128 at G 1, 2, 4, 8), the flash kernel's head dims of
+that time and every pair the partial kernel is built for, each in float32
+and bfloat16, with a window, a softcap and masked positions (the partial
+cases over three 128-position splits, with a row that has no valid key).
+The expert FFN's cases run its decode ("skinny"),
 tensor-core and CUDA-core paths; the scan's cases take 2, 3 and 127
 chunks (y and the final state in one digest). Inputs come from numpy,
 seeded per case, so every machine gives the kernels the same bits.
@@ -19,18 +21,21 @@ seeded per case, so every machine gives the kernels the same bits.
 With ``--csrc DIR`` it also builds ``DIR/decode_attention.cu``,
 ``DIR/flash_attention.cu``, ``DIR/moe_gemm.cu`` and ``DIR/ssm_scan.cu``
 (another copy of the sources, e.g. an earlier commit's, with the same C
-entry points; a decode source without ``decode_attention_workspace`` is
-called without the split body's scratch) and compares every digest with
-this checkout's. It fails unless the cases in ``KEPT`` are equal: the 40
-float32 attention cases, whose bodies no later change touched, and the 6
-scan cases (its chunk-parallel form keeps every element's order of
-sums). The others are reported: bf16 flash (its tensor-core body rounds
-per key tile), bf16 decode (its split body sums per tile and per split)
-and the expert FFN (its tensor-core and decode paths were redesigned).
-``--time`` then times both trees' decode, paged, flash, expert-FFN and
-scan entry points at the serving shapes (``TIMED``), in turns on one
-card: DIR's, this checkout's, this checkout's, DIR's. Needs an NVIDIA GPU
-and nvcc.
+entry points; a fused or paged entry of a source without
+``decode_attention_workspace``, and a partial entry of one without
+``decode_attention_partial_workspace``, is called without the split
+body's scratch) and compares every digest with this checkout's; a
+partial case at a (Dh, G) that DIR's kernel is not built for is reported
+and left out. It fails unless the cases in ``KEPT`` are equal: the
+float32 attention cases (decode, flash and partial), whose bodies no
+later change touched, and the 6 scan cases (its chunk-parallel form keeps
+every element's order of sums). The others are reported: bf16 flash (its
+tensor-core body rounds per key tile), bf16 decode and partial (the split
+body sums per tile and per split) and the expert FFN (its tensor-core and
+decode paths were redesigned). ``--time`` then times both trees' decode,
+paged, partial, flash, expert-FFN and scan entry points at the serving
+shapes (``TIMED``), in turns on one card: DIR's, this checkout's, this
+checkout's, DIR's. Needs an NVIDIA GPU and nvcc.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import hashlib
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -50,11 +56,15 @@ from repro_torch.kernels import build
 DECODE_DH = (32, 64, 112, 128)
 DECODE_G = (1, 2, 4, 8)
 FLASH_DH = (32, 64, 112, 128)
+#: the (Dh, G) pairs the partial kernel is built for
+PARTIAL_PAIRS = ((80, 4), (128, 4), (128, 6), (256, 2))
 DTYPES = ("float32", "bfloat16")
 #: (kernel, Dh, G, dtype) of every case
 CASES = ([(k, dh, g, dt) for k in ("fused", "paged") for dh in DECODE_DH
           for g in DECODE_G for dt in DTYPES]
          + [("flash", dh, g, dt) for dh in FLASH_DH for g in (1, 4)
+            for dt in DTYPES]
+         + [("partial", dh, g, dt) for dh, g in PARTIAL_PAIRS
             for dt in DTYPES])
 #: (kernel, C, decode, dtype): the expert FFN's decode path (decode steps
 #: at C 2 and 8; float32 at C 8 takes the CUDA-core path), its
@@ -71,6 +81,7 @@ SCAN_H, SCAN_PN, SCAN_CHUNK = 4, 64, 64
 KEPT = [c for c in CASES if c[3] == "float32"] + SCAN_CASES
 B, HKV, SC, PT, NBLK, S = 3, 2, 70, 16, 5, 45
 WINDOW, SOFTCAP = 24, 30.0
+PARTIAL_SC, PARTIAL_WINDOW = 300, 160
 MOE_P, MOE_D, MOE_F, MOE_E = 4, 96, 160, 3
 
 
@@ -103,6 +114,13 @@ def inputs(case):
         return (randn(B, S, h, dh), randn(B, S, HKV, dh),
                 randn(B, S, HKV, dh), p, p)
     q, k1, v1 = randn(B, h, dh), randn(B, HKV, dh), randn(B, HKV, dh)
+    if kernel == "partial":
+        pos = r.integers(1, PARTIAL_SC, size=(B,)).astype(np.int32)
+        pos[-1] = -1                        # a row with no valid key
+        ar = np.arange(PARTIAL_SC)[None]
+        cpos = np.where(ar < pos[:, None], ar, -1).astype(np.int32)
+        return q, randn(B, PARTIAL_SC, HKV, dh), \
+            randn(B, PARTIAL_SC, HKV, dh), cpos, pos
     if kernel == "fused":
         pos = r.integers(1, SC, size=(B,)).astype(np.int32)
         cpos = np.where(np.arange(SC)[None] < pos[:, None],
@@ -152,6 +170,9 @@ def run_port(case):
                                         softcap=SOFTCAP)
     if case[0] == "paged":
         return da.decode_attention_paged_cuda(*args, softcap=SOFTCAP)
+    if case[0] == "partial":
+        return da.decode_attention_partial_cuda(
+            *args, window=PARTIAL_WINDOW, softcap=SOFTCAP)
     return fa.flash_attention_cuda(*args, window=WINDOW, softcap=SOFTCAP)
 
 
@@ -167,6 +188,9 @@ def run_library(case, libs):
     if case[0] == "flash":
         return flash_call(libs["flash"], *args, window=WINDOW,
                           softcap=SOFTCAP)()
+    if case[0] == "partial":
+        return partial_call(libs["decode"], *args, window=PARTIAL_WINDOW,
+                            softcap=SOFTCAP)()
     return decode_call(libs["decode"], *args, window=WINDOW,
                        softcap=SOFTCAP)()
 
@@ -206,6 +230,54 @@ def decode_call(lib, q, kv, *rest, window=0, softcap=0.0):
         return out
     run.scratch = scratch      # the kernel writes it: keep it allocated
     return run
+
+
+def partial_call(lib, q, ck, cv, cpos, pos, *, window=0, softcap=0.0):
+    """A closure that runs ``lib``'s partial decode entry on these
+    arguments, returning (m, l, acc), with the split body's scratch where
+    that copy of the source takes it (one that exports
+    ``decode_attention_partial_workspace``)."""
+    from repro_torch.kernels import decode_attention as da
+    b, h, dh = q.shape
+    sc, hkv = ck.shape[1], ck.shape[2]
+    code = build.DTYPE_CODES[str(q.dtype)]
+    m = torch.empty((b, hkv, h // hkv), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    acc = torch.empty((b, hkv, h // hkv, dh), dtype=torch.float32,
+                      device=q.device)
+    scratch = []
+    if hasattr(lib, "decode_attention_partial_workspace"):
+        ws_fn = lib.decode_attention_partial_workspace
+        ws_fn.argtypes, ws_fn.restype = [ctypes.c_int] * 6, ctypes.c_longlong
+        n = int(ws_fn(b, h, hkv, dh, sc, code))
+        scratch = [torch.empty(max(n, 1), dtype=torch.float32,
+                               device=q.device)]
+    fn = lib.decode_attention_partial
+    fn.argtypes = [ctypes.c_void_p] * (8 + len(scratch)) + \
+        da.PARTIAL_KERNEL.argtypes[-9:]
+    fn.restype = ctypes.c_int
+    call = [build.ptr(t) for t in (q, ck, cv, cpos, pos, m, l, acc,
+                                   *scratch)] + [
+        b, h, hkv, dh, sc, window, softcap, code, build.stream_ptr(q)]
+
+    def run():
+        call[-1] = build.stream_ptr(q)      # the current stream: graphs
+        err = fn(*call)
+        if err:
+            raise RuntimeError(f"decode attention partial: CUDA error {err}")
+        return m, l, acc
+    run.scratch = scratch      # the kernel writes it: keep it allocated
+    return run
+
+
+def built_in(lib, case) -> bool:
+    """Whether ``lib``'s decode source is built for a partial case's (Dh,
+    G) (every other case's kernel takes all of its pairs)."""
+    if case[0] != "partial":
+        return True
+    fn = lib.decode_attention_supports
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return bool(fn(case[1], case[2], 1))
 
 
 def digest(t) -> str:
@@ -272,22 +344,31 @@ def moe_call(lib, x, wg, wu, wd, se, cnt, *, decode):
 
 def build_other(csrc: Path, out_dir: Path):
     """Build DIR's decode, flash, expert-FFN and scan sources (the port's
-    nvcc flags)."""
+    nvcc flags, one nvcc each, all started together, as ``build.build_all``
+    does); prints each source's nvcc seconds."""
     out_dir.mkdir(parents=True, exist_ok=True)
-    libs, procs = {}, []
+    libs, procs, secs = {}, [], {}
+    t0 = time.perf_counter()
     for key, name in (("decode", "decode_attention"),
                       ("flash", "flash_attention"), ("moe", "moe_gemm"),
                       ("scan", "ssm_scan")):
-        so = out_dir / f"lib{name}.so"
-        procs.append((key, so, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
-             str(csrc / f"{name}.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
-    for key, so, proc in procs:
-        text, _ = proc.communicate()
+        so, log = out_dir / f"lib{name}.so", out_dir / f"{name}.log"
+        with open(log, "w") as fh:
+            procs.append((key, so, log, subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
+                 str(csrc / f"{name}.cu")], stdout=fh,
+                stderr=subprocess.STDOUT)))
+    while len(secs) < len(procs):       # each source's own end time
+        for key, _, _, proc in procs:
+            if key not in secs and proc.poll() is not None:
+                secs[key] = time.perf_counter() - t0
+        time.sleep(0.05)
+    for key, so, log, proc in procs:
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {key}:\n{text}")
+            raise RuntimeError(f"nvcc failed on {key}:\n{log.read_text()}")
         libs[key] = ctypes.CDLL(str(so))
+    print(f"{csrc}: nvcc seconds, each source, all started together: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
     return libs
 
 
@@ -314,6 +395,11 @@ TIMED = ([
      dict(b=8, h=32, hkv=8, dh=128, nblk=32, lo=128)),
     ("paged qwen2 B8 nblk64", "paged",
      dict(b=8, h=12, hkv=2, dh=128, nblk=64, lo=128)),
+    ("partial gemma2 local B8 Sc4096 ring", "partial",
+     dict(b=8, h=8, hkv=4, dh=256, sc=4096, window=4096, softcap=50.0,
+          ring=(4100, 4200))),
+    ("partial gemma2 global B8 Sc4608", "partial",
+     dict(b=8, h=8, hkv=4, dh=256, sc=4608, softcap=50.0, lo=128)),
 ] + [
     ("flash gemma2 local S4160", "flash",
      dict(s=4160, h=8, hkv=4, dh=256, window=4096, softcap=50.0)),
@@ -407,6 +493,9 @@ def timed_inputs(kind, shape, g):
               softcap=shape.get("softcap", 0.0))
     if kind in ("decode", "paged"):
         return dict(args=decode_inputs(kind, shape, randn, g), **kw)
+    if kind == "partial":                   # the fused inputs but k1, v1
+        q, ck, cv, cpos, _, _, pos = decode_inputs("decode", shape, randn, g)
+        return dict(args=(q, ck, cv, cpos, pos), **kw)
     if kind == "flash":
         s = shape["s"]
         p = torch.arange(s, device="cuda", dtype=torch.int32)[None]
@@ -483,6 +572,9 @@ def plain(kind, kw):
     if kind == "paged":
         return da.decode_attention_paged_plain(
             *kw["args"], softcap=kw["softcap"]).float()
+    if kind == "partial":
+        return da.decode_attention_partial_plain(
+            *kw["args"], window=kw["window"], softcap=kw["softcap"])
     if kind == "moe":
         live = kw["cnt"] > 0
         y = torch.zeros_like(kw["x"], dtype=torch.float32)
@@ -525,7 +617,11 @@ def graph_ms(fns, calls: int = 20, reps: int = 5) -> float:
 
 
 def out(result):
-    """A call's output: y of the scan's (y, h_final)."""
+    """A call's output: y of the scan's (y, h_final); acc / l of the
+    partial kernel's (m, l, acc) (0 in a row with no valid key)."""
+    if isinstance(result, tuple) and len(result) == 3:
+        m, l, acc = result
+        return torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
     return result[0] if isinstance(result, tuple) else result
 
 
@@ -544,10 +640,14 @@ def time_trees(libs_other, libs_mine):
             mk = lambda libs: decode_call(  # noqa: E731
                 libs["decode"], *kw["args"], window=kw["window"],
                 softcap=kw["softcap"])
+        elif kind == "partial":
+            mk = lambda libs: partial_call(  # noqa: E731
+                libs["decode"], *kw["args"], window=kw["window"],
+                softcap=kw["softcap"])
         else:
             mk = lambda libs: flash_call(libs["flash"], **kw)  # noqa: E731
         other, mine = mk(libs_other), mk(libs_mine)
-        want = plain(kind, kw)
+        want = out(plain(kind, kw)).float()
         errs = [(out(fn()).float() - want).abs().max().item()
                 for fn in (other, mine)]
         del want
@@ -556,14 +656,25 @@ def time_trees(libs_other, libs_mine):
               f"{t[1]:.4f} / {t[2]:.4f} ms (x{(t[0] + t[3]) / (t[1] + t[2]):.2f}"
               f"); max abs err against the bf16 plain version: other "
               f"{errs[0]:.3e}, this checkout {errs[1]:.3e}")
-        if kind in ("moe", "scan"):
-            # the scan's inputs fit in L2: 20 copies, one a call
-            copies = [kw] + ([{k: v.clone() if torch.is_tensor(v) else v
-                               for k, v in kw.items()} for _ in range(19)]
-                             if kind == "scan" else [])
+        if kind in ("moe", "scan", "partial"):
+            # the scan's inputs fit in L2: 20 copies, one a call; the
+            # partial kernel's 4 (each over 64 MB)
+            n = {"moe": 0, "scan": 19, "partial": 3}[kind]
+            copies = [kw] + [
+                {k: v.clone() if torch.is_tensor(v) else
+                 tuple(t.clone() for t in v) if k == "args" else v
+                 for k, v in kw.items()} for _ in range(n)]
             trees = {"other": libs_other, "mine": libs_mine}
-            fns = {k: [(scan_call(lib["scan"], **c) if kind == "scan" else
-                        moe_call(lib["moe"], **c)) for c in copies]
+
+            def call_of(lib, c):
+                if kind == "partial":
+                    return partial_call(lib["decode"], *c["args"],
+                                        window=c["window"],
+                                        softcap=c["softcap"])
+                if kind == "scan":
+                    return scan_call(lib["scan"], **c)
+                return moe_call(lib["moe"], **c)
+            fns = {k: [call_of(lib, c) for c in copies]
                    for k, lib in trees.items()}
             gt = [graph_ms(fns[k]) for k in ("other", "mine", "mine",
                                                "other")]
@@ -587,6 +698,11 @@ def main(argv=None) -> int:
         print("bits: no CUDA device visible", file=sys.stderr)
         return 2
     build.build_all()
+    if build.build_source_seconds:
+        print("this checkout: nvcc seconds, each source, all started "
+              "together: " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in
+                  build.build_source_seconds.items()))
     cases = CASES + MOE_CASES + SCAN_CASES
     mine = {case: digest(run_port(case)) for case in cases}
     for case, d in mine.items():
@@ -594,14 +710,19 @@ def main(argv=None) -> int:
     if args.csrc is None:
         return 0
     libs = build_other(args.csrc, build.BUILD_DIR / "bits_other")
+    absent = [case for case in cases if not built_in(libs["decode"], case)]
+    if absent:
+        print(f"not built in {args.csrc}'s kernels, left out: {absent}")
+    cases = [case for case in cases if case not in absent]
+    kept = [case for case in KEPT if case in cases]
     other = {case: digest(run_library(case, libs)) for case in cases}
     differ = [case for case in cases if other[case] != mine[case]]
-    lost = [case for case in KEPT if case in differ]
+    lost = [case for case in kept if case in differ]
     print(f"{len(cases) - len(differ)} of {len(cases)} cases bitwise equal "
           f"to {args.csrc}'s kernels" + (f"; differ: {differ}" if differ
                                          else ""))
-    print(f"{len(KEPT) - len(lost)} of the {len(KEPT)} cases to keep "
-          f"(float32 decode and flash, the scan) equal"
+    print(f"{len(kept) - len(lost)} of the {len(kept)} cases to keep "
+          f"(float32 decode, flash and partial, the scan) equal"
           + (f"; LOST: {lost}" if lost else ""))
     if args.time:
         print(f"times at the serving shapes, {torch.cuda.get_device_name(0)}"

@@ -4,13 +4,14 @@ CUDA kernels' wrappers and their plain versions.
 The three kernels live in ``csrc/decode_attention.cu``, which replaces
 the TPU kernels ``repro/kernels/decode_attention.py::
 decode_attention_fused``, ``::decode_attention_paged`` and
-``::decode_attention_partial``. In bfloat16 the fused and paged kernels
-split the cache across blocks (a fixed number of logical positions each)
-and the last block of each (kv-head, row) merges the splits' partials in
-split order: the wrapper hands them one scratch buffer per call
-(``torch.empty``, sized by the shapes alone) for the float32 partials and
-the int32 ticket counters that the launch zeroes on the call's stream, so
-a call never syncs with the host and can be captured in a CUDA graph.
+``::decode_attention_partial``. In bfloat16 all three split the cache
+across blocks (a fixed number of logical positions each) and the last
+block of each (kv-head, row) merges the splits' partials in split order,
+then finishes (fused, paged) or writes the merged partials (partial): the
+wrapper hands each call one scratch buffer (``torch.empty``, sized by the
+shapes alone) for the float32 partials and the int32 ticket counters that
+the launch zeroes on the call's stream, so a call never syncs with the
+host and can be captured in a CUDA graph.
 
 The plain versions are the reference's CPU path: cache partials
 (``ref.decode_attention_partial_ref``, the partial kernel's plain version)
@@ -40,7 +41,7 @@ PAGED_KERNEL = build.CudaKernel(
     replaces="src/repro/kernels/decode_attention.py:257")
 PARTIAL_KERNEL = build.CudaKernel(
     "decode_attention", "decode_attention_partial",
-    [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P],
     replaces="src/repro/kernels/decode_attention.py:78")
 
 
@@ -140,12 +141,12 @@ def _check_cache(name, q, ck, cv, cpos, pos, partial=False):
     _check_heads(name, h, hkv, dh, partial)
 
 
-def _scratch(q, b, h, hkv, dh, sc, code):
+def _scratch(q, b, h, hkv, dh, sc, code,
+             query="decode_attention_workspace"):
     """A null pointer where the call takes no scratch (float32), else the
-    bf16 kernels' scratch for one call: 4-byte words, as many as
-    ``decode_attention_workspace`` says."""
-    n = build.size("decode_attention", "decode_attention_workspace", b, h,
-                   hkv, dh, sc, code)
+    bf16 kernels' scratch for one call: 4-byte words, as many as the
+    source's ``query`` says."""
+    n = build.size("decode_attention", query, b, h, hkv, dh, sc, code)
     if not n:
         return _P(None), None
     ws = torch.empty(n, dtype=torch.float32, device=q.device)
@@ -223,7 +224,8 @@ def decode_attention_partial_cuda(q, ck, cv, cpos, pos, *, window: int = 0,
     """Launch the partial CUDA kernel. q: [B,H,Dh] (unscaled); ck/cv:
     [B,Sc,Hkv,Dh]; cpos: [B,Sc] int32; pos: [B] int32. Returns (m
     [B,Hkv,G], l [B,Hkv,G], acc [B,Hkv,G,Dh]) in float32; a row with no
-    valid key gives m = -1e30, l = 0, acc = 0."""
+    valid key gives m = -1e30, l = 0, acc = 0. In bf16 they are the
+    merged split partials that the fused kernel folds (k1, v1) into."""
     b, h, dh = q.shape
     sc, hkv = ck.shape[1], ck.shape[2]
     _check_cache("decode_attention_partial", q, ck, cv, cpos, pos,
@@ -239,8 +241,10 @@ def decode_attention_partial_cuda(q, ck, cv, cpos, pos, *, window: int = 0,
     m = torch.empty((b, hkv, g), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     acc = torch.empty((b, hkv, g, dh), dtype=torch.float32, device=q.device)
+    ws_ptr, _ws = _scratch(q, b, h, hkv, dh, sc, code,
+                           "decode_attention_partial_workspace")
     PARTIAL_KERNEL(build.ptr(q), build.ptr(ck), build.ptr(cv),
                    build.ptr(cpos), build.ptr(pos), build.ptr(m),
-                   build.ptr(l), build.ptr(acc), b, h, hkv, dh, sc,
+                   build.ptr(l), build.ptr(acc), ws_ptr, b, h, hkv, dh, sc,
                    int(window), float(softcap), code, build.stream_ptr(q))
     return m, l, acc

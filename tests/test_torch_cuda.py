@@ -560,8 +560,9 @@ def test_expert_ffn_prefill_path_small_c_rounds_once(dev, c):
 # --------------------------------------------------------------------------
 
 # (H, Hkv, Dh): Gemma2-2B, H2O-Danube-1.8B, Qwen2-1.5B, the (Dh, G) pairs
-# built for the partial kernel and added for the fused and paged ones
-NEW_HEADS = [(8, 4, 256), (32, 8, 80), (12, 2, 128)]
+# built for the partial kernel and added for the fused and paged ones, and
+# Mixtral-8x7B's, which the partial kernel was built for later
+NEW_HEADS = [(8, 4, 256), (32, 8, 80), (12, 2, 128), (32, 8, 128)]
 
 
 def _decode_case(r, b, h, hkv, dh, sc, dtype, dev):
@@ -620,7 +621,7 @@ def test_paged_kernel_at_new_heads(dev, dtype, h, hkv, dh):
 @pytest.mark.parametrize("h,hkv,dh,partial_only", [
     (8, 1, 256, False),          # G 8 at Dh 256: neither kernel
     (6, 1, 80, False),           # G 6 at Dh 80: neither kernel
-    (32, 8, 128, True)])         # Mixtral's pair: fused and paged only
+    (16, 8, 128, True)])         # G 2 at Dh 128: fused and paged only
 def test_decode_kernels_refuse_pairs_not_built(dev, h, hkv, dh,
                                                partial_only):
     r = np.random.default_rng(0)
@@ -923,6 +924,109 @@ def test_decode_split_calls_own_their_counters(dev, kind):
 
 
 # --------------------------------------------------------------------------
+# the bf16 partial kernel on the split body
+# --------------------------------------------------------------------------
+
+def _partial_case(r, dh, g, sc, lens, dev):
+    """bf16 q and a [8, sc] cache of 2 kv-heads; row i holds positions
+    0 .. lens[i] - 1 (-1: no valid key)."""
+    h = 2 * g
+    q = _bf16(r, (len(lens), h, dh), dev)
+    ck, cv = (_bf16(r, (len(lens), sc, 2, dh), dev) for _ in range(2))
+    pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, ck, cv, _causal(sc, pos, dev), pos
+
+
+@pytest.mark.parametrize("dh,g", bits.PARTIAL_PAIRS)
+def test_partial_kernel_on_the_split_body(dev, dh, g):
+    """Sc 4,608 (36 splits, past the merge's chunk of 32), 8 rows of
+    random lengths and one without a valid key, a softcap: one launch a
+    call; m and l at 2e-5 of the plain partials and acc as acc / l; the
+    row without a key gives m = -1e30, l = 0, acc = 0 exactly; the
+    partials combined with (k1, v1) give the fused kernel's output; the
+    scratch is the fused kernel's at the same shapes."""
+    r = np.random.default_rng(dh * 7 + g)
+    sc = 4608
+    lens = [int(x) for x in r.integers(1, sc, size=8)]
+    lens[3] = -1
+    q, ck, cv, cpos, pos = _partial_case(r, dh, g, sc, lens, dev)
+    k1, v1 = (_bf16(r, (8, 2, dh), dev) for _ in range(2))
+    kw = dict(softcap=50.0)
+    n = da.PARTIAL_KERNEL.launches
+    m, l, acc = ops.decode_attention_partial(q, ck, cv, cpos, pos, **kw)
+    assert da.PARTIAL_KERNEL.launches == n + 1
+    wm, wl, wacc = da.decode_attention_partial_plain(q, ck, cv, cpos, pos,
+                                                     **kw)
+    keys = pos >= 0
+    for got, want in ((m, wm), (l, wl), (acc[keys] / l[keys][..., None],
+                                         wacc[keys] / wl[keys][..., None])):
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert bool((m[3] == -1e30).all()) and not l[3].any() and \
+        not acc[3].any()
+    _close(da.combine_decode_partials(q, m, l, acc, k1, v1, softcap=50.0),
+           ops.decode_attention(q, ck, cv, cpos, k1, v1, pos, **kw),
+           torch.bfloat16)
+    args = (8, 2 * g, 2, dh, sc, 1)
+    assert kbuild.size("decode_attention",
+                       "decode_attention_partial_workspace", *args) == \
+        kbuild.size("decode_attention", "decode_attention_workspace", *args)
+
+
+@pytest.mark.parametrize("dh,g", bits.PARTIAL_PAIRS)
+def test_partial_row_bits_do_not_depend_on_the_call(dev, dh, g):
+    """A row's bf16 partials have the same bits alone (B 1), inside a
+    batch of 8 rows of other lengths, and in a cache with a larger Sc
+    whose extra positions are masked (an all-masked tail of splits), with
+    a window."""
+    r = np.random.default_rng(dh + g * 11)
+    sc, row, n = 600, 5, 530
+    lens = [int(x) for x in r.integers(1, sc, size=8)]
+    lens[row] = n
+    q, ck, cv, cpos, pos = _partial_case(r, dh, g, sc, lens, dev)
+    kw = dict(window=400, softcap=30.0)
+    alone = ops.decode_attention_partial(
+        q[row:row + 1], ck[row:row + 1], cv[row:row + 1], cpos[row:row + 1],
+        pos[row:row + 1], **kw)
+    batch = ops.decode_attention_partial(q, ck, cv, cpos, pos, **kw)
+    big = 1500
+    ckb, cvb = (torch.cat([c, _bf16(r, (8, big - sc, 2, dh), dev)], 1)
+                for c in (ck, cv))
+    wide = ops.decode_attention_partial(q, ckb, cvb, _causal(big, pos, dev),
+                                        pos, **kw)
+    for one, b8, bw in zip(alone, batch, wide):
+        assert torch.equal(b8[row], one[0]) and torch.equal(bw[row], one[0])
+
+
+@pytest.mark.parametrize("dh,g", bits.PARTIAL_PAIRS)
+def test_partial_calls_own_their_counters(dev, dh, g):
+    """bf16 partial calls on two streams at once, and replayed from a
+    CUDA graph, give the bits of the same calls made one after another."""
+    r = np.random.default_rng(dh * 3 + g)
+    cases = [_partial_case(r, dh, g, 1024,
+                           [int(x) for x in r.integers(96, 1024, size=8)],
+                           dev) for _ in range(2)]
+    want = [ops.decode_attention_partial(*args) for args in cases]
+    streams = [torch.cuda.Stream() for _ in cases]
+    torch.cuda.synchronize()
+    got = [None, None]
+    for _ in range(5):
+        for i, (st, args) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(st):
+                got[i] = ops.decode_attention_partial(*args)
+        torch.cuda.synchronize()
+        for w, o in zip(want, got):
+            assert all(torch.equal(a, b) for a, b in zip(w, o))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [ops.decode_attention_partial(*args) for args in cases]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for w, o in zip(want, outs):
+            assert all(torch.equal(a, b) for a, b in zip(w, o))
+
+
+# --------------------------------------------------------------------------
 # the decode and flash kernels keep their earlier bits
 # --------------------------------------------------------------------------
 
@@ -938,7 +1042,11 @@ def test_decode_split_calls_own_their_counters(dev, kind):
 # operands of wgmma); the 32 bfloat16 decode digests are those of the split
 # body that replaced the warp body for bfloat16 (per-tile and per-split
 # sums of 128-position splits): 7 of them changed, the other 25 rounded to
-# the same bf16 outputs.
+# the same bf16 outputs. The 8 partial digests (Sc 300, three splits, a row
+# without a valid key) are those of the kernels built for it: the float32
+# ones of the warp body (at (80, 4), (128, 6) and (256, 2) equal to the
+# kernel before the bfloat16 partials moved to the split body; (128, 4) was
+# built with that move), the bfloat16 ones of the split body.
 EARLIER_BITS = {
     ('fused', 32, 1, 'float32'): "20b95c6b5188d0b7",
     ('fused', 32, 1, 'bfloat16'): "8afa7aec806a2cf1",
@@ -1020,6 +1128,14 @@ EARLIER_BITS = {
     ('flash', 128, 1, 'bfloat16'): "8d2e75c618824844",
     ('flash', 128, 4, 'float32'): "0436e3108e2cdae2",
     ('flash', 128, 4, 'bfloat16'): "b39f47405d1cf23d",
+    ('partial', 80, 4, 'float32'): "22acd18708577eae",
+    ('partial', 80, 4, 'bfloat16'): "7236912e4b6d5a3e",
+    ('partial', 128, 4, 'float32'): "423319dc26c2004a",
+    ('partial', 128, 4, 'bfloat16'): "08f73f25ab30fda3",
+    ('partial', 128, 6, 'float32'): "2f8594aef660c4d2",
+    ('partial', 128, 6, 'bfloat16'): "9d90a1ddaa8a70e5",
+    ('partial', 256, 2, 'float32'): "cb7179909af7d540",
+    ('partial', 256, 2, 'bfloat16'): "aa58d1850934fe32",
 }
 
 

@@ -208,6 +208,68 @@ def test_split_partials_merge_to_the_fused_reference(split, kind):
                                   np.repeat(args[5][0], 4, axis=0))
 
 
+def _partial_case(kind):
+    """The partial kernel's inputs (q, ck, cv, cpos, pos) and keywords:
+    ``_split_case``'s three 640-position caches, or "long": 4,608
+    positions (36 ranges of 128, past the merge's chunk of 32 splits),
+    row 0 without a valid key, row 1's keys ending at position 1000 and
+    row 2 over the whole cache with a hole of 300 positions."""
+    if kind != "long":
+        (q, ck, cv, cpos, _, _, pos), kw = _split_case(kind)
+        return (q, ck, cv, cpos, pos), kw
+    q, ck, cv, _, _, _, _ = _decode_inputs(19, 3, 8, 2, 32, 4608)
+    pos = np.array([-1, 1000, 4600], np.int32)
+    ar = np.arange(4608)[None]
+    cpos = np.where(ar < pos[:, None], ar, -1).astype(np.int32)
+    cpos[2, 2000:2300] = -1
+    return (q, ck, cv, cpos, pos), {}
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "ring", "softcap", "long"])
+def test_split_partials_merge_to_the_partial_kernel(kind):
+    """The bf16 partial kernel's arithmetic in plain float32: the cache's
+    plain partials per 128-position range from index 0, merged in range
+    order with no combine, against the JAX partial kernel (interpret mode,
+    block_k 128) and its reference at 2e-5: m and l directly, acc as acc
+    / l. A row with no valid key merges to m = -1e30, l = 0, acc = 0
+    exactly, the reference's values (the TPU kernel's differ there; see
+    test_decode_partial_row_without_keys), so only rows with a key are
+    held to the TPU kernel."""
+    args, kw = _partial_case(kind)
+    q, ck, cv, cpos, pos = args
+    sc = ck.shape[1]
+    tq, tck, tcv, tcpos, tpos = _t(*args)
+    parts = [decode_attention_partial_plain(
+        tq, tck[:, a:a + 128], tcv[:, a:a + 128], tcpos[:, a:a + 128], tpos,
+        **kw) for a in range(0, sc, 128)]
+    assert len(parts) == (36 if kind == "long" else 5)
+    got = [t.numpy() for t in merge_split_partials(parts)]
+    ref = [np.asarray(t) for t in jref.decode_attention_partial_ref(
+        *_j(*args), **kw)]
+    tpu = [np.asarray(t) for t in decode_attention_partial(
+        *_j(*args), block_k=128, interpret=True, **kw)]
+    valid = (cpos >= 0) & (cpos <= pos[:, None])
+    if kw.get("window"):
+        valid &= cpos > pos[:, None] - kw["window"]
+    keys = valid.any(1)
+    assert not keys[0] and keys[1:].all()
+
+    def close(want, rows):
+        for a, b in zip(got[:2], want[:2]):           # m, l
+            np.testing.assert_allclose(a[rows], b[rows], **TOL)
+        np.testing.assert_allclose(got[2][rows] / got[1][rows][..., None],
+                                   want[2][rows] / want[1][rows][..., None],
+                                   **TOL)
+    close(ref, keys)
+    close(tpu, keys)
+    m, l, acc = got
+    np.testing.assert_array_equal(m[0], np.full_like(m[0], -1e30))
+    np.testing.assert_array_equal(l[0], 0.0)
+    np.testing.assert_array_equal(acc[0], 0.0)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a[0], b[0])
+
+
 @pytest.mark.parametrize("at", ["end", "middle", "front"])
 def test_an_all_masked_split_changes_no_bit(at):
     """A split with no valid key (m = NEG_INF, l = 0, acc = 0) is skipped
