@@ -36,7 +36,7 @@ Phases, each of which raises on failure (exit code != 0):
                 l, and acc / l, to the float32 bar; combined, against the
                 fused kernel; timed also in a CUDA graph from HBM);
                 the expert FFN at every (C, path) a later phase gives it
-                (MOE_SHAPES), the SSD scan at every (B, S) (SCAN_SHAPES)
+                (MOE_SHAPES; phase 8 checks its own prefill C), the SSD scan at every (B, S) (SCAN_SHAPES)
                 and each attention kernel at every (Dh, G) (CHECKED),
                 all checked after the runs; kernel, plain-version and
                 library-call times by CUDA events (median of 20 after
@@ -47,7 +47,7 @@ Phases, each of which raises on failure (exit code != 0):
                 scan calls take copies of their inputs in turn, so they
                 read them from HBM, not L2; the FFN's 2.8 GB bank never
                 fits L2). The flash kernel's records
-                come from phase 12.
+                come from phase 13.
   3. reference — a reduced float32 Mixtral, a reduced float32 Zamba2 with
                 a trailing block, and reduced float32 Gemma2, Danube and
                 Qwen2 (24-token prompts past their 16-token windows), on
@@ -63,7 +63,7 @@ Phases, each of which raises on failure (exit code != 0):
                 the expert FFN's also per kernel path; every run fails if
                 a (bf16) flash call took the CUDA-core path. Every step
                 checkpoints its KV. The partial kernel on the final caches
-                of the first layer, as in phase 9.
+                of the first layer, as in phase 10.
   5. failover — the same requests with ``engine.fail_ew(0)`` after 8
                 decode steps; every stream must equal the failure-free one
                 bit for bit.
@@ -83,7 +83,38 @@ Phases, each of which raises on failure (exit code != 0):
                 steps to the end: every stream must equal the paged
                 failure-free run bit for bit; restored requests and bytes,
                 the recovery time and the largest token gap are printed.
-  8. hybrid   — Zamba2-7B widths at 13 layers in bfloat16 (2 units of 6
+  8. orchestrated serving — the same weights at capacity factor 4.0,
+                served by ``run_serving`` with an ``Orchestrator``
+                (``worker_init_time=1.0``, the launcher's) over the
+                port's ``make_workload`` (ORCH_WORKLOAD: ShareGPT-like,
+                8 requests/s for 2 s, prompts up to 384 tokens, up to 32
+                new), the virtual clock advancing by each step's wall time
+                on the card: (a) failure-free, after a warm-up pass whose
+                streams must equal it; (b) EW0 at 0.5 s and EW1 at 1.8 s,
+                EW1 served from the shadows re-pointed to protect it when
+                EW0 was provisioned; (c) AW0 at the middle of run (a)'s
+                longest stretch with two decoding requests on AW0 (a
+                request with tokens must be restored); (d) the baseline
+                engine (``tarragon=False, checkpoint=False``) under EW0's
+                failure. Every request of (a)-(c) finishes and the streams
+                of (b) and (c) equal (a)'s bit for bit; (d) must finish and
+                prints how many of its streams differ. Per run: TTFT and
+                TBT p50/p99, max stall, throughput, queue delay p50/p99,
+                the orchestrator's events, bytes restored, the largest
+                token gap of the requests the failure touched, what ran
+                inside the run's largest token gap (steps, prefill groups
+                and their prompt tokens, orchestrator events), and the
+                launches per phase (each run must launch decode attention,
+                the FFN's tensor-core path in prefill and its decode path
+                in decode, and flash). Then the failover demo twin at the
+                same widths (its EW and AW sections must equal its
+                reference section), and the expert FFN at every (C, path)
+                of this phase's runs and the demo's that MOE_SHAPES lacks
+                (earlier phases' shapes stay with MOE_SHAPES), held to its
+                plain
+                versions (run (a)'s largest prefill C also timed:
+                ``moe_gemm[orchestrated]``).
+  9. hybrid   — Zamba2-7B widths at 13 layers in bfloat16 (2 units of 6
                 Mamba2 blocks + the shared attention block, 1 trailing
                 block), 8 requests of 128 prompt tokens and 16 greedy new
                 tokens, each prefilled alone: every Mamba2 block of every
@@ -93,7 +124,7 @@ Phases, each of which raises on failure (exit code != 0):
                 Then ``fail_aw(0)`` once every request has 8 tokens,
                 recover, provision: every stream must equal the
                 failure-free one bit for bit.
-  9. gemma2   — Gemma2-2B whole (26 layers, alternating 4096-token local
+ 10. gemma2   — Gemma2-2B whole (26 layers, alternating 4096-token local
                 and global attention, softcaps) in bf16, 2 AWs, max_batch
                 8, max_seq 4608: 8 requests (4 of 128 prompt tokens, 2 of
                 4,088 whose rings wrap during decode, 2 of 4,160 whose
@@ -107,17 +138,17 @@ Phases, each of which raises on failure (exit code != 0):
                 ``fail_aw(0)`` once every request has 16 tokens, recover,
                 provision: streams bitwise equal, and AW0 must have held a
                 request of each long kind, its ring wrapped.
- 10. danube   — H2O-Danube-1.8B whole (24 layers, every one a 4096-token
+ 11. danube   — H2O-Danube-1.8B whole (24 layers, every one a 4096-token
                 window, head dim 80) in bf16, max_batch 4: prompts of
                 4,088, 128, 4,160 and 128 tokens, the same failover check.
- 11. qwen2    — Qwen2-1.5B whole (28 layers, QKV bias, G 6) in bf16,
+ 12. qwen2    — Qwen2-1.5B whole (28 layers, QKV bias, G 6) in bf16,
                 max_seq 1024: 8 seeded prompts of 96-700 tokens through
                 whole-prompt, chunked contiguous and chunked paged engines
                 (paged == contiguous and chunked == whole-prompt, bit for
                 bit; the paged run launches the paged kernel at G 6 and
                 never the fused one), then the paged engine under
                 ``fail_aw(0)`` after 8 tokens, bitwise equal.
- 12. flash at the served shapes — every (B, Sq, Sk, heads, window,
+ 13. flash at the served shapes — every (B, Sq, Sk, heads, window,
                 softcap) the runs gave the flash kernel, on the positions
                 of that shape's first call (pad tails, rows outside a
                 chunk) with seeded bf16 q/k/v, against the bf16 plain
@@ -133,6 +164,7 @@ The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import argparse
+import contextlib
 import gc
 import json
 import statistics
@@ -141,6 +173,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from typing import NamedTuple
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
@@ -932,9 +965,12 @@ def kernel_ssm_scan(torch, g, records, shapes):
         del args, args32
 
 
-def kernel_moe_gemm(torch, g, records, shapes):
+def kernel_moe_gemm(torch, g, records, shapes, *, timed=None, small=True):
     """``shapes``: (label, C, whether the call is a decode step, the
-    kernel path it must take)."""
+    kernel path it must take). Each is held to the plain versions and
+    added to FFN_CHECKED; those whose label is in ``timed`` (None = all)
+    are also timed and recorded. ``small`` adds the float32 cases at
+    small widths."""
     from repro_torch.kernels import moe_gemm as mg
     print("moe_gemm (grouped expert FFN, csrc/moe_gemm.cu)")
     # fp32 small, both paths (C <= 4 streams split-K; larger C tiles):
@@ -944,7 +980,7 @@ def kernel_moe_gemm(torch, g, records, shapes):
          for _ in range(2)]
     wd = torch.randn((e_, f_, d_), generator=g, device="cuda") * 0.1
     se = torch.tensor([0, 1, 2, 3, 1, -1], dtype=torch.int32, device="cuda")
-    for c_ in (3, 24):
+    for c_ in (3, 24) if small else ():
         x = torch.randn((p_, c_, d_), generator=g, device="cuda")
         cnt = torch.tensor([c_, 0, 1, c_, 2, 0], dtype=torch.int32,
                            device="cuda")
@@ -995,8 +1031,12 @@ def kernel_moe_gemm(torch, g, records, shapes):
                                   bank[1].float(), wdn.float(), se[:8],
                                   cnt[:8]),
               atol=ROUND_ATOL, rtol=ROUND_RTOL)
+        FFN_CHECKED.add((c, path))
         del got
         torch.cuda.empty_cache()
+        if timed is not None and label not in timed:
+            del x, cnt
+            continue
         plain_ms = time_ms(torch, plain)
         # library yardstick: the per-slot matmul chain over active slots
         xa = x[:8]
@@ -1116,6 +1156,9 @@ CHECKED = set()
 # the flash shapes held to the plain version on their recorded positions
 # (served_flash_phase); main() fails if a run gave the kernel another
 FLASH_CHECKED = set()
+# the expert FFN's (C, path) pairs held to the plain versions
+# (kernel_moe_gemm); main() fails if a run gave the kernel another
+FFN_CHECKED = set()
 
 
 def observe_kernel_shapes():
@@ -1192,6 +1235,53 @@ def delta(a, b):
     return {k: b[k] - a[k] for k in a}
 
 
+@contextlib.contextmanager
+def patched(obj, **attrs):
+    """Set ``attrs`` on ``obj`` for the block, then put back what was
+    there (a method patched on an instance is deleted again)."""
+    own = {k: vars(obj)[k] for k in attrs if k in vars(obj)}
+    for k, v in attrs.items():
+        setattr(obj, k, v)
+    try:
+        yield
+    finally:
+        for k in attrs:
+            if k in own:
+                setattr(obj, k, own[k])
+            else:
+                delattr(obj, k)
+
+
+@contextlib.contextmanager
+def observed(torch, phase):
+    """Observe one run through SEEN, starting in ``phase``: yields an
+    object with the launch counts at the start (``c0``) and, after the
+    block, at the end (``c_end``) and their difference (``ran``), and what
+    the run gave the kernels (``ffn_c``: per phase, a Counter of the
+    expert FFN's (C, path); ``attn``; ``flash``: (phase, FlashShape)).
+    Fails if a bf16 flash call took the CUDA-core path or an expert FFN
+    launch bypassed the observer."""
+    torch.cuda.synchronize()
+    obs = SimpleNamespace(c0=launch_counts(), ffn_c={}, attn=Counter(),
+                          flash=Counter())
+    SEEN["run"], SEEN["attn_run"], SEEN["flash_run"] = \
+        obs.ffn_c, obs.attn, obs.flash
+    SEEN["phase"] = phase
+    try:
+        yield obs
+    finally:
+        SEEN["run"] = None
+    obs.c_end = launch_counts()
+    ran = obs.ran = delta(obs.c0, obs.c_end)
+    if ran["flash_attention/cuda_core"]:
+        raise AssertionError(f"{ran['flash_attention/cuda_core']} bf16 "
+                             f"serving flash calls took the CUDA-core path")
+    if ran["moe_ffn"] != sum(sum(c.values()) for c in obs.ffn_c.values()):
+        raise AssertionError(f"{ran['moe_ffn']} expert FFN launches, not "
+                             f"all seen through ops.expert_ffn_cuda: "
+                             f"{obs.ffn_c}")
+
+
 class FlashShape(NamedTuple):
     """One flash call's shape: q [B, Sq, H, Dh], keys [B, Sk, Hkv, Dh]."""
     b: int
@@ -1222,9 +1312,9 @@ class Run:
     def __init__(self, torch, engine, prompts, max_new, fail=None,
                  at_end=None):
         from repro_torch.serving.api import RequestSpec
-        torch.cuda.synchronize()
         chunk_counts = {k: 0 for k in launch_counts()}
         self.tick_s = []       # host time of each chunk tick that ran work
+        hooks = contextlib.nullcontext()
         if engine.chunked is not None:
             tick = engine.chunked.tick
 
@@ -1239,69 +1329,53 @@ class Run:
                 for k, v in delta(c0, launch_counts()).items():
                     chunk_counts[k] += v
                 return out
-            engine.chunked.tick = counted_tick
-        c0 = launch_counts()
-        self.ffn_c = SEEN["run"] = {}
-        self.attn = SEEN["attn_run"] = Counter()
-        self.flash = SEEN["flash_run"] = Counter()   # (phase, FlashShape)
-        SEEN["phase"] = "prefill"
-        t_submit, handles = {}, []
-        self.first, last, self.tbt = {}, {}, []
-        for i, p in enumerate(prompts):
-            rid = f"r{i}"
-            t_submit[rid] = time.perf_counter()
-            handles.append(engine.client.submit(RequestSpec(
-                rid=rid, prompt=p, max_new=max_new)))
-            if handles[-1].tokens():
-                # the exact whole-prompt scheme samples the first token
-                # from the prefill's logits (a host sync) inside submit
-                last[rid] = time.perf_counter()
-                self.first[rid] = last[rid] - t_submit[rid]
-        c1 = launch_counts()
-        SEEN["phase"] = "decode"
-        self.steps = 0
-        self.t_fail, self.victims, self.recovery_s = None, [], None
-        t_dec0 = None
-        while not all(h.done() for h in handles):
-            if fail is not None and self.t_fail is None:
-                t = time.perf_counter()
-                victims = fail(engine, handles, self.steps)
-                if victims is not None:
-                    self.t_fail, self.victims = t, victims
-            out = engine.step()
-            now = time.perf_counter()  # step() ends in a device->host sync
-            self.steps += 1
-            if t_dec0 is None:
-                t_dec0 = now
-            for rid in out:
-                if rid not in self.first:
-                    self.first[rid] = now - t_submit[rid]
-                else:
-                    self.tbt.append(now - last[rid])
-                last[rid] = now
-            if self.t_fail is not None and self.recovery_s is None and \
-                    all(last.get(r, 0) > self.t_fail for r in self.victims):
-                self.recovery_s = now - self.t_fail
-        t_end = time.perf_counter()
-        c2 = launch_counts()
-        SEEN["run"] = None
+            hooks = patched(engine.chunked, tick=counted_tick)
+        with hooks, observed(torch, "prefill") as obs:
+            t_submit, handles = {}, []
+            self.first, last, self.tbt = {}, {}, []
+            for i, p in enumerate(prompts):
+                rid = f"r{i}"
+                t_submit[rid] = time.perf_counter()
+                handles.append(engine.client.submit(RequestSpec(
+                    rid=rid, prompt=p, max_new=max_new)))
+                if handles[-1].tokens():
+                    # the exact whole-prompt scheme samples the first token
+                    # from the prefill's logits (a host sync) inside submit
+                    last[rid] = time.perf_counter()
+                    self.first[rid] = last[rid] - t_submit[rid]
+            c1 = launch_counts()
+            SEEN["phase"] = "decode"
+            self.steps = 0
+            self.t_fail, self.victims, self.recovery_s = None, [], None
+            t_dec0 = None
+            while not all(h.done() for h in handles):
+                if fail is not None and self.t_fail is None:
+                    t = time.perf_counter()
+                    victims = fail(engine, handles, self.steps)
+                    if victims is not None:
+                        self.t_fail, self.victims = t, victims
+                out = engine.step()
+                now = time.perf_counter()  # step() ends in a host sync
+                self.steps += 1
+                if t_dec0 is None:
+                    t_dec0 = now
+                for rid in out:
+                    if rid not in self.first:
+                        self.first[rid] = now - t_submit[rid]
+                    else:
+                        self.tbt.append(now - last[rid])
+                    last[rid] = now
+                if self.t_fail is not None and self.recovery_s is None and \
+                        all(last.get(r, 0) > self.t_fail
+                            for r in self.victims):
+                    self.recovery_s = now - self.t_fail
+            t_end = time.perf_counter()
         if at_end is not None:          # the engine's final caches
             at_end(engine)
-        ran = delta(c0, c2)
-        if ran["flash_attention/cuda_core"]:
-            raise AssertionError(f"{ran['flash_attention/cuda_core']} "
-                                 f"bf16 serving flash calls took the "
-                                 f"CUDA-core path")
-        n_ffn = ran["moe_ffn"]
-        if n_ffn != sum(sum(c.values()) for c in self.ffn_c.values()):
-            raise AssertionError(f"{n_ffn} expert FFN launches, not all "
-                                 f"seen through ops.expert_ffn_cuda: "
-                                 f"{self.ffn_c}")
-        if engine.chunked is not None:
-            engine.chunked.tick = tick
-        self.launches = {"prefill": delta(c0, c1), "chunks": chunk_counts,
+        self.ffn_c, self.attn, self.flash = obs.ffn_c, obs.attn, obs.flash
+        self.launches = {"prefill": delta(obs.c0, c1), "chunks": chunk_counts,
                          "decode": {k: v - chunk_counts[k] for k, v in
-                                    delta(c1, c2).items()}}
+                                    delta(c1, obs.c_end).items()}}
         self.streams = [h.tokens() for h in handles]
         # release in reverse, so the slot free lists are back in their
         # initial order and a rerun lands every request in the same slot
@@ -1683,6 +1757,331 @@ def mixtral_kv_plane(torch, engine, prompts):
         raise AssertionError("the paged decode steps launched no expert FFN")
     row_count_probe(torch, engine.params)
     return runs
+
+
+# the orchestrated serving phase's workload: the port's
+# make_workload("sharegpt") at 8 requests/s over 2 s (log-normal prompts
+# up to 384 tokens, median near 150; up to 32 new tokens), and its two EW
+# failures: EW0 at 0.5 s (provisioned by 1.53 s, its shadows then
+# re-pointed to protect EW1) and EW1 at 1.8 s (served from those shadows)
+ORCH_WORKLOAD = dict(kind="sharegpt", rate_rps=8.0, duration=2.0, seed=0,
+                     max_prompt=384, max_new=32)
+ORCH_EW_FAILURES = ((0.5, "ew", 0), (1.8, "ew", 1))
+
+
+class ServeRun:
+    """One ``run_serving`` pass (``step_time=None``: the virtual clock
+    advances by each step's measured wall time on the card) on a fresh
+    engine over ``params``, with an Orchestrator as the launcher builds it
+    (``worker_init_time=1.0``). Keeps the ServeMetrics, the orchestrator's
+    events, the launches per phase ("prefill": the scheduler's prefill
+    groups; "decode": the rest of each step), what the run gave the
+    kernels (``observed``), each prefill group's virtual time and
+    (rid, AW, prompt tokens), and what the failures touched. Inside a
+    step's timed interval the only additions are the launch-count reads
+    around each prefill group, the record of the group, the record of
+    each restored request, and the kernel observers of every phase; the
+    rest is read from the ServeMetrics after the run."""
+
+    def __init__(self, torch, cfg, params, wl, failures=(), **ecfg_kw):
+        from repro_torch.core.orchestrator import Orchestrator
+        from repro_torch.serving.engine import EngineConfig, InferenceEngine
+        from repro_torch.serving.scheduler import FailurePlan, run_serving
+        eng = InferenceEngine(cfg, EngineConfig(
+            max_batch=8, max_seq=512, num_aw=2, num_ew=2, **ecfg_kw),
+            params=params, device="cuda")
+        orch = Orchestrator(eng, worker_init_time=1.0)
+        sched = eng.scheduler
+        prefill_group, install = sched._prefill_group, sched._install_recovery
+        fail_aw, fail_ew = eng.fail_aw, eng.fail_ew
+        pre = {k: 0 for k in launch_counts()}
+        self.groups = []
+        self.victims, self.restored, self.slot_expert_at_fail = [], [], {}
+
+        def counted_prefill(group, now):
+            c0 = launch_counts()
+            SEEN["phase"] = "prefill"
+            prefill_group(group, now)
+            SEEN["phase"] = "decode"
+            for k, v in delta(c0, launch_counts()).items():
+                pre[k] += v
+            self.groups.append((now, [(q.rid, aw, len(q.prompt))
+                                      for q, aw, _ in group[1]]))
+
+        def installed(q, aw, slot, now):
+            self.restored.append(q.rid)
+            install(q, aw, slot, now)
+
+        # the orchestrator's tick calls these, outside the timed step
+        def failed_aw(aw):
+            self.victims += [(r.rid, len(r.tokens))
+                             for r in eng.requests.values()
+                             if r.aw == aw and not r.done]
+            fail_aw(aw)
+
+        def failed_ew(ew):
+            self.slot_expert_at_fail[ew] = \
+                eng.route_state.slot_expert.tolist()
+            fail_ew(ew)
+        with patched(sched, _prefill_group=counted_prefill,
+                     _install_recovery=installed), \
+                patched(eng, fail_aw=failed_aw, fail_ew=failed_ew), \
+                observed(torch, "decode") as obs:
+            t0 = time.perf_counter()
+            self.m = run_serving(eng, wl, 600.0, orchestrator=orch,
+                                 failures=[FailurePlan(*f)
+                                           for f in failures])
+            self.wall_s = time.perf_counter() - t0
+        self.ffn_c, self.attn, self.flash = obs.ffn_c, obs.attn, obs.flash
+        self.launches = {"prefill": pre,
+                         "decode": {k: v - pre[k]
+                                    for k, v in obs.ran.items()}}
+        self.events = [(e.t, e.kind, e.worker, e.detail)
+                       for e in orch.events]
+        self.n = len(wl)
+        self.bytes_restored = eng.store.stats.bytes_restored
+        self.placement = eng.api.placement
+
+    def step_ends(self):
+        """The virtual end time of every step that emitted tokens."""
+        return sorted({rec.t for rec in self.m.token_log})
+
+    def spans(self):
+        """rid -> (time of its first token, time of its last)."""
+        first, last = {}, {}
+        for rec in self.m.token_log:
+            first.setdefault(rec.rid, rec.t)
+            last[rec.rid] = rec.t
+        return {r: (first[r], last[r]) for r in first}
+
+    def worst_gap(self, rids=None):
+        """The largest token gap of ``rids`` (None: of every request):
+        (gap, rid, its start, its end)."""
+        by = {}
+        for rec in self.m.token_log:
+            if rids is None or rec.rid in rids:
+                by.setdefault(rec.rid, []).append(rec.t)
+        return max(((b - a, rid, a, b) for rid, ts in by.items()
+                    for a, b in zip(ts, ts[1:])), default=(0.0, "", 0, 0))
+
+    def in_gap(self, a, b):
+        """What ran inside the gap (a, b]: the steps that emitted tokens,
+        the prefill groups (virtual time, prompt tokens) and the
+        orchestrator's events."""
+        steps = [t for t in self.step_ends() if a < t <= b]
+        groups = [(round(t, 4), [n for _, _, n in g])
+                  for t, g in self.groups if a <= t < b]
+        events = [(round(t, 4), kind, w) for t, kind, w, _ in self.events
+                  if a <= t < b]
+        return steps, groups, events
+
+    def check_paths(self, label):
+        """The run launched decode attention and both FFN paths (decode
+        steps on the decode path, prefill groups on the tensor-core path)
+        and flash."""
+        pre, dec = self.launches["prefill"], self.launches["decode"]
+        if dec["decode_attention_fused"] <= 0 or pre["flash_attention"] <= 0 \
+                or dec["decode_attention_paged"]:
+            raise AssertionError(f"{label}: decode attention or flash was "
+                                 f"not launched: {self.launches}")
+        for ph, n, path in (("prefill", pre, "tensor_core"),
+                            ("decode", dec, "skinny")):
+            if n["moe_ffn"] <= 0 or n[f"moe_ffn/{path}"] != n["moe_ffn"]:
+                raise AssertionError(f"{label}: the expert FFN's {ph} "
+                                     f"launches did not all take the {path} "
+                                     f"path: {n}")
+
+    def touched_at(self, t):
+        """Requests with a token at or before ``t`` and one after it."""
+        return {r for r, (a, b) in self.spans().items() if a <= t < b}
+
+    def report(self, label, touched=()):
+        from repro_torch.serving.scheduler import pct
+        m = self.m
+        ttft, tbt, qd = m.ttft_values(), m.tbt_values(), \
+            m.queue_delay_values()
+        print(f"  {label}: {len(m.finished)}/{self.n} requests finished, "
+              f"{len(m.token_log)} tokens in {m.duration:.4f} s of virtual "
+              f"time ({self.wall_s:.2f} s wall); TTFT p50 "
+              f"{pct(ttft, 50) * 1e3:.2f} ms p99 {pct(ttft, 99) * 1e3:.2f} "
+              f"ms; TBT p50 {pct(tbt, 50) * 1e3:.2f} ms p99 "
+              f"{pct(tbt, 99) * 1e3:.2f} ms; max stall "
+              f"{m.max_stall() * 1e3:.2f} ms; throughput "
+              f"{m.throughput():.1f} tok/s; queue delay p50 "
+              f"{pct(qd, 50) * 1e3:.2f} ms p99 {pct(qd, 99) * 1e3:.2f} ms; "
+              f"prefill {m.prefill}; bytes restored {self.bytes_restored}"
+              + (f"; largest token gap of the {len(touched)} requests the "
+                 f"failure touched "
+                 f"{self.worst_gap(set(touched))[0] * 1e3:.2f} ms"
+                 if touched else "") + f"; on {card_line()}")
+        gap, rid, a, b = self.worst_gap()
+        steps, groups, events = self.in_gap(a, b)
+        print(f"    max stall: {rid} from {a:.4f} to {b:.4f} s, "
+              f"{len(steps)} step(s) ending in it; prefill groups in it "
+              f"(virtual time, prompt tokens) {groups}; orchestrator "
+              f"events in it {events}")
+        for t, kind, worker, detail in self.events:
+            print(f"    [orch t={t:.4f}] {kind} {worker} {detail}")
+        for phase, counts in self.launches.items():
+            print(f"    {phase}: { {k: v for k, v in counts.items() if v} }"
+                  + (f", expert FFN (C, path): "
+                     f"{dict(sorted(self.ffn_c[phase].items()))}"
+                     if phase in self.ffn_c else ""))
+
+
+def aw_failure_time(run):
+    """The middle of the longest stretch of ``run``'s steps after which
+    AW0 held at least two decoding requests (a first token and more to
+    come; ``run`` has no failure, so a request stays on the AW of its
+    prefill group): the step's end time, when the next step starts."""
+    aw0 = {rid for _, group in run.groups for rid, aw, _ in group
+           if aw == 0}
+    spans = [s for r, s in run.spans().items() if r in aw0]
+    best, cur = [], []
+    for t in run.step_ends():
+        n = sum(1 for a, b in spans if a <= t < b)
+        cur = cur + [t] if n >= 2 else []
+        if len(cur) > len(best):
+            best = cur
+    if not best:
+        raise AssertionError("AW0 never held two decoding requests in the "
+                             "failure-free run")
+    return best[len(best) // 2]
+
+
+def orchestrated_phase(torch, g, records, params):
+    """Mixtral-8x7B widths at 8 layers in bf16 at capacity factor 4.0 (no
+    token dropped, so slots and batch makeup cannot change a stream) on
+    ``params``, served by ``run_serving`` with an Orchestrator over
+    ORCH_WORKLOAD: (a) failure-free (after a warm-up pass, whose streams
+    must equal it too); (b) EW0 at 0.5 s and EW1 at 1.8 s, the second
+    served from the shadows re-pointed to protect EW1 when EW0 was
+    provisioned; (c) AW0 at a time run (a) says AW0 holds two decoding
+    requests, at least one request with tokens restored; (d) the
+    MegaScale-style baseline (``tarragon=False, checkpoint=False``) under
+    EW0's failure. Every request of (a)-(c) finishes, the streams of (b)
+    and (c) equal (a)'s bit for bit, (d) finishes and prints how many of
+    its streams differ. Each run launches decode attention, both FFN
+    paths and flash. Then the failover demo twin at the same widths (its
+    EW and AW sections equal its reference section), and the expert FFN
+    at every prefill C these runs gave it against the plain versions (the
+    largest C of run (a) timed). Returns run (a)."""
+    from repro_torch.core import ert
+    from repro_torch.data.workloads import make_workload
+    from repro_torch.examples import failover_demo
+    cfg = mixtral_8_layers(capacity_factor=4.0)
+    wl = make_workload(**ORCH_WORKLOAD)
+    print(f"  workload: {len(wl)} requests, prompts "
+          f"{sorted(r.prompt_len for r in wl)} tokens, "
+          f"{sum(r.max_new_tokens for r in wl)} new tokens in all, "
+          f"arrivals {wl[0].arrival:.3f}-{wl[-1].arrival:.3f} s")
+    warm = ServeRun(torch, cfg, params, wl)
+    base = ServeRun(torch, cfg, params, wl)
+    base.report("(a) failure-free")
+
+    def same_outputs(label, run):
+        if len(run.m.finished) != run.n:
+            raise AssertionError(f"{label}: {len(run.m.finished)} of "
+                                 f"{run.n} requests finished")
+        bad = sorted(r for r in base.m.outputs
+                     if run.m.outputs.get(r) != base.m.outputs[r])
+        if bad:
+            raise AssertionError(f"{label}: streams differ from the "
+                                 f"failure-free run for {bad}")
+        print(f"  {label}: {run.n} streams bitwise equal to the "
+              f"failure-free run's")
+    for label, run in (("warm-up", warm), ("(a) failure-free", base)):
+        run.check_paths(label)
+    same_outputs("(a) against the warm-up pass", warm)
+
+    ew = ServeRun(torch, cfg, params, wl, ORCH_EW_FAILURES)
+    ew.report("(b) EW0 at 0.5 s, EW1 at 1.8 s",
+              ew.touched_at(ORCH_EW_FAILURES[0][0]) |
+              ew.touched_at(ORCH_EW_FAILURES[1][0]))
+    ew.check_paths("(b)")
+    same_outputs("(b) two EW failures", ew)
+    prov = [e for e in ew.events if e[1:3] == ("provisioned", "ew0")]
+    if not prov or prov[0][0] >= ORCH_EW_FAILURES[1][0] or \
+            prov[0][3] != "shadows protect ew1":
+        raise AssertionError(f"(b): EW0 was not provisioned with its "
+                             f"shadows re-pointed to EW1 before EW1 "
+                             f"failed: {ew.events}")
+    want = ert.initial_slot_expert(
+        ew.placement, ert.initial_shadow_assignment(ew.placement, 1))
+    if ew.slot_expert_at_fail.get(1) != want.tolist():
+        raise AssertionError(f"(b): slot_expert when EW1 failed "
+                             f"{ew.slot_expert_at_fail.get(1)}, not the "
+                             f"table that protects EW1 {want.tolist()}")
+    # steps that emitted tokens from EW1's detection (its ERT remap) to
+    # its provisioning
+    down = [t for t, kind, w, _ in ew.events
+            if w == "ew1" and kind in ("detected", "provisioned")]
+    served = sum(1 for t in ew.step_ends() if down and down[0] < t and
+                 (len(down) < 2 or t <= down[1]))
+    if not served:
+        raise AssertionError("(b): no step emitted tokens while EW1 was "
+                             "failed")
+    print(f"  (b): EW1's experts served from the re-pointed shadow slots "
+          f"(slot_expert {want.tolist()}) for {served} steps")
+
+    t_aw = aw_failure_time(base)
+    aw = ServeRun(torch, cfg, params, wl, ((t_aw, "aw", 0),))
+    aw.report(f"(c) AW0 at {t_aw:.4f} s", [r for r, _ in aw.victims])
+    aw.check_paths("(c)")
+    same_outputs("(c) AW failure", aw)
+    with_tokens = {r for r, n in aw.victims if n >= 1}
+    if not with_tokens & set(aw.restored):
+        raise AssertionError(f"(c): no request with tokens restored "
+                             f"(victims {aw.victims}, restored "
+                             f"{aw.restored})")
+    print(f"  (c): AW0 held {aw.victims} (rid, tokens) at the failure; "
+          f"restored {aw.restored}")
+
+    mega = ServeRun(torch, cfg, params, wl, ORCH_EW_FAILURES[:1],
+                    tarragon=False, checkpoint=False)
+    mega.report("(d) baseline (tarragon=False, checkpoint=False), EW0 at "
+                "0.5 s", mega.touched_at(ORCH_EW_FAILURES[0][0]))
+    mega.check_paths("(d)")
+    if len(mega.m.finished) != mega.n:
+        raise AssertionError(f"(d): {len(mega.m.finished)} of {mega.n} "
+                             f"requests finished")
+    differ = sum(1 for r in base.m.outputs
+                 if mega.m.outputs.get(r) != base.m.outputs[r])
+    print(f"  (d): {differ} of {mega.n} streams differ from the failure-free "
+          f"Tarragon run's (no shadow slots: EW0's experts unreachable "
+          f"until it is provisioned)")
+
+    print("  failover demo twin at the same widths (max_seq 512)")
+    with observed(torch, "decode") as demo_obs:
+        demo = failover_demo.main(cfg, "cuda", params, max_seq=512,
+                                  log=lambda *a: None)
+    for sec in ("ew", "aw"):
+        if demo[sec] != demo["reference"]:
+            raise AssertionError(f"demo twin: the {sec} section's streams "
+                                 f"differ from the reference section's")
+    print(f"  demo twin: EW and AW sections equal the reference section "
+          f"({ {k: v[:4] for k, v in sorted(demo['reference'].items())} }"
+          f"...); AW section events {demo['events']}; session placements "
+          f"{demo['session']}")
+
+    # the expert FFN at every (C, path) this phase's runs gave it that the
+    # kernel phase did not check (a prefill group's C follows from its
+    # prompts), held to the plain versions; the largest prefill C of run
+    # (a) timed. Earlier phases' shapes stay with main()'s MOE_SHAPES gate
+    base_c = max(c for c, _ in base.ffn_c["prefill"])
+    seen = {key for obs in (warm, base, ew, aw, mega, demo_obs)
+            for per_phase in obs.ffn_c.values() for key in per_phase}
+    todo = (seen - FFN_CHECKED) | {(base_c, "tensor_core")}
+    shapes = [("orchestrated" if (c, path) == (base_c, "tensor_core") else
+               f"orchestrated-C{c}-{path}", c, path == "skinny", path)
+              for c, path in sorted(todo)]
+    print(f"  expert FFN at the {len(shapes)} (C, path) pairs of these runs "
+          f"the kernel phase did not hold to the plain versions (and run "
+          f"(a)'s largest prefill C): {sorted(todo)}")
+    kernel_moe_gemm(torch, g, records, shapes, timed={"orchestrated"},
+                    small=False)
+    records[-1]["launches"] = base.ffn_c["prefill"][(base_c, "tensor_core")]
+    return base
 
 
 def zamba2_13_layers():
@@ -2192,8 +2591,13 @@ def main():
           f"({PAGE_TOKENS}-token pages)")
     kv = mixtral_kv_plane(torch, engine, prompts)
     whole, paged = kv["whole"], kv["paged"]
-    del engine
     phase("kv plane + AW failover")
+    print(f"orchestrated serving: the same weights at capacity factor 4.0, "
+          f"run_serving with an Orchestrator over make_workload("
+          f"{ORCH_WORKLOAD}), the virtual clock on the card's step times")
+    orchestrated = orchestrated_phase(torch, g, records, engine.params)
+    del engine
+    phase("orchestrated serving + demo twin")
     print(f"hybrid: Zamba2-7B widths, {HYBRID_LAYERS} layers, bf16, "
           f"contiguous KV + recurrent state, 2 AWs")
     hybrid = hybrid_phase(torch, profile_dir=args.profile)
@@ -2224,6 +2628,7 @@ def main():
             ("flash_attention", serve, "prefill", None),
             ("flash_attention[Dh112]", hybrid, "prefill", None),
             ("flash_attention[chunk]", paged, "chunks", None),
+            ("flash_attention[orchestrated]", orchestrated, "prefill", None),
             ("flash_attention[gemma2 local]", gemma2, "prefill", True),
             ("flash_attention[gemma2 global]", gemma2, "prefill", False),
             ("flash_attention[danube]", danube, "prefill", None),
@@ -2234,14 +2639,13 @@ def main():
         flash_record(torch, g, records, name, run, ph, errs, window=window)
     phase("flash at the served shapes")
 
-    checked = {(c, path) for _, c, _, path in MOE_SHAPES}
-    if not set(SEEN["ffn"]) <= checked:
+    if not set(SEEN["ffn"]) <= FFN_CHECKED:
         raise AssertionError(f"the expert FFN ran at (C, path) "
-                             f"{sorted(set(SEEN['ffn']) - checked)}, which "
-                             f"the kernel phase did not hold to its plain "
-                             f"version")
+                             f"{sorted(set(SEEN['ffn']) - FFN_CHECKED)}, "
+                             f"which was not held to its plain version")
     print(f"expert FFN (C, path) on every run: {sorted(SEEN['ffn'])}, each "
-          f"held to its plain version in the kernel phase")
+          f"held to its plain version (the kernel phase's MOE_SHAPES and "
+          f"the orchestrated phase's prefill C)")
     if not SEEN["scan"] <= set(SCAN_SHAPES):
         raise AssertionError(f"the SSD scan ran at (B, S) "
                              f"{sorted(SEEN['scan'] - set(SCAN_SHAPES))}, "

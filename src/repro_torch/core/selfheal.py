@@ -2,10 +2,16 @@
 ``repro.core.selfheal``.
 
 Each transition returns a new RouteState whose health tensor has one
-entry flipped; the next step routes by it, with nothing rebuilt.
+entry flipped (or, for ``repoint_shadows``, new slot tables); the next
+step routes by it, with nothing rebuilt. The module also carries the
+EW-side "sufficient subset" batching rule (§5.2).
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
+from repro_torch.core import ert as ert_lib
 from repro_torch.core.refe import RouteState
 
 
@@ -29,3 +35,53 @@ def fail_aw(rs: RouteState, aw_id: int) -> RouteState:
 
 def recover_aw(rs: RouteState, aw_id: int) -> RouteState:
     return rs._replace(aw_health=_set(rs.aw_health, aw_id, True))
+
+
+# --------------------------------------------------------------------------
+# shadow re-pointing (background provisioning of expert capacity, §5.3-§5.4)
+# --------------------------------------------------------------------------
+
+def repoint_shadows(rs: RouteState, placement: ert_lib.ExpertPlacement,
+                    protect_ew: int) -> RouteState:
+    """Re-point the shadow slots to protect ``protect_ew``'s experts.
+
+    The host-side weight push, off the failover critical path. The expert
+    FFN reads each slot's weights through ``slot_expert`` at every launch,
+    so re-pointing is a RouteState update: new candidates and slot
+    residency (int32 tensors on the route state's device), no parameter
+    surgery."""
+    assign = ert_lib.initial_shadow_assignment(placement, protect_ew)
+    dev = rs.candidates.device
+    cand = ert_lib.build_candidates(placement, assign)
+    return rs._replace(
+        candidates=torch.as_tensor(cand, dtype=torch.int32, device=dev),
+        slot_expert=torch.as_tensor(
+            ert_lib.initial_slot_expert(placement, assign),
+            dtype=torch.int32, device=dev))
+
+
+def experts_without_healthy_replica(rs: RouteState,
+                                    placement: ert_lib.ExpertPlacement
+                                    ) -> np.ndarray:
+    """Logical experts currently unreachable (every candidate slot parked
+    or on a dead EW): their tokens are dropped until provisioning or
+    re-protection completes."""
+    _, alive = ert_lib.resolve_active_slots(
+        rs.candidates, rs.ew_health, rs.slot_owner)
+    return (~alive).cpu().numpy().nonzero()[0]
+
+
+# --------------------------------------------------------------------------
+# EW-side sufficient-subset batching (§5.2)
+# --------------------------------------------------------------------------
+
+def ew_should_start(received_from: np.ndarray, aw_healthy: np.ndarray,
+                    batch_tokens: int, min_batch: int,
+                    probe_expired: bool) -> bool:
+    """Whether an EW starts expert compute for a layer batch: when (i)
+    every currently healthy AW has delivered, or (ii) the buffered batch
+    reached the GPU-efficiency knee ``min_batch``, or (iii) the probing
+    window for missing AWs expired (they are then treated as failed for
+    this layer and their slots omitted)."""
+    healthy_delivered = bool(np.all(received_from[aw_healthy]))
+    return healthy_delivered or batch_tokens >= min_batch or probe_expired

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.ert import ExpertPlacement
+
 
 def resident_slot_bank(expert_params: dict, slot_expert) -> dict:
     """Gather the [..., P, ...] slot bank through ``slot_expert``; empty
@@ -17,3 +19,11 @@ def resident_slot_bank(expert_params: dict, slot_expert) -> dict:
     return {k: torch.index_select(v, v.dim() - 3, idx)
             for k, v in expert_params.items()}
 
+
+
+def shadow_memory_bytes(placement: ExpertPlacement, d_model: int, d_ff: int,
+                        bytes_per_el: int = 2, gated: bool = True) -> int:
+    """Residual-memory cost of the shadow bank (paper §5.3's budget
+    check)."""
+    per_expert = (3 if gated else 2) * d_model * d_ff * bytes_per_el
+    return placement.num_shadow_slots * per_expert

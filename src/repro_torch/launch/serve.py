@@ -1,0 +1,132 @@
+"""Serving launcher of the port (twin of ``repro.launch.serve``): run the
+Tarragon engine against a workload on the virtual clock, with failures
+injected through the orchestrator.
+
+    python -m repro_torch.launch.serve --arch mixtral_8x7b \\
+        --workload random --rps 4 --duration 2 [--fail ew:0@0.5] \\
+        [--placement session_affinity] [--no-tarragon] [--device cpu]
+
+The reduced model (capacity factor 4.0) runs on the card unless
+``--device cpu`` is given. The reference's flags whose planes are not
+ported yet are absent: ``--max-ew``, ``--scale``, ``--ew-policy`` and
+``--rebalance`` (the placement plane), ``--no-preempt`` (preemption),
+``--prefix-slots`` (the prefix cache), ``--controller`` and its
+``--no-ctl-*`` switches, ``--no-telemetry``, ``--trace-out``,
+``--metrics-out``, ``--prom-out``, ``--postmortem`` and ``--watchdogs``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.orchestrator import Orchestrator
+from repro_torch.data.workloads import make_workload
+from repro_torch.serving.engine import EngineConfig, InferenceEngine
+from repro_torch.serving.scheduler import FailurePlan, pct, run_serving
+
+
+def parse_failure(s: str) -> FailurePlan:
+    kindid, t = s.split("@")
+    kind, wid = kindid.split(":")
+    return FailurePlan(float(t), kind, int(wid))
+
+
+def require_device(device: str):
+    """No fallback: a CUDA device must exist unless the CPU was asked
+    for."""
+    if torch.device(device).type == "cuda" and \
+            not torch.cuda.is_available():
+        raise RuntimeError(f"--device {device}: no CUDA device is visible "
+                           f"(pass --device cpu to run on the CPU)")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mixtral_8x7b")
+    ap.add_argument("--workload",
+                    choices=("random", "sharegpt", "skewed_expert_load",
+                             "mixed_slo", "multi_turn_chat"),
+                    default="random")
+    ap.add_argument("--rps", type=float, default=4.0)
+    ap.add_argument("--duration", type=float, default=2.0)
+    ap.add_argument("--num-aw", type=int, default=2)
+    ap.add_argument("--num-ew", type=int, default=2)
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--placement", default="least_loaded",
+                    choices=("least_loaded", "round_robin",
+                             "session_affinity"),
+                    help="Gateway AW placement policy")
+    ap.add_argument("--no-tarragon", action="store_true",
+                    help="MegaScale-Infer-style baseline: static expert "
+                         "binding, no shadow slots, no checkpoint store")
+    ap.add_argument("--fail", type=str, action="append", default=[],
+                    help="kind:worker@time, e.g. ew:0@0.5")
+    ap.add_argument("--chunk-budget", type=int, default=0,
+                    help="chunked-prefill token budget per tick "
+                         "(0 = whole-prompt prefill)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the engine (cuda or cpu)")
+    args = ap.parse_args(argv)
+    require_device(args.device)
+
+    cfg = get_config(args.arch).reduced()
+    if cfg.moe.enabled:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=4.0))
+    if args.workload == "multi_turn_chat" and \
+            args.placement == "least_loaded":
+        args.placement = "session_affinity"
+    ecfg = EngineConfig(max_batch=args.max_batch, max_seq=96,
+                        num_aw=args.num_aw, num_ew=args.num_ew,
+                        tarragon=not args.no_tarragon,
+                        checkpoint=not args.no_tarragon,
+                        placement=args.placement,
+                        chunk_token_budget=args.chunk_budget)
+    eng = InferenceEngine(cfg, ecfg, seed=args.seed, device=args.device)
+    orch = Orchestrator(eng, worker_init_time=1.0)
+
+    wl = make_workload(args.workload, args.rps, args.duration,
+                       seed=args.seed, max_prompt=16, max_new=24)
+    failures = [parse_failure(f) for f in args.fail]
+    m = run_serving(eng, wl, duration=600.0, orchestrator=orch,
+                    failures=failures, step_time=0.05)
+
+    tbt = m.tbt_values()
+    print(f"[serve] {cfg.name} tarragon={not args.no_tarragon} "
+          f"AW={args.num_aw} EW={args.num_ew} placement={args.placement} "
+          f"device={args.device}")
+    print(f"  requests finished: {len(m.finished)}/{len(wl)}")
+    print(f"  tokens: {len(m.token_log)}  "
+          f"throughput: {m.throughput():.1f} tok/s")
+    if tbt.size:
+        print(f"  TBT p50={pct(tbt, 50)*1e3:.1f}ms "
+              f"p95={pct(tbt, 95)*1e3:.1f}ms "
+              f"max_stall={m.max_stall()*1e3:.1f}ms")
+    qd = m.queue_delay_values()
+    if qd.size:
+        print(f"  queue delay p50={pct(qd, 50)*1e3:.1f}ms "
+              f"p99={pct(qd, 99)*1e3:.1f}ms")
+    if m.prefill:
+        print(f"  prefill: {m.prefill['calls']} calls / "
+              f"{m.prefill['requests']} reqs "
+              f"occupancy={m.prefill['occupancy']:.2f}")
+    if m.gateway.get("repins"):
+        print(f"  session repins: {m.gateway['repins']}")
+    if m.gateway.get("by_class"):
+        print("  request plane:")
+        for cls, counts in sorted(m.gateway["by_class"].items()):
+            ttft = m.ttft_values(cls)
+            extra = f" ttft_p50={pct(ttft, 50)*1e3:.0f}ms" \
+                if ttft.size else ""
+            print(f"    {cls}: {counts}{extra}")
+    for e in orch.events:
+        print(f"  [orch t={e.t:.2f}] {e.kind} {e.worker} {e.detail}")
+    return m
+
+
+if __name__ == "__main__":
+    main()

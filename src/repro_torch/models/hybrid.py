@@ -32,7 +32,9 @@ def _geometry(cfg: ModelConfig):
 
 
 def build_hybrid(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
-                 device="cuda") -> ModelApi:
+                 tarragon: bool = True, device="cuda") -> ModelApi:
+    """``tarragon`` is the MoE family's (shadow slots or not): the hybrid
+    has no expert layer."""
     device = torch.device(device)
     every, r, _ = _geometry(cfg)
     dtype = cfg.torch_dtype

@@ -1,7 +1,9 @@
 """Sparse MoE layer wired through the Tarragon REFE datapath (port of
 ``repro.models.moe``).
 
-Routing runs in the physical slot space (primaries + shadows). The expert
+Routing runs in the physical slot space (primaries + shadows; with
+``tarragon`` False, the MegaScale-Infer-style static binding, there are no
+shadow slots and an expert on a dead EW has nowhere to go). The expert
 FFN reads each slot's weights from the stored per-expert bank through
 ``RouteState.slot_expert``; the reference's per-layer gather of the whole
 slot bank (``shadow.resident_slot_bank``) is not carried over.
@@ -20,9 +22,10 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import dense_init, matmul, mlp, mlp_init
 
 
-def moe_placement(cfg: ModelConfig, num_ew: int) -> ert_lib.ExpertPlacement:
-    return ert_lib.default_placement(cfg.moe.num_experts, num_ew,
-                                     cfg.moe.num_shadow_slots)
+def moe_placement(cfg: ModelConfig, num_ew: int,
+                  tarragon: bool = True) -> ert_lib.ExpertPlacement:
+    n_shadow = cfg.moe.num_shadow_slots if tarragon else 0
+    return ert_lib.default_placement(cfg.moe.num_experts, num_ew, n_shadow)
 
 
 def moe_init(gen, cfg: ModelConfig, placement: ert_lib.ExpertPlacement,

@@ -8,8 +8,11 @@ from repro_torch.models.transformer import ModelApi, build_decoder
 
 
 def get_model(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
-              device="cuda") -> ModelApi:
-    kw = dict(num_aw=num_aw, num_ew=num_ew, device=device)
+              tarragon: bool = True, device="cuda") -> ModelApi:
+    """``tarragon`` False builds the MegaScale-Infer-style baseline: a
+    static expert binding with no shadow slots."""
+    kw = dict(num_aw=num_aw, num_ew=num_ew, tarragon=tarragon,
+              device=device)
     if cfg.ssm.enabled and cfg.hybrid_attn_every:
         from repro_torch.models.hybrid import build_hybrid
         return build_hybrid(cfg, **kw)

@@ -123,11 +123,11 @@ def cast_floats(tree, dtype):
 
 
 def build_decoder(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
-                  device="cuda") -> ModelApi:
+                  tarragon: bool = True, device="cuda") -> ModelApi:
     device = torch.device(device)
     windows = layer_windows(cfg)
     n_first = cfg.moe.first_k_dense if cfg.moe.enabled else 0
-    placement = (moe_mod.moe_placement(cfg, num_ew)
+    placement = (moe_mod.moe_placement(cfg, num_ew, tarragon)
                  if cfg.moe.enabled else None)
     dtype = cfg.torch_dtype
     n_slots = placement.num_slots if placement is not None else 0

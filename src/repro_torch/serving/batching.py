@@ -14,9 +14,10 @@ from the cache layout:
   * exact (1-token prompts): requests of one prompt length share one
     unpadded call and the first token comes from its last-position logits.
 
-Every KV write is checkpointed: the whole-prompt prefix at install, each
-chunk as it lands (serving/chunked.py), each decode step's tokens in one
-batched gather and one device-to-host copy.
+Every KV write is checkpointed (unless ``checkpoint`` is False): the
+whole-prompt prefix at install, each chunk as it lands
+(serving/chunked.py), each decode step's tokens in one batched gather and
+one device-to-host copy.
 
 Pad tokens (length and repeated-row padding) are masked out of expert
 capacity, and the prefill capacity comes from the real token count, so a
@@ -55,6 +56,14 @@ class PrefillStats:
     def occupancy(self) -> float:
         return self.real_tokens / self.padded_tokens if self.padded_tokens \
             else 0.0
+
+    def mean_batch(self) -> float:
+        return float(np.mean(self.batch_sizes)) if self.batch_sizes else 0.0
+
+    def snapshot(self) -> dict:
+        return {"calls": self.calls, "requests": self.requests,
+                "occupancy": self.occupancy(),
+                "mean_batch": self.mean_batch()}
 
 
 class ContinuousBatchScheduler:
@@ -178,10 +187,11 @@ class ContinuousBatchScheduler:
                 st.t_done = now
         eng.requests[q.rid] = st
 
-        eng.aws[aw].checkpointer.register(q.rid, prompt_len=n)
-        if n_prefilled > 0:
-            eng._bulk_checkpoint(st, 0, n_prefilled - 1)
-        eng.aws[aw].checkpointer.flush()
+        if eng.ecfg.checkpoint:
+            eng.aws[aw].checkpointer.register(q.rid, prompt_len=n)
+            if n_prefilled > 0:
+                eng._bulk_checkpoint(st, 0, n_prefilled - 1)
+            eng.aws[aw].checkpointer.flush()
 
     # -- per-request restoration (recovery admissions) ----------------------
     def _install_recovery(self, q: QueuedRequest, aw: int, slot: int,
@@ -270,17 +280,25 @@ class ContinuousBatchScheduler:
         toks = eng.decode_plane.sample(logits, pos_dev).cpu().numpy()
         self.gateway.stats.host_syncs += 1
 
-        # the KV the step wrote for every active request (all on live AWs:
-        # a dead AW's requests are paused): one batched gather, one
-        # device-to-host copy
+        # the KV the step wrote for every checkpointed request: one batched
+        # gather, one device-to-host copy. A request on a dead AW is
+        # paused, unless the store never knew it (checkpoint=False), and
+        # then it has nothing to stream
+        ck_reqs = [r for r in act
+                   if eng.ecfg.checkpoint and eng.aws[r.aw].alive]
         stacked = eng.layout.extract_tokens(
-            eng.cache, [r.slot for r in act], [r.pos for r in act])
+            eng.cache, [r.slot for r in ck_reqs],
+            [r.pos for r in ck_reqs]) if ck_reqs else None
+        ck = {r.rid: i for i, r in enumerate(ck_reqs)}
 
         out: Dict[str, List[int]] = {}
-        for i, r in enumerate(act):
+        for r in act:
             nxt = int(toks[r.slot])
-            eng.aws[r.aw].checkpointer.checkpoint_token(
-                r.rid, r.pos, [leaf[i] for leaf in stacked], token_value=nxt)
+            if r.rid in ck:
+                i = ck[r.rid]
+                eng.aws[r.aw].checkpointer.checkpoint_token(
+                    r.rid, r.pos, [leaf[i] for leaf in stacked],
+                    token_value=nxt)
             r.pos += 1
             r.tokens.append(nxt)
             r.next_input = nxt

@@ -53,6 +53,13 @@ class ChunkedPrefillStats:
         return self.real_tokens / self.launched_tokens \
             if self.launched_tokens else 0.0
 
+    def snapshot(self) -> dict:
+        return {"calls": self.calls, "chunks": self.chunks,
+                "requests": self.requests, "resumed": self.resumed,
+                "real_tokens": self.real_tokens,
+                "occupancy": self.occupancy(),
+                "shapes": sorted(self.shapes)}
+
 
 @dataclass
 class _PrefillJob:
@@ -99,7 +106,8 @@ class ChunkedPrefillPlane:
         r.prefilling = True
         r.prefill_cursor = 0
         eng.requests[q.rid] = r
-        eng.aws[aw].checkpointer.register(q.rid, prompt_len=n)
+        if eng.ecfg.checkpoint:
+            eng.aws[aw].checkpointer.register(q.rid, prompt_len=n)
         self.stats.requests += 1
         self.stats.prefilled_tokens.setdefault(q.rid, 0)
         self.jobs[q.rid] = _PrefillJob(q.rid, np.asarray(q.prompt), aw, slot,
@@ -221,6 +229,8 @@ class ChunkedPrefillPlane:
         """Stream the chunk's ``take`` KV segments through the bulk path:
         the token value of position t is the next prompt token."""
         eng = self.engine
+        if not eng.ecfg.checkpoint:
+            return
         seg_stack = eng.layout.extract_range(eng.cache, job.slot, start,
                                              take)
         eng._ck_range(eng.aws[job.aw].checkpointer, job.rid, start,

@@ -22,7 +22,14 @@ Failure API:
     onto a healthy slot (§6.2). ``provision_aw(a)`` brings the AW back.
   * ``fail_ew(e)``: EW e crashes and the ERT resolves its experts to
     shadow slots on the next step; nothing else changes.
-    ``provision_ew(e)`` brings it back.
+    ``provision_ew(e, repoint_protect=f)`` brings it back and re-points
+    the shadow slots to protect EW f.
+
+``tarragon=False, checkpoint=False`` is the MegaScale-Infer-style
+baseline: no shadow slots and no checkpoint store, so a failed EW's
+experts are unreachable and a failed AW's requests cannot be restored
+(they keep decoding against the dead worker's slot, as in the
+reference).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import selfheal
 from repro_torch.core.checkpoint import CheckpointStore
 from repro_torch.core.refe import RouteState
 from repro_torch.models import get_model
@@ -54,7 +62,11 @@ class EngineConfig:
     max_seq: int = 96
     num_aw: int = 2
     num_ew: int = 2
+    tarragon: bool = True          # False = MegaScale-style static binding
+    #                                (no shadow slots)
+    checkpoint: bool = True        # False = nothing reaches the store
     sample_seed: int = 0           # the engine's part of every draw's key
+    placement: str = "least_loaded"      # Gateway placement policy
     kv_page_tokens: int = 0        # KV page extent in tokens (0 = the
     #                                contiguous per-slot cache; > 0 needs
     #                                full attention, chunked prefill and
@@ -83,6 +95,7 @@ class RequestState:
     slo_class: str = STANDARD
     deadline: Optional[float] = None
     sampling: Optional[SamplingParams] = None
+    session: Optional[str] = None
     t_enqueue: float = 0.0
     t_admit: float = -1.0
     t_first_token: float = -1.0
@@ -124,7 +137,7 @@ class InferenceEngine:
         self.ecfg = ecfg
         self.device = torch.device(device)
         self.api = get_model(cfg, num_aw=ecfg.num_aw, num_ew=ecfg.num_ew,
-                             device=self.device)
+                             tarragon=ecfg.tarragon, device=self.device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.api.init_params(gen)
@@ -174,7 +187,7 @@ class InferenceEngine:
                     for a in range(ecfg.num_aw)]
         self.ews = [ExpertWorker(e) for e in range(ecfg.num_ew)]
 
-        self.gateway = Gateway(self.aws)
+        self.gateway = Gateway(self.aws, policy=ecfg.placement)
         self.scheduler = ContinuousBatchScheduler(self, self.gateway)
         self.decode_plane = DecodeLoopPlane(self)
         # chunked streams need slot == absolute position and no recurrent
@@ -208,7 +221,7 @@ class InferenceEngine:
         st = RequestState(rid=q.rid, slot=slot, prompt=q.prompt,
                           max_new=q.max_new, t_enqueue=q.t_enqueue,
                           slo_class=q.slo_class, deadline=q.deadline,
-                          sampling=q.sampling)
+                          sampling=q.sampling, session=q.session)
         self.decode_plane.bind(st)
         return st
 
@@ -227,10 +240,34 @@ class InferenceEngine:
         return [r for r in self.requests.values()
                 if not r.done and not r.paused and not r.prefilling]
 
+    def prefilling_requests(self) -> List[RequestState]:
+        return [r for r in self.requests.values()
+                if r.prefilling and not r.done and not r.paused]
+
     def step(self, now: Optional[float] = None) -> Dict[str, List[int]]:
         """One iteration: admission when anything waits, then one decode
         step over all active slots. Returns {rid: new_tokens}."""
         return self.scheduler.step(now)
+
+    # -- prefill accounting (the serving loop's clock and metrics) -----------
+    def prefill_tokens_done(self) -> int:
+        """Real prompt tokens prefilled so far, whole-prompt and chunked."""
+        n = self.scheduler.stats.real_tokens
+        if self.chunked is not None:
+            n += self.chunked.stats.real_tokens
+        return n
+
+    def prefill_snapshot(self) -> dict:
+        snap = self.scheduler.stats.snapshot()
+        if self.chunked is not None:
+            snap["chunked"] = self.chunked.stats.snapshot()
+        return snap
+
+    def drain_request_events(self) -> list:
+        """Request-plane events since the last drain: the placement
+        policy's ``session_repinned`` (the reference's lifecycle events,
+        preempted and deadline_missed, join with the request plane)."""
+        return self.gateway.drain_events()
 
     # -- checkpoint streaming -------------------------------------------------
     def _bulk_checkpoint(self, r: RequestState, start: int, last: int):
@@ -323,19 +360,26 @@ class InferenceEngine:
         """AW crash: its slots, pages and undelivered checkpoint writes are
         gone; its requests pause until re-admitted through the Gateway.
         Requests caught mid-prefill stop their chunk stream; recovery
-        resumes it from the committed cursor."""
+        resumes it from the committed cursor. Requests the store does not
+        know (``checkpoint=False``) cannot be restored: as in the
+        reference, they keep decoding against the dead worker's slot."""
+        recoverable = set(self.store.active_requests_on(aw))
         if self.pages is not None:
-            # the AW's physical pages die with it; freed pages are scrubbed
+            # the AW's physical pages die with it, except those of
+            # unrecoverable requests (see above); freed pages are scrubbed
             # so every free page is clean when the AW is provisioned again
+            keep = {r.slot for r in self.requests.values()
+                    if r._aw == aw and not r.done and
+                    r.rid not in recoverable}
             per = self.ecfg.max_batch // self.ecfg.num_aw
             freed = []
             for s in range(aw * per, (aw + 1) * per):
-                freed += self.pages.release_slot(s)
+                if s not in keep:
+                    freed += self.pages.release_slot(s)
             self._kv_free_pages(freed)
             self._kv_sync_bt()
         self.route_state = self.aws[aw].fail(self.route_state)
-        recoverable = set(self.store.active_requests_on(aw))
-        if self.chunked is not None:
+        if self.chunked is not None and self.ecfg.checkpoint:
             self.chunked.drop_aw(aw)
         for r in self.requests.values():
             if r._aw == aw and not r.done and r.rid in recoverable:
@@ -358,7 +402,7 @@ class InferenceEngine:
                 entries.append(QueuedRequest(
                     rid, r.prompt, r.max_new, t_enqueue=now,
                     slo_class=r.slo_class, deadline=r.deadline,
-                    sampling=r.sampling))
+                    sampling=r.sampling, session=r.session))
         self.gateway.requeue_recovery(entries)
         admitted = set(self.scheduler.admit(now))
         return [q.rid for q in entries if q.rid in admitted]
@@ -373,8 +417,32 @@ class InferenceEngine:
     def fail_ew(self, ew: int):
         self.route_state = self.ews[ew].fail(self.route_state)
 
-    def provision_ew(self, ew: int):
+    def provision_ew(self, ew: int, repoint_protect: Optional[int] = None,
+                     now: float = 0.0):
+        """Bring EW ``ew`` back; with ``repoint_protect``, then re-point the
+        shadow slots to protect that EW (the background weight push)."""
         self.route_state = self.ews[ew].provision(self.route_state)
+        if repoint_protect is not None:
+            self.repoint_shadows(repoint_protect, now=now)
+
+    def repoint_shadows(self, protect_ew: int, now: float = 0.0):
+        """Re-point the shadow slots to protect ``protect_ew``'s experts: a
+        RouteState update (``candidates`` and ``slot_expert``); the expert
+        FFN reads each slot's weights through ``slot_expert`` at every
+        launch, so no weights move. The reference's versioned plan install
+        (its placement manager) is not ported; this is its manager-less
+        path."""
+        placement = self.api.placement
+        if placement is None or placement.num_shadow_slots == 0:
+            return
+        self.route_state = selfheal.repoint_shadows(
+            self.route_state, placement, protect_ew)
+
+    def choose_protect_ew(self, exclude=()) -> Optional[int]:
+        """The placement manager's pick of the most load-critical EW; None
+        until that plane is ported (the orchestrator then protects the
+        failed EW's neighbour)."""
+        return None
 
     # -- teardown -----------------------------------------------------------
     def cancel_request(self, rid: str, now: float = 0.0) -> bool:

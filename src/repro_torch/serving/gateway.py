@@ -9,18 +9,24 @@ be restored, ``recovery=True``) stay at the front. A head that cannot be
 placed blocks only its own class for this tick.
 
 Placement policies (a healthy AW with free capacity, or None):
-``least_loaded`` (most free slots; ties -> lowest id) and ``round_robin``.
-Session affinity, the token cap and preemption arrive with the planes
-they serve.
+``least_loaded`` (most free slots; ties -> lowest id), ``round_robin``
+and ``session_affinity`` (a session's home is the stable hash of its key,
+the explicit ``session`` when given, else the rid's session prefix
+``rid.rsplit('-', 1)[0]``; the session is pinned there, a full home
+spills to least-loaded for one request, a dead home re-pins the session
+with a ``session_repinned`` event). The token cap, preemption and the
+prefix-aware part of session affinity arrive with the planes they serve.
 """
 from __future__ import annotations
 
+import zlib
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.orchestrator import WorkerEvent
 from repro_torch.serving.api import (CLASS_WEIGHTS, SLO_CLASSES, STANDARD,
                                      SamplingParams)
 from repro_torch.serving.workers import AttentionWorker
@@ -37,10 +43,21 @@ class QueuedRequest:
     deadline: Optional[float] = None
     sampling: Optional[SamplingParams] = None
     recovery: bool = False          # re-admission of a failed AW's request
+    session: Optional[str] = None   # affinity key for placement
 
     @property
     def deadline_key(self) -> float:
         return self.deadline if self.deadline is not None else float("inf")
+
+    @property
+    def placement_key(self) -> str:
+        """Affinity key for placement: the explicit session verbatim, else
+        the session prefix of the rid (``sess-0`` and ``sess-1`` share
+        ``sess``), derived here so an explicit key holding '-' is never
+        truncated."""
+        if self.session is not None:
+            return self.session
+        return SessionAffinityPolicy.session_key(self.rid)
 
 
 class LeastLoadedPolicy:
@@ -73,9 +90,65 @@ class RoundRobinPolicy:
         return None
 
 
+class SessionAffinityPolicy:
+    """Session-sticky placement. A session's first placement chooses its
+    home, the stable hash of the key onto the AW ring, and pins the
+    session there, so every later turn lands where its KV lives. A pinned
+    but full home spills to least-loaded for that request only (the pin
+    survives). A pinned but dead home re-pins the session to the AW the
+    same rule chooses and emits a ``session_repinned`` event."""
+
+    def __init__(self):
+        self._fallback = LeastLoadedPolicy()
+        self.pins: Dict[str, int] = {}
+        self.events: List[WorkerEvent] = []
+        self.stats = None            # bound by the owning Gateway
+
+    @staticmethod
+    def session_key(rid: str) -> str:
+        """Session prefix of a request id (``sess-3`` -> ``sess``)."""
+        return rid.rsplit("-", 1)[0]
+
+    def _choose_home(self, workers, key: str, prompt) -> Optional[int]:
+        # the prefix-cache plane's choice (the AW holding the longest
+        # cached prefix of ``prompt``, the reference's ``_prefix_best`` and
+        # its ``global_router``) goes first here once that plane is ported
+        home = zlib.crc32(key.encode()) % len(workers)
+        if workers[home].has_capacity():
+            return home
+        return self._fallback(workers, key)
+
+    def __call__(self, workers: List[AttentionWorker], key: str,
+                 prompt=None, now: float = 0.0) -> Optional[int]:
+        if not key:
+            return self._fallback(workers, key)
+        pin = self.pins.get(key)
+        if pin is not None:
+            w = workers[pin]
+            if w.alive and w.has_capacity():
+                return pin
+            if w.alive:
+                # home is full but healthy: spill without re-pinning
+                return self._fallback(workers, key)
+            new = self._choose_home(workers, key, prompt)
+            if new is None:
+                return None        # nothing placeable now; keep the pin
+            self.pins[key] = new
+            self.events.append(WorkerEvent(now, "session_repinned", key,
+                                           f"aw{pin}->aw{new}"))
+            if self.stats is not None:
+                self.stats.session_repins += 1
+            return new
+        choice = self._choose_home(workers, key, prompt)
+        if choice is not None:
+            self.pins[key] = choice
+        return choice
+
+
 PLACEMENT_POLICIES = {
     "least_loaded": LeastLoadedPolicy,
     "round_robin": RoundRobinPolicy,
+    "session_affinity": SessionAffinityPolicy,
 }
 
 
@@ -86,6 +159,7 @@ class GatewayStats:
     blocked_ticks: int = 0          # head-of-queue retries
     requeued: int = 0               # recovery re-admissions queued
     host_syncs: int = 0             # decode-path device->host token drains
+    session_repins: int = 0         # sessions re-pinned off a dead AW
     queue_delay: Dict[str, float] = field(default_factory=dict)
     by_class: Dict[str, Dict[str, int]] = field(default_factory=dict)
 
@@ -106,17 +180,21 @@ class Gateway:
         self.queues: Dict[str, Deque[QueuedRequest]] = {
             cls: deque() for cls in SLO_CLASSES}
         self.stats = GatewayStats()
+        if isinstance(policy, SessionAffinityPolicy):
+            policy.stats = self.stats
 
     def enqueue(self, rid: str, prompt: np.ndarray, max_new: int, *,
                 now: float = 0.0, slo_class: str = STANDARD,
                 deadline: Optional[float] = None,
-                sampling: Optional[SamplingParams] = None):
+                sampling: Optional[SamplingParams] = None,
+                session: Optional[str] = None):
         if slo_class not in SLO_CLASSES:
             raise ValueError(f"unknown slo_class {slo_class!r}: expected "
                              f"one of {SLO_CLASSES}")
         self._insert(QueuedRequest(rid, np.asarray(prompt, np.int32),
                                    max_new, now, slo_class=slo_class,
-                                   deadline=deadline, sampling=sampling))
+                                   deadline=deadline, sampling=sampling,
+                                   session=session))
         self.stats.enqueued += 1
         self.stats.bump(slo_class, "enqueued")
 
@@ -167,6 +245,15 @@ class Gateway:
                   now: float = 0.0) -> Optional[int]:
         return self.policy(self.workers, key, prompt=prompt, now=now)
 
+    def drain_events(self) -> List[WorkerEvent]:
+        """Placement events (``session_repinned``) the policy emitted since
+        the last drain."""
+        evs = getattr(self.policy, "events", None)
+        if not evs:
+            return []
+        self.policy.events = []
+        return evs
+
     def admit(self, now: float = 0.0
               ) -> List[Tuple[QueuedRequest, int, int]]:
         """Weighted dequeue over the class queues; reserves a slot on the
@@ -183,15 +270,18 @@ class Gateway:
                     if not q:
                         break
                     head = q[0]
-                    aw = self.choose_aw(head.rid, prompt=head.prompt,
-                                        now=now)
+                    # recovery entries restore their own KV: no prompt to
+                    # match
+                    match_prompt = None if head.recovery else head.prompt
+                    aw = self.choose_aw(head.placement_key,
+                                        prompt=match_prompt, now=now)
                     if aw is None:
                         head.retries += 1
                         self.stats.blocked_ticks += 1
                         blocked.add(cls)
                         break
                     q.popleft()
-                    slot, _ = self.workers[aw].take_slot(head.prompt, now)
+                    slot, _ = self.workers[aw].take_slot(match_prompt, now)
                     self.stats.admitted += 1
                     self.stats.bump(cls, "admitted")
                     self.stats.queue_delay[head.rid] = \

@@ -1,0 +1,342 @@
+"""The port's control plane against the JAX package's: twins of
+``tests/test_failover.py``'s orchestrator, shadow re-pointing and baseline
+tests on the reduced Mixtral at capacity factor 4.0, each run on both
+packages (the port with the reference's weights, converted) with equal
+streams and equal orchestrator events ``(t, kind, worker, detail)``; the
+``selfheal`` additions against the reference's functions; and the
+``session_affinity`` policy's placements and re-pins against the JAX
+gateway.
+
+The reference engine keeps a placement manager, which the port does not
+have yet: its ``choose_protect_ew`` answers as the port's does (None, so
+both orchestrators protect the failed EW's neighbour), after recording the
+manager's own pick, and every comparison asserts that the manager picked
+the same EW, so the stand-in changes nothing in the reference's run. Its
+``placement_changed`` events (one per plan install) are left out of the
+comparison."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import reduced
+from repro.core import ert as jert
+from repro.core import selfheal as jsh
+from repro.core.orchestrator import Orchestrator as JOrch
+from repro.core.refe import RouteState as JRoute
+from repro.serving.engine import EngineConfig as JEngineConfig
+from repro.serving.engine import InferenceEngine as JEngine
+from repro_torch.configs import get_config as tget_config
+from repro_torch.convert import params_from_reference
+from repro_torch.core import ert as tert
+from repro_torch.core import selfheal as tsh
+from repro_torch.core import shadow as tshadow
+from repro_torch.core.orchestrator import Orchestrator as TOrch
+from repro_torch.core.refe import RouteState as TRoute
+from repro_torch.serving.api import RequestSpec
+from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+PROMPT = np.arange(1, 9, dtype=np.int32)
+BASE = dict(max_batch=8, max_seq=48, num_aw=2, num_ew=2)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """The reference engine's weights, and the port's conversion."""
+    je = _jax_engine()
+    return je.params, params_from_reference(je.params, device="cpu")
+
+
+def _jax_engine(**kw):
+    return manager_less(JEngine(
+        reduced("mixtral_8x7b", cap_factor=4.0),
+        JEngineConfig(**BASE, telemetry=False, flight_recorder=False, **kw),
+        jax.random.PRNGKey(7)))
+
+
+def manager_less(eng):
+    """The reference engine with the port's manager-less protect choice
+    (None: the orchestrator protects the provisioned EW's neighbour); the
+    manager's own picks are kept in ``eng.protect_picks``."""
+    pick, eng.protect_picks = eng.choose_protect_ew, []
+
+    def choose_protect_ew(exclude=()):
+        eng.protect_picks.append(pick(exclude=exclude))
+        return None
+    eng.choose_protect_ew = choose_protect_ew
+    return eng
+
+
+def assert_manager_agrees(eng, events):
+    """Each EW provisioning re-pointed the shadows to the EW the reference's
+    placement manager picked (or it had no manager), so answering None in
+    its place changed nothing."""
+    protected = [int(d.rsplit("ew", 1)[1]) for _, kind, w, d in events
+                 if kind == "provisioned" and w.startswith("ew")]
+    assert len(eng.protect_picks) == len(protected)
+    for pick, ew in zip(eng.protect_picks, protected):
+        assert pick in (None, ew), (eng.protect_picks, protected)
+
+
+def _port_engine(params, **kw):
+    cfg = tget_config("mixtral_8x7b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=4.0))
+    return InferenceEngine(cfg, EngineConfig(**BASE, **kw), params=params,
+                           device="cpu")
+
+
+class Side:
+    """One package's engine and orchestrator behind one interface."""
+
+    def __init__(self, pkg, weights, worker_init_time=None, **kw):
+        self.pkg = pkg
+        if pkg == "jax":
+            self.eng = _jax_engine(**kw)
+            self.eng.params = weights[0]
+            orch = JOrch
+        else:
+            self.eng = _port_engine(weights[1], **kw)
+            orch = TOrch
+        self.orch = None if worker_init_time is None else \
+            orch(self.eng, worker_init_time=worker_init_time)
+
+    def submit(self, rid, prompt, max_new):
+        if self.pkg == "jax":
+            assert self.eng._submit_sync(rid, prompt, max_new)
+        else:
+            self.eng.client.submit(RequestSpec(rid=rid, prompt=prompt,
+                                               max_new=max_new))
+
+    def run_to_end(self, rid):
+        while not self.eng.requests[rid].done:
+            self.eng.step()
+        return list(self.eng.requests[rid].tokens)
+
+    def events(self):
+        if self.orch is None:
+            return []
+        ev = [(e.t, e.kind, e.worker, e.detail) for e in self.orch.events
+              if e.kind != "placement_changed"]
+        if self.pkg == "jax":
+            assert_manager_agrees(self.eng, ev)
+        return ev
+
+
+def both(weights, scenario, **kw):
+    """Run ``scenario(side)`` on both packages; returns (jax, port)."""
+    return [scenario(Side(pkg, weights, **kw)) for pkg in ("jax", "port")]
+
+
+@pytest.fixture(scope="module")
+def ref_tokens(weights):
+    def gen(s):
+        s.submit("r0", PROMPT, 14)
+        return s.run_to_end("r0")
+    j, t = both(weights, gen)
+    assert j == t
+    return j
+
+
+def test_orchestrator_detection_and_provisioning(weights, ref_tokens):
+    def scenario(s):
+        eng, orch = s.eng, s.orch
+        s.submit("r0", PROMPT, 14)
+        for _ in range(4):
+            eng.step()
+        orch.inject_failure("ew", 0, now=10.0)
+        # before the detection latency nothing fires
+        assert orch.tick(10.01) == []
+        assert 0 not in eng.failed_ews
+        fired = orch.tick(10.0 + orch.detection_latency() + 1e-6)
+        assert [e.kind for e in fired] == ["detected"]
+        assert 0 in eng.failed_ews
+        toks = s.run_to_end("r0")
+        # background provisioning restores the EW and re-points shadows
+        fired = orch.tick(12.0)
+        assert any(e.kind == "provisioned" for e in fired)
+        assert 0 not in eng.failed_ews
+        assert orch.outstanding == 0
+        return toks, s.events()
+    (jt, jev), (tt, tev) = both(weights, scenario, worker_init_time=1.0)
+    assert jt == tt == ref_tokens
+    assert tev == jev
+    assert tev[-1][1:] == ("provisioned", "ew0", "shadows protect ew1")
+
+
+def test_orchestrator_aw_flow(weights, ref_tokens):
+    def scenario(s):
+        eng, orch = s.eng, s.orch
+        s.submit("r0", PROMPT, 14)
+        for _ in range(4):
+            eng.step()
+        orch.inject_failure("aw", 0, now=5.0)
+        fired = orch.tick(5.1)
+        assert any("restored 1 requests" in e.detail for e in fired)
+        toks = s.run_to_end("r0")
+        orch.tick(6.2)                 # AW0 provisioned after T_w
+        assert eng.failed_aws == set() and orch.outstanding == 0
+        return toks, s.events()
+    (jt, jev), (tt, tev) = both(weights, scenario, worker_init_time=1.0)
+    assert jt == tt == ref_tokens
+    assert tev == jev
+
+
+def test_repoint_shadows_protects_other_ew(weights, ref_tokens):
+    """After re-pointing shadows to protect EW1, failing EW1 is exact."""
+    def scenario(s):
+        s.eng.repoint_shadows(1)
+        s.submit("r0", PROMPT, 14)
+        for _ in range(4):
+            s.eng.step()
+        s.eng.fail_ew(1)
+        return s.run_to_end("r0")
+    j, t = both(weights, scenario)
+    assert j == t == ref_tokens
+
+
+def test_megascale_baseline_has_no_shadow_slots(weights):
+    def scenario(s):
+        assert s.eng.api.placement.num_shadow_slots == 0
+        s.submit("r0", PROMPT, 10)
+        return s.run_to_end("r0")
+    j, t = both(weights, scenario, tarragon=False)
+    assert len(t) == 10 and t == j
+
+
+def test_ew_failure_without_shadow_degrades_not_crashes(weights):
+    """EW1's experts have no shadows by default: tokens routed to them are
+    dropped (reduced capacity), but decoding goes on, NaN-free, and both
+    packages degrade alike."""
+    def scenario(s):
+        s.submit("r0", PROMPT, 12)
+        s.eng.fail_ew(1)
+        return s.run_to_end("r0")
+    j, t = both(weights, scenario)
+    assert len(t) == 12 and all(0 <= x < 512 for x in t)
+    assert t == j
+
+
+def test_elastic_entry_points_name_the_placement_plane(weights):
+    orch = TOrch(_port_engine(weights[1]))
+    for call in (lambda: orch.request_scale_out(0.0),
+                 lambda: orch.request_scale_in(1, 0.0),
+                 lambda: orch.request_rebalance(0.0)):
+        with pytest.raises(NotImplementedError, match="placement plane"):
+            call()
+    with pytest.raises(ValueError):
+        orch.inject_failure("gpu", 0, 0.0)
+
+
+# --------------------------------------------------------------------------
+# selfheal and shadow additions against the reference's functions
+# --------------------------------------------------------------------------
+
+GEOMETRIES = [(8, 2, -1), (8, 4, -1), (4, 2, -1), (60, 4, -1), (8, 2, 0),
+              (6, 3, 4)]
+
+
+def _route_pair(placement_args, num_aw=2):
+    tp = tert.default_placement(*placement_args)
+    jp = jert.default_placement(*placement_args)
+    return tp, jp, TRoute.healthy(tp, num_aw, device="cpu"), \
+        JRoute.healthy(jp, num_aw)
+
+
+@pytest.mark.parametrize("geom", GEOMETRIES)
+def test_repoint_shadows_arrays_match_reference(geom):
+    tp, jp, trs, jrs = _route_pair(geom)
+    for protect in range(geom[1]):
+        t = tsh.repoint_shadows(trs, tp, protect)
+        j = jsh.repoint_shadows(jrs, jp, protect)
+        for f in ("candidates", "slot_expert"):
+            got = getattr(t, f)
+            assert got.dtype == torch.int32 and got.device == \
+                trs.candidates.device
+            assert np.array_equal(got.numpy(), np.asarray(getattr(j, f)))
+        # the rest of the route state is untouched
+        for f in ("ew_health", "aw_health", "slot_owner", "split_slot"):
+            assert torch.equal(getattr(t, f), getattr(trs, f))
+
+
+@pytest.mark.parametrize("geom", GEOMETRIES)
+def test_experts_without_healthy_replica_match_reference(geom):
+    tp, jp, trs, jrs = _route_pair(geom)
+    rng = np.random.default_rng(sum(geom) + 7)
+    for protect in range(geom[1]):
+        t = tsh.repoint_shadows(trs, tp, protect)
+        j = jsh.repoint_shadows(jrs, jp, protect)
+        for _ in range(4):
+            health = rng.random(geom[1]) < 0.6
+            t2 = t._replace(ew_health=torch.as_tensor(health))
+            j2 = j._replace(ew_health=jnp.asarray(health))
+            got = tsh.experts_without_healthy_replica(t2, tp)
+            want = jsh.experts_without_healthy_replica(j2, jp)
+            assert np.array_equal(got, want)
+
+
+def test_ew_should_start_matches_reference():
+    rng = np.random.default_rng(11)
+    for _ in range(200):
+        n = int(rng.integers(1, 6))
+        args = (rng.random(n) < 0.5, rng.random(n) < 0.7,
+                int(rng.integers(0, 40)), int(rng.integers(1, 40)),
+                bool(rng.random() < 0.2))
+        assert tsh.ew_should_start(*args) == jsh.ew_should_start(*args)
+
+
+def test_shadow_memory_bytes_matches_reference():
+    from repro.core import shadow as jshadow
+    for geom in GEOMETRIES:
+        tp, jp = tert.default_placement(*geom), jert.default_placement(*geom)
+        for kw in ({}, {"bytes_per_el": 4, "gated": False}):
+            assert tshadow.shadow_memory_bytes(tp, 4096, 14336, **kw) == \
+                jshadow.shadow_memory_bytes(jp, 4096, 14336, **kw)
+
+
+# --------------------------------------------------------------------------
+# session affinity against the JAX gateway
+# --------------------------------------------------------------------------
+
+def test_session_affinity_placements_and_repins():
+    """Both packages' gateways, 4 AWs of 2 slots each: sessions pin by
+    their key's hash, a full home spills without re-pinning, a dead home
+    re-pins the session (``session_repinned``), and an explicit session
+    key wins over the rid's prefix."""
+    kw = dict(max_batch=8, max_seq=48, num_aw=4, num_ew=2,
+              placement="session_affinity")
+    je = JEngine(reduced("mixtral_8x7b"), JEngineConfig(
+        **kw, telemetry=False, flight_recorder=False), jax.random.PRNGKey(0))
+    te = InferenceEngine(tget_config("mixtral_8x7b").reduced(),
+                         EngineConfig(**kw), device="cpu")
+    prompt = np.arange(1, 6, dtype=np.int32)
+    rounds = [
+        [("chat-a-0", None), ("chat-b-0", None), ("chat-a-1", None)],
+        [("chat-a-2", None), ("x-0", "chat-b"), ("chat-c-0", None)],
+        "fail",
+        [("chat-a-3", None), ("chat-b-1", None), ("chat-c-1", None),
+         ("y-9", "chat-c")],
+    ]
+    out = {}
+    for name, eng in (("jax", je), ("port", te)):
+        gw, log = eng.gateway, []
+        for i, rnd in enumerate(rounds):
+            if rnd == "fail":
+                # fail the home of session chat-a
+                home = gw.policy.pins["chat-a"]
+                eng.route_state = eng.aws[home].fail(eng.route_state)
+                log.append(("failed", home))
+                continue
+            for rid, sess in rnd:
+                gw.enqueue(rid, prompt, 4, now=float(i), session=sess)
+            log.append(sorted((q.rid, aw, slot)
+                              for q, aw, slot in gw.admit(float(i))))
+        out[name] = (log, dict(gw.policy.pins), gw.stats.session_repins,
+                     [(e.t, e.kind, e.worker, e.detail)
+                      for e in gw.drain_events()])
+    assert out["port"] == out["jax"]
+    assert out["port"][2] == 1 and out["port"][3][0][1] == \
+        "session_repinned"

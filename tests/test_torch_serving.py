@@ -1,0 +1,299 @@
+"""The port's serving loop against the JAX package's: ``run_serving`` on
+the launcher's engine (reduced Mixtral at capacity factor 4.0, 2 AWs x 2
+EWs, max_seq 96) with ``step_time=0.05`` over one ShareGPT-like Poisson
+workload, with no failure, with ``ew:0@0.3`` and with ``aw:0@0.3``:
+outputs, finished order, TTFTs, queueing delays and orchestrator events
+equal the reference's. The engine options the launcher sets
+(``checkpoint``, ``placement``, the ``tarragon=False, checkpoint=False``
+baseline under an AW failure, ``session_affinity`` re-pinning off a failed
+AW) against the reference with the same option; ``ServeMetrics`` and
+``parse_failure`` against the reference's; the launcher twin on the CPU;
+and the failover demo twin's sections against the JAX demo's
+(``examples/failover_demo.py``, loaded as it is).
+
+The reference engine keeps a placement manager, which the port does not
+have yet: it answers ``choose_protect_ew`` as the port does, and every run
+asserts that the manager picked the same EW
+(``test_torch_orchestrator.manager_less``); its ``placement_changed``
+events are left out of the comparison."""
+import contextlib
+import dataclasses
+import importlib.util
+import io
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from conftest import reduced
+from repro.core.orchestrator import Orchestrator as JOrch
+from repro.launch import serve as jserve
+from repro.data.workloads import make_workload as jmake_workload
+from repro.serving.engine import EngineConfig as JEngineConfig
+from repro.serving.engine import InferenceEngine as JEngine
+from repro.serving.scheduler import FailurePlan as JFailurePlan
+from repro.serving.scheduler import ServeMetrics as JServeMetrics
+from repro.serving.scheduler import TokenRecord as JTokenRecord
+from repro.serving.scheduler import run_serving as jrun_serving
+from repro_torch.configs import get_config as tget_config
+from repro_torch.convert import params_from_reference
+from repro_torch.core.orchestrator import Orchestrator as TOrch
+from repro_torch.data.workloads import make_workload
+from repro_torch.examples import failover_demo as tdemo
+from repro_torch.launch import serve as tserve
+from repro_torch.serving.engine import EngineConfig, InferenceEngine
+from repro_torch.serving.scheduler import (FailurePlan, ScalePlan,
+                                           ServeMetrics, TokenRecord,
+                                           run_serving)
+from test_torch_orchestrator import assert_manager_agrees, manager_less
+
+BASE = dict(max_batch=8, max_seq=96, num_aw=2, num_ew=2)
+# 13 requests of up to 40 prompt tokens and 16 new ones; four arrive at
+# once, so AW0 holds two decoding requests at t = 0.3
+WORKLOAD = dict(kind="sharegpt", rate_rps=12.0, duration=1.0, seed=0,
+                max_prompt=40, max_new=16)
+FAILURES = {"none": [], "ew": [(0.3, "ew", 0)], "aw": [(0.3, "aw", 0)],
+            "aw1": [(0.3, "aw", 1)]}
+
+
+def _port_cfg():
+    cfg = tget_config("mixtral_8x7b").reduced()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=4.0))
+
+
+def _jax_engine(**kw):
+    return manager_less(JEngine(
+        reduced("mixtral_8x7b", cap_factor=4.0),
+        JEngineConfig(**BASE, telemetry=False, flight_recorder=False, **kw),
+        jax.random.PRNGKey(0)))
+
+
+@pytest.fixture(scope="module")
+def served():
+    """serve(pkg, failures, **engine options) -> the run's comparable
+    record, memoised across the module's tests."""
+    params, memo = {}, {}
+
+    def serve(pkg, failures="none", **kw):
+        key = (pkg, failures, tuple(sorted(kw.items())))
+        if key in memo:
+            return memo[key]
+        fails = FAILURES[failures]
+        if pkg == "jax":
+            eng = _jax_engine(**kw)
+            params.setdefault("port", params_from_reference(eng.params,
+                                                            device="cpu"))
+            orch = JOrch(eng, worker_init_time=1.0, weight_push_time=0.25)
+            m = jrun_serving(eng, jmake_workload(**WORKLOAD), 600.0,
+                             orchestrator=orch, step_time=0.05,
+                             failures=[JFailurePlan(*f) for f in fails])
+        else:
+            if "port" not in params:
+                serve("jax")
+            eng = InferenceEngine(_port_cfg(), EngineConfig(**BASE, **kw),
+                                  params=params["port"], device="cpu")
+            orch = TOrch(eng, worker_init_time=1.0)
+            m = run_serving(eng, make_workload(**WORKLOAD), 600.0,
+                            orchestrator=orch, step_time=0.05,
+                            failures=[FailurePlan(*f) for f in fails])
+        events = [(e.t, e.kind, e.worker, e.detail) for e in orch.events
+                  if e.kind != "placement_changed"]
+        if pkg == "jax":
+            assert_manager_agrees(eng, events)
+        memo[key] = rec = dict(
+            outputs=m.outputs, finished=m.finished, ttft=m.ttft,
+            queue_delay=m.queue_delay, events=events, prefill=m.prefill,
+            tokens=len(m.token_log),
+            bytes_written=eng.store.stats.bytes_written,
+            restores=eng.store.stats.restores)
+        return rec
+    return serve
+
+
+def same(got, want):
+    for k in ("outputs", "finished", "ttft", "queue_delay", "events",
+              "prefill", "tokens", "restores"):
+        assert got[k] == want[k], k
+
+
+@pytest.mark.parametrize("failures", ["none", "ew", "aw"])
+def test_run_serving_matches_reference(served, failures):
+    got, want = served("port", failures), served("jax", failures)
+    same(got, want)
+    n = len(make_workload(**WORKLOAD))
+    assert len(got["finished"]) == n
+    # failover is lossless: every stream equals the failure-free run's
+    assert got["outputs"] == served("port")["outputs"]
+    kinds = [e[1] for e in got["events"]]
+    if failures == "none":
+        assert kinds == []
+    else:
+        assert kinds == [f"fail_{failures}", "detected", "provisioned"]
+    if failures == "aw":
+        assert got["events"][1][3] == "restored 2 requests"
+        assert got["restores"] == 2
+
+
+@pytest.mark.parametrize("option", [{"checkpoint": False}],
+                         ids=["checkpoint_off"])
+def test_engine_options_match_reference(served, option):
+    got, want = served("port", **option), served("jax", **option)
+    same(got, want)
+    # the streams of the default engine: no store changes no token
+    assert got["outputs"] == served("port")["outputs"]
+    if option.get("checkpoint") is False:
+        assert got["bytes_written"] == 0
+    else:
+        assert got["bytes_written"] > 0
+
+
+def test_baseline_aw_failure_restores_nothing(served):
+    """``tarragon=False, checkpoint=False`` under an AW failure: the store
+    knows no request, so nothing is paused or restored and the dead AW's
+    requests keep decoding against its slots, as in the reference."""
+    opt = dict(tarragon=False, checkpoint=False)
+    got, want = served("port", "aw", **opt), served("jax", "aw", **opt)
+    same(got, want)
+    assert got["events"][1][3] == "restored 0 requests"
+    assert got["restores"] == 0 and got["bytes_written"] == 0
+    assert len(got["finished"]) == len(make_workload(**WORKLOAD))
+
+
+def test_session_affinity_repins_through_the_orchestrator(served):
+    """Every request of the workload shares the session key "sharegpt",
+    whose home is AW1: failing AW1 re-pins the session, and the
+    ``session_repinned`` event reaches the orchestrator's log through the
+    engine's ``drain_request_events``, as in the reference."""
+    opt = dict(placement="session_affinity")
+    got, want = served("port", "aw1", **opt), served("jax", "aw1", **opt)
+    same(got, want)
+    assert [e[1] for e in got["events"]].count("session_repinned") == 1
+    assert got["outputs"] == served("port")["outputs"]
+
+
+def test_scale_events_name_the_placement_plane():
+    eng = InferenceEngine(_port_cfg(), EngineConfig(**BASE), device="cpu")
+    with pytest.raises(NotImplementedError, match="placement plane"):
+        run_serving(eng, [], 1.0, orchestrator=TOrch(eng),
+                    scale_events=[ScalePlan(0.1, "add_ew")])
+
+
+@pytest.mark.parametrize("slo_class", [None, "interactive", "batch"])
+def test_serve_metrics_match_reference(slo_class):
+    """Every ServeMetrics method against the reference's on one seeded
+    record (and on an empty one), per SLO class."""
+    rng = np.random.default_rng(3)
+    rids = [f"r{i}" for i in range(6)]
+    log = sorted((float(t), str(rng.choice(rids)))
+                 for t in rng.uniform(0.0, 3.0, 60))
+    rec = dict(ttft={r: float(rng.uniform(0.01, 0.5)) for r in rids},
+               queue_delay={r: float(rng.uniform(0.0, 0.2)) for r in rids},
+               slo_class={r: ("interactive", "batch")[i % 2]
+                          for i, r in enumerate(rids)},
+               duration=3.1)
+    pairs = [(ServeMetrics(token_log=[TokenRecord(t, r) for t, r in log],
+                           **rec),
+              JServeMetrics(token_log=[JTokenRecord(t, r) for t, r in log],
+                            **rec)),
+             (ServeMetrics(), JServeMetrics())]
+    for got, want in pairs:
+        assert got.throughput() == want.throughput()
+        assert got.max_stall(slo_class) == want.max_stall(slo_class)
+        for name in ("tbt_values", "ttft_values"):
+            np.testing.assert_array_equal(getattr(got, name)(slo_class),
+                                          getattr(want, name)(slo_class))
+        np.testing.assert_array_equal(got.queue_delay_values(),
+                                      want.queue_delay_values())
+        for dt in (0.25, 0.5):
+            for a, b in zip(got.throughput_timeline(dt),
+                            want.throughput_timeline(dt)):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("spec", ["aw:0@0.5", "ew:1@2", "ew:3@1e-1",
+                                  "aw0@0.5", "aw:x@1", "aw:0"])
+def test_parse_failure_matches_reference(spec):
+    """The launcher twin's ``--fail`` parser: the reference's plan for a
+    well-formed spec, the reference's error for a malformed one."""
+    try:
+        want = dataclasses.astuple(jserve.parse_failure(spec))
+    except ValueError as e:
+        with pytest.raises(type(e)):
+            tserve.parse_failure(spec)
+    else:
+        assert dataclasses.astuple(tserve.parse_failure(spec)) == want
+
+
+def test_launcher_twin_on_cpu():
+    assert tserve.parse_failure("ew:1@0.75") == FailurePlan(0.75, "ew", 1)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        m = tserve.main(["--device", "cpu", "--workload", "sharegpt",
+                         "--rps", "8", "--duration", "0.5",
+                         "--fail", "aw:0@0.1", "--placement",
+                         "session_affinity"])
+    text = out.getvalue()
+    n = len(make_workload("sharegpt", 8.0, 0.5, seed=0, max_prompt=16,
+                          max_new=24))
+    assert len(m.finished) == n > 0
+    assert f"requests finished: {n}/{n}" in text
+    assert "detected aw0 restored" in text and "provisioned aw0" in text
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            tserve.main(["--duration", "0.1"])
+
+
+def _load_reference_demo():
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "failover_demo.py"
+    spec = importlib.util.spec_from_file_location("reference_demo", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_failover_demo_twin_matches_reference_demo():
+    """The demo twin's four sections on the reference demo's weights:
+    every stream equals the JAX demo's, EW and AW sections equal the
+    reference section, the AW section's events and the session placements
+    equal too."""
+    jd = _load_reference_demo()
+    want = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        eng = jd.build()
+        params = params_from_reference(eng.params, device="cpu")
+        jd.admit_all(eng)
+        want["reference"] = jd.decode_all(eng)
+        eng = jd.build()
+        jd.admit_all(eng)
+        for _ in range(5):
+            eng.step()
+        eng.fail_ew(0)
+        want["ew"] = jd.decode_all(eng)
+        eng = jd.build()
+        orch = JOrch(eng, worker_init_time=2.0)
+        jd.admit_all(eng)
+        for _ in range(5):
+            eng.step()
+        orch.inject_failure("aw", 0, now=1.0)
+        orch.tick(1.0 + orch.detection_latency())
+        want["aw"] = jd.decode_all(eng)
+        orch.tick(5.0)
+        want["events"] = [(round(e.t, 2), e.kind, e.worker)
+                          for e in orch.events]
+        eng = jd.build(policy="session_affinity")
+        for i in range(3):
+            eng.gateway.enqueue(f"sess42-{i}", jd.PROMPTS[i], 4, now=0.0)
+        eng.scheduler.admit(0.0)
+        want["session"] = {r.rid: r.aw for r in eng.requests.values()}
+    got = tdemo.main(device="cpu", params=params, log=lambda *a: None)
+    assert {k: {r: list(t) for r, t in v.items()}
+            for k, v in want.items() if k in ("reference", "ew", "aw")} == \
+        {k: got[k] for k in ("reference", "ew", "aw")}
+    assert got["ew"] == got["reference"] == got["aw"]
+    assert got["events"] == want["events"]
+    assert got["session"] == want["session"]
+    assert len(set(got["session"].values())) == 1
