@@ -66,7 +66,19 @@ Phases, each of which raises on failure (exit code != 0):
                 of the first layer, as in phase 10.
   5. failover — the same requests with ``engine.fail_ew(0)`` after 8
                 decode steps; every stream must equal the failure-free one
-                bit for bit.
+                bit for bit. Then decode segments and step graphs: the
+                same requests on an engine at ``decode_segment_len`` 8
+                (same weights), failure-free and under ``fail_ew(0)``,
+                and 4 stochastic ones at seg 8 and 1, bitwise equal to the
+                seg-1 streams; each step graph (seg 1 and seg 8) replayed
+                against the plane's eager segment from the same state
+                (token ring, slot loads and cache bit for bit), healthy,
+                after ``fail_ew(0)`` and after ``repoint_protect=1`` and
+                ``fail_ew(1)`` (the eager step reads the engine's
+                RouteState, the graph the plane's copy); and per decode
+                step, eager against graph at seg 1 and seg 8, wall time
+                and device busy (the union of the profiler's device
+                spans).
   6. kv plane — the same model at capacity factor 4.0 (no token dropped,
                 so slots and chunking cannot change a stream) in three
                 engines sharing the weights: whole-prompt contiguous,
@@ -83,6 +95,10 @@ Phases, each of which raises on failure (exit code != 0):
                 steps to the end: every stream must equal the paged
                 failure-free run bit for bit; restored requests and bytes,
                 the recovery time and the largest token gap are printed.
+                Then a paged engine at ``decode_segment_len`` 4 under
+                ``fail_aw(0)`` with AW0's writes of the last segment still
+                pending (its requests rewind into it): streams bitwise
+                equal to the contiguous engine's.
   8. orchestrated serving — the same weights at capacity factor 4.0,
                 served by ``run_serving`` with an ``Orchestrator``
                 (``worker_init_time=1.0``, the launcher's) over the
@@ -124,6 +140,8 @@ Phases, each of which raises on failure (exit code != 0):
                 Then ``fail_aw(0)`` once every request has 8 tokens,
                 recover, provision: every stream must equal the
                 failure-free one bit for bit.
+                The per-step checkpoint copy's designs (pageable,
+                pinned staging, pinned blocks) are timed.
  10. gemma2   — Gemma2-2B whole (26 layers, alternating 4096-token local
                 and global attention, softcaps) in bf16, 2 AWs, max_batch
                 8, max_seq 4608: 8 requests (4 of 128 prompt tokens, 2 of
@@ -137,7 +155,12 @@ Phases, each of which raises on failure (exit code != 0):
                 combined against the fused kernel. Then
                 ``fail_aw(0)`` once every request has 16 tokens, recover,
                 provision: streams bitwise equal, and AW0 must have held a
-                request of each long kind, its ring wrapped.
+                request of each long kind, its ring wrapped. Then the
+                install copy's designs, the same requests at
+                ``decode_segment_len`` 8 (the 4,088-token prompts' rings
+                wrap inside a segment) under ``fail_aw(0)`` with the last
+                segment's writes pending, bitwise equal to seg 1's, and
+                the step times as in phase 5.
  11. danube   — H2O-Danube-1.8B whole (24 layers, every one a 4096-token
                 window, head dim 80) in bf16, max_batch 4: prompts of
                 4,088, 128, 4,160 and 128 tokens, the same failover check.
@@ -159,12 +182,17 @@ Phases, each of which raises on failure (exit code != 0):
                 SDPA replayed back to back from a CUDA graph: at the small
                 shapes a call's host time outweighs its kernel). main()
                 fails on a shape not checked.
-Each phase prints its wall time.
+Each phase prints its wall time. Every engine runs its decode steps as
+replays of captured CUDA graphs (serving/decode_loop.py): each Run after
+an engine's warm-up must capture nothing new, and the kernel observers
+and launch counts are added on each replay (``build.count``).
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import contextlib
+import dataclasses
+import functools
 import gc
 import json
 import statistics
@@ -1162,23 +1190,27 @@ FFN_CHECKED = set()
 
 
 def observe_kernel_shapes():
+    """Wrap the kernel wrappers to record what each run gives them. An
+    observation is added through ``build.count``, as a launch count is: a
+    call captured in a step graph is observed on each replay of the graph,
+    under the phase and run of the replay."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import ops
     from repro_torch.models import layers
     ffn, scan, blocked = ops.expert_ffn_cuda, ops.ssm_scan_cuda, \
         layers.row_blocked
 
-    def ffn_observed(x, *args, **kw):
-        before = dict(mg.path_launches)
-        y = ffn(x, *args, **kw)
+    def ffn_seen(key):
         if SEEN["run"] is not None:
-            path = next(k for k, v in mg.path_launches.items()
-                        if v != before[k])
-            key = (x.shape[1], path)
             SEEN["run"].setdefault(SEEN["phase"], Counter())[key] += 1
             SEEN["ffn"][key] += 1
             if SEEN["phase"] in ("prefill", "chunks"):
-                SEEN["ffn_prefill_c"].add(x.shape[1])
+                SEEN["ffn_prefill_c"].add(key[0])
+
+    def ffn_observed(x, *args, **kw):
+        y = ffn(x, *args, **kw)
+        build.count(functools.partial(ffn_seen, (x.shape[1], mg.last_path)))
         return y
 
     def scan_observed(x, *args, **kw):
@@ -1191,25 +1223,32 @@ def observe_kernel_shapes():
             SEEN["rows"].add(x.numel() // x.shape[-1])
         return blocked(fn, x)
 
+    def attn_seen(key, shape, positions):
+        if SEEN["run"] is not None:
+            SEEN["attn"][key] += 1
+            SEEN["attn_run"][key] += 1
+            if shape is not None:
+                if shape not in SEEN["flash"]:
+                    SEEN["flash"][shape] = positions
+                SEEN["flash_run"][(SEEN["phase"], shape)] += 1
+
     def attn_observed(kernel, fn):
         # q [..., H, Dh]; the cache, page pool or keys [., ., Hkv, Dh]
         def observed(q, kv, *args, **kw):
-            if SEEN["run"] is not None:
-                key = (kernel, q.shape[-1], q.shape[-2] // kv.shape[2],
-                       bool(kw.get("window")), bool(kw.get("softcap")))
-                SEEN["attn"][key] += 1
-                SEEN["attn_run"][key] += 1
-                if kernel == "flash_attention":   # args: v, q_pos, k_pos
-                    shape = FlashShape(
-                        q.shape[0], q.shape[1], kv.shape[1], q.shape[2],
-                        kv.shape[2], q.shape[3], int(kw.get("window", 0)),
-                        float(kw.get("softcap", 0.0)),
-                        bool(kw.get("causal", True)))
-                    if shape not in SEEN["flash"]:
-                        SEEN["flash"][shape] = (args[1].clone(),
-                                                args[2].clone())
-                    SEEN["flash_run"][(SEEN["phase"], shape)] += 1
-            return fn(q, kv, *args, **kw)
+            key = (kernel, q.shape[-1], q.shape[-2] // kv.shape[2],
+                   bool(kw.get("window")), bool(kw.get("softcap")))
+            shape = positions = None
+            if kernel == "flash_attention":   # args: v, q_pos, k_pos
+                shape = FlashShape(
+                    q.shape[0], q.shape[1], kv.shape[1], q.shape[2],
+                    kv.shape[2], q.shape[3], int(kw.get("window", 0)),
+                    float(kw.get("softcap", 0.0)),
+                    bool(kw.get("causal", True)))
+                if SEEN["run"] is not None and shape not in SEEN["flash"]:
+                    positions = (args[1].clone(), args[2].clone())
+            out = fn(q, kv, *args, **kw)
+            build.count(functools.partial(attn_seen, key, shape, positions))
+            return out
         return observed
     ops.expert_ffn_cuda = ffn_observed
     ops.ssm_scan_cuda = scan_observed
@@ -1310,8 +1349,9 @@ class Run:
     "decode" (the rest of ``step()``)."""
 
     def __init__(self, torch, engine, prompts, max_new, fail=None,
-                 at_end=None):
+                 at_end=None, warm_up=False, sampling=None):
         from repro_torch.serving.api import RequestSpec
+        captures0 = engine.decode_plane.captures()
         chunk_counts = {k: 0 for k in launch_counts()}
         self.tick_s = []       # host time of each chunk tick that ran work
         hooks = contextlib.nullcontext()
@@ -1337,7 +1377,7 @@ class Run:
                 rid = f"r{i}"
                 t_submit[rid] = time.perf_counter()
                 handles.append(engine.client.submit(RequestSpec(
-                    rid=rid, prompt=p, max_new=max_new)))
+                    rid=rid, prompt=p, max_new=max_new, sampling=sampling)))
                 if handles[-1].tokens():
                     # the exact whole-prompt scheme samples the first token
                     # from the prefill's logits (a host sync) inside submit
@@ -1385,6 +1425,12 @@ class Run:
             engine.release_request(h.rid)
         self.n_dec = sum(len(s) - 1 for s in self.streams)
         self.dec_s = t_end - t_dec0
+        # after an engine's warm-up, failures, restores, sampling changes
+        # and segment tails replay the step graphs it has: no new capture
+        self.captures = engine.decode_plane.captures()
+        if not warm_up and self.captures != captures0:
+            raise AssertionError(f"{self.captures - captures0} step graphs "
+                                 f"captured after the engine's warm-up")
 
     def report(self, label):
         ttfts = sorted(self.first.values())
@@ -1394,7 +1440,8 @@ class Run:
               f"{pct(tbt, .5) * 1e3:.2f} ms p99 {pct(tbt, .99) * 1e3:.2f} "
               f"ms max {max(tbt) * 1e3:.2f} ms; decode "
               f"{self.n_dec / self.dec_s:.1f} tok/s ({self.n_dec} tokens "
-              f"in {self.dec_s:.3f} s, {self.steps} steps)")
+              f"in {self.dec_s:.3f} s, {self.steps} steps; step graphs "
+              f"{self.captures}, none new)")
         if self.tick_s:
             print(f"    {len(self.tick_s)} chunk ticks: "
                   f"{', '.join(f'{t * 1e3:.1f}' for t in self.tick_s)} ms")
@@ -1421,6 +1468,187 @@ def mixtral_8_layers(capacity_factor=None):
     return cfg
 
 
+def cache_copy(cache):
+    """A copy of every tensor of an engine's cache."""
+    return {k: [{n: t.clone() for n, t in layer.items()} for layer in v]
+            if k == "layers" else v.clone() for k, v in cache.items()}
+
+
+def cache_leaves(cache):
+    """(name, tensor) of every leaf of an engine's cache, in order."""
+    for k, v in cache.items():
+        if k == "layers":
+            for i, layer in enumerate(v):
+                for n, t in layer.items():
+                    yield f"layers.{i}.{n}", t
+        else:
+            yield k, v
+
+
+def cache_put(cache, copy):
+    """Write a ``cache_copy`` back into the engine's cache, in place."""
+    for (_, t), (_, c) in zip(cache_leaves(cache), cache_leaves(copy)):
+        t.copy_(c)
+
+
+def graph_equals_eager(torch, engine, seg_len, what):
+    """Hold a replay of the step graph of ``seg_len`` steps bit for bit
+    against the same step run eagerly from the same state: the plane's
+    eager segment, given the engine's current RouteState (the graph reads
+    the plane's copy of it, refilled before each dispatch; a graph that
+    read stale routing tensors would send tokens to other slots), gives
+    the token ring, the slot loads and the cache a replay must give. The
+    cache is put back afterwards."""
+    plane = engine.decode_plane
+    key = plane.load(engine.active_requests(), seg_len)
+    before = cache_copy(engine.cache)
+    ring, loads = (t.clone() for t in plane.segment(key[0], key[1],
+                                                    engine.route_state))
+    eager = cache_copy(engine.cache)
+    cache_put(engine.cache, before)
+    if plane.graphs.get(key) is None:
+        plane.graphs[key] = plane.capture(key)
+    g_ring, g_loads = plane.graphs[key].replay()
+    bad = [n for (n, a), (_, b) in zip(cache_leaves(engine.cache),
+                                       cache_leaves(eager))
+           if not torch.equal(a, b)]
+    if not torch.equal(ring, g_ring):
+        bad.append("token ring")
+    if not torch.equal(loads, g_loads):
+        bad.append("slot loads")
+    cache_put(engine.cache, before)
+    if bad:
+        raise AssertionError(f"{what}: the seg-{seg_len} graph replay "
+                             f"differs from the eager step in {bad}")
+    print(f"  {what}: seg {seg_len} graph replay bitwise the eager step "
+          f"from the same state (token ring {ring.shape[0]} x "
+          f"{ring.shape[1]}, slot loads {loads.sum(0).int().tolist()}, "
+          f"{sum(1 for _ in cache_leaves(eager))} cache leaves)")
+
+
+def device_busy_ms(torch, fn, calls):
+    """The union of the device spans of ``calls`` calls of ``fn`` under
+    torch.profiler (CUDA activity only), per call, and the device ops per
+    call; (None, 0) when the profiler saw no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    # the trace's events hold reference cycles: free them here, not in a
+    # later phase's collection
+    del prof
+    gc.collect()
+    if not spans:
+        return None, 0
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3 / calls, len(spans) / calls
+
+
+def step_times(torch, engine, prompts, label, reps=6):
+    """Per decode step, at the batch of ``prompts`` two steps into decode:
+    the eager step (the plane's segment function, launched op by op)
+    against its graph replay, at seg 1 and seg 8 (a segment's times over
+    8). Wall: host clock from the dispatch through the token drain,
+    median of ``reps`` (3 for the eager segment); device busy: the union
+    of the device spans under torch.profiler. The repeated steps rewrite
+    the same KV; the requests then run to their end and are released."""
+    from repro_torch.serving.api import RequestSpec
+    t0 = time.perf_counter()
+    plane = engine.decode_plane
+    handles = [engine.client.submit(RequestSpec(
+        rid=f"t{i}", prompt=p, max_new=40)) for i, p in enumerate(prompts)]
+    for _ in range(2):
+        engine.step()
+    act = engine.active_requests()
+    out = {}
+    for seg in (1, 8):
+        key = plane.load(act, seg)
+
+        def eager():
+            plane.segment(key[0], key[1], plane.route_state)[0].cpu()
+        eager()
+        if plane.graphs.get(key) is None:
+            plane.graphs[key] = plane.capture(key)
+        graph = plane.graphs[key]
+
+        def replay():
+            graph.replay()[0].cpu()
+        for mode, fn in (("eager", eager), ("graph", replay)):
+            fn()
+            walls = []
+            # an eager segment of 8 steps takes 8 eager steps' time
+            for _ in range(3 if (mode, seg) == ("eager", 8) else reps):
+                t0 = time.perf_counter()
+                fn()
+                walls.append(time.perf_counter() - t0)
+            wall = statistics.median(walls) * 1e3 / seg
+            busy, ops = device_busy_ms(torch, fn, 1 if seg > 1 else 2)
+            out[(mode, seg)] = (wall, busy)
+            print(f"  {label} decode step, {mode}, seg {seg} ({len(act)} "
+                  f"rows): wall {wall:.3f} ms a step, device busy "
+                  + (f"{busy / seg:.3f} ms a step ({ops / seg:.0f} device "
+                     f"ops a step; busy {100 * busy / seg / wall:.1f}% of "
+                     f"the wall)" if busy is not None else
+                     "not measured (the profiler saw no device event)")
+                  + f"; on {card_line()}")
+    for h in reversed(handles):
+        while not h.done():
+            engine.step()
+        engine.release_request(h.rid)
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def segment_streams(torch, engine, prompts, max_new, want):
+    """The serve phase's requests on an engine at ``decode_segment_len`` 8
+    on the same weights: failure-free and with ``fail_ew(0)`` after the
+    first segment, each stream bitwise equal to the seg-1 run's
+    (``want``); then stochastic streams (temperature 0.8, top-k 40) of
+    four requests at seg 8 and at seg 1, which must be equal. Every run
+    after the warm-up captures nothing."""
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.engine import InferenceEngine
+    t0 = time.perf_counter()
+    eight = InferenceEngine(engine.cfg, dataclasses.replace(
+        engine.ecfg, decode_segment_len=8), params=engine.params,
+        device="cuda")
+    Run(torch, eight, prompts, 2, warm_up=True)
+    run = Run(torch, eight, prompts, max_new)
+    same_streams("seg-8 streams (against seg-1 ones)", run, want)
+    run.report("serve at seg 8")
+
+    def fail_ew(eng, handles, steps):
+        if steps == 1:
+            eng.fail_ew(0)
+            return []
+        return None
+    failed = Run(torch, eight, prompts, max_new, fail=fail_ew)
+    same_streams("seg-8 streams under fail_ew(0) (against seg-1 ones)",
+                 failed, want)
+    eight.provision_ew(0)
+    samp = SamplingParams(greedy=False, temperature=0.8, top_k=40)
+    sampled = [Run(torch, eng, prompts[:4], 16, sampling=samp).streams
+               for eng in (engine, eight)]
+    if sampled[0] != sampled[1]:
+        raise AssertionError("stochastic streams at seg 8 differ from "
+                             "seg 1's")
+    print(f"  seg 8: {len(want.streams)} streams bitwise equal to seg 1's, "
+          f"failure-free and under fail_ew(0) after the first segment "
+          f"({failed.steps} dispatches); 4 stochastic streams equal to "
+          f"seg 1's; step graphs {eight.decode_plane.captures()} "
+          f"({sorted(eight.decode_plane.graphs)}), none captured after the "
+          f"warm-up ({time.perf_counter() - t0:.1f} s)")
+    return run
+
+
 def serve_phase(torch, profile_dir=None):
     import numpy as np
     from repro_torch.serving.engine import EngineConfig, InferenceEngine
@@ -1439,8 +1667,11 @@ def serve_phase(torch, profile_dir=None):
     max_new = 32
 
     # warm-up: the first pass at new shapes pays allocator growth and
-    # library setup that a serving process pays once
-    Run(torch, engine, prompts, 2)
+    # library setup that a serving process pays once, and captures the
+    # step graph
+    t0 = time.perf_counter()
+    Run(torch, engine, prompts, 2, warm_up=True)
+    print(f"  warm-up pass: {time.perf_counter() - t0:.1f} s")
     reset_counts()
     steps0, calls0 = engine.steps, engine.scheduler.stats.calls
     part = {}
@@ -1483,6 +1714,7 @@ def serve_phase(torch, profile_dir=None):
 
     print("failover: fail_ew(0) after 8 decode steps")
     steps0 = engine.steps
+    t0 = time.perf_counter()
 
     def fail_ew(eng, handles, steps):
         if steps == 8:
@@ -1497,8 +1729,37 @@ def serve_phase(torch, profile_dir=None):
                              f"failure-free run for requests {bad}")
     print(f"  {len(run.streams)} streams bitwise equal to the failure-free "
           f"run ({engine.steps - steps0} decode steps, EW0 failed: "
-          f"{sorted(engine.failed_ews)})")
+          f"{sorted(engine.failed_ews)}; {time.perf_counter() - t0:.1f} s)")
     engine.provision_ew(0)
+    print("segments: the same requests at decode_segment_len 8")
+    segment_streams(torch, engine, prompts, max_new, run)
+    print("graph == eager: each step graph against the eager step from the "
+          "same state, at seg 1 and seg 8")
+    t0 = time.perf_counter()
+    from repro_torch.serving.api import RequestSpec
+    handles = [engine.client.submit(RequestSpec(
+        rid=f"g{i}", prompt=p, max_new=max_new)) for i, p in
+        enumerate(prompts)]
+    for _ in range(3):
+        engine.step()
+    for what, change in (
+            ("healthy", None),
+            ("after fail_ew(0)", lambda: engine.fail_ew(0)),
+            ("after provision_ew(0, repoint_protect=1), fail_ew(1)",
+             lambda: (engine.provision_ew(0, repoint_protect=1),
+                      engine.fail_ew(1)))):
+        if change is not None:
+            change()
+        for seg in (1, 8):
+            graph_equals_eager(torch, engine, seg, what)
+    engine.provision_ew(1)
+    for h in reversed(handles):
+        while not h.done():
+            engine.step()
+        engine.release_request(h.rid)
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    print("step times: Mixtral, eager against graph, seg 1 against seg 8")
+    step_times(torch, engine, prompts, "mixtral")
     if profile_dir is not None:
         profile_decode(torch, engine, prompts, profile_dir)
     return engine, prompts, run, part
@@ -1625,30 +1886,56 @@ def same_streams(what, got, want):
         raise AssertionError(f"{what} differ for requests {bad}")
 
 
-def aw_failover(torch, label, engine, prompts, max_new, want, fail_tokens):
+def aw_failover(torch, label, engine, prompts, max_new, want, fail_tokens,
+                uncommitted=False):
     """``fail_aw(0)`` once every request has ``fail_tokens`` tokens, then
     ``recover_aw_requests()`` (the other AW is full: nothing is restored
     there), ``provision_aw(0)``, and steps to the end. Every stream must
     equal ``want``'s bit for bit, and AW0's requests must all be restored
-    at the step after provisioning. Returns the Run and (rid, prompt
-    tokens, position) of each request AW0 held."""
+    at the step after provisioning. With ``uncommitted``, AW0's checkpoint
+    writes of the dispatch before the failure are still pending when it
+    comes (the crash lands inside that dispatch's commit), so its requests
+    rewind past it. Returns the Run and (rid, prompt tokens, position) of
+    each request AW0 held."""
     print(f"{label} AW failover: fail_aw(0) once every request has "
-          f"{fail_tokens} tokens")
+          f"{fail_tokens} tokens"
+          + (", AW0's writes of the last dispatch not yet delivered"
+             if uncommitted else ""))
     restores0 = engine.store.stats.restores
     bytes0 = engine.store.stats.bytes_restored
-    recovered_now, held = [], []
+    recovered_now, held, hold, rewound = [], [], [], []
 
     def fail_aw(eng, handles, steps):
         if min(len(h.tokens()) for h in handles) < fail_tokens:
+            return None
+        if uncommitted and not hold:
+            hold.append(patched(eng.aws[0].checkpointer,
+                                flush=lambda: None,
+                                reorder_window=1 << 30))
+            hold[0].__enter__()
             return None
         victims = [r for r in eng.requests.values()
                    if r.aw == 0 and not r.done]
         held.extend((r.rid, len(r.prompt), r.pos) for r in victims)
         eng.fail_aw(0)
+        if hold:
+            hold[0].__exit__(None, None, None)
+            rewound.extend(r.pos - 1 - eng.store.committed_token(r.rid)
+                           for r in victims)
         recovered_now.extend(eng.recover_aw_requests())
         eng.provision_aw(0)
         return [r.rid for r in victims]
-    fo = Run(torch, engine, prompts, max_new, fail=fail_aw)
+    install = engine.scheduler._install_recovery
+    install_s = []
+
+    def timed_install(q, aw, slot, now):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        install(q, aw, slot, now)
+        torch.cuda.synchronize()
+        install_s.append(time.perf_counter() - t0)
+    with patched(engine.scheduler, _install_recovery=timed_install):
+        fo = Run(torch, engine, prompts, max_new, fail=fail_aw)
     if fo.t_fail is None:
         raise AssertionError(f"{label}: the AW failure was never injected")
     same_streams(f"{label} streams under fail_aw(0)", fo, want)
@@ -1658,13 +1945,20 @@ def aw_failover(torch, label, engine, prompts, max_new, want, fail_tokens):
                              f"requests of AW0 restored at the step after "
                              f"provision_aw(0); {restored} restored, "
                              f"{recovered_now} at recover_aw_requests")
+    if uncommitted and not (rewound and min(rewound) > 0):
+        raise AssertionError(f"{label}: AW0's requests did not lose their "
+                             f"last dispatch's writes: {rewound}")
+    if rewound:
+        print(f"  AW0's requests rewound {rewound} positions past their "
+              f"committed watermarks")
     print(f"  {len(fo.streams)} streams bitwise equal to the failure-free "
           f"run; restored the {restored} requests of AW0 (rid, prompt "
           f"tokens, position at the failure: {held}) at the step after "
           f"provision_aw(0), none by recover_aw_requests (AW1 full), "
-          f"{engine.store.stats.bytes_restored - bytes0} bytes; fail_aw to "
-          f"the restored requests' next token {fo.recovery_s * 1e3:.2f} ms "
-          f"(host clock); largest gap between tokens "
+          f"{engine.store.stats.bytes_restored - bytes0} bytes (installs "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in install_s)} ms); fail_aw "
+          f"to the restored requests' next token {fo.recovery_s * 1e3:.2f} "
+          f"ms (host clock); largest gap between tokens "
           f"{max(fo.tbt) * 1e3:.2f} ms; on {card_line()}")
     fo.report(f"{label} AW failover")
     return fo, held
@@ -1704,7 +1998,7 @@ def kv_plane_phase(torch, label, cfg, prompts, *, params=None, max_batch=8,
     }
     runs = {}
     for name, eng in engines.items():
-        Run(torch, eng, prompts, 2)                   # warm-up
+        Run(torch, eng, prompts, 2, warm_up=True)
         reset_counts()
         runs[name] = Run(torch, eng, prompts, max_new)
         runs[name].report(f"{label} {name}")
@@ -1743,9 +2037,9 @@ def mixtral_kv_plane(torch, engine, prompts):
     path ("skinny", C 8) and each of a prefill or chunk call on the
     tensor-core path; then the row-count probe. Returns the failure-free
     Runs."""
-    runs, _ = kv_plane_phase(torch, "kv plane",
-                             mixtral_8_layers(capacity_factor=4.0), prompts,
-                             params=engine.params)
+    runs, engines = kv_plane_phase(torch, "kv plane",
+                                   mixtral_8_layers(capacity_factor=4.0),
+                                   prompts, params=engine.params)
     for name, run in runs.items():
         for phase, n in run.launches.items():
             path = "skinny" if phase == "decode" else "tensor_core"
@@ -1755,6 +2049,18 @@ def mixtral_kv_plane(torch, engine, prompts):
                                      f"{path} path: {n}")
     if runs["paged"].launches["decode"]["moe_ffn"] <= 0:
         raise AssertionError("the paged decode steps launched no expert FFN")
+    from repro_torch.serving.engine import InferenceEngine
+    paged4 = InferenceEngine(
+        mixtral_8_layers(capacity_factor=4.0), dataclasses.replace(
+            engines["paged"].ecfg, decode_segment_len=4),
+        params=engine.params, device="cuda")
+    Run(torch, paged4, prompts, 2, warm_up=True)
+    aw_failover(torch, "kv plane paged, seg 4", paged4, prompts, 32,
+                runs["contiguous"], 10, uncommitted=True)
+    paged4.pages.check()
+    print(f"  paged at seg 4 under fail_aw(0): streams bitwise equal to the "
+          f"contiguous engine's; step graphs "
+          f"{sorted(paged4.decode_plane.graphs)}")
     row_count_probe(torch, engine.params)
     return runs
 
@@ -1823,6 +2129,10 @@ class ServeRun:
             self.slot_expert_at_fail[ew] = \
                 eng.route_state.slot_expert.tolist()
             fail_ew(ew)
+        # the step graph is captured before the clock starts, as a serving
+        # process does at start-up
+        warm_step_graph(eng)
+        captures = eng.decode_plane.captures()
         with patched(sched, _prefill_group=counted_prefill,
                      _install_recovery=installed), \
                 patched(eng, fail_aw=failed_aw, fail_ew=failed_ew), \
@@ -1832,6 +2142,9 @@ class ServeRun:
                                  failures=[FailurePlan(*f)
                                            for f in failures])
             self.wall_s = time.perf_counter() - t0
+        if eng.decode_plane.captures() != captures:
+            raise AssertionError("run_serving captured a step graph after "
+                                 "the engine's warm-up")
         self.ffn_c, self.attn, self.flash = obs.ffn_c, obs.attn, obs.flash
         self.launches = {"prefill": pre,
                          "decode": {k: v - pre[k]
@@ -1927,6 +2240,16 @@ class ServeRun:
                   + (f", expert FFN (C, path): "
                      f"{dict(sorted(self.ffn_c[phase].items()))}"
                      if phase in self.ffn_c else ""))
+
+
+def warm_step_graph(engine):
+    """Capture the engine's step graph with every row idle (pos -1: no KV
+    write, no expert capacity claimed), after one eager step of the same
+    key has done the lazy set-up a capture must not do."""
+    plane = engine.decode_plane
+    key = plane.load([], plane.seg_len)
+    plane.segment(key[0], key[1], plane.route_state)
+    plane.graphs[key] = plane.capture(key)
 
 
 def aw_failure_time(run):
@@ -2091,6 +2414,68 @@ def zamba2_13_layers():
                                num_layers=HYBRID_LAYERS, dtype="bfloat16")
 
 
+def copy_designs(torch, label, gather, keep=3):
+    """The device-to-host copy of one checkpoint gather in three designs,
+    on the bytes ``gather`` hands to the copy: pageable memory
+    (``.cpu()``, the port's copy before the pinned one), a reused pinned
+    staging buffer followed by a host copy into store-owned pageable
+    memory, and store-owned pinned blocks from PyTorch's pinned-memory
+    cache (what ``kvcache._pack_to_host`` does). Each is timed with
+    ``keep`` copies kept alive, as the store keeps a run's checkpoints
+    (pinned blocks newly allocated unless PyTorch's cache holds freed
+    ones of the size), and with each copy freed before the next (median
+    of 3: the steady state of a server whose released requests hand
+    their blocks back). Host clock through the copy's end."""
+    from repro_torch.serving import kvcache
+    start = time.perf_counter()
+    got = []
+    real = kvcache._pack_to_host
+
+    def spy(leaves):
+        got.append(torch.cat([t.reshape(-1).view(torch.uint8)
+                              for t in leaves]))
+        return real(leaves)
+    with patched(kvcache, _pack_to_host=spy):
+        gather()
+    src = got[0]
+    n = src.numel()
+    stream = kvcache._copy_stream(src.device)
+    staging = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+
+    def pageable():
+        return src.cpu()
+
+    def to_pinned(dst):
+        with torch.cuda.stream(stream):
+            dst.copy_(src, non_blocking=True)
+        stream.synchronize()
+        return dst
+
+    def staged():
+        return torch.empty(n, dtype=torch.uint8).copy_(to_pinned(staging))
+
+    def pinned():
+        return to_pinned(torch.empty(n, dtype=torch.uint8,
+                                     pin_memory=True))
+    times, want = {}, None
+    for name, fn in (("pageable", pageable), ("staging", staged),
+                     ("pinned", pinned)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kept = [fn() for _ in range(keep)]
+        kept_ms = (time.perf_counter() - t0) * 1e3 / keep
+        want = kept[-1] if want is None else want
+        if not torch.equal(kept[-1], want):
+            raise AssertionError(f"{label}: the {name} copy differs")
+        del kept
+        times[name] = (kept_ms, host_ms(torch, fn, reps=3))
+    print(f"  {label} copy, {n} bytes: " + "; ".join(
+        f"{k} {a:.2f} ms kept, {b:.2f} ms freed"
+        for k, (a, b) in times.items()) + f" (host clock; on {card_line()}; "
+        f"{time.perf_counter() - start:.1f} s)")
+    return times
+
+
 def hybrid_phase(torch, profile_dir=None):
     """Zamba2-7B at full width, 13 layers, bf16 (2 units of 6 Mamba2
     blocks + the shared attention block, then 1 trailing block): 8
@@ -2119,7 +2504,7 @@ def hybrid_phase(torch, profile_dir=None):
     prompts = [rng.integers(0, cfg.vocab_size, size=(128,)).astype(np.int32)
                for _ in range(8)]
     max_new = 16
-    Run(torch, engine, prompts, 2)                    # warm-up
+    Run(torch, engine, prompts, 2, warm_up=True)
     reset_counts()
     calls0, steps0 = engine.scheduler.stats.calls, engine.steps
     run = Run(torch, engine, prompts, max_new)
@@ -2160,6 +2545,8 @@ def hybrid_phase(torch, profile_dir=None):
         engine.cache, slots, toks), reps=10)
     print(f"  per-step checkpoint gather + device-to-host copy (8 rows): "
           f"{ck_ms:.3f} ms, {nbytes} bytes ({nbytes // 8} per token)")
+    copy_designs(torch, "hybrid per-step checkpoint", lambda:
+                 engine.layout.extract_tokens(engine.cache, slots, toks))
 
     aw_failover(torch, "hybrid", engine, prompts, max_new, run, 8)
     if profile_dir is not None:
@@ -2230,8 +2617,35 @@ def served_partials(torch, engine, out, layers):
         out[kind] = out.get(kind, 0) + da.PARTIAL_KERNEL.launches - n0
 
 
+def ring_segments(torch, label, engine, ecfg, prompts, max_new, want,
+                  fail_tokens, window):
+    """The requests at ``decode_segment_len`` 8 on the same weights, with
+    ``fail_aw(0)`` once every request has ``fail_tokens`` tokens and AW0's
+    writes of the last segment not yet delivered: every stream bitwise
+    equal to the seg-1 run's (``want``). Requests whose prompts end short
+    of the window wrap their rings inside a segment (a range of 8
+    positions that crosses a multiple of the window)."""
+    from repro_torch.serving.engine import InferenceEngine
+    t0 = time.perf_counter()
+    eight = InferenceEngine(engine.cfg, dataclasses.replace(
+        ecfg, decode_segment_len=8), params=engine.params, device="cuda")
+    Run(torch, eight, [p for p in prompts if len(p) <= 128], 2,
+        warm_up=True)
+    crossing = [f"r{i}" for i, p in enumerate(prompts)
+                if len(p) - 1 < window < len(p) - 1 + max_new]
+    if not crossing:
+        raise AssertionError(f"{label}: no request's ring wraps in decode")
+    aw_failover(torch, f"{label} seg 8", eight, prompts, max_new, want,
+                fail_tokens, uncommitted=True)
+    print(f"  seg 8: streams bitwise equal to seg 1's; rings wrapped "
+          f"inside a segment: {crossing}; step graphs "
+          f"{sorted(eight.decode_plane.graphs)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
 def dense_ring_phase(torch, label, cfg, ecfg, lens, *, max_new=32,
-                     fail_tokens=16, partials=False, profile_dir=None):
+                     fail_tokens=16, partials=False, seg8=False,
+                     profile_dir=None):
     """A sliding-window model at full width and depth in bf16: the
     requests of ``lens`` prompt tokens (each prefilled alone through
     ``client.submit``: ring caches take the exact whole-prompt scheme) to
@@ -2240,9 +2654,12 @@ def dense_ring_phase(torch, label, cfg, ecfg, lens, *, max_new=32,
     the failure-free one bit for bit, and AW0 must have held a request
     whose ring wrapped inside prefill and one whose ring wrapped during
     decode. With ``partials``, the partial kernel is checked on the
-    failure-free run's final caches. With ``profile_dir``, a
-    torch.profiler pass over decode steps and one prefill of the first
-    prompt. Returns (Run, partial launches)."""
+    failure-free run's final caches. With ``seg8``, the install copy's
+    designs (``copy_designs``), the same requests at
+    ``decode_segment_len`` 8 (``ring_segments``) and the step times
+    (``step_times``). With ``profile_dir``, a torch.profiler pass over
+    decode steps and one prefill of the first prompt. Returns (Run,
+    partial launches)."""
     import numpy as np
     from repro_torch.models.transformer import layer_windows
     from repro_torch.serving.engine import InferenceEngine
@@ -2259,7 +2676,8 @@ def dense_ring_phase(torch, label, cfg, ecfg, lens, *, max_new=32,
     prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
                for n in lens]
     # warm-up on the short prompts only
-    Run(torch, engine, [p for p in prompts if len(p) <= 128], 2)
+    Run(torch, engine, [p for p in prompts if len(p) <= 128], 2,
+        warm_up=True)
     reset_counts()
     calls0, steps0 = engine.scheduler.stats.calls, engine.steps
     part = {}
@@ -2311,6 +2729,9 @@ def dense_ring_phase(torch, label, cfg, ecfg, lens, *, max_new=32,
         engine.cache, 0, 0, n), reps=3)
     print(f"  install checkpoint of a {n}-token prompt (gather + one "
           f"device-to-host copy): {inst_ms:.1f} ms, {nbytes} bytes")
+    if seg8:
+        copy_designs(torch, f"{label} install checkpoint", lambda:
+                     engine.layout.extract_range(engine.cache, 0, 0, n))
 
     _, held = aw_failover(torch, label, engine, prompts, max_new, run,
                           fail_tokens)
@@ -2322,6 +2743,12 @@ def dense_ring_phase(torch, label, cfg, ecfg, lens, *, max_new=32,
                              f"during decode: (rid, prompt, pos) {held}")
     print(f"  restored requests whose rings wrapped inside prefill: "
           f"{in_prefill}, during decode: {in_decode}")
+    if seg8:
+        ring_segments(torch, label, engine, ecfg, prompts, max_new, run,
+                      fail_tokens, window)
+        print(f"step times: {label}, eager against graph, seg 1 against "
+              f"seg 8")
+        step_times(torch, engine, prompts, label)
     if profile_dir is not None:
         profile_decode(torch, engine, prompts, profile_dir / label,
                        chrome=False)
@@ -2609,7 +3036,7 @@ def main():
         torch, "gemma2", dataclasses.replace(get_config("gemma2_2b"),
                                              dtype="bfloat16"),
         EngineConfig(max_batch=8, max_seq=RING_MAX_SEQ, num_aw=2, num_ew=1),
-        GEMMA2_LENS, partials=True, profile_dir=args.profile)
+        GEMMA2_LENS, partials=True, seg8=True, profile_dir=args.profile)
     phase("gemma2 + partials + AW failover")
     print(f"danube: H2O-Danube-1.8B, all 24 layers, bf16, 2 AWs, max_batch "
           f"4, max_seq {RING_MAX_SEQ}, prompts {DANUBE_LENS}")

@@ -10,10 +10,13 @@ unchanged source is not rebuilt on the same machine.
 
 Every C entry point launches on the caller's stream and returns
 ``cudaGetLastError()``; ``CudaKernel`` raises when that is not 0 and
-otherwise adds one to its launch count.
+otherwise adds one to its launch count (through ``count``: a launch
+captured in a CUDA graph is counted on each replay of the graph, where
+the kernel runs, and not at the capture, where it does not).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -23,7 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -41,6 +44,31 @@ build_log: Dict[str, str] = {}
 build_seconds: float = 0.0
 #: seconds from that build's start to the end of each source's nvcc
 build_source_seconds: Dict[str, float] = {}
+#: while a CUDA graph is captured under ``deferred_counts``: the counts its
+#: launches add, each a call that a replay of the graph makes
+_deferred: Optional[List[Callable[[], None]]] = None
+
+
+def count(add: Callable[[], None]):
+    """Add a launch to a count: ``add()`` now, or, inside
+    ``deferred_counts``, on every replay of the graph being captured."""
+    if _deferred is not None:
+        _deferred.append(add)
+    else:
+        add()
+
+
+@contextlib.contextmanager
+def deferred_counts():
+    """Collect the counts of the launches made in the block (a CUDA graph
+    capture, which launches nothing); yields the list of calls that each
+    replay of the graph makes."""
+    global _deferred
+    outer, _deferred = _deferred, []
+    try:
+        yield _deferred
+    finally:
+        _deferred = outer
 
 
 def _nvcc() -> str:
@@ -147,6 +175,9 @@ class CudaKernel:
         if code != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {code} "
                                f"({self._err(code).decode()})")
+        count(self._counted)
+
+    def _counted(self):
         self.launches += 1
 
 

@@ -65,5 +65,9 @@ def flash_attention_cuda(q, k, v, q_pos, k_pos, *, causal: bool = True,
            build.ptr(k_pos), build.ptr(out), b, sq, sk, h, hkv, dh,
            int(bool(causal)), int(window), float(softcap), code,
            build.stream_ptr(q))
-    path_launches[_path(code)] += 1
+    build.count(functools.partial(_count_path, _path(code)))
     return out
+
+
+def _count_path(path: str):
+    path_launches[path] += 1

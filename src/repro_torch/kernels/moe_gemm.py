@@ -30,6 +30,9 @@ ACT_CODES = {"silu": 0, "gelu": 1}
 PATHS = ("skinny", "tensor_core", "cuda_core")
 #: launches per path, counted with ``KERNEL.launches``
 path_launches = dict.fromkeys(PATHS, 0)
+#: the path of the last call (a CUDA graph capture counts its launch only
+#: on replay, so an observer of the call cannot read it off the counts)
+last_path = None
 #: (P, C, D, F, dtype code, decode, gated, x aligned, weights aligned) ->
 #: (float32 workspace elements, path), as the C source computes them
 _plans: dict = {}
@@ -110,5 +113,11 @@ def expert_ffn_cuda(x, w_gate, w_up, w_down, slot_expert, counts, *,
     KERNEL(*ptrs, slot_expert.data_ptr(), counts.data_ptr(),
            workspace.data_ptr(), y.data_ptr(), p, c, d, f, gated,
            ACT_CODES[act], code, dec, build.stream_ptr(x))
-    path_launches[path] += 1
+    global last_path
+    last_path = path
+    build.count(functools.partial(_count_path, path))
     return y
+
+
+def _count_path(path: str):
+    path_launches[path] += 1

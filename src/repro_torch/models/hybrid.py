@@ -144,5 +144,7 @@ def build_hybrid(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
     def init_route_state():
         return route_state_without_experts(num_aw, num_ew, device)
 
+    # a row at pos -1 still advances its recurrent state: no segments
     return ModelApi(cfg, None, num_aw, num_ew, device, init_params,
-                    init_cache, prefill, decode, init_route_state, None)
+                    init_cache, prefill, decode, init_route_state, None,
+                    False)

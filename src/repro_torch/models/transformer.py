@@ -35,6 +35,9 @@ class ModelApi(NamedTuple):
     decode: Callable[..., Any]          # -> (logits, caches, load)
     init_route_state: Callable[..., refe.RouteState]
     prefill_chunk: Callable[..., Any]   # -> (caches, load)
+    # True when rows may stop mid-segment: a row at pos -1 leaves its
+    # cache untouched, so a decode segment runs steps past a row's end
+    supports_decode_segments: bool
 
 
 def layer_windows(cfg: ModelConfig):
@@ -225,4 +228,4 @@ def build_decoder(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
 
     return ModelApi(cfg, placement, num_aw, num_ew, device, init_params,
                     init_cache, prefill, decode, init_route_state,
-                    prefill_chunk)
+                    prefill_chunk, True)

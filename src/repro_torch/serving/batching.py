@@ -5,7 +5,8 @@ Each tick it pulls admitted requests from the Gateway, restores recovery
 entries from the checkpoint store, hands prompts of 2 or more tokens to
 the chunked-prefill plane when it is on (or else prefills them in
 length-bucketed padded batches), runs the plane's budgeted slice, and
-then one decode step over all active slots. Whole-prompt schemes, chosen
+then one decode dispatch over all active slots: one step, or a segment
+of ``decode_segment_len`` steps (serving/decode_loop.py). Whole-prompt schemes, chosen
 from the cache layout:
 
   * padded (full-attention caches): ``prompt[:-1]`` padded to the bucket
@@ -16,8 +17,8 @@ from the cache layout:
 
 Every KV write is checkpointed (unless ``checkpoint`` is False): the
 whole-prompt prefix at install, each chunk as it lands
-(serving/chunked.py), each decode step's tokens in one batched gather and
-one device-to-host copy.
+(serving/chunked.py), each decode step's or segment's tokens in one
+batched gather and one device-to-host copy.
 
 Pad tokens (length and repeated-row padding) are masked out of expert
 capacity, and the prefill capacity comes from the real token count, so a
@@ -190,7 +191,7 @@ class ContinuousBatchScheduler:
         if eng.ecfg.checkpoint:
             eng.aws[aw].checkpointer.register(q.rid, prompt_len=n)
             if n_prefilled > 0:
-                eng._bulk_checkpoint(st, 0, n_prefilled - 1)
+                eng._bulk_checkpoint_group([(st, 0, n_prefilled)])
             eng.aws[aw].checkpointer.flush()
 
     # -- per-request restoration (recovery admissions) ----------------------
@@ -246,7 +247,8 @@ class ContinuousBatchScheduler:
     def step(self, now: Optional[float] = None) -> Dict[str, List[int]]:
         """One iteration: an admission pass when anything waits, a budgeted
         slice of chunked prefill (when the plane is on), then one decode
-        step over all active slots. Returns {rid: new_tokens}."""
+        dispatch over all active slots: a step, or a segment of
+        ``decode_segment_len`` steps. Returns {rid: new_tokens}."""
         eng = self.engine
         t_now = now if now is not None else float(eng.steps)
         if self.gateway.depth():
@@ -256,28 +258,18 @@ class ContinuousBatchScheduler:
         act = eng.active_requests()
         if not act:
             return {}
+        if eng.decode_plane.seg_len > 1:
+            return self._step_segment(act, t_now)
         return self._step_single(act, t_now)
 
     def _step_single(self, act, t_now: float) -> Dict[str, List[int]]:
-        """One decode dispatch + device sampling; the [B] token vector and
-        the step's checkpoint segments cross to the host."""
+        """One decode step + device sampling (a graph replay on the card);
+        the [B] token vector and the step's checkpoint segments cross to
+        the host."""
         eng = self.engine
-        b = eng.ecfg.max_batch
-        tokens = np.zeros((b,), np.int32)
         # inactive rows carry pos -1: no cache write, no capacity claim, so
         # a decode step never touches a slot that is mid-chunked-prefill
-        pos = np.full((b,), -1, np.int32)
-        for r in act:
-            tokens[r.slot] = r.next_input
-            pos[r.slot] = r.pos
-            # paged: the step writes KV at r.pos; its page must be mapped
-            eng._kv_ensure(r.slot, r.pos + 1)
-        dev = eng.device
-        pos_dev = torch.as_tensor(pos, device=dev)
-        logits, eng.cache, _ = eng.api.decode(
-            eng.params, torch.as_tensor(tokens, device=dev), pos_dev,
-            eng.cache, eng.route_state)
-        toks = eng.decode_plane.sample(logits, pos_dev).cpu().numpy()
+        toks = eng.decode_plane.run(act, 1)[0]
         self.gateway.stats.host_syncs += 1
 
         # the KV the step wrote for every checkpointed request: one batched
@@ -308,6 +300,50 @@ class ContinuousBatchScheduler:
             if len(r.tokens) >= r.max_new or r.pos >= eng.ecfg.max_seq - 1:
                 r.done = True
                 r.t_done = t_now
+        for w in eng.aws:
+            w.checkpointer.flush()
+        eng.steps += 1
+        return out
+
+    def _step_segment(self, act, t_now: float) -> Dict[str, List[int]]:
+        """One dispatch of ``decode_segment_len`` decode + sample steps
+        (one graph replay on the card); the token ring drains to the host
+        once, and each request's new KV range streams to the store through
+        the bulk range path (§6.1), so segment boundaries are checkpoint
+        boundaries: a crash mid-segment rewinds at most seg_len tokens
+        through the §6.2 restore."""
+        eng = self.engine
+        seg_len = eng.decode_plane.seg_len
+        ring = eng.decode_plane.run(act, seg_len)
+        self.gateway.stats.host_syncs += 1     # the per-segment drain
+
+        out: Dict[str, List[int]] = {}
+        max_seq = eng.ecfg.max_seq
+        ck_items = []
+        for r in act:
+            # the device stop mask and this count are the same formula:
+            # steps until max_new or the cache ceiling, capped by seg_len
+            n_take = max(0, min(seg_len, r.max_new - len(r.tokens),
+                                (max_seq - 1) - r.pos))
+            toks = [int(c) for c in ring[:n_take, r.slot]]
+            if any(c < 0 for c in toks):
+                raise AssertionError(f"{r.rid}: the ring drained an "
+                                     f"inactive step")
+            start = r.pos
+            for nxt in toks:
+                r.pos += 1
+                r.tokens.append(nxt)
+                r.next_input = nxt
+            if toks and r.t_first_token < 0:
+                r.t_first_token = t_now
+            out[r.rid] = toks
+            if toks and eng.ecfg.checkpoint and eng.aws[r.aw].alive:
+                ck_items.append((r, start, len(toks)))
+            if len(r.tokens) >= r.max_new or r.pos >= max_seq - 1:
+                r.done = True
+                r.t_done = t_now
+        # every request's range from one gather and one copy
+        eng._bulk_checkpoint_group(ck_items)
         for w in eng.aws:
             w.checkpointer.flush()
         eng.steps += 1

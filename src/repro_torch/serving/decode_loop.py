@@ -1,22 +1,45 @@
-"""Device-side sampling head and per-slot sampling state (port of
-``repro.serving.decode_loop`` at ``decode_segment_len = 1``).
+"""The device decode loop (port of ``repro.serving.decode_loop``): the
+sampling head, per-slot sampling state, decode segments and the step
+graphs.
 
-Sampling stays on the device; only the [B] token vector crosses to the
-host each step. Greedy rows take the plain argmax (first maximum, as
-``np.argmax``). Stochastic rows take a Gumbel-max draw over the
-temperature-scaled, top-k-masked logits, with noise from a counter-based
-hash of (engine seed, request seed, position, vocabulary index): the draw
-for a token depends on nothing else, so it is the same whatever the batch,
-slot or failover. The hash is the port's own and does not reproduce the
-reference's threefry bits; greedy rows are what the two share.
+Sampling stays on the device; only the tokens cross to the host. Greedy
+rows take the plain argmax (first maximum, as ``np.argmax``). Stochastic
+rows take a Gumbel-max draw over the temperature-scaled, top-k-masked
+logits, with noise from a counter-based hash of (engine seed, request
+seed, position, vocabulary index): the draw for a token depends on
+nothing else, so it is the same whatever the batch, slot or failover. The
+hash is the port's own and does not reproduce the reference's threefry
+bits; greedy rows are what the two share.
+
+A decode *segment* runs ``seg_len`` steps of decode, sampling and the stop
+mask on the device (``decode_segment_len``; 1 is the per-step cadence):
+a row that reaches ``max_new`` or the cache ceiling mid-segment turns to
+pos -1 for the rest of it, so it writes no KV and claims no expert
+capacity, exactly as between host-driven steps. Tokens collect in a
+[seg_len, B] ring (-1 = row inactive at that step) that drains to the
+host once per segment.
+
+The step reads only buffers the plane owns (inputs, sampling arrays, a
+copy of the RouteState, filled before every step) besides the weights and
+the cache, which is written in place. On the card each (seg_len, deep
+top-k, paged) key's first step runs eagerly, which does every lazy set-up
+(kernel builds, function attributes, tensor maps, plans), and is then
+captured as a CUDA graph that every later step of that key replays: the
+counterpart of the reference's ``jax.jit`` of the step and ``lax.scan`` of
+the segment. A CPU engine runs the same function eagerly at every step
+and keeps the same key set (``captures``). Kernel launch counts captured
+in a graph are added on each replay (``kernels.build.count``).
 """
 from __future__ import annotations
 
 import zlib
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.refe import RouteState
+from repro_torch.kernels import build
 
 _M32 = 0xFFFFFFFF
 # odd multipliers below 2**31, so every product fits in a signed int64
@@ -75,17 +98,55 @@ def _sample_tokens(engine_seed: int, logits, pos, greedy, temperature,
     return torch.where(greedy, gre, samp)
 
 
+class StepGraph:
+    """One captured decode step or segment: the CUDA graph, its outputs
+    (the token ring and the per-step slot loads, in the graph's memory
+    pool, rewritten by each replay) and the launch counts it adds on
+    each replay."""
+
+    def __init__(self, fn):
+        self.graph = torch.cuda.CUDAGraph()
+        with build.deferred_counts() as counts, torch.cuda.graph(self.graph):
+            self.out = fn()
+        self.counts = counts
+
+    def replay(self):
+        self.graph.replay()
+        for add in self.counts:
+            add()
+        return self.out
+
+
 class DecodeLoopPlane:
-    """Per-slot sampling arrays plus the device sampling head."""
+    """Per-slot sampling state, the step's device buffers, the decode
+    segment and its graphs."""
 
     def __init__(self, engine):
         self.engine = engine
-        b = engine.ecfg.max_batch
+        ecfg = engine.ecfg
+        b = ecfg.max_batch
+        dev = engine.device
+        self.seg_len = max(1, int(ecfg.decode_segment_len))
         self.greedy = np.ones((b,), bool)
         self.temperature = np.ones((b,), np.float32)
         self.top_k = np.zeros((b,), np.int32)
         self.seed = np.zeros((b,), np.int64)
-        self._dev: Optional[Tuple] = None
+        # the step's device buffers: rows tokens, pos, emitted, max_new of
+        # ``inputs`` (filled from a pinned host twin before every step),
+        # the sampling arrays (rewritten after a bind) and the RouteState
+        # copy (made at the first step)
+        self._host_in = torch.zeros((4, b), dtype=torch.int32,
+                                    pin_memory=dev.type == "cuda")
+        self.inputs = torch.zeros((4, b), dtype=torch.int32, device=dev)
+        self.sampling = (torch.ones((b,), dtype=torch.bool, device=dev),
+                         torch.ones((b,), dtype=torch.float32, device=dev),
+                         torch.zeros((b,), dtype=torch.int32, device=dev),
+                         torch.zeros((b,), dtype=torch.int64, device=dev))
+        self._sampling_stale = True
+        self.route_state: Optional[RouteState] = None
+        #: (seg_len, deep top-k, paged) -> its StepGraph (None on the CPU)
+        self.graphs: Dict[Tuple[int, bool, bool], Optional[StepGraph]] = {}
+        self.loads = None      # [seg_len, P] slot loads of the last step
 
     def resolve(self, sampling, rid: str):
         """(greedy, temperature, top_k, seed) for one request; a request
@@ -102,29 +163,96 @@ class DecodeLoopPlane:
         return bool(greedy), float(temp), int(top_k), int(seed)
 
     def bind(self, r):
-        """Install request r's sampling config on its slot."""
+        """Install request r's sampling config on its slot (an array
+        write: never a new capture)."""
         g, t, k, s = self.resolve(r.sampling, r.rid)
         self.greedy[r.slot] = g
         self.temperature[r.slot] = t
         self.top_k[r.slot] = k
         self.seed[r.slot] = s
-        self._dev = None
+        self._sampling_stale = True
 
-    def _device_arrays(self):
-        if self._dev is None:
-            dev = self.engine.device
-            self._dev = (torch.as_tensor(self.greedy, device=dev),
-                         torch.as_tensor(self.temperature, device=dev),
-                         torch.as_tensor(self.top_k, device=dev),
-                         torch.as_tensor(self.seed, device=dev),
-                         bool((self.top_k > 64).any()))
-        return self._dev
+    # -- the step ------------------------------------------------------------
+    def segment(self, seg_len: int, deep_k: bool, route_state: RouteState):
+        """``seg_len`` decode + sample + stop-mask steps from the plane's
+        input and sampling buffers, writing the cache in place. Returns
+        (ring [seg_len, B] int32, -1 = row inactive at that step; slot
+        loads [seg_len, P] float32). What a step graph captures."""
+        eng = self.engine
+        max_seq = eng.ecfg.max_seq
+        tokens, pos, emitted, max_new = self.inputs
+        g, t, k, s = self.sampling
+        ring, loads = [], []
+        with torch.no_grad():
+            for _ in range(seg_len):
+                active = pos >= 0
+                logits, _, load = eng.api.decode(eng.params, tokens, pos,
+                                                 eng.cache, route_state)
+                nxt = _sample_tokens(eng.ecfg.sample_seed, logits, pos, g, t,
+                                     k, s, deep_k=deep_k)
+                emitted = emitted + active.to(torch.int32)
+                # stop mask: a row that reached max_new or the cache
+                # ceiling leaves the active set for the rest of the segment
+                alive = active & (emitted < max_new) & (pos + 1 < max_seq - 1)
+                ring.append(torch.where(active, nxt, -1))
+                loads.append(load)
+                tokens = torch.where(active, nxt, tokens)
+                pos = torch.where(alive, pos + 1, -1)
+            return torch.stack(ring), torch.stack(loads)
 
-    def sample(self, logits, pos_dev):
-        """[B] next tokens, sampled on the device from the step's logits."""
-        g, t, k, s, deep = self._device_arrays()
-        return _sample_tokens(self.engine.ecfg.sample_seed, logits, pos_dev,
-                              g, t, k, s, deep_k=deep)
+    def load(self, act, seg_len: int) -> Tuple[int, bool, bool]:
+        """Fill the step's buffers for the active set and map every page a
+        segment can write; returns the step's graph key."""
+        eng = self.engine
+        hi = self._host_in.numpy()
+        hi[0], hi[1], hi[2] = 0, -1, 0
+        hi[3] = np.iinfo(np.int32).max
+        for r in act:
+            hi[:, r.slot] = (r.next_input, r.pos, len(r.tokens), r.max_new)
+            # paged: KV writes happen on the device up to pos + seg_len - 1
+            eng._kv_ensure(r.slot, min(r.pos + seg_len,
+                                       eng.ecfg.max_seq - 1))
+        self.inputs.copy_(self._host_in, non_blocking=True)
+        if self._sampling_stale:
+            for dst, src in zip(self.sampling, (self.greedy, self.temperature,
+                                                self.top_k, self.seed)):
+                dst.copy_(torch.from_numpy(src))
+            self._sampling_stale = False
+        if self.route_state is None:
+            self.route_state = RouteState(*(t.clone()
+                                            for t in eng.route_state))
+        else:
+            # selfheal and re-pointing return new tensors: a graph reads
+            # this copy, never the engine's current ones
+            for dst, src in zip(self.route_state, eng.route_state):
+                dst.copy_(src)
+        return seg_len, bool((self.top_k > 64).any()), eng.pages is not None
+
+    def run(self, act, seg_len: int) -> np.ndarray:
+        """One decode dispatch of ``seg_len`` steps over the active set:
+        a graph replay on the card (after the key's first, eager, step),
+        the eager segment on the CPU. Returns the token ring on the host,
+        the dispatch's one device-to-host drain."""
+        key = self.load(act, seg_len)
+        graph = self.graphs.get(key)
+        if graph is not None:
+            ring, self.loads = graph.replay()
+        else:
+            ring, self.loads = self.segment(key[0], key[1], self.route_state)
+            self.graphs[key] = self.capture(key) \
+                if self.engine.device.type == "cuda" else None
+        return ring.cpu().numpy()
+
+    def capture(self, key) -> StepGraph:
+        """The step graph of ``key`` (seg_len, deep top-k, paged), captured
+        after a step of that key ran eagerly."""
+        return StepGraph(lambda: self.segment(key[0], key[1],
+                                              self.route_state))
+
+    def captures(self) -> int:
+        """Step graphs captured (on the CPU, keys seen): segment tails,
+        finished rows, recoveries and sampling changes add none."""
+        return len(self.graphs)
 
     def sample_rows(self, logits, entries, pos_list: List[int]):
         """First tokens of an exact-scheme prefill group: row i belongs to

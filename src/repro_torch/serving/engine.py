@@ -7,7 +7,10 @@ facade over the layered serving stack.
   * ``ContinuousBatchScheduler`` (serving/batching.py): bucketed padded
     prefill, per-request restoration and the shared decode step;
   * ``ChunkedPrefillPlane`` (serving/chunked.py): budgeted, resumable
-    prefill, when ``chunk_token_budget`` > 0.
+    prefill, when ``chunk_token_budget`` > 0;
+  * ``DecodeLoopPlane`` (serving/decode_loop.py): the decode step, or a
+    segment of ``decode_segment_len`` steps, and its sampling; on the
+    card each is one replay of a captured CUDA graph.
 
 The engine owns the device state (params, route state, the KV cache:
 contiguous per slot, or paged through block tables when
@@ -74,6 +77,13 @@ class EngineConfig:
     chunk_token_budget: int = 0    # real prefill tokens per tick (0 =
     #                                whole-prompt prefill; a family that
     #                                cannot be padded ignores it)
+    decode_segment_len: int = 1    # decode steps per dispatch (one CUDA
+    #                                graph replay on the card); > 1 drains
+    #                                the tokens once per segment and
+    #                                checkpoints the segment through the
+    #                                bulk range path, so a failure
+    #                                mid-segment rewinds at most this many
+    #                                tokens (the transformer family only)
 
 
 @dataclass
@@ -145,6 +155,12 @@ class InferenceEngine:
         self.route_state: RouteState = self.api.init_route_state()
         if ecfg.max_batch % ecfg.num_aw:
             raise ValueError("max_batch must be a multiple of num_aw")
+        if ecfg.decode_segment_len > 1 and \
+                not self.api.supports_decode_segments:
+            raise ValueError(
+                f"decode_segment_len={ecfg.decode_segment_len} needs a "
+                f"model family whose decode step can run past a row's end "
+                f"(the transformer family); {cfg.name} does not support it")
         # ---- KV plane: contiguous per-slot cache, or paged block tables.
         # Paged mode swaps the layout, not the model: the per-layer pools
         # are the contiguous cache built with batch = pages, max_seq =
@@ -270,14 +286,29 @@ class InferenceEngine:
         return self.gateway.drain_events()
 
     # -- checkpoint streaming -------------------------------------------------
-    def _bulk_checkpoint(self, r: RequestState, start: int, last: int):
-        """Stream token segments [start, last] of the request's slot to
-        its AW's store log through the bulk range path."""
-        self._ck_range(self.aws[r._aw].checkpointer, r.rid, start,
-                       self.layout.extract_range(self.cache, r.slot, start,
-                                                 last - start + 1),
-                       [self._ck_token_value(r, t)
-                        for t in range(start, last + 1)])
+    def _bulk_checkpoint_group(self, items):
+        """Stream token ranges of request slots to their AWs' store logs
+        through the bulk range path (a prompt's prefix at install, a
+        decode segment's tokens): ``items`` is [(request, start,
+        n_tokens)]. Every range comes from one gather and one
+        device-to-host copy, then goes to its AW's checkpointer as the
+        reference's ``checkpoint_range`` (or, paged, ``checkpoint_blocks``)
+        call. The reference groups ranges by power-of-two length to bound
+        its jit keys; an eager gather takes the exact (slot, token)
+        pairs."""
+        items = [(r, start, n) for r, start, n in items if n > 0]
+        if not items:
+            return
+        stacked = self.layout.extract_ranges(
+            self.cache, [r.slot for r, _, _ in items],
+            [start for _, start, _ in items], [n for _, _, n in items])
+        at = 0
+        for r, start, n in items:
+            self._ck_range(self.aws[r._aw].checkpointer, r.rid, start,
+                           [leaf[at:at + n] for leaf in stacked],
+                           [self._ck_token_value(r, t)
+                            for t in range(start, start + n)])
+            at += n
 
     @staticmethod
     def _ck_token_value(r: RequestState, t: int) -> int:

@@ -32,15 +32,39 @@ STATE_LEAVES = ("h", "conv")
 
 
 def _pack_to_host(leaves) -> List[torch.Tensor]:
-    """Bring gathered device tensors to the host in one copy (views of one
-    host buffer holding exactly the device bits)."""
+    """Bring gathered tensors to the host in one copy: views of one host
+    buffer holding exactly the device bits. From the card the buffer is
+    pinned memory, which the store then owns (a request's release drops
+    the last views and hands the block back to PyTorch's pinned-memory
+    cache); the copy runs with ``non_blocking`` on a copy stream that
+    starts after the gather and that is waited for before this returns,
+    so a checkpoint never commits across a step's end."""
     flat = [t.reshape(-1).view(torch.uint8) for t in leaves]
-    packed = torch.cat(flat).cpu()
+    packed = torch.cat(flat)
+    if packed.is_cuda:
+        src = packed
+        packed = torch.empty(src.numel(), dtype=torch.uint8,
+                             pin_memory=True)
+        stream = _copy_stream(src.device)
+        stream.wait_stream(torch.cuda.current_stream(src.device))
+        with torch.cuda.stream(stream):
+            packed.copy_(src, non_blocking=True)
+        stream.synchronize()
     out, at = [], 0
     for t, f in zip(leaves, flat):
         out.append(packed[at:at + f.numel()].view(t.dtype).reshape(t.shape))
         at += f.numel()
     return out
+
+
+_copy_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _copy_stream(device) -> "torch.cuda.Stream":
+    """The device's stream for checkpoint copies to the host."""
+    if device not in _copy_streams:
+        _copy_streams[device] = torch.cuda.Stream(device)
+    return _copy_streams[device]
 
 
 def _state_leaves(cache) -> List[str]:
@@ -93,12 +117,25 @@ class _SegmentOps:
         out[2:] = [[h[j] for j in inv.tolist()] for h in out[2:]]
         return out
 
+    def extract_ranges(self, cache, slots, starts,
+                       counts) -> List[torch.Tensor]:
+        """The contiguous token segments [start, start + count) of many
+        slots (a decode segment's checkpoint drain, the counterpart of
+        the reference's multi-slot range extractor): ``extract_tokens``
+        over the pairs of every range in turn, so range i's segments are
+        rows [sum(counts[:i]), sum(counts[:i + 1])) of each leaf. Each
+        token is read at its own ring slot (``t % Sc``), so a range that
+        crosses a ring's wrap gives every token's own KV."""
+        counts = np.asarray(counts, dtype=np.int64)
+        tokens = np.concatenate([np.arange(s, s + n)
+                                 for s, n in zip(starts, counts)])
+        return self.extract_tokens(cache, np.repeat(slots, counts), tokens)
+
     def extract_range(self, cache, slot: int, start: int,
                       count: int) -> List[torch.Tensor]:
         """The ``count`` contiguous token segments [start, start + count)
         of one slot (a prefill chunk's, or a bulk checkpoint's)."""
-        return self.extract_tokens(cache, np.full(count, slot),
-                                   np.arange(start, start + count))
+        return self.extract_ranges(cache, [slot], [start], [count])
 
     def write_token_segments(self, cache, slot: int, tokens: List[int],
                              segs: List[list]):

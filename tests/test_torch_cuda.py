@@ -1142,3 +1142,122 @@ EARLIER_BITS = {
 @pytest.mark.parametrize("case", bits.CASES, ids=str)
 def test_attention_kernels_keep_their_earlier_bits(dev, case):
     assert bits.digest(bits.run_port(case)) == EARLIER_BITS[case]
+
+
+# --------------------------------------------------------------------------
+# step graphs: the decode plane's CUDA graphs against the eager step
+# --------------------------------------------------------------------------
+
+SEG_SPECS = [(np.arange(1, 9, dtype=np.int32), 5),
+             (np.arange(2, 12, dtype=np.int32), 11),
+             (np.arange(5, 12, dtype=np.int32), 16)]
+
+
+def _graph_engine(seg_len=1):
+    """A reduced float32 Mixtral engine on the card (capacity factor 4,
+    max_batch 4, max_seq 64) with the three requests of SEG_SPECS
+    submitted."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.api import RequestSpec
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    cfg = get_config("mixtral_8x7b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=4.0))
+    eng = InferenceEngine(cfg, EngineConfig(
+        max_batch=4, max_seq=64, num_aw=2, num_ew=2,
+        decode_segment_len=seg_len), seed=7, device="cuda")
+    handles = [eng.client.submit(RequestSpec(rid=f"s{i}", prompt=p,
+                                             max_new=n))
+               for i, (p, n) in enumerate(SEG_SPECS)]
+    return eng, handles
+
+
+def _leaves(cache):
+    return [t for layer in cache["layers"] for t in layer.values()]
+
+
+def _replay_equals_eager(eng, seg_len):
+    """A replay of the seg_len step graph gives the ring, the slot loads
+    and the cache of the eager step from the same state, the eager step
+    reading the engine's RouteState (the graph reads the plane's copy)."""
+    plane = eng.decode_plane
+    key = plane.load(eng.active_requests(), seg_len)
+    before = [t.clone() for t in _leaves(eng.cache)]
+    ring, loads = (t.clone() for t in plane.segment(key[0], key[1],
+                                                    eng.route_state))
+    eager = [t.clone() for t in _leaves(eng.cache)]
+    for t, b in zip(_leaves(eng.cache), before):
+        t.copy_(b)
+    if plane.graphs.get(key) is None:
+        plane.graphs[key] = plane.capture(key)
+    g_ring, g_loads = plane.graphs[key].replay()
+    assert torch.equal(g_ring, ring) and torch.equal(g_loads, loads)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(eng.cache), eager))
+    for t, b in zip(_leaves(eng.cache), before):
+        t.copy_(b)
+    return loads
+
+
+@pytest.mark.parametrize("seg_len", [1, 8])
+def test_step_graph_replay_equals_the_eager_step(dev, seg_len):
+    eng, _ = _graph_engine()
+    eng.step()
+    eng.step()
+    loads = _replay_equals_eager(eng, seg_len)
+    assert loads.shape == (seg_len, eng.api.placement.num_slots)
+    assert loads.sum() > 0
+
+
+def test_step_graph_routes_by_the_new_route_state(dev):
+    """After fail_ew and after re-pointed shadows, a replay routes by the
+    engine's RouteState: no load on the dead EW's slots."""
+    eng, handles = _graph_engine()
+    eng.step()
+    owner = eng.route_state.slot_owner.cpu()
+    eng.fail_ew(0)
+    for seg in (1, 8):
+        loads = _replay_equals_eager(eng, seg)
+        assert loads[:, owner == 0].sum() == 0 and loads.sum() > 0
+    eng.provision_ew(0, repoint_protect=1)
+    eng.fail_ew(1)
+    for seg in (1, 8):
+        loads = _replay_equals_eager(eng, seg)
+        assert loads[:, owner == 1].sum() == 0 and loads.sum() > 0
+    while not all(h.done() for h in handles):
+        eng.step()
+
+
+def test_segments_capture_nothing_new_after_warm_up(dev):
+    """seg 8 on the card gives seg 1's streams; after the first segment,
+    tails, finished rows, sampling changes and failures replay the one
+    graph, and launches count on every replay."""
+    from repro_torch.serving.api import RequestSpec, SamplingParams
+    streams = {}
+    for seg in (1, 8):
+        eng, handles = _graph_engine(seg)
+        eng.step()
+        base = eng.decode_plane.captures()
+        assert base == 1
+        n0 = da.KERNEL.launches
+        eng.step()
+        # one fused decode launch per layer and step, on the replay
+        assert da.KERNEL.launches - n0 == eng.cfg.num_layers * seg
+        while not all(h.done() for h in handles):
+            eng.step()
+        streams[seg] = [h.tokens() for h in handles]
+        for h in handles:
+            eng.release_request(h.rid)
+        h = eng.client.submit(RequestSpec(
+            rid="x", prompt=np.arange(3, 9, dtype=np.int32), max_new=12,
+            sampling=SamplingParams(greedy=False, temperature=0.7,
+                                    top_k=5)))
+        eng.step()
+        eng.fail_aw(eng.requests["x"].aw)
+        eng.recover_aw_requests()
+        eng.fail_ew(0)
+        while not h.done():
+            eng.step()
+        assert eng.decode_plane.captures() == base
+    assert streams[8] == streams[1]
