@@ -36,7 +36,7 @@ Phases, each of which raises on failure (exit code != 0):
                 l, and acc / l, to the float32 bar; combined, against the
                 fused kernel; timed also in a CUDA graph from HBM);
                 the expert FFN at every (C, path) a later phase gives it
-                (MOE_SHAPES; phase 8 checks its own prefill C), the SSD scan at every (B, S) (SCAN_SHAPES)
+                (MOE_SHAPES; phases 8 and 9 check their own C), the SSD scan at every (B, S) (SCAN_SHAPES)
                 and each attention kernel at every (Dh, G) (CHECKED),
                 all checked after the runs; kernel, plain-version and
                 library-call times by CUDA events (median of 20 after
@@ -47,7 +47,7 @@ Phases, each of which raises on failure (exit code != 0):
                 scan calls take copies of their inputs in turn, so they
                 read them from HBM, not L2; the FFN's 2.8 GB bank never
                 fits L2). The flash kernel's records
-                come from phase 13.
+                come from phase 14.
   3. reference — a reduced float32 Mixtral, a reduced float32 Zamba2 with
                 a trailing block, and reduced float32 Gemma2, Danube and
                 Qwen2 (24-token prompts past their 16-token windows), on
@@ -63,7 +63,7 @@ Phases, each of which raises on failure (exit code != 0):
                 the expert FFN's also per kernel path; every run fails if
                 a (bf16) flash call took the CUDA-core path. Every step
                 checkpoints its KV. The partial kernel on the final caches
-                of the first layer, as in phase 10.
+                of the first layer, as in phase 11.
   5. failover — the same requests with ``engine.fail_ew(0)`` after 8
                 decode steps; every stream must equal the failure-free one
                 bit for bit. Then decode segments and step graphs: the
@@ -106,7 +106,7 @@ Phases, each of which raises on failure (exit code != 0):
                 8 requests/s for 2 s, prompts up to 384 tokens, up to 32
                 new), the virtual clock advancing by each step's wall time
                 on the card: (a) failure-free, after a warm-up pass whose
-                streams must equal it; (b) EW0 at 0.5 s and EW1 at 1.8 s,
+                streams must equal it; (b) EW0 at 0.2 s and EW1 at 2.1 s,
                 EW1 served from the shadows re-pointed to protect it when
                 EW0 was provisioned; (c) AW0 at the middle of run (a)'s
                 longest stretch with two decoding requests on AW0 (a
@@ -130,7 +130,35 @@ Phases, each of which raises on failure (exit code != 0):
                 plain
                 versions (run (a)'s largest prefill C also timed:
                 ``moe_gemm[orchestrated]``).
-  9. hybrid   — Zamba2-7B widths at 13 layers in bfloat16 (2 units of 6
+  9. elastic and preemption — the same weights (num_ew 2, max_ew 3):
+                first, on one engine with 8 requests decoding, a replay of
+                the seg-1 step graph against the eager step after a
+                scale-out, a rebalance with split replicas and a shadow
+                promotion (no new capture). Then ``run_serving`` with an
+                Orchestrator (T_w 1.0 s, T_push 0.25 s) over the port's
+                ``make_workload``: ELASTIC_WORKLOAD (Zipf-skewed) failure-
+                free; (e) with ``auto_rebalance`` and ELASTIC_SCALES (EW2
+                joins 1.25 s after its request at 0.2 s, drains from
+                2.2 s); (f)
+                ``ew_policy="promote"`` under EW0's failure at 0.5 s;
+                SLO_WORKLOAD (a batch wave that fills every slot and
+                interactive arrivals) with a token cap, without
+                preemption, (g) with it, and (g) bulk with it and no
+                per-token checkpointing (each victim's whole resident
+                state goes through the bulk range path at its commit).
+                Every stream of (e) and (f) equals the failure-free run's
+                and every stream of both (g) runs the run without
+                preemption's, bit for bit; each (g) run preempts at
+                least once and every victim resumes; one host sync a
+                decode step and no capture after warm-up in every run.
+                Prints the plan generations with the per-EW load EMAs at
+                each install and at the end, the preemptions, the
+                victims' commit and resume host times with the tokens
+                each commit held and moved through the bulk path and the
+                bytes each resume restored, TTFT and TBT
+                p50/p99 per class, and the phase's wall time; the expert
+                FFN at any new (C, path) is held to its plain versions.
+ 10. hybrid   — Zamba2-7B widths at 13 layers in bfloat16 (2 units of 6
                 Mamba2 blocks + the shared attention block, 1 trailing
                 block), 8 requests of 128 prompt tokens and 16 greedy new
                 tokens, each prefilled alone: every Mamba2 block of every
@@ -142,7 +170,7 @@ Phases, each of which raises on failure (exit code != 0):
                 failure-free one bit for bit.
                 The per-step checkpoint copy's designs (pageable,
                 pinned staging, pinned blocks) are timed.
- 10. gemma2   — Gemma2-2B whole (26 layers, alternating 4096-token local
+ 11. gemma2   — Gemma2-2B whole (26 layers, alternating 4096-token local
                 and global attention, softcaps) in bf16, 2 AWs, max_batch
                 8, max_seq 4608: 8 requests (4 of 128 prompt tokens, 2 of
                 4,088 whose rings wrap during decode, 2 of 4,160 whose
@@ -161,17 +189,17 @@ Phases, each of which raises on failure (exit code != 0):
                 wrap inside a segment) under ``fail_aw(0)`` with the last
                 segment's writes pending, bitwise equal to seg 1's, and
                 the step times as in phase 5.
- 11. danube   — H2O-Danube-1.8B whole (24 layers, every one a 4096-token
+ 12. danube   — H2O-Danube-1.8B whole (24 layers, every one a 4096-token
                 window, head dim 80) in bf16, max_batch 4: prompts of
                 4,088, 128, 4,160 and 128 tokens, the same failover check.
- 12. qwen2    — Qwen2-1.5B whole (28 layers, QKV bias, G 6) in bf16,
+ 13. qwen2    — Qwen2-1.5B whole (28 layers, QKV bias, G 6) in bf16,
                 max_seq 1024: 8 seeded prompts of 96-700 tokens through
                 whole-prompt, chunked contiguous and chunked paged engines
                 (paged == contiguous and chunked == whole-prompt, bit for
                 bit; the paged run launches the paged kernel at G 6 and
                 never the fused one), then the paged engine under
                 ``fail_aw(0)`` after 8 tokens, bitwise equal.
- 13. flash at the served shapes — every (B, Sq, Sk, heads, window,
+ 14. flash at the served shapes — every (B, Sq, Sk, heads, window,
                 softcap) the runs gave the flash kernel, on the positions
                 of that shape's first call (pad tails, rows outside a
                 chunk) with seeded bf16 q/k/v, against the bf16 plain
@@ -2068,11 +2096,19 @@ def mixtral_kv_plane(torch, engine, prompts):
 # the orchestrated serving phase's workload: the port's
 # make_workload("sharegpt") at 8 requests/s over 2 s (log-normal prompts
 # up to 384 tokens, median near 150; up to 32 new tokens), and its two EW
-# failures: EW0 at 0.5 s (provisioned by 1.53 s, its shadows then
-# re-pointed to protect EW1) and EW1 at 1.8 s (served from those shadows)
+# failures: EW0 at 0.2 s (provisioned T_w = 1.0 s after its detection,
+# its shadows then re-pointed to protect EW1) and EW1 at 2.1 s (served from
+# those shadows). A failure lands at the first step that starts at or after
+# its time, and the clock runs on the host's step times: the 0.9 s beyond
+# T_w are room for the step in progress at 0.2 s and the detection together
+# (at 0.5 s and 1.8 s, a host whose step spanning 0.5 s took 250 ms and
+# whose detection 78 ms provisioned EW0 in the tick that failed EW1; with
+# 16 CPU-bound processes beside the smoke on 8 host cores, a detection took
+# 527 ms)
 ORCH_WORKLOAD = dict(kind="sharegpt", rate_rps=8.0, duration=2.0, seed=0,
                      max_prompt=384, max_new=32)
-ORCH_EW_FAILURES = ((0.5, "ew", 0), (1.8, "ew", 1))
+ORCH_EW_FAILURES = ((0.2, "ew", 0), (2.1, "ew", 1))
+ORCH_PROTECT_EW1 = [0, 1, 2, 3, 4, 5, 6, 7, 4, -1, 5, -1, 6, -1, 7, -1]
 
 
 class ServeRun:
@@ -2085,24 +2121,35 @@ class ServeRun:
     kernels (``observed``), each prefill group's virtual time and
     (rid, AW, prompt tokens), and what the failures touched. Inside a
     step's timed interval the only additions are the launch-count reads
-    around each prefill group, the record of the group, the record of
-    each restored request, and the kernel observers of every phase; the
-    rest is read from the ServeMetrics after the run."""
+    around each prefill group, the record of the group, the record (and
+    host time) of each restored request and of each preemption's commit,
+    and the kernel observers of every phase; the rest is read from the
+    ServeMetrics after the run. ``orch_kw`` adds Orchestrator options and
+    ``scales`` the run's ScalePlans; each plan install records the
+    manager's per-EW load EMAs at that moment."""
 
-    def __init__(self, torch, cfg, params, wl, failures=(), **ecfg_kw):
+    def __init__(self, torch, cfg, params, wl, failures=(), *, orch_kw=None,
+                 scales=(), **ecfg_kw):
         from repro_torch.core.orchestrator import Orchestrator
         from repro_torch.serving.engine import EngineConfig, InferenceEngine
-        from repro_torch.serving.scheduler import FailurePlan, run_serving
+        from repro_torch.serving.scheduler import (FailurePlan, ScalePlan,
+                                                   run_serving)
         eng = InferenceEngine(cfg, EngineConfig(
             max_batch=8, max_seq=512, num_aw=2, num_ew=2, **ecfg_kw),
             params=params, device="cuda")
-        orch = Orchestrator(eng, worker_init_time=1.0)
+        orch = Orchestrator(eng, worker_init_time=1.0, **(orch_kw or {}))
         sched = eng.scheduler
         prefill_group, install = sched._prefill_group, sched._install_recovery
         fail_aw, fail_ew = eng.fail_aw, eng.fail_ew
+        commit, install_plan = eng._commit_resident_kv, eng.install_plan
+        bulk_group = eng._bulk_checkpoint_group
         pre = {k: 0 for k in launch_counts()}
         self.groups = []
         self.victims, self.restored, self.slot_expert_at_fail = [], [], {}
+        self.commit_s, self.resume_s, self.plans = {}, {}, []
+        # per victim, per commit: (resident tokens, tokens the bulk range
+        # path moved); per resume: bytes restored
+        self.commit_tokens, self.resume_bytes, bulk = {}, {}, []
 
         def counted_prefill(group, now):
             c0 = launch_counts()
@@ -2116,7 +2163,38 @@ class ServeRun:
 
         def installed(q, aw, slot, now):
             self.restored.append(q.rid)
+            b0 = eng.store.stats.bytes_restored
+            t0 = time.perf_counter()
             install(q, aw, slot, now)
+            if q.rid in self.commit_s:      # a preemption victim resumes
+                self.resume_s.setdefault(q.rid, []).append(
+                    time.perf_counter() - t0)
+                self.resume_bytes.setdefault(q.rid, []).append(
+                    eng.store.stats.bytes_restored - b0)
+
+        def bulk_counted(items):
+            if bulk:                        # inside a preemption's commit
+                bulk[0] += sum(n for _, _, n in items)
+            bulk_group(items)
+
+        def committed(r):
+            resident = r.prefill_cursor if r.prefilling else r.pos
+            bulk[:] = [0]
+            t0 = time.perf_counter()
+            out = commit(r)
+            self.commit_s.setdefault(r.rid, []).append(
+                time.perf_counter() - t0)
+            self.commit_tokens.setdefault(r.rid, []).append(
+                (resident, bulk.pop()))
+            return out
+
+        def plan_installed(plan, now=0.0, detail=""):
+            mgr = eng.placement_mgr
+            self.plans.append((round(now, 4), plan.generation, plan.reason,
+                               {m: round(v, 3) for m, v in
+                                mgr.per_ew_load().items()},
+                               int((plan.split_slot >= 0).sum())))
+            install_plan(plan, now=now, detail=detail)
 
         # the orchestrator's tick calls these, outside the timed step
         def failed_aw(aw):
@@ -2135,12 +2213,17 @@ class ServeRun:
         captures = eng.decode_plane.captures()
         with patched(sched, _prefill_group=counted_prefill,
                      _install_recovery=installed), \
-                patched(eng, fail_aw=failed_aw, fail_ew=failed_ew), \
+                patched(eng, fail_aw=failed_aw, fail_ew=failed_ew,
+                        _commit_resident_kv=committed,
+                        _bulk_checkpoint_group=bulk_counted,
+                        install_plan=plan_installed), \
                 observed(torch, "decode") as obs:
             t0 = time.perf_counter()
             self.m = run_serving(eng, wl, 600.0, orchestrator=orch,
                                  failures=[FailurePlan(*f)
-                                           for f in failures])
+                                           for f in failures],
+                                 scale_events=[ScalePlan(*sc)
+                                               for sc in scales])
             self.wall_s = time.perf_counter() - t0
         if eng.decode_plane.captures() != captures:
             raise AssertionError("run_serving captured a step graph after "
@@ -2154,6 +2237,13 @@ class ServeRun:
         self.n = len(wl)
         self.bytes_restored = eng.store.stats.bytes_restored
         self.placement = eng.api.placement
+        self.generation = eng.placement_generation
+        self.ema_end = {} if eng.placement_mgr is None else {
+            m: round(v, 3) for m, v in
+            eng.placement_mgr.per_ew_load().items()}
+        self.live_ews = sorted(eng.live_ews)
+        self.host_syncs = eng.gateway.stats.host_syncs
+        self.steps = eng.steps
 
     def step_ends(self):
         """The virtual end time of every step that emitted tokens."""
@@ -2277,7 +2367,7 @@ def orchestrated_phase(torch, g, records, params):
     token dropped, so slots and batch makeup cannot change a stream) on
     ``params``, served by ``run_serving`` with an Orchestrator over
     ORCH_WORKLOAD: (a) failure-free (after a warm-up pass, whose streams
-    must equal it too); (b) EW0 at 0.5 s and EW1 at 1.8 s, the second
+    must equal it too); (b) EW0 at 0.2 s and EW1 at 2.1 s, the second
     served from the shadows re-pointed to protect EW1 when EW0 was
     provisioned; (c) AW0 at a time run (a) says AW0 holds two decoding
     requests, at least one request with tokens restored; (d) the
@@ -2289,7 +2379,6 @@ def orchestrated_phase(torch, g, records, params):
     EW and AW sections equal its reference section), and the expert FFN
     at every prefill C these runs gave it against the plain versions (the
     largest C of run (a) timed). Returns run (a)."""
-    from repro_torch.core import ert
     from repro_torch.data.workloads import make_workload
     from repro_torch.examples import failover_demo
     cfg = mixtral_8_layers(capacity_factor=4.0)
@@ -2318,7 +2407,8 @@ def orchestrated_phase(torch, g, records, params):
     same_outputs("(a) against the warm-up pass", warm)
 
     ew = ServeRun(torch, cfg, params, wl, ORCH_EW_FAILURES)
-    ew.report("(b) EW0 at 0.5 s, EW1 at 1.8 s",
+    ew.report(f"(b) EW0 at {ORCH_EW_FAILURES[0][0]} s, EW1 at "
+              f"{ORCH_EW_FAILURES[1][0]} s",
               ew.touched_at(ORCH_EW_FAILURES[0][0]) |
               ew.touched_at(ORCH_EW_FAILURES[1][0]))
     ew.check_paths("(b)")
@@ -2329,12 +2419,14 @@ def orchestrated_phase(torch, g, records, params):
         raise AssertionError(f"(b): EW0 was not provisioned with its "
                              f"shadows re-pointed to EW1 before EW1 "
                              f"failed: {ew.events}")
-    want = ert.initial_slot_expert(
-        ew.placement, ert.initial_shadow_assignment(ew.placement, 1))
-    if ew.slot_expert_at_fail.get(1) != want.tolist():
+    # the table that protects EW1: primaries 0..7 (EW0 owns slots 0-3 and
+    # the even shadow slots, EW1 slots 4-7 and the odd ones), EW1's experts
+    # 4-7 on EW0's shadow slots, EW1's own shadow slots empty
+    want = ORCH_PROTECT_EW1
+    if ew.slot_expert_at_fail.get(1) != want:
         raise AssertionError(f"(b): slot_expert when EW1 failed "
                              f"{ew.slot_expert_at_fail.get(1)}, not the "
-                             f"table that protects EW1 {want.tolist()}")
+                             f"table that protects EW1 {want}")
     # steps that emitted tokens from EW1's detection (its ERT remap) to
     # its provisioning
     down = [t for t, kind, w, _ in ew.events
@@ -2345,7 +2437,7 @@ def orchestrated_phase(torch, g, records, params):
         raise AssertionError("(b): no step emitted tokens while EW1 was "
                              "failed")
     print(f"  (b): EW1's experts served from the re-pointed shadow slots "
-          f"(slot_expert {want.tolist()}) for {served} steps")
+          f"(slot_expert {want}) for {served} steps")
 
     t_aw = aw_failure_time(base)
     aw = ServeRun(torch, cfg, params, wl, ((t_aw, "aw", 0),))
@@ -2362,8 +2454,9 @@ def orchestrated_phase(torch, g, records, params):
 
     mega = ServeRun(torch, cfg, params, wl, ORCH_EW_FAILURES[:1],
                     tarragon=False, checkpoint=False)
-    mega.report("(d) baseline (tarragon=False, checkpoint=False), EW0 at "
-                "0.5 s", mega.touched_at(ORCH_EW_FAILURES[0][0]))
+    mega.report(f"(d) baseline (tarragon=False, checkpoint=False), EW0 at "
+                f"{ORCH_EW_FAILURES[0][0]} s",
+                mega.touched_at(ORCH_EW_FAILURES[0][0]))
     mega.check_paths("(d)")
     if len(mega.m.finished) != mega.n:
         raise AssertionError(f"(d): {len(mega.m.finished)} of {mega.n} "
@@ -2405,6 +2498,208 @@ def orchestrated_phase(torch, g, records, params):
                     small=False)
     records[-1]["launches"] = base.ffn_c["prefill"][(base_c, "tensor_core")]
     return base
+
+
+# the elastic and preemption phase: a Zipf-skewed decode-heavy workload
+# (runs e, f) and the SLO-class mix (g), on the orchestrated phase's
+# weights; EW2 joins (T_w + T_push = 1.25 s after the request, made at the
+# first step that starts at or after 0.2 s) before the drain is requested
+# at 2.2 s, with 0.75 s to spare for a long step in progress at 0.2 s (a
+# drain of an EW that has not joined is refused). mixed_slo's prompt lengths are the workload's own
+# (interactive 4-9 tokens, batch 6-13): max_prompt does not bound them
+ELASTIC_WORKLOAD = dict(kind="skewed_expert_load", rate_rps=8.0,
+                        duration=2.5, seed=0, max_prompt=16, max_new=32)
+ELASTIC_SCALES = ((0.2, "add_ew"), (2.2, "drain_ew", 2))
+ELASTIC_EW_FAILURE = ((0.5, "ew", 0),)
+SLO_WORKLOAD = dict(kind="mixed_slo", rate_rps=8.0, duration=1.0, seed=0,
+                    max_prompt=16, max_new=96)
+SLO_TOKEN_CAP = 64
+
+
+def plan_graphs_equal_eager(torch, cfg, params):
+    """On one engine (max_ew 3) with requests decoding: a replay of the
+    seg-1 step graph equals the eager step after a scale-out, a rebalance
+    with split replicas and a shadow promotion, with no new capture."""
+    from repro_torch.serving.api import RequestSpec
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    eng = InferenceEngine(cfg, EngineConfig(
+        max_batch=8, max_seq=512, num_aw=2, num_ew=2, max_ew=3),
+        params=params, device="cuda")
+    g = torch.Generator().manual_seed(5)
+    for i in range(8):
+        eng.client.submit(RequestSpec(rid=f"p{i}", max_new=16, prompt=(
+            torch.randint(0, cfg.vocab_size, (24,), generator=g)
+            .numpy().astype("int32"))))
+    for _ in range(3):
+        eng.step()
+    base = eng.decode_plane.captures()
+    mgr = eng.placement_mgr
+    eng.add_ew(now=1.0)
+    graph_equals_eager(torch, eng, 1, "plan: scale-out to EW2")
+    eng.step()
+    plan = eng.rebalance(now=2.0)
+    if (plan.split_slot < 0).all():
+        # the recorded loads gave no split: replicate expert 0 into an
+        # empty slot of another EW and split its traffic there
+        owner, se = plan.slot_owner, plan.slot_expert.copy()
+        s = int(((se < 0) & (owner >= 0) &
+                 (owner != owner[plan.primary[0]])).nonzero()[0][0])
+        se[s] = 0
+        split = plan.split_slot.copy()
+        split[0] = s
+        eng.install_plan(mgr.adopt(se, split_slot=split, reason="split"),
+                         now=2.0)
+    graph_equals_eager(torch, eng, 1, f"plan: rebalance with "
+                       f"{int((eng.route_state.split_slot >= 0).sum())} "
+                       f"split replicas")
+    eng.step()
+    eng.fail_ew(0)
+    eng.promote_shadows(0, now=3.0)
+    graph_equals_eager(torch, eng, 1, "plan: EW0's shadows promoted")
+    if eng.decode_plane.captures() != base:
+        raise AssertionError("a plan install captured a step graph")
+    print(f"  plans: generation {eng.placement_generation}, pool "
+          f"{sorted(eng.live_ews)}, step graphs {base} (none new)")
+
+
+def elastic_phase(torch, g, records, params):
+    """The placement plane and the request plane on the orchestrated
+    phase's weights (Mixtral-8x7B widths at 8 layers, bf16, capacity
+    factor 4.0, num_ew 2, max_ew 3), each run through ``run_serving`` with
+    an Orchestrator (T_w 1.0 s, T_push 0.25 s) on the card's step times:
+    the failure-free run of ELASTIC_WORKLOAD; (e) the same with
+    ``auto_rebalance`` and ELASTIC_SCALES (EW2 joins, then drains); (f)
+    ``ew_policy="promote"`` under EW0's failure; then SLO_WORKLOAD without
+    preemption, (g) with it and a token cap, and (g) bulk as (g) without
+    per-token checkpointing, so each commit moves the victim's whole
+    resident state through the bulk range path. Every stream of (e) and
+    (f) equals the failure-free run's bit for bit; every request of both
+    (g) runs finishes, at least one is preempted, and each victim's
+    stream equals its stream without preemption. No run captures a step graph after its
+    warm-up, and the host syncs are one a decode step. Before the runs,
+    graph == eager after each kind of plan install."""
+    from repro_torch.data.workloads import make_workload
+    from repro_torch.serving.scheduler import pct
+    t_phase = time.perf_counter()
+    cfg = mixtral_8_layers(capacity_factor=4.0)
+    plan_graphs_equal_eager(torch, cfg, params)
+    push = dict(weight_push_time=0.25)
+    wl = make_workload(**ELASTIC_WORKLOAD)
+    print(f"  skewed workload: {len(wl)} requests, prompts "
+          f"{sorted(r.prompt_len for r in wl)} tokens, "
+          f"{sum(r.max_new_tokens for r in wl)} new tokens in all")
+    base = ServeRun(torch, cfg, params, wl, orch_kw=push, max_ew=3)
+    runs = {"failure-free": base}
+    runs["(e)"] = ServeRun(torch, cfg, params, wl, orch_kw=dict(
+        push, auto_rebalance=True), scales=ELASTIC_SCALES, max_ew=3)
+    runs["(f)"] = ServeRun(torch, cfg, params, wl, ELASTIC_EW_FAILURE,
+                           orch_kw=dict(push, ew_policy="promote"),
+                           max_ew=3)
+    slo = make_workload(**SLO_WORKLOAD)
+    print(f"  mixed_slo workload: {len(slo)} requests "
+          f"({sum(r.slo_class == 'batch' for r in slo)} batch, "
+          f"{sum(r.slo_class == 'interactive' for r in slo)} interactive "
+          f"at {sorted(round(r.arrival, 3) for r in slo if r.slo_class == 'interactive')} s)")
+    runs["no preemption"] = ServeRun(torch, cfg, params, slo, orch_kw=push,
+                                     max_ew=3, preempt=False,
+                                     prefill_token_cap=SLO_TOKEN_CAP)
+    runs["(g)"] = ServeRun(torch, cfg, params, slo, orch_kw=push, max_ew=3,
+                           prefill_token_cap=SLO_TOKEN_CAP)
+    runs["(g) bulk"] = ServeRun(torch, cfg, params, slo, orch_kw=push,
+                                max_ew=3, prefill_token_cap=SLO_TOKEN_CAP,
+                                checkpoint=False)
+    for label, run in runs.items():
+        run.report(label)
+        run.check_paths(label)
+        if len(run.m.finished) != run.n:
+            raise AssertionError(f"{label}: {len(run.m.finished)} of "
+                                 f"{run.n} requests finished")
+        if run.host_syncs != run.steps:
+            raise AssertionError(f"{label}: {run.host_syncs} host syncs in "
+                                 f"{run.steps} decode steps")
+        print(f"    plans (virtual time, generation, reason, per-EW load "
+              f"EMA at the install, split replicas): {run.plans}; final "
+              f"generation {run.generation}, pool {run.live_ews}, per-EW "
+              f"load EMA at the end {run.ema_end}; {run.host_syncs} host "
+              f"syncs in {run.steps} decode steps")
+        for cls in ("interactive", "batch", "standard"):
+            ttft, tbt = run.m.ttft_values(cls), run.m.tbt_values(cls)
+            if ttft.size:
+                print(f"    {cls}: TTFT p50 {pct(ttft, 50) * 1e3:.2f} ms "
+                      f"p99 {pct(ttft, 99) * 1e3:.2f} ms; TBT p50 "
+                      f"{pct(tbt, 50) * 1e3:.2f} ms p99 "
+                      f"{pct(tbt, 99) * 1e3:.2f} ms; "
+                      f"{run.m.gateway['by_class'].get(cls)}")
+
+    def same(label, run, want, rids=None):
+        rids = sorted(want.m.outputs) if rids is None else rids
+        bad = [r for r in rids if run.m.outputs.get(r) != want.m.outputs[r]]
+        if bad:
+            raise AssertionError(f"{label}: streams differ for {bad}")
+        print(f"  {label}: {len(rids)} streams bitwise equal")
+    e, f = runs["(e)"], runs["(f)"]
+    kinds = [k for _, k, _, _ in e.events]
+    for k in ("scaled_out", "scaled_in"):
+        if k not in kinds:
+            raise AssertionError(f"(e): no {k} event: {e.events}")
+    print(f"  (e): {kinds.count('rebalanced')} automatic rebalance(s)")
+    if not any(n_split for *_, n_split in e.plans):
+        raise AssertionError(f"(e): no plan split an expert: {e.plans}")
+    same("(e) scale-out, auto-rebalance and drain against the "
+         "failure-free run", e, base)
+    if not any(k == "detected" and "promoted" in d
+               for _, k, _, d in f.events) or f.live_ews != [1]:
+        raise AssertionError(f"(f): EW0's shadows were not promoted: "
+                             f"{f.events}")
+    same("(f) EW0 promoted away against the failure-free run", f, base)
+    for label in ("(g)", "(g) bulk"):
+        run = runs[label]
+        victims = sorted(run.commit_s)
+        if not victims or run.m.gateway["preemptions"] < 1:
+            raise AssertionError(f"{label}: nothing was preempted: "
+                                 f"{run.events}")
+        if any(r not in run.resume_s for r in victims):
+            raise AssertionError(f"{label}: a victim did not resume: "
+                                 f"{run.commit_s} {run.resume_s}")
+        same(f"{label} the {len(victims)} preemption victims against the "
+             f"run without preemption", run, runs["no preemption"], victims)
+        same(f"{label} every request against the run without preemption",
+             run, runs["no preemption"])
+        print(f"  {label}: {run.m.gateway['preemptions']} preemptions; "
+              f"victims' commit host ms "
+              f"{({r: [round(t * 1e3, 3) for t in v] for r, v in run.commit_s.items()})} "
+              f"(resident tokens, tokens through the bulk range path) "
+              f"{run.commit_tokens}; resume host ms "
+              f"{({r: [round(t * 1e3, 3) for t in v] for r, v in run.resume_s.items()})} "
+              f"(bytes restored {run.resume_bytes})")
+    # without per-token checkpointing a victim's resident state goes
+    # through the bulk range path at its commit: all of it at the first,
+    # the tokens decoded since its last resume at a later one
+    bad = {r: v for r, v in runs["(g) bulk"].commit_tokens.items()
+           if v[0][1] < 1 or any(sum(b for _, b in v[:k + 1]) != n
+                                 for k, (n, _) in enumerate(v))}
+    if bad:
+        raise AssertionError(f"(g) bulk: a commit did not move the whole "
+                             f"resident state through the bulk path: {bad}")
+    # the expert FFN at the (C, path) pairs these runs gave it that no
+    # earlier check held to the plain versions
+    seen = {key for run in runs.values() for per in run.ffn_c.values()
+            for key in per}
+    todo = sorted(seen - FFN_CHECKED)
+    if todo:
+        print(f"  expert FFN at the new (C, path) pairs of these runs: "
+              f"{todo}")
+        kernel_moe_gemm(torch, g, records,
+                        [(f"elastic-C{c}-{path}", c, path == "skinny", path)
+                         for c, path in todo], timed=set(), small=False)
+    launches = {k: sum(run.launches[ph][k] for run in runs.values()
+                       for ph in run.launches)
+                for k in ("decode_attention_fused", "flash_attention",
+                          "moe_ffn", "moe_ffn/skinny",
+                          "moe_ffn/tensor_core")}
+    print(f"  elastic phase launches over its {len(runs)} runs: {launches}; "
+          f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return runs
 
 
 def zamba2_13_layers():
@@ -3023,8 +3318,13 @@ def main():
           f"run_serving with an Orchestrator over make_workload("
           f"{ORCH_WORKLOAD}), the virtual clock on the card's step times")
     orchestrated = orchestrated_phase(torch, g, records, engine.params)
-    del engine
     phase("orchestrated serving + demo twin")
+    print("elastic and preemption: the same weights, num_ew 2, max_ew 3; "
+          f"{ELASTIC_WORKLOAD}, scale events {ELASTIC_SCALES}, EW0 "
+          f"promoted; {SLO_WORKLOAD} with and without preemption")
+    elastic_phase(torch, g, records, engine.params)
+    del engine
+    phase("elastic + preemption")
     print(f"hybrid: Zamba2-7B widths, {HYBRID_LAYERS} layers, bf16, "
           f"contiguous KV + recurrent state, 2 AWs")
     hybrid = hybrid_phase(torch, profile_dir=args.profile)

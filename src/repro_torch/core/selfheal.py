@@ -2,14 +2,14 @@
 ``repro.core.selfheal``.
 
 Each transition returns a new RouteState whose health tensor has one
-entry flipped (or, for ``repoint_shadows``, new slot tables); the next
-step routes by it, with nothing rebuilt. The module also carries the
+entry flipped; the next step routes by it, with nothing rebuilt. Shadow
+re-pointing is a placement generation (``core/placement.py``,
+``plan_reprotect``). The module also carries the
 EW-side "sufficient subset" batching rule (§5.2).
 """
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from repro_torch.core import ert as ert_lib
 from repro_torch.core.refe import RouteState
@@ -35,29 +35,6 @@ def fail_aw(rs: RouteState, aw_id: int) -> RouteState:
 
 def recover_aw(rs: RouteState, aw_id: int) -> RouteState:
     return rs._replace(aw_health=_set(rs.aw_health, aw_id, True))
-
-
-# --------------------------------------------------------------------------
-# shadow re-pointing (background provisioning of expert capacity, §5.3-§5.4)
-# --------------------------------------------------------------------------
-
-def repoint_shadows(rs: RouteState, placement: ert_lib.ExpertPlacement,
-                    protect_ew: int) -> RouteState:
-    """Re-point the shadow slots to protect ``protect_ew``'s experts.
-
-    The host-side weight push, off the failover critical path. The expert
-    FFN reads each slot's weights through ``slot_expert`` at every launch,
-    so re-pointing is a RouteState update: new candidates and slot
-    residency (int32 tensors on the route state's device), no parameter
-    surgery."""
-    assign = ert_lib.initial_shadow_assignment(placement, protect_ew)
-    dev = rs.candidates.device
-    cand = ert_lib.build_candidates(placement, assign)
-    return rs._replace(
-        candidates=torch.as_tensor(cand, dtype=torch.int32, device=dev),
-        slot_expert=torch.as_tensor(
-            ert_lib.initial_slot_expert(placement, assign),
-            dtype=torch.int32, device=dev))
 
 
 def experts_without_healthy_replica(rs: RouteState,

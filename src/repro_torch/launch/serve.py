@@ -4,12 +4,17 @@ injected through the orchestrator.
 
     python -m repro_torch.launch.serve --arch mixtral_8x7b \\
         --workload random --rps 4 --duration 2 [--fail ew:0@0.5] \\
-        [--placement session_affinity] [--no-tarragon] [--device cpu]
+        [--scale add_ew@1.0] [--scale drain_ew:2@3.0] [--max-ew 4] \\
+        [--ew-policy promote] [--rebalance] [--no-preempt] \\
+        [--chunk-budget 16] [--placement session_affinity] \\
+        [--no-tarragon] [--device cpu]
 
 The reduced model (capacity factor 4.0) runs on the card unless
-``--device cpu`` is given. The reference's flags whose planes are not
-ported yet are absent: ``--max-ew``, ``--scale``, ``--ew-policy`` and
-``--rebalance`` (the placement plane), ``--no-preempt`` (preemption),
+``--device cpu`` is given. The EW pool is elastic: scale events,
+load-aware rebalancing and shadow promotion are placement-plan installs
+(core/placement.py). Blocked interactive requests preempt batch victims
+unless ``--no-preempt``; the prefill token cap is 8 x ``--chunk-budget``.
+The reference's flags whose planes are not ported yet are absent:
 ``--prefix-slots`` (the prefix cache), ``--controller`` and its
 ``--no-ctl-*`` switches, ``--no-telemetry``, ``--trace-out``,
 ``--metrics-out``, ``--prom-out``, ``--postmortem`` and ``--watchdogs``.
@@ -25,13 +30,24 @@ from repro_torch.configs import get_config
 from repro_torch.core.orchestrator import Orchestrator
 from repro_torch.data.workloads import make_workload
 from repro_torch.serving.engine import EngineConfig, InferenceEngine
-from repro_torch.serving.scheduler import FailurePlan, pct, run_serving
+from repro_torch.serving.scheduler import (FailurePlan, ScalePlan, pct,
+                                           run_serving)
 
 
 def parse_failure(s: str) -> FailurePlan:
     kindid, t = s.split("@")
     kind, wid = kindid.split(":")
     return FailurePlan(float(t), kind, int(wid))
+
+
+def parse_scale(s: str) -> ScalePlan:
+    """add_ew@T | drain_ew:ID@T | rebalance@T"""
+    kindid, t = s.split("@")
+    kind, _, wid = kindid.partition(":")
+    if kind not in ("add_ew", "drain_ew", "rebalance"):
+        raise ValueError(f"unknown scale kind {kind!r} in --scale {s!r} "
+                         "(add_ew@T | drain_ew:ID@T | rebalance@T)")
+    return ScalePlan(float(t), kind, int(wid) if wid else -1)
 
 
 def require_device(device: str):
@@ -54,6 +70,9 @@ def main(argv=None):
     ap.add_argument("--duration", type=float, default=2.0)
     ap.add_argument("--num-aw", type=int, default=2)
     ap.add_argument("--num-ew", type=int, default=2)
+    ap.add_argument("--max-ew", type=int, default=0,
+                    help="elastic EW pool ceiling (spares the orchestrator "
+                         "can scale out into; 0 = num_ew)")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--placement", default="least_loaded",
                     choices=("least_loaded", "round_robin",
@@ -64,6 +83,17 @@ def main(argv=None):
                          "binding, no shadow slots, no checkpoint store")
     ap.add_argument("--fail", type=str, action="append", default=[],
                     help="kind:worker@time, e.g. ew:0@0.5")
+    ap.add_argument("--scale", type=str, action="append", default=[],
+                    help="add_ew@T | drain_ew:ID@T | rebalance@T")
+    ap.add_argument("--ew-policy", choices=("revive", "promote"),
+                    default="revive",
+                    help="EW failure handling: background revival, or "
+                         "permanent shadow promotion (pool shrinks)")
+    ap.add_argument("--rebalance", action="store_true",
+                    help="auto-rebalance expert placement under load skew")
+    ap.add_argument("--no-preempt", action="store_true",
+                    help="disable preempt-and-requeue (blocked interactive "
+                         "requests wait instead of evicting batch victims)")
     ap.add_argument("--chunk-budget", type=int, default=0,
                     help="chunked-prefill token budget per tick "
                          "(0 = whole-prompt prefill)")
@@ -82,18 +112,24 @@ def main(argv=None):
         args.placement = "session_affinity"
     ecfg = EngineConfig(max_batch=args.max_batch, max_seq=96,
                         num_aw=args.num_aw, num_ew=args.num_ew,
+                        max_ew=args.max_ew,
                         tarragon=not args.no_tarragon,
                         checkpoint=not args.no_tarragon,
                         placement=args.placement,
-                        chunk_token_budget=args.chunk_budget)
+                        preempt=not args.no_preempt,
+                        chunk_token_budget=args.chunk_budget,
+                        prefill_token_cap=8 * args.chunk_budget)
     eng = InferenceEngine(cfg, ecfg, seed=args.seed, device=args.device)
-    orch = Orchestrator(eng, worker_init_time=1.0)
+    orch = Orchestrator(eng, worker_init_time=1.0, weight_push_time=0.25,
+                        ew_policy=args.ew_policy,
+                        auto_rebalance=args.rebalance)
 
     wl = make_workload(args.workload, args.rps, args.duration,
                        seed=args.seed, max_prompt=16, max_new=24)
     failures = [parse_failure(f) for f in args.fail]
+    scales = [parse_scale(s) for s in args.scale]
     m = run_serving(eng, wl, duration=600.0, orchestrator=orch,
-                    failures=failures, step_time=0.05)
+                    failures=failures, scale_events=scales, step_time=0.05)
 
     tbt = m.tbt_values()
     print(f"[serve] {cfg.name} tarragon={not args.no_tarragon} "
@@ -114,10 +150,15 @@ def main(argv=None):
         print(f"  prefill: {m.prefill['calls']} calls / "
               f"{m.prefill['requests']} reqs "
               f"occupancy={m.prefill['occupancy']:.2f}")
+    if eng.placement_mgr is not None:
+        mgr = eng.placement_mgr
+        print(f"  expert plane: gen={mgr.plan.generation} "
+              f"pool={sorted(eng.live_ews)} "
+              f"imbalance={mgr.imbalance():.2f}")
     if m.gateway.get("repins"):
         print(f"  session repins: {m.gateway['repins']}")
     if m.gateway.get("by_class"):
-        print("  request plane:")
+        print(f"  request plane: preemptions={m.gateway['preemptions']}")
         for cls, counts in sorted(m.gateway["by_class"].items()):
             ttft = m.ttft_values(cls)
             extra = f" ttft_p50={pct(ttft, 50)*1e3:.0f}ms" \

@@ -4,9 +4,17 @@ SLO classes, ``RequestSpec``, ``Client`` and ``RequestHandle``.
 ``Client.submit`` enqueues into the Gateway's class queues and runs one
 admission pass; it never refuses. ``RequestHandle`` observes one request:
 ``status()`` over the lifecycle queued -> placed -> prefilling (chunked
-prefill) -> decoding -> done (or cancelled), with "preempted" while its AW
-is dead and it waits to be restored; incremental ``new_tokens()``, and
-``cancel()``.
+prefill) -> decoding -> done (or cancelled), with "preempted" while it
+waits to be restored (its AW died, or an interactive head evicted it);
+incremental ``new_tokens()``, and ``cancel()``. ``Client.forget`` drops a
+finished request's handle.
+
+A preempted request is the recovery path taken on purpose: its KV is
+committed to the checkpoint store and it re-enters the Gateway as a
+recovery entry that resumes from its cursor. ``new_tokens()`` is
+at-least-once across an AW crash (tokens past the commit watermark are
+recomputed and delivered again); a planned preemption flushes the
+watermark first and never rewinds.
 """
 from __future__ import annotations
 
@@ -25,6 +33,12 @@ SLO_CLASSES = (INTERACTIVE, STANDARD, BATCH)
 
 #: per-class weighted-dequeue credits per admission round
 CLASS_WEIGHTS = {INTERACTIVE: 4, STANDARD: 2, BATCH: 1}
+
+#: classes whose blocked head may evict a victim (preempt-and-requeue)
+PREEMPTING_CLASSES = (INTERACTIVE,)
+
+#: classes eligible to be checkpointed out of their slot
+PREEMPTIBLE_CLASSES = (BATCH,)
 
 
 @dataclass(frozen=True)
@@ -48,6 +62,9 @@ class RequestSpec:
     slo_class: str = STANDARD
     deadline: Optional[float] = None   # first-token deadline: orders the
     #                                    class queue (earlier first)
+    completion_deadline: Optional[float] = None  # last-token deadline: an
+    #                                    overrun is flagged, never dropped
+    session: Optional[str] = None      # affinity key (session_affinity)
     prompt_len: int = 8
     seed: int = 0
     token_dist: str = "uniform"    # "uniform" | "zipf"
@@ -88,8 +105,13 @@ class RequestStatus:
     state: str
     slo_class: str = STANDARD
     tokens_generated: int = 0
+    prefill_cursor: int = 0
+    preemptions: int = 0
     deadline: Optional[float] = None
     ttft: float = -1.0
+    deadline_missed: bool = False
+    completion_deadline: Optional[float] = None
+    completion_deadline_missed: bool = False
 
 
 class RequestHandle:
@@ -127,9 +149,14 @@ class RequestHandle:
         r = self._lookup()
         st = RequestStatus(self.rid, self.state(),
                            slo_class=self.spec.slo_class,
-                           deadline=self.spec.deadline)
+                           deadline=self.spec.deadline,
+                           completion_deadline=self.spec.completion_deadline)
         if r is not None:
             st.tokens_generated = len(r.tokens)
+            st.prefill_cursor = r.prefill_cursor
+            st.preemptions = r.preemptions
+            st.deadline_missed = r.deadline_flagged
+            st.completion_deadline_missed = r.completion_flagged
             st.ttft = r.ttft
         return st
 
@@ -190,7 +217,8 @@ class Client:
         self.engine.gateway.enqueue(
             spec.rid, prompt, spec.max_new, now=now,
             slo_class=spec.slo_class, deadline=spec.deadline,
-            sampling=spec.sampling)
+            completion_deadline=spec.completion_deadline,
+            sampling=spec.sampling, session=spec.session)
         handle = RequestHandle(self, spec)
         self._handles[spec.rid] = handle
         self.engine.scheduler.admit(now)
@@ -204,3 +232,17 @@ class Client:
         if h is not None:
             return h.cancel(now=now)
         return self.engine.cancel_request(rid, now=now)
+
+    def forget(self, rid: str) -> bool:
+        """Drop a finished request's handle (and the final state pinned on
+        it). The client keeps every handle until told otherwise, so a
+        long-running service forgets the handles it has consumed. A live
+        request is refused: cancel it first."""
+        h = self._handles.get(rid)
+        if h is None:
+            return False
+        if not h.done():
+            raise ValueError(f"request {rid!r} is still live; cancel() "
+                             "before forget()")
+        del self._handles[rid]
+        return True

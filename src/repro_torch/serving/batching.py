@@ -136,10 +136,12 @@ class ContinuousBatchScheduler:
         rs = eng.route_state._replace(
             aw_health=torch.ones_like(eng.route_state.aw_health))
         dev = eng.device
-        last_logits, req_cache, _ = eng.api.prefill(
+        last_logits, req_cache, load = eng.api.prefill(
             eng.params, torch.as_tensor(toks, device=dev), rs,
             eng.ecfg.max_seq, capacity=eng.prefill_capacity(sum(pre_lens)),
             mask=torch.as_tensor(mask, device=dev))
+        if eng.collect_load:
+            eng.note_dispatch_load(load.cpu().numpy())
         firsts = None
         if not padded:
             firsts = eng.decode_plane.sample_rows(
@@ -245,14 +247,16 @@ class ContinuousBatchScheduler:
 
     # -- decode -------------------------------------------------------------
     def step(self, now: Optional[float] = None) -> Dict[str, List[int]]:
-        """One iteration: an admission pass when anything waits, a budgeted
-        slice of chunked prefill (when the plane is on), then one decode
+        """One iteration: an admission pass when anything waits, deadline
+        accounting, a budgeted slice of chunked prefill (when the plane is
+        on), then one decode
         dispatch over all active slots: a step, or a segment of
         ``decode_segment_len`` steps. Returns {rid: new_tokens}."""
         eng = self.engine
         t_now = now if now is not None else float(eng.steps)
         if self.gateway.depth():
             self.admit(t_now)
+        eng.check_deadlines(t_now)
         if eng.chunked is not None:
             eng.chunked.tick()
         act = eng.active_requests()
@@ -271,6 +275,8 @@ class ContinuousBatchScheduler:
         # a decode step never touches a slot that is mid-chunked-prefill
         toks = eng.decode_plane.run(act, 1)[0]
         self.gateway.stats.host_syncs += 1
+        if eng.collect_load:
+            eng.note_dispatch_load(eng.decode_plane.host_loads[0])
 
         # the KV the step wrote for every checkpointed request: one batched
         # gather, one device-to-host copy. A request on a dead AW is
@@ -316,6 +322,11 @@ class ContinuousBatchScheduler:
         seg_len = eng.decode_plane.seg_len
         ring = eng.decode_plane.run(act, seg_len)
         self.gateway.stats.host_syncs += 1     # the per-segment drain
+        if eng.collect_load:
+            # one record per step of the segment, as the reference's
+            # segment drain does
+            for step_load in eng.decode_plane.host_loads:
+                eng.note_dispatch_load(step_load)
 
         out: Dict[str, List[int]] = {}
         max_seq = eng.ecfg.max_seq

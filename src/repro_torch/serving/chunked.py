@@ -13,8 +13,9 @@
   * **Resumable streams**: per-request progress lives in
     ``RequestState.prefill_cursor``. Each chunk's KV segments stream to
     the CheckpointStore (§6.1 extended to prefill), so when an AW dies
-    mid-prefill, recovery restores the committed chunk prefix and resumes
-    the stream from the cursor instead of from token 0.
+    mid-prefill, or a preemption evicts the request, recovery restores the
+    committed chunk prefix and resumes the stream from the cursor instead
+    of from token 0.
 
 Only full-attention cache families run chunks (cache slot == absolute
 position); the engine checks.
@@ -201,10 +202,12 @@ class ChunkedPrefillPlane:
         rs = eng.route_state._replace(
             aw_health=torch.ones_like(eng.route_state.aw_health))
         dev = eng.device
-        eng.cache, _ = eng.api.prefill_chunk(
+        eng.cache, load = eng.api.prefill_chunk(
             eng.params, torch.as_tensor(toks, device=dev),
             torch.as_tensor(pos, device=dev), eng.cache, rs,
             capacity=eng.prefill_capacity(real))
+        if eng.collect_load:
+            eng.note_dispatch_load(load.cpu().numpy())
 
         self.stats.calls += 1
         self.stats.chunks += len(entries)

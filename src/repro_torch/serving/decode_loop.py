@@ -29,6 +29,11 @@ counterpart of the reference's ``jax.jit`` of the step and ``lax.scan`` of
 the segment. A CPU engine runs the same function eagerly at every step
 and keeps the same key set (``captures``). Kernel launch counts captured
 in a graph are added on each replay (``kernels.build.count``).
+
+When the engine collects dispatch loads (the placement plane), each
+step's per-slot loads [seg_len, P] go to a pinned host buffer by a copy
+queued before the token ring's copy, so the ring's one device-to-host
+drain brings both: no second sync a step, and nothing in the graphs.
 """
 from __future__ import annotations
 
@@ -147,6 +152,8 @@ class DecodeLoopPlane:
         #: (seg_len, deep top-k, paged) -> its StepGraph (None on the CPU)
         self.graphs: Dict[Tuple[int, bool, bool], Optional[StepGraph]] = {}
         self.loads = None      # [seg_len, P] slot loads of the last step
+        self.host_loads: Optional[np.ndarray] = None   # their host copy
+        self._pinned_loads: Dict[int, torch.Tensor] = {}
 
     def resolve(self, sampling, rid: str):
         """(greedy, temperature, top_k, seed) for one request; a request
@@ -241,6 +248,16 @@ class DecodeLoopPlane:
             ring, self.loads = self.segment(key[0], key[1], self.route_state)
             self.graphs[key] = self.capture(key) \
                 if self.engine.device.type == "cuda" else None
+        if self.engine.collect_load:
+            # queued on the step's stream ahead of the ring's copy, so the
+            # ring's synchronising copy below completes it too
+            buf = self._pinned_loads.get(seg_len)
+            if buf is None:
+                buf = self._pinned_loads[seg_len] = torch.empty(
+                    tuple(self.loads.shape), dtype=torch.float32,
+                    pin_memory=self.loads.is_cuda)
+            buf.copy_(self.loads, non_blocking=True)
+            self.host_loads = buf.numpy()
         return ring.cpu().numpy()
 
     def capture(self, key) -> StepGraph:

@@ -28,6 +28,23 @@ Failure API:
     ``provision_ew(e, repoint_protect=f)`` brings it back and re-points
     the shadow slots to protect EW f.
 
+Request plane: a blocked interactive head may preempt a batch victim
+(``preempt``, ``victim_policy``): the victim's resident KV is committed to
+the store through the bulk range path, its slot freed, and it re-enters
+the Gateway as a recovery entry that resumes from its cursor.
+``check_deadlines`` flags first-token and completion deadline misses; the
+lifecycle events (``preempted``, ``cancelled``, ``deadline_missed``) come
+out of ``drain_request_events``.
+
+Placement plane (``core/placement.py``): with MoE and ``tarragon``, an
+``ExpertPlacementManager`` versions the expert layout. ``add_ew``,
+``drain_ew``, ``promote_shadows``, ``rebalance`` and ``repoint_shadows``
+each install a plan generation, a RouteState update of fixed shapes (the
+EW-health mask is sized for ``max_ew`` at start), so no step graph is
+captured anew. The steps' per-slot dispatch loads feed the manager's EMAs
+(``note_dispatch_load``), which choose the EW to protect and drive
+load-aware rebalancing.
+
 ``tarragon=False, checkpoint=False`` is the MegaScale-Infer-style
 baseline: no shadow slots and no checkpoint store, so a failed EW's
 experts are unreachable and a failed AW's requests cannot be restored
@@ -43,12 +60,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import selfheal
 from repro_torch.core.checkpoint import CheckpointStore
+from repro_torch.core.orchestrator import WorkerEvent
+from repro_torch.core.placement import ExpertPlacementManager, PlacementPlan
 from repro_torch.core.refe import RouteState
 from repro_torch.models import get_model
 from repro_torch.serving.api import (CANCELLED, DECODING, DONE, PLACED,
-                                     PREEMPTED, PREFILLING, STANDARD, Client,
+                                     PREEMPTED, PREEMPTIBLE_CLASSES,
+                                     PREFILLING, STANDARD, Client,
                                      SamplingParams)
 from repro_torch.serving.batching import ContinuousBatchScheduler
 from repro_torch.serving.chunked import ChunkedPrefillPlane
@@ -56,7 +75,8 @@ from repro_torch.serving.decode_loop import DecodeLoopPlane
 from repro_torch.serving.gateway import Gateway, QueuedRequest
 from repro_torch.serving.kvcache import (CacheLayout, PagedCacheLayout,
                                          PagePool)
-from repro_torch.serving.workers import AttentionWorker, ExpertWorker
+from repro_torch.serving.workers import (AttentionWorker, ClusterSlotView,
+                                         ExpertWorker)
 
 
 @dataclass
@@ -65,6 +85,8 @@ class EngineConfig:
     max_seq: int = 96
     num_aw: int = 2
     num_ew: int = 2
+    max_ew: int = 0                # elastic EW pool ceiling (spare EW ids
+    #                                a scale-out can admit; 0 = num_ew)
     tarragon: bool = True          # False = MegaScale-style static binding
     #                                (no shadow slots)
     checkpoint: bool = True        # False = nothing reaches the store
@@ -77,6 +99,14 @@ class EngineConfig:
     chunk_token_budget: int = 0    # real prefill tokens per tick (0 =
     #                                whole-prompt prefill; a family that
     #                                cannot be padded ignores it)
+    prefill_token_cap: int = 0     # Gateway cap on prompt tokens admitted
+    #                                but not yet prefilled (0 = slot-bound
+    #                                admission only)
+    preempt: bool = True           # a blocked interactive head may evict a
+    #                                batch victim (preempt-and-requeue)
+    victim_policy: str = "remaining_work"  # "remaining_work" (most tokens
+    #                                left, prefill debt included) or
+    #                                "youngest" (latest arrival)
     decode_segment_len: int = 1    # decode steps per dispatch (one CUDA
     #                                graph replay on the card); > 1 drains
     #                                the tokens once per segment and
@@ -103,7 +133,11 @@ class RequestState:
     prefill_cursor: int = 0       # prompt tokens already written to cache
     cancelled: bool = False
     slo_class: str = STANDARD
-    deadline: Optional[float] = None
+    deadline: Optional[float] = None   # first-token deadline
+    completion_deadline: Optional[float] = None  # last-token deadline
+    deadline_flagged: bool = False     # deadline_missed already emitted
+    completion_flagged: bool = False   # completion overrun already emitted
+    preemptions: int = 0               # planned evictions survived
     sampling: Optional[SamplingParams] = None
     session: Optional[str] = None
     t_enqueue: float = 0.0
@@ -119,8 +153,9 @@ class RequestState:
     @property
     def state(self) -> str:
         """queued -> placed -> prefilling -> decoding -> done (or
-        cancelled); "preempted" while its AW is dead and it waits for
-        restoration (queued is before a RequestState exists)."""
+        cancelled); "preempted" while it waits for restoration, after its
+        AW died or a preemption evicted it (queued is before a
+        RequestState exists)."""
         if self.cancelled:
             return CANCELLED
         if self.done:
@@ -155,6 +190,12 @@ class InferenceEngine:
         self.route_state: RouteState = self.api.init_route_state()
         if ecfg.max_batch % ecfg.num_aw:
             raise ValueError("max_batch must be a multiple of num_aw")
+        if ecfg.victim_policy == "controller":
+            raise ValueError(
+                'victim_policy="controller" needs the control plane '
+                '(serving/controller.py), which the port does not have')
+        if ecfg.victim_policy not in ("remaining_work", "youngest"):
+            raise ValueError(f"unknown victim_policy {ecfg.victim_policy!r}")
         if ecfg.decode_segment_len > 1 and \
                 not self.api.supports_decode_segments:
             raise ValueError(
@@ -201,7 +242,25 @@ class InferenceEngine:
         self.aws = [AttentionWorker(a, a * per_aw, (a + 1) * per_aw,
                                     self.store)
                     for a in range(ecfg.num_aw)]
-        self.ews = [ExpertWorker(e) for e in range(ecfg.num_ew)]
+        max_ew = max(ecfg.max_ew or ecfg.num_ew, ecfg.num_ew)
+        self.ews = [ExpertWorker(e, member=e < ecfg.num_ew)
+                    for e in range(max_ew)]
+        self.slots = ClusterSlotView(self.aws, ecfg.max_batch)
+
+        # ---- placement plane: versioned plans and load EMAs. The EW-health
+        # mask is sized for max_ew now, so a scale-out changes no tensor's
+        # shape (the step graphs copy into RouteState tensors they hold)
+        self.placement_mgr: Optional[ExpertPlacementManager] = None
+        self.plan_log: List[WorkerEvent] = []
+        if ecfg.tarragon and self.api.placement is not None:
+            self.placement_mgr = ExpertPlacementManager(
+                self.api.placement, ecfg.num_ew, max_ew=max_ew)
+            self.route_state = self.route_state._replace(
+                ew_health=torch.as_tensor(
+                    self.placement_mgr.ew_member_mask(), dtype=torch.bool,
+                    device=self.device),
+                **self._plan_arrays(self.placement_mgr.plan))
+        self.collect_load = self.placement_mgr is not None
 
         self.gateway = Gateway(self.aws, policy=ecfg.placement)
         self.scheduler = ContinuousBatchScheduler(self, self.gateway)
@@ -212,6 +271,11 @@ class InferenceEngine:
         self.chunked: Optional[ChunkedPrefillPlane] = None
         if ecfg.chunk_token_budget > 0 and self.prefill_paddable:
             self.chunked = ChunkedPrefillPlane(self, ecfg.chunk_token_budget)
+            self.gateway.prefill_load = self.chunked.outstanding_tokens
+        self.gateway.prefill_token_cap = ecfg.prefill_token_cap
+        if ecfg.preempt:
+            self.gateway.preemptor = self._preempt_for
+        self.request_log: List[WorkerEvent] = []
         self.requests: Dict[str, RequestState] = {}
         self._release_hooks: List[Callable] = []
         self._client: Optional[Client] = None
@@ -237,7 +301,11 @@ class InferenceEngine:
         st = RequestState(rid=q.rid, slot=slot, prompt=q.prompt,
                           max_new=q.max_new, t_enqueue=q.t_enqueue,
                           slo_class=q.slo_class, deadline=q.deadline,
-                          sampling=q.sampling, session=q.session)
+                          completion_deadline=q.completion_deadline,
+                          sampling=q.sampling, session=q.session,
+                          # a miss flagged while queued is not flagged again
+                          deadline_flagged=q.deadline_flagged,
+                          completion_flagged=q.completion_flagged)
         self.decode_plane.bind(st)
         return st
 
@@ -279,11 +347,167 @@ class InferenceEngine:
             snap["chunked"] = self.chunked.stats.snapshot()
         return snap
 
-    def drain_request_events(self) -> list:
-        """Request-plane events since the last drain: the placement
-        policy's ``session_repinned`` (the reference's lifecycle events,
-        preempted and deadline_missed, join with the request plane)."""
-        return self.gateway.drain_events()
+    # -- request lifecycle: preemption, cancellation, deadlines. A
+    # preempted request is checkpointed out of its slot and re-enters
+    # exactly as a crash-recovered one does.
+    def _note_request_event(self, kind: str, rid: str, now: float,
+                            detail: str = ""):
+        self.request_log.append(WorkerEvent(now, kind, rid, detail))
+
+    def drain_request_events(self) -> List[WorkerEvent]:
+        """Request-plane events since the last drain: ``preempted``,
+        ``cancelled`` and ``deadline_missed``, then the placement policy's
+        ``session_repinned``."""
+        evs, self.request_log = self.request_log, []
+        return evs + self.gateway.drain_events()
+
+    @staticmethod
+    def _remaining_work(r: RequestState) -> int:
+        """Decode tokens still owed plus the prefill debt (prompt tokens
+        not prefilled yet): a mid-prefill request has invested little and
+        is the cheapest to push aside."""
+        debt = (len(r.prompt) - 1 - r.prefill_cursor) if r.prefilling else 0
+        return (r.max_new - len(r.tokens)) + debt
+
+    def _choose_victim(self, exclude: str = "") -> Optional[RequestState]:
+        """The preemption victim among preemptible-class requests resident
+        on live AWs: the most remaining work (``remaining_work``) or the
+        latest arrival (``youngest``); among equals the one preempted the
+        fewest times, then the highest rid."""
+        cands = [r for r in self.requests.values()
+                 if r.slo_class in PREEMPTIBLE_CLASSES and not r.done
+                 and not r.paused and not r.cancelled
+                 and not r.queued_for_recovery and r.rid != exclude
+                 and r._aw >= 0 and self.aws[r._aw].alive]
+        if not cands:
+            return None
+        if self.ecfg.victim_policy == "youngest":
+            return max(cands, key=lambda r: (r.t_enqueue, -r.preemptions,
+                                             r.rid))
+        return max(cands, key=lambda r: (self._remaining_work(r),
+                                         -r.preemptions, r.rid))
+
+    def _preempt_for(self, head: QueuedRequest, now: float) -> bool:
+        """The Gateway's preemptor: a blocked interactive head asks for a
+        slot; evict a batch victim if there is one."""
+        victim = self._choose_victim(exclude=head.rid)
+        if victim is None:
+            return False
+        return self.preempt_request(victim.rid, now=now)
+
+    def preempt_request(self, rid: str, now: float = 0.0) -> bool:
+        """Planned eviction (preempt-and-requeue): commit the victim's
+        resident KV to the store, release its slot and requeue it as a
+        recovery entry at the front of its class queue. On re-admission it
+        restores the committed prefix and resumes from the cursor: a
+        decoding request rewinds zero tokens (the watermark is flushed
+        first), a chunked prefill resumes mid-prompt. No health mask
+        changes and no step graph is captured."""
+        r = self.requests.get(rid)
+        if r is None or r.done or r.paused or r.cancelled or \
+                r.queued_for_recovery or r._aw < 0:
+            return False
+        aw = self.aws[r._aw]
+        if not aw.alive:
+            return False
+        committed = self._commit_resident_kv(r)
+        if self.chunked is not None:
+            self.chunked.drop(rid)
+        self._kv_clear_slot(r.slot)
+        aw.slots.release(r.slot)
+        r.paused = True
+        r.queued_for_recovery = True
+        r.preemptions += 1
+        self.gateway.requeue_recovery([QueuedRequest(
+            rid, r.prompt, r.max_new, t_enqueue=now,
+            slo_class=r.slo_class, deadline=r.deadline,
+            completion_deadline=r.completion_deadline,
+            completion_flagged=r.completion_flagged,
+            sampling=r.sampling, session=r.session)])
+        self.gateway.stats.preemptions += 1
+        self.gateway.stats.bump(r.slo_class, "preempted")
+        self._note_request_event(
+            "preempted", rid, now,
+            f"slot freed on aw{aw.aw_id}, resume@{committed + 1}")
+        return True
+
+    def _commit_resident_kv(self, r: RequestState) -> int:
+        """Bring the store's commit watermark up to the victim's whole
+        resident state: a planned eviction delivers the pending WRs
+        (flush; this is not a crash), and KV past the watermark (the whole
+        prefix on a ``checkpoint=False`` engine, which registers the
+        request now) streams out through the bulk range path. Returns the
+        committed token the request resumes after."""
+        ck = self.aws[r._aw].checkpointer
+        if self.ecfg.checkpoint:
+            ck.flush()
+        else:
+            ck.register(r.rid, prompt_len=len(r.prompt))
+        committed = self.store.committed_token(r.rid)
+        last = (r.prefill_cursor if r.prefilling else r.pos) - 1
+        if committed < last:
+            self._bulk_checkpoint_group([(r, committed + 1,
+                                          last - committed)])
+            ck.flush()
+            committed = self.store.committed_token(r.rid)
+        if committed != last:
+            raise AssertionError(f"preempt {r.rid}: watermark {committed} "
+                                 f"!= resident {last}")
+        return committed
+
+    def _deadline_pass(self, now: float, *, completion: bool):
+        """One flag-once sweep for one deadline kind over the Gateway's
+        queues and the resident requests. A first-token miss is excused
+        when the first token landed in time (a recovery entry of a request
+        that met its deadline is not a new miss), a completion miss when
+        the request is done."""
+        attr = "completion_flagged" if completion else "deadline_flagged"
+        counter = "completion_deadline_missed" if completion \
+            else "deadline_missed"
+        tag = "completion, " if completion else ""
+
+        def deadline_of(x):
+            return x.completion_deadline if completion else x.deadline
+
+        for cls, q in self.gateway.queues.items():
+            for e in q:
+                dl = deadline_of(e)
+                if dl is None or getattr(e, attr) or now <= dl:
+                    continue
+                setattr(e, attr, True)
+                r = self.requests.get(e.rid)
+                if r is not None:
+                    if getattr(r, attr):
+                        continue
+                    if not completion and 0 <= r.t_first_token <= dl:
+                        continue
+                    setattr(r, attr, True)
+                self.gateway.stats.bump(cls, counter)
+                self._note_request_event("deadline_missed", e.rid, now,
+                                         f"{tag}queued, deadline={dl:g}")
+        for r in self.requests.values():
+            dl = deadline_of(r)
+            if dl is None or getattr(r, attr):
+                continue
+            if not completion and r.t_first_token >= 0:
+                # the first token itself arrived past the deadline
+                if r.t_first_token <= dl:
+                    continue
+            elif r.done or now <= dl:
+                continue
+            setattr(r, attr, True)
+            self.gateway.stats.bump(r.slo_class, counter)
+            self._note_request_event("deadline_missed", r.rid, now,
+                                     f"{tag}{r.state}, deadline={dl:g}")
+
+    def check_deadlines(self, now: float):
+        """Emit ``deadline_missed`` once per request whose first-token
+        deadline passed, queued or resident without a first token, and
+        once per request whose completion deadline passed before its last
+        token (counted as ``completion_deadline_missed``). Deadlines are
+        SLO signals: nothing is dropped."""
+        self._deadline_pass(now, completion=False)
+        self._deadline_pass(now, completion=True)
 
     # -- checkpoint streaming -------------------------------------------------
     def _bulk_checkpoint_group(self, items):
@@ -402,7 +626,7 @@ class InferenceEngine:
             keep = {r.slot for r in self.requests.values()
                     if r._aw == aw and not r.done and
                     r.rid not in recoverable}
-            per = self.ecfg.max_batch // self.ecfg.num_aw
+            per = self.slots.per_aw
             freed = []
             for s in range(aw * per, (aw + 1) * per):
                 if s not in keep:
@@ -433,6 +657,8 @@ class InferenceEngine:
                 entries.append(QueuedRequest(
                     rid, r.prompt, r.max_new, t_enqueue=now,
                     slo_class=r.slo_class, deadline=r.deadline,
+                    completion_deadline=r.completion_deadline,
+                    completion_flagged=r.completion_flagged,
                     sampling=r.sampling, session=r.session))
         self.gateway.requeue_recovery(entries)
         admitted = set(self.scheduler.admit(now))
@@ -448,42 +674,139 @@ class InferenceEngine:
     def fail_ew(self, ew: int):
         self.route_state = self.ews[ew].fail(self.route_state)
 
+    @property
+    def live_ews(self) -> set:
+        return {w.ew_id for w in self.ews if w.member and w.alive}
+
     def provision_ew(self, ew: int, repoint_protect: Optional[int] = None,
                      now: float = 0.0):
-        """Bring EW ``ew`` back; with ``repoint_protect``, then re-point the
-        shadow slots to protect that EW (the background weight push)."""
+        """Bring EW ``ew`` back (into the pool, if it had left it); with
+        ``repoint_protect``, then re-point the shadow slots to protect that
+        EW (the background weight push)."""
         self.route_state = self.ews[ew].provision(self.route_state)
+        if self.placement_mgr is not None and \
+                ew not in self.placement_mgr.members:
+            self.placement_mgr.members = sorted(
+                self.placement_mgr.members + [ew])
         if repoint_protect is not None:
             self.repoint_shadows(repoint_protect, now=now)
 
     def repoint_shadows(self, protect_ew: int, now: float = 0.0):
-        """Re-point the shadow slots to protect ``protect_ew``'s experts: a
-        RouteState update (``candidates`` and ``slot_expert``); the expert
-        FFN reads each slot's weights through ``slot_expert`` at every
-        launch, so no weights move. The reference's versioned plan install
-        (its placement manager) is not ported; this is its manager-less
-        path."""
-        placement = self.api.placement
-        if placement is None or placement.num_shadow_slots == 0:
+        """Re-point the replica slots to protect ``protect_ew``'s experts: a
+        plan generation (``plan_reprotect``, which keeps the failover
+        replicas of still-dead EWs). An engine without shadow slots
+        (``tarragon`` False builds no manager) has nothing to re-point.
+        The expert FFN reads each slot's weights through ``slot_expert`` at
+        every launch, so no weights move."""
+        if self.placement_mgr is None or \
+                self.api.placement.num_shadow_slots == 0:
             return
-        self.route_state = selfheal.repoint_shadows(
-            self.route_state, placement, protect_ew)
+        self.install_plan(self.placement_mgr.plan_reprotect(
+            protect_ew, dead_ews=tuple(self.failed_ews)), now=now)
+
+    # -- placement plane (core/placement.py): versioned plan installs, EW
+    # scale-out and scale-in, shadow promotion, load-aware rebalancing.
+    # Each is a RouteState update of fixed shapes: no step graph is
+    # captured anew across placement generations.
+    def _plan_arrays(self, plan: PlacementPlan) -> dict:
+        def dev(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                                   device=self.device)
+        return dict(candidates=dev(plan.candidates()),
+                    slot_expert=dev(plan.slot_expert),
+                    slot_owner=dev(plan.slot_owner),
+                    split_slot=dev(plan.split_slot))
+
+    def install_plan(self, plan: PlacementPlan, now: float = 0.0,
+                     detail: str = ""):
+        """Activate a placement generation (the orchestrator has already
+        charged its weight push to the virtual clock)."""
+        self.route_state = self.route_state._replace(
+            **self._plan_arrays(plan))
+        self.plan_log.append(WorkerEvent(now, "placement_changed",
+                                         f"gen{plan.generation}",
+                                         detail or plan.reason))
+
+    def drain_plan_events(self) -> List[WorkerEvent]:
+        evs, self.plan_log = self.plan_log, []
+        return evs
+
+    @property
+    def placement_generation(self) -> int:
+        return self.placement_mgr.plan.generation \
+            if self.placement_mgr is not None else 0
+
+    def note_dispatch_load(self, slot_load):
+        """Drain one step's per-slot dispatch counts (host array [P]) into
+        the placement manager's EMAs."""
+        if self.placement_mgr is not None:
+            self.placement_mgr.record_slot_load(np.asarray(slot_load))
 
     def choose_protect_ew(self, exclude=()) -> Optional[int]:
-        """The placement manager's pick of the most load-critical EW; None
-        until that plane is ported (the orchestrator then protects the
-        failed EW's neighbour)."""
-        return None
+        """The placement manager's pick of the EW whose failure would hurt
+        most (the highest dispatch-load EMA; None without a manager)."""
+        if self.placement_mgr is None:
+            return None
+        return self.placement_mgr.choose_protect_ew(tuple(exclude))
+
+    def _require_placement(self, what: str):
+        if self.placement_mgr is None:
+            raise ValueError(f"{what} needs the elastic expert plane "
+                             f"(MoE and tarragon)")
+
+    def add_ew(self, now: float = 0.0) -> int:
+        """Scale-out: admit a spare EW into the pool (the orchestrator has
+        charged T_w + T_push); returns its id."""
+        self._require_placement("add_ew")
+        new_ew, plan = self.placement_mgr.plan_scale_out()
+        self.route_state = self.ews[new_ew].provision(self.route_state)
+        self.install_plan(plan, now=now)
+        return new_ew
+
+    def drain_ew(self, ew: int, now: float = 0.0):
+        """Graceful scale-in: the EW's experts have migrated (T_push
+        charged); it leaves the pool as a spare."""
+        self._require_placement("drain_ew")
+        self.install_plan(self.placement_mgr.plan_scale_in(ew), now=now)
+        self.route_state = self.ews[ew].retire(self.route_state)
+
+    def promote_shadows(self, dead_ew: int, now: float = 0.0):
+        """Permanent shadow promotion: the dead EW's replicas become
+        primaries and the pool shrinks. An ERT flip with no weight push
+        (the replicas' weights are resident already)."""
+        self._require_placement("promote_shadows")
+        plan = self.placement_mgr.promote_shadows(dead_ew)
+        self.ews[dead_ew].member = False
+        self.install_plan(plan, now=now)
+
+    def rebalance(self, now: float = 0.0) -> Optional[PlacementPlan]:
+        """Load-aware re-packing of the experts over the healthy pool
+        members (a failed EW awaiting revival gets no primaries)."""
+        if self.placement_mgr is None:
+            return None
+        plan = self.placement_mgr.plan_rebalance(live=tuple(self.live_ews))
+        self.install_plan(plan, now=now)
+        return plan
 
     # -- teardown -----------------------------------------------------------
     def cancel_request(self, rid: str, now: float = 0.0) -> bool:
+        """Cancel a request anywhere in its lifecycle: a queued entry
+        leaves its class queue; a resident request is torn down
+        (``release_request``), a preempted one's recovery entry too."""
         r = self.requests.get(rid)
         if r is None:
-            return self.gateway.drop(rid) is not None
+            entry = self.gateway.drop(rid)
+            if entry is None:
+                return False
+            self.gateway.stats.bump(entry.slo_class, "cancelled")
+            self._note_request_event("cancelled", rid, now, "while queued")
+            return True
         if r.done:
             return False
         r.cancelled = True
         r.done = True
+        self.gateway.stats.bump(r.slo_class, "cancelled")
+        self._note_request_event("cancelled", rid, now, r.state)
         self.release_request(rid)
         return True
 
@@ -496,6 +819,24 @@ class InferenceEngine:
         r = self.requests.pop(rid, None)
         if r is None:
             return
+        # deadline backstops: a first or last token that landed late in a
+        # request released before the next check_deadlines still counts
+        if r.deadline is not None and not r.deadline_flagged and \
+                r.t_first_token > r.deadline:
+            r.deadline_flagged = True
+            self.gateway.stats.bump(r.slo_class, "deadline_missed")
+            self._note_request_event("deadline_missed", rid,
+                                     r.t_first_token,
+                                     f"first token at {r.t_first_token:g} "
+                                     f"> deadline {r.deadline:g}")
+        if r.completion_deadline is not None and not r.completion_flagged \
+                and r.t_done > r.completion_deadline:
+            r.completion_flagged = True
+            self.gateway.stats.bump(r.slo_class, "completion_deadline_missed")
+            self._note_request_event(
+                "deadline_missed", rid, r.t_done,
+                f"completion at {r.t_done:g} > deadline "
+                f"{r.completion_deadline:g}")
         if self.chunked is not None:
             self.chunked.drop(rid)
         if r.queued_for_recovery:

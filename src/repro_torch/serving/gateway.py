@@ -14,8 +14,16 @@ and ``session_affinity`` (a session's home is the stable hash of its key,
 the explicit ``session`` when given, else the rid's session prefix
 ``rid.rsplit('-', 1)[0]``; the session is pinned there, a full home
 spills to least-loaded for one request, a dead home re-pins the session
-with a ``session_repinned`` event). The token cap, preemption and the
-prefix-aware part of session affinity arrive with the planes they serve.
+with a ``session_repinned`` event). The prefix-aware part of session
+affinity arrives with the prefix cache.
+
+Admission is token-aware when ``prefill_token_cap`` is set: a head waits
+while the prompt tokens admitted but not yet prefilled would pass the cap
+(recovery entries bypass it; the first admission of a tick always
+passes). Preempt-and-requeue: when a head of a class in
+``PREEMPTING_CLASSES`` cannot be placed, the engine-installed
+``preemptor`` may checkpoint a batch victim out of its slot and requeue
+it as a recovery entry, and placement is tried once more.
 """
 from __future__ import annotations
 
@@ -27,8 +35,8 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.orchestrator import WorkerEvent
-from repro_torch.serving.api import (CLASS_WEIGHTS, SLO_CLASSES, STANDARD,
-                                     SamplingParams)
+from repro_torch.serving.api import (CLASS_WEIGHTS, PREEMPTING_CLASSES,
+                                     SLO_CLASSES, STANDARD, SamplingParams)
 from repro_torch.serving.workers import AttentionWorker
 
 
@@ -42,8 +50,11 @@ class QueuedRequest:
     slo_class: str = STANDARD
     deadline: Optional[float] = None
     sampling: Optional[SamplingParams] = None
-    recovery: bool = False          # re-admission of a failed AW's request
+    recovery: bool = False          # re-admission of a preempted request
     session: Optional[str] = None   # affinity key for placement
+    completion_deadline: Optional[float] = None   # last-token deadline
+    deadline_flagged: bool = False     # deadline_missed already emitted
+    completion_flagged: bool = False   # completion overrun already emitted
 
     @property
     def deadline_key(self) -> float:
@@ -158,6 +169,7 @@ class GatewayStats:
     admitted: int = 0
     blocked_ticks: int = 0          # head-of-queue retries
     requeued: int = 0               # recovery re-admissions queued
+    preemptions: int = 0            # victims evicted to place a higher class
     host_syncs: int = 0             # decode-path device->host token drains
     session_repins: int = 0         # sessions re-pinned off a dead AW
     queue_delay: Dict[str, float] = field(default_factory=dict)
@@ -182,10 +194,19 @@ class Gateway:
         self.stats = GatewayStats()
         if isinstance(policy, SessionAffinityPolicy):
             policy.stats = self.stats
+        # token-aware admission: a cap on prompt tokens admitted but not
+        # yet prefilled (0 = slot-bound admission only); ``prefill_load``
+        # is the engine's probe of the chunked plane's outstanding tokens
+        self.prefill_token_cap: int = 0
+        self.prefill_load = None
+        # engine-installed hook: (blocked head, now) -> True when a
+        # victim's slot was freed and placement should be tried again
+        self.preemptor = None
 
     def enqueue(self, rid: str, prompt: np.ndarray, max_new: int, *,
                 now: float = 0.0, slo_class: str = STANDARD,
                 deadline: Optional[float] = None,
+                completion_deadline: Optional[float] = None,
                 sampling: Optional[SamplingParams] = None,
                 session: Optional[str] = None):
         if slo_class not in SLO_CLASSES:
@@ -194,7 +215,8 @@ class Gateway:
         self._insert(QueuedRequest(rid, np.asarray(prompt, np.int32),
                                    max_new, now, slo_class=slo_class,
                                    deadline=deadline, sampling=sampling,
-                                   session=session))
+                                   session=session,
+                                   completion_deadline=completion_deadline))
         self.stats.enqueued += 1
         self.stats.bump(slo_class, "enqueued")
 
@@ -245,6 +267,12 @@ class Gateway:
                   now: float = 0.0) -> Optional[int]:
         return self.policy(self.workers, key, prompt=prompt, now=now)
 
+    def _cached_match_len(self, prompt) -> int:
+        """The token cap's estimate of how much of ``prompt`` a cached
+        prefix would cover: 0 until the prefix cache is ported, so a
+        prompt is charged in full."""
+        return 0
+
     def drain_events(self) -> List[WorkerEvent]:
         """Placement events (``session_repinned``) the policy emitted since
         the last drain."""
@@ -257,8 +285,12 @@ class Gateway:
     def admit(self, now: float = 0.0
               ) -> List[Tuple[QueuedRequest, int, int]]:
         """Weighted dequeue over the class queues; reserves a slot on the
-        chosen AW per admission. Returns (entry, aw_id, slot) triples."""
+        chosen AW per admission. A blocked head stalls only its own class
+        for this tick; a blocked interactive head may first evict a batch
+        victim through ``preemptor``. Returns (entry, aw_id, slot)
+        triples."""
         admitted = []
+        new_tokens = 0                 # fresh prompt tokens admitted now
         blocked = set()
         while True:
             progressed = False
@@ -270,11 +302,33 @@ class Gateway:
                     if not q:
                         break
                     head = q[0]
+                    # the token cap: recovery entries bypass it (their
+                    # committed prefix restores from the store), and the
+                    # first admission always passes, so a prompt longer
+                    # than the cap cannot deadlock the queue
+                    if self.prefill_token_cap and not head.recovery:
+                        load = new_tokens + \
+                            (self.prefill_load() if self.prefill_load else 0)
+                        need = len(head.prompt) - \
+                            self._cached_match_len(head.prompt)
+                        if load > 0 and \
+                                load + need > self.prefill_token_cap:
+                            head.retries += 1
+                            self.stats.blocked_ticks += 1
+                            blocked.add(cls)
+                            break
                     # recovery entries restore their own KV: no prompt to
                     # match
                     match_prompt = None if head.recovery else head.prompt
                     aw = self.choose_aw(head.placement_key,
                                         prompt=match_prompt, now=now)
+                    if aw is None and cls in PREEMPTING_CLASSES and \
+                            self.preemptor is not None:
+                        # preempt-and-requeue (the engine's preempt_request
+                        # counts the preemption)
+                        if self.preemptor(head, now):
+                            aw = self.choose_aw(head.placement_key,
+                                                prompt=match_prompt, now=now)
                     if aw is None:
                         head.retries += 1
                         self.stats.blocked_ticks += 1
@@ -282,6 +336,8 @@ class Gateway:
                         break
                     q.popleft()
                     slot, _ = self.workers[aw].take_slot(match_prompt, now)
+                    if not head.recovery:
+                        new_tokens += len(head.prompt)
                     self.stats.admitted += 1
                     self.stats.bump(cls, "admitted")
                     self.stats.queue_delay[head.rid] = \

@@ -14,9 +14,11 @@ measured wall time (on the card: its host time through the step's
 device-to-host token copy), plus ``prefill_token_time`` per prompt token
 prefilled in the step.
 
-The reference's telemetry, flight recorder, controller, prefix-cache and
-preemption lines are left out: those planes are not ported.
-``scale_events`` (``ScalePlan``) need the placement plane and raise.
+``scale_events`` (``ScalePlan``) ask the orchestrator to grow, shrink or
+re-pack the EW pool at their virtual times; the orchestrator completes
+them T_w or T_push later on the same clock. The reference's telemetry,
+flight recorder, controller and prefix-cache lines are left out: those
+planes are not ported.
 """
 from __future__ import annotations
 
@@ -103,8 +105,8 @@ class FailurePlan:
 @dataclass
 class ScalePlan:
     """Elasticity event on the serving timeline: at virtual time ``t`` ask
-    the orchestrator to grow, shrink or re-pack the EW pool (needs the
-    placement plane, which the port does not have yet)."""
+    the orchestrator to grow, shrink or re-pack the EW pool (completion
+    lands T_w or T_push later on the same clock)."""
     t: float
     kind: str           # "add_ew" | "drain_ew" | "rebalance"
     worker_id: int = -1  # only for drain_ew
@@ -121,16 +123,13 @@ def run_serving(engine, workload: List[Request], duration: float, *,
     (seconds per real prompt token prefilled in the tick, on top of the
     step time), so a long whole-prompt prefill shows up as the TBT stall
     it is for co-resident decodes."""
-    if scale_events:
-        raise NotImplementedError(
-            "scale_events need the versioned placement plane "
-            "(core/placement.py), which the port does not have yet")
     m = ServeMetrics()
     gw = engine.gateway
     clock = 0.0
     pending = sorted(workload, key=lambda r: r.arrival)
     qi = 0
     injected = [False] * len(failures)
+    scaled = [False] * len(scale_events)
     steps = 0
     seen_first = set()
     while clock < duration and steps < max_steps:
@@ -141,6 +140,21 @@ def run_serving(engine, workload: List[Request], duration: float, *,
                     raise ValueError("failures need an orchestrator")
                 orchestrator.inject_failure(f.kind, f.worker_id, clock)
                 injected[i] = True
+        # elasticity requests (the orchestrator clocks their completion)
+        for i, s in enumerate(scale_events):
+            if not scaled[i] and clock >= s.t:
+                if orchestrator is None:
+                    raise ValueError("scale events need an orchestrator")
+                if s.kind == "add_ew":
+                    orchestrator.request_scale_out(clock)
+                elif s.kind == "drain_ew":
+                    orchestrator.request_scale_in(s.worker_id, clock)
+                elif s.kind == "rebalance":
+                    orchestrator.request_rebalance(clock)
+                else:
+                    raise ValueError(f"unknown scale event kind {s.kind!r}"
+                                     " (add_ew | drain_ew | rebalance)")
+                scaled[i] = True
         if orchestrator is not None:
             orchestrator.tick(clock)
         # arrivals enter their SLO class's Gateway queue (never dropped);
@@ -165,10 +179,11 @@ def run_serving(engine, workload: List[Request], duration: float, *,
             dt += (engine.prefill_tokens_done() - pf0) * prefill_token_time
         if not out:
             # idle tick: quit once nothing can make progress again, a
-            # failure still to inject and queued requests included
+            # failure or scale event still to inject and queued (fresh or
+            # preempted) requests included
             if qi >= len(pending) and not engine.active_requests() and \
                     not engine.prefilling_requests() and \
-                    gw.depth() == 0 and all(injected) and \
+                    gw.depth() == 0 and all(injected) and all(scaled) and \
                     (orchestrator is None or orchestrator.outstanding == 0):
                 break
             dt = max(dt, 1e-3)
@@ -196,7 +211,8 @@ def run_serving(engine, workload: List[Request], duration: float, *,
     m.duration = clock
     m.queue_delay = dict(gw.stats.queue_delay)
     m.prefill = engine.prefill_snapshot()
-    m.gateway = {"blocked_ticks": gw.stats.blocked_ticks,
+    m.gateway = {"preemptions": gw.stats.preemptions,
+                 "blocked_ticks": gw.stats.blocked_ticks,
                  "host_syncs": gw.stats.host_syncs,
                  "requeued": gw.stats.requeued,
                  "by_class": {c: dict(v)

@@ -8,14 +8,16 @@ worker object owns exactly the state that dies with it.
     ``KVCheckpointer``), its in-flight chunked-prefill streams and its
     liveness bit; ``fail`` loses the slots, the streams and every
     checkpoint write not yet delivered.
-  * ``ExpertWorker`` owns its liveness bit; its experts' reachability is
-    carried by the RouteState health mask, so ``fail``/``provision`` are
-    pure RouteState transitions.
+  * ``ExpertWorker`` owns its liveness bit and its pool membership; its
+    experts' reachability is carried by the RouteState health mask, so
+    ``fail``/``provision``/``retire`` are pure RouteState transitions.
+  * ``ClusterSlotView``: the engine's view of every AW's slot partition
+    (``engine.slots``).
 """
 from __future__ import annotations
 
 from collections import deque
-from typing import Deque, Set
+from typing import Deque, List, Set
 
 from repro_torch.core import selfheal
 from repro_torch.core.checkpoint import CheckpointStore, KVCheckpointer
@@ -106,7 +108,9 @@ class AttentionWorker:
 
 
 class ExpertWorker:
-    """One EW: liveness plus pool membership."""
+    """One EW: liveness plus pool membership. A spare EW (member False,
+    alive False) is reserved health-mask capacity until a scale-out
+    admits it; a drained or promoted-away EW returns to spare."""
 
     def __init__(self, ew_id: int, member: bool = True):
         self.ew_id = ew_id
@@ -122,5 +126,23 @@ class ExpertWorker:
         self.member = True
         return selfheal.recover_ew(route_state, self.ew_id)
 
+    def retire(self, route_state: RouteState) -> RouteState:
+        """Leave the pool (graceful drain or permanent shadow promotion):
+        the worker becomes a spare, and its slots drop out of routing
+        through the health mask."""
+        self.alive = False
+        self.member = False
+        return selfheal.fail_ew(route_state, self.ew_id)
+
     def __repr__(self):
         return f"EW{self.ew_id}(alive={self.alive}, member={self.member})"
+
+
+class ClusterSlotView:
+    """Every AW's slot partition seen as one slot space; the engine reads
+    the partition width (``per_aw``)."""
+
+    def __init__(self, workers: List[AttentionWorker], max_batch: int):
+        self.max_batch = max_batch
+        self.num_aw = len(workers)
+        self.per_aw = max_batch // len(workers)

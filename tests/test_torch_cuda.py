@@ -1153,10 +1153,10 @@ SEG_SPECS = [(np.arange(1, 9, dtype=np.int32), 5),
              (np.arange(5, 12, dtype=np.int32), 16)]
 
 
-def _graph_engine(seg_len=1):
+def _graph_engine(seg_len=1, **kw):
     """A reduced float32 Mixtral engine on the card (capacity factor 4,
-    max_batch 4, max_seq 64) with the three requests of SEG_SPECS
-    submitted."""
+    max_batch 4, max_seq 64, engine options ``kw``) with the three
+    requests of SEG_SPECS submitted."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1167,7 +1167,7 @@ def _graph_engine(seg_len=1):
         cfg.moe, capacity_factor=4.0))
     eng = InferenceEngine(cfg, EngineConfig(
         max_batch=4, max_seq=64, num_aw=2, num_ew=2,
-        decode_segment_len=seg_len), seed=7, device="cuda")
+        decode_segment_len=seg_len, **kw), seed=7, device="cuda")
     handles = [eng.client.submit(RequestSpec(rid=f"s{i}", prompt=p,
                                              max_new=n))
                for i, (p, n) in enumerate(SEG_SPECS)]
@@ -1227,6 +1227,62 @@ def test_step_graph_routes_by_the_new_route_state(dev):
         assert loads[:, owner == 1].sum() == 0 and loads.sum() > 0
     while not all(h.done() for h in handles):
         eng.step()
+
+
+def test_plan_installs_replay_the_step_graphs(dev):
+    """Placement generations are RouteState copies into the graphs' own
+    tensors: after a scale-out, a rebalance with split replicas and a
+    shadow promotion, each replay (seg 1 and 8) equals the eager step, no
+    graph is captured anew, the drained loads are the eager step's
+    ``slot_load`` (one host sync a step), and the streams are those of an
+    engine that never changed its plan."""
+    eng, handles = _graph_engine(max_ew=3)
+    for _ in range(2):
+        eng.step()
+    for seg in (1, 8):
+        _replay_equals_eager(eng, seg)
+    base = eng.decode_plane.captures()
+    mgr = eng.placement_mgr
+
+    def check(what):
+        for seg in (1, 8):
+            _replay_equals_eager(eng, seg)
+        loads = _replay_equals_eager(eng, 1)
+        n = mgr.load.total_recorded
+        eng.step()                        # the seg-1 graph's replay
+        assert np.array_equal(eng.decode_plane.host_loads,
+                              loads.cpu().numpy()), what
+        assert mgr.load.total_recorded == n + float(loads.sum()), what
+        assert eng.decode_plane.captures() == base, what
+    eng.add_ew(now=1.0)
+    check("scale-out")
+    plan = eng.rebalance(now=2.0)
+    if (plan.split_slot < 0).all():
+        # the loads of two steps gave no split: replicate expert 0 into an
+        # empty slot of another EW and split its traffic there
+        owner, se = plan.slot_owner, plan.slot_expert.copy()
+        s = int(np.nonzero((se < 0) & (owner >= 0) &
+                           (owner != owner[plan.primary[0]]))[0][0])
+        se[s] = 0
+        split = plan.split_slot.copy()
+        split[0] = s
+        eng.install_plan(mgr.adopt(se, split_slot=split, reason="split"),
+                         now=2.0)
+    assert (eng.route_state.split_slot >= 0).any()
+    check("rebalance with split slots")
+    # the replicas serve the same weights: so far the plan-free streams
+    head = [h.tokens() for h in handles]
+    eng.fail_ew(0)
+    eng.promote_shadows(0, now=3.0)
+    check("promotion")
+    assert eng.gateway.stats.host_syncs == eng.steps
+    while not all(h.done() for h in handles):
+        eng.step()
+    want, plain = _graph_engine()
+    while not all(h.done() for h in plain):
+        want.step()
+    assert head == [h.tokens()[:len(t)] for h, t in zip(plain, head)]
+    assert sum(len(t) for t in head) > 3
 
 
 def test_segments_capture_nothing_new_after_warm_up(dev):

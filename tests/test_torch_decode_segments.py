@@ -260,6 +260,47 @@ def test_step_routes_by_the_engine_route_state():
     run_to_done(eng, handles)
 
 
+def test_segment_preempted_victim_bit_identical():
+    """A victim preempted after a full segment resumes from its committed
+    cursor (a planned eviction rewinds nothing) and finishes with the
+    per-step engine's stream."""
+    spec = dict(rid="v", prompt=PROMPT, max_new=20, slo_class="batch")
+    ref = gen_all(make_engine(decode_segment_len=1), [spec], STOCHASTIC)
+    eng = make_engine(decode_segment_len=8)
+    h = eng.client.submit(RequestSpec(**spec, sampling=STOCHASTIC))
+    eng.step()                        # one full segment decoded
+    n_before = len(h.tokens())
+    assert 0 < n_before < 20
+    keys = eng.decode_plane.captures()
+    assert eng.preempt_request("v", now=1.0)
+    assert h.state() == "preempted"
+    assert len(eng.requests["v"].tokens) == n_before
+    run_to_done(eng, [h])
+    assert h.tokens() == ref["v"]
+    assert h.status().preemptions == 1
+    assert eng.decode_plane.captures() == keys
+
+
+def test_segment_loads_reach_the_manager_as_reference():
+    """Each step of a segment is one record of the placement manager's
+    load EMAs, from the segment's one drain, as in the reference: after
+    the same greedy seg-8 run the EMAs are equal, and the host syncs are
+    one a segment."""
+    from repro.core.placement import LoadStats
+    jeng = _reference("mixtral_8x7b", 8)
+    jm = jeng.placement_mgr
+    jm.load = LoadStats(np.zeros_like(jm.load.ema_expert),
+                        np.zeros_like(jm.load.ema_ew), decay=jm.load.decay)
+    gen_all(jeng, SPECS, spec_cls=JSpec)
+    eng = make_engine(decode_segment_len=8)
+    gen_all(eng, SPECS)
+    tm = eng.placement_mgr
+    assert tm.load.total_recorded == jm.load.total_recorded > 0
+    np.testing.assert_array_equal(tm.load.ema_expert, jm.load.ema_expert)
+    np.testing.assert_array_equal(tm.load.ema_ew, jm.load.ema_ew)
+    assert eng.gateway.stats.host_syncs == eng.steps
+
+
 @pytest.mark.parametrize("seg_len", [1, 4])
 def test_paged_matches_contiguous_under_aw_failure(seg_len):
     """AW0 dies mid-run (mid-segment at seg 4) with requests in flight;

@@ -7,13 +7,11 @@ streams and equal orchestrator events ``(t, kind, worker, detail)``; the
 ``session_affinity`` policy's placements and re-pins against the JAX
 gateway.
 
-The reference engine keeps a placement manager, which the port does not
-have yet: its ``choose_protect_ew`` answers as the port's does (None, so
-both orchestrators protect the failed EW's neighbour), after recording the
-manager's own pick, and every comparison asserts that the manager picked
-the same EW, so the stand-in changes nothing in the reference's run. Its
-``placement_changed`` events (one per plan install) are left out of the
-comparison."""
+Both engines keep a placement manager: each re-points the shadows to its
+manager's pick of the most loaded EW, and the events compared include the
+``placement_changed`` event of each plan install. The elastic entry
+points (scale-out, drain, rebalance) run on both packages with equal
+events, plan generations and streams."""
 import dataclasses
 
 import jax
@@ -32,6 +30,7 @@ from repro.serving.engine import InferenceEngine as JEngine
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_reference
 from repro_torch.core import ert as tert
+from repro_torch.core import placement as tpl
 from repro_torch.core import selfheal as tsh
 from repro_torch.core import shadow as tshadow
 from repro_torch.core.orchestrator import Orchestrator as TOrch
@@ -51,34 +50,10 @@ def weights():
 
 
 def _jax_engine(**kw):
-    return manager_less(JEngine(
+    return JEngine(
         reduced("mixtral_8x7b", cap_factor=4.0),
         JEngineConfig(**BASE, telemetry=False, flight_recorder=False, **kw),
-        jax.random.PRNGKey(7)))
-
-
-def manager_less(eng):
-    """The reference engine with the port's manager-less protect choice
-    (None: the orchestrator protects the provisioned EW's neighbour); the
-    manager's own picks are kept in ``eng.protect_picks``."""
-    pick, eng.protect_picks = eng.choose_protect_ew, []
-
-    def choose_protect_ew(exclude=()):
-        eng.protect_picks.append(pick(exclude=exclude))
-        return None
-    eng.choose_protect_ew = choose_protect_ew
-    return eng
-
-
-def assert_manager_agrees(eng, events):
-    """Each EW provisioning re-pointed the shadows to the EW the reference's
-    placement manager picked (or it had no manager), so answering None in
-    its place changed nothing."""
-    protected = [int(d.rsplit("ew", 1)[1]) for _, kind, w, d in events
-                 if kind == "provisioned" and w.startswith("ew")]
-    assert len(eng.protect_picks) == len(protected)
-    for pick, ew in zip(eng.protect_picks, protected):
-        assert pick in (None, ew), (eng.protect_picks, protected)
+        jax.random.PRNGKey(7))
 
 
 def _port_engine(params, **kw):
@@ -119,11 +94,7 @@ class Side:
     def events(self):
         if self.orch is None:
             return []
-        ev = [(e.t, e.kind, e.worker, e.detail) for e in self.orch.events
-              if e.kind != "placement_changed"]
-        if self.pkg == "jax":
-            assert_manager_agrees(self.eng, ev)
-        return ev
+        return [(e.t, e.kind, e.worker, e.detail) for e in self.orch.events]
 
 
 def both(weights, scenario, **kw):
@@ -157,14 +128,16 @@ def test_orchestrator_detection_and_provisioning(weights, ref_tokens):
         toks = s.run_to_end("r0")
         # background provisioning restores the EW and re-points shadows
         fired = orch.tick(12.0)
-        assert any(e.kind == "provisioned" for e in fired)
+        assert [e.kind for e in fired] == ["provisioned",
+                                           "placement_changed"]
         assert 0 not in eng.failed_ews
         assert orch.outstanding == 0
         return toks, s.events()
     (jt, jev), (tt, tev) = both(weights, scenario, worker_init_time=1.0)
     assert jt == tt == ref_tokens
     assert tev == jev
-    assert tev[-1][1:] == ("provisioned", "ew0", "shadows protect ew1")
+    assert tev[-2][1:] == ("provisioned", "ew0", "shadows protect ew1")
+    assert tev[-1][1:] == ("placement_changed", "gen1", "reprotect ew1")
 
 
 def test_orchestrator_aw_flow(weights, ref_tokens):
@@ -207,6 +180,25 @@ def test_megascale_baseline_has_no_shadow_slots(weights):
     assert len(t) == 10 and t == j
 
 
+def test_repoint_without_shadow_slots_changes_nothing(weights):
+    """An engine without shadow slots (``tarragon`` False) has no placement
+    manager, and re-pointing leaves its route arrays and its stream as
+    they were, in both packages."""
+    def scenario(s):
+        assert s.eng.placement_mgr is None
+        s.submit("r0", PROMPT, 10)
+        s.eng.step()
+        fields = ("candidates", "slot_expert", "slot_owner", "split_slot")
+        before = [np.asarray(getattr(s.eng.route_state, f)).tolist()
+                  for f in fields]
+        s.eng.repoint_shadows(1, now=1.0)
+        assert [np.asarray(getattr(s.eng.route_state, f)).tolist()
+                for f in fields] == before
+        return before, s.run_to_end("r0"), s.eng.placement_generation
+    j, t = both(weights, scenario, tarragon=False)
+    assert t == j and len(t[1]) == 10
+
+
 def test_ew_failure_without_shadow_degrades_not_crashes(weights):
     """EW1's experts have no shadows by default: tokens routed to them are
     dropped (reduced capacity), but decoding goes on, NaN-free, and both
@@ -221,14 +213,47 @@ def test_ew_failure_without_shadow_degrades_not_crashes(weights):
 
 
 def test_elastic_entry_points_name_the_placement_plane(weights):
+    """``request_scale_out``, ``request_scale_in`` and ``request_rebalance``
+    on both packages (max_ew 3): the same events, plan generations and
+    stream, and the refusals of the reference; an unknown worker kind and
+    an unknown EW policy are refused."""
+    def scenario(s):
+        eng, orch = s.eng, s.orch
+        orch.T_push = 0.25
+        s.submit("r0", PROMPT, 14)
+        eng.step()
+        orch.request_scale_out(0.0)
+        eng.step()
+        orch.tick(1.3)                    # T_w + T_push: EW2 joins
+        eng.step()
+        with pytest.raises(ValueError, match="max_ew=3"):
+            orch.request_scale_out(1.3)
+        orch.request_rebalance(1.3)
+        eng.step()
+        orch.tick(1.6)
+        orch.request_scale_in(2, 1.6)
+        with pytest.raises(ValueError, match="not an elastic pool member"):
+            orch.request_scale_in(5, 1.6)
+        eng.step()
+        orch.tick(1.9)
+        assert orch.outstanding == 0 and eng.live_ews == {0, 1}
+        return s.run_to_end("r0"), s.events(), eng.placement_generation
+    (jt, jev, jgen), (tt, tev, tgen) = both(weights, scenario,
+                                            worker_init_time=1.0, max_ew=3)
+    assert tt == jt
+    assert tev == jev
+    assert tgen == jgen == 3
+    assert [e[1] for e in tev] == [
+        "scale_out_started", "scaled_out", "placement_changed",
+        "rebalance_started", "rebalanced", "placement_changed",
+        "drain_started", "scaled_in", "placement_changed"]
     orch = TOrch(_port_engine(weights[1]))
-    for call in (lambda: orch.request_scale_out(0.0),
-                 lambda: orch.request_scale_in(1, 0.0),
-                 lambda: orch.request_rebalance(0.0)):
-        with pytest.raises(NotImplementedError, match="placement plane"):
-            call()
+    with pytest.raises(ValueError, match="max_ew"):
+        orch.request_scale_out(0.0)
     with pytest.raises(ValueError):
         orch.inject_failure("gpu", 0, 0.0)
+    with pytest.raises(ValueError, match="ew_policy"):
+        TOrch(orch.engine, ew_policy="restart")
 
 
 # --------------------------------------------------------------------------
@@ -246,17 +271,36 @@ def _route_pair(placement_args, num_aw=2):
         JRoute.healthy(jp, num_aw)
 
 
+def _reprotected(trs, tp, num_ew, protect):
+    """The port's re-pointing as the engine does it: a fresh manager's
+    ``plan_reprotect`` installed as route arrays."""
+    plan = tpl.ExpertPlacementManager(tp, num_ew).plan_reprotect(protect)
+    return trs._replace(
+        candidates=torch.as_tensor(plan.candidates(), dtype=torch.int32),
+        slot_expert=torch.as_tensor(plan.slot_expert, dtype=torch.int32))
+
+
 @pytest.mark.parametrize("geom", GEOMETRIES)
 def test_repoint_shadows_arrays_match_reference(geom):
+    """The port's re-pointing (a ``plan_reprotect`` generation) routes as
+    the reference's ``selfheal.repoint_shadows`` table: the same
+    candidates and the same expert in every slot a candidate reaches. A
+    shadow slot no candidate reaches holds -1 or a further replica of one
+    of ``protect``'s experts, where the static table keeps a stale
+    resident."""
     tp, jp, trs, jrs = _route_pair(geom)
     for protect in range(geom[1]):
-        t = tsh.repoint_shadows(trs, tp, protect)
+        t = _reprotected(trs, tp, geom[1], protect)
         j = jsh.repoint_shadows(jrs, jp, protect)
-        for f in ("candidates", "slot_expert"):
-            got = getattr(t, f)
-            assert got.dtype == torch.int32 and got.device == \
-                trs.candidates.device
-            assert np.array_equal(got.numpy(), np.asarray(getattr(j, f)))
+        cand = t.candidates.numpy()
+        assert np.array_equal(cand, np.asarray(j.candidates))
+        reached = np.unique(cand[cand >= 0])
+        got, want = t.slot_expert.numpy(), np.asarray(j.slot_expert)
+        assert np.array_equal(got[reached], want[reached])
+        protected = set(got[np.nonzero(trs.slot_owner.numpy() ==
+                                       protect)[0]].tolist())
+        unused = np.setdiff1d(np.arange(tp.num_slots), reached)
+        assert set(got[unused].tolist()) <= protected | {-1}
         # the rest of the route state is untouched
         for f in ("ew_health", "aw_health", "slot_owner", "split_slot"):
             assert torch.equal(getattr(t, f), getattr(trs, f))
@@ -267,7 +311,7 @@ def test_experts_without_healthy_replica_match_reference(geom):
     tp, jp, trs, jrs = _route_pair(geom)
     rng = np.random.default_rng(sum(geom) + 7)
     for protect in range(geom[1]):
-        t = tsh.repoint_shadows(trs, tp, protect)
+        t = _reprotected(trs, tp, geom[1], protect)
         j = jsh.repoint_shadows(jrs, jp, protect)
         for _ in range(4):
             health = rng.random(geom[1]) < 0.6

@@ -9,13 +9,10 @@ baseline under an AW failure, ``session_affinity`` re-pinning off a failed
 AW) against the reference with the same option; ``ServeMetrics`` and
 ``parse_failure`` against the reference's; the launcher twin on the CPU;
 and the failover demo twin's sections against the JAX demo's
-(``examples/failover_demo.py``, loaded as it is).
-
-The reference engine keeps a placement manager, which the port does not
-have yet: it answers ``choose_protect_ew`` as the port does, and every run
-asserts that the manager picked the same EW
-(``test_torch_orchestrator.manager_less``); its ``placement_changed``
-events are left out of the comparison."""
+(``examples/failover_demo.py``, loaded as it is). Both engines keep a
+placement manager, and their ``placement_changed`` events are compared
+with the rest; ``scale_events`` (a scale-out, a rebalance and a drain)
+run on both packages too."""
 import contextlib
 import dataclasses
 import importlib.util
@@ -34,6 +31,7 @@ from repro.data.workloads import make_workload as jmake_workload
 from repro.serving.engine import EngineConfig as JEngineConfig
 from repro.serving.engine import InferenceEngine as JEngine
 from repro.serving.scheduler import FailurePlan as JFailurePlan
+from repro.serving.scheduler import ScalePlan as JScalePlan
 from repro.serving.scheduler import ServeMetrics as JServeMetrics
 from repro.serving.scheduler import TokenRecord as JTokenRecord
 from repro.serving.scheduler import run_serving as jrun_serving
@@ -47,7 +45,6 @@ from repro_torch.serving.engine import EngineConfig, InferenceEngine
 from repro_torch.serving.scheduler import (FailurePlan, ScalePlan,
                                            ServeMetrics, TokenRecord,
                                            run_serving)
-from test_torch_orchestrator import assert_manager_agrees, manager_less
 
 BASE = dict(max_batch=8, max_seq=96, num_aw=2, num_ew=2)
 # 13 requests of up to 40 prompt tokens and 16 new ones; four arrive at
@@ -56,6 +53,8 @@ WORKLOAD = dict(kind="sharegpt", rate_rps=12.0, duration=1.0, seed=0,
                 max_prompt=40, max_new=16)
 FAILURES = {"none": [], "ew": [(0.3, "ew", 0)], "aw": [(0.3, "aw", 0)],
             "aw1": [(0.3, "aw", 1)]}
+# the orchestrator's T_w 1.0 and T_push 0.25: EW2 joins at 1.35
+SCALES = [(0.1, "add_ew"), (1.4, "rebalance"), (1.7, "drain_ew", 2)]
 
 
 def _port_cfg():
@@ -65,10 +64,10 @@ def _port_cfg():
 
 
 def _jax_engine(**kw):
-    return manager_less(JEngine(
+    return JEngine(
         reduced("mixtral_8x7b", cap_factor=4.0),
         JEngineConfig(**BASE, telemetry=False, flight_recorder=False, **kw),
-        jax.random.PRNGKey(0)))
+        jax.random.PRNGKey(0))
 
 
 @pytest.fixture(scope="module")
@@ -77,8 +76,8 @@ def served():
     record, memoised across the module's tests."""
     params, memo = {}, {}
 
-    def serve(pkg, failures="none", **kw):
-        key = (pkg, failures, tuple(sorted(kw.items())))
+    def serve(pkg, failures="none", scales=(), **kw):
+        key = (pkg, failures, scales, tuple(sorted(kw.items())))
         if key in memo:
             return memo[key]
         fails = FAILURES[failures]
@@ -89,33 +88,33 @@ def served():
             orch = JOrch(eng, worker_init_time=1.0, weight_push_time=0.25)
             m = jrun_serving(eng, jmake_workload(**WORKLOAD), 600.0,
                              orchestrator=orch, step_time=0.05,
-                             failures=[JFailurePlan(*f) for f in fails])
+                             failures=[JFailurePlan(*f) for f in fails],
+                             scale_events=[JScalePlan(*s) for s in scales])
         else:
             if "port" not in params:
                 serve("jax")
             eng = InferenceEngine(_port_cfg(), EngineConfig(**BASE, **kw),
                                   params=params["port"], device="cpu")
-            orch = TOrch(eng, worker_init_time=1.0)
+            orch = TOrch(eng, worker_init_time=1.0, weight_push_time=0.25)
             m = run_serving(eng, make_workload(**WORKLOAD), 600.0,
                             orchestrator=orch, step_time=0.05,
-                            failures=[FailurePlan(*f) for f in fails])
-        events = [(e.t, e.kind, e.worker, e.detail) for e in orch.events
-                  if e.kind != "placement_changed"]
-        if pkg == "jax":
-            assert_manager_agrees(eng, events)
+                            failures=[FailurePlan(*f) for f in fails],
+                            scale_events=[ScalePlan(*s) for s in scales])
+        events = [(e.t, e.kind, e.worker, e.detail) for e in orch.events]
         memo[key] = rec = dict(
             outputs=m.outputs, finished=m.finished, ttft=m.ttft,
             queue_delay=m.queue_delay, events=events, prefill=m.prefill,
             tokens=len(m.token_log),
             bytes_written=eng.store.stats.bytes_written,
-            restores=eng.store.stats.restores)
+            restores=eng.store.stats.restores, gateway=m.gateway,
+            generation=eng.placement_generation)
         return rec
     return serve
 
 
 def same(got, want):
     for k in ("outputs", "finished", "ttft", "queue_delay", "events",
-              "prefill", "tokens", "restores"):
+              "prefill", "tokens", "restores", "generation"):
         assert got[k] == want[k], k
 
 
@@ -130,6 +129,10 @@ def test_run_serving_matches_reference(served, failures):
     kinds = [e[1] for e in got["events"]]
     if failures == "none":
         assert kinds == []
+    elif failures == "ew":
+        # the revived EW's shadows re-point to the most loaded EW: a plan
+        assert kinds == ["fail_ew", "detected", "provisioned",
+                         "placement_changed"]
     else:
         assert kinds == [f"fail_{failures}", "detected", "provisioned"]
     if failures == "aw":
@@ -174,11 +177,27 @@ def test_session_affinity_repins_through_the_orchestrator(served):
     assert got["outputs"] == served("port")["outputs"]
 
 
-def test_scale_events_name_the_placement_plane():
+def test_scale_events_name_the_placement_plane(served):
+    """``run_serving(scale_events=...)``: a scale-out to max_ew 3, a
+    rebalance and a drain of the joined EW, on both packages, with equal
+    outputs, TTFTs, events and plan generations; the replicas serve the
+    same weights, so every stream is the failure-free run's."""
+    scales = tuple(SCALES)
+    got = served("port", scales=scales, max_ew=3)
+    want = served("jax", scales=scales, max_ew=3)
+    same(got, want)
+    assert got["outputs"] == served("port")["outputs"]
+    assert got["generation"] == 3
+    assert [e[1] for e in got["events"]] == [
+        "scale_out_started", "scaled_out", "placement_changed",
+        "rebalance_started", "rebalanced", "placement_changed",
+        "drain_started", "scaled_in", "placement_changed"]
     eng = InferenceEngine(_port_cfg(), EngineConfig(**BASE), device="cpu")
-    with pytest.raises(NotImplementedError, match="placement plane"):
+    with pytest.raises(ValueError, match="orchestrator"):
+        run_serving(eng, [], 1.0, scale_events=[ScalePlan(0.0, "add_ew")])
+    with pytest.raises(ValueError, match="scale event kind"):
         run_serving(eng, [], 1.0, orchestrator=TOrch(eng),
-                    scale_events=[ScalePlan(0.1, "add_ew")])
+                    scale_events=[ScalePlan(0.0, "grow")])
 
 
 @pytest.mark.parametrize("slo_class", [None, "interactive", "batch"])
