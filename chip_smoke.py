@@ -129,7 +129,11 @@ Phases, each of which raises on failure (exit code != 0):
                 (earlier phases' shapes stay with MOE_SHAPES), held to its
                 plain
                 versions (run (a)'s largest prefill C also timed:
-                ``moe_gemm[orchestrated]``).
+                ``moe_gemm[orchestrated]``). The telemetry plane is on (the
+                default): every stall record of (b) and (c) sums to its
+                gap within 1e-9 s, and (c)'s Chrome trace, written to
+                ``build/``, parses back with one root span per request;
+                (b) prints EW0's margin before EW1's failure.
   9. elastic and preemption — the same weights (num_ew 2, max_ew 3):
                 first, on one engine with 8 requests decoding, a replay of
                 the seg-1 step graph against the eager step after a
@@ -156,8 +160,30 @@ Phases, each of which raises on failure (exit code != 0):
                 victims' commit and resume host times with the tokens
                 each commit held and moved through the bulk path and the
                 bytes each resume restored, TTFT and TBT
-                p50/p99 per class, and the phase's wall time; the expert
-                FFN at any new (C, path) is held to its plain versions.
+                p50/p99 per class, EW2's margin before its drain, and the
+                phase's wall time; the expert FFN at any new (C, path) is
+                held to its plain versions.
+ 15. prefix cache and telemetry (runs after phase 9, on its weights) —
+                8 chat sessions of 3 turns (a shared 256-token system
+                prefix, seeded turns of 48-160 tokens, 16 greedy tokens a
+                turn) at max_seq 1024, chunk budget CHUNK_BUDGET: (h0) the
+                cache off, contiguous; (h) contiguous with the prefix
+                cache; (i) paged with the global index, migration and a
+                page budget that trims cached tails; (j) as (i) with
+                ``fail_aw(0)`` between turns 1 and 2. Every stream of
+                (h)-(j) equals (h0)'s bit for bit; (h) and (i) hit; (i)
+                decodes with a page of refcount > 1 mapped in two
+                decoding rows on the paged kernel only, and trims a tail
+                page; (j) restores a cached prefix and hits after the
+                failure; ``PagePool.check()`` after each run. Then (k):
+                ``run_serving`` over ``multi_turn_chat`` at the
+                launcher's prefix settings, cache off and cache on with
+                telemetry on and off, bitwise equal. No capture after
+                warm-up, one host sync a decode step. Prints prefill
+                tokens computed, cold and warm TTFT, adoption, boundary
+                copy and re-checkpoint host ms, ``restore_orphans`` host ms
+                and bytes, pinned bytes at the end and after every entry
+                was evicted, and the telemetry hooks' host ms a step.
  10. hybrid   — Zamba2-7B widths at 13 layers in bfloat16 (2 units of 6
                 Mamba2 blocks + the shared attention block, 1 trailing
                 block), 8 requests of 128 prompt tokens and 16 greedy new
@@ -1386,11 +1412,11 @@ class Run:
         if engine.chunked is not None:
             tick = engine.chunked.tick
 
-            def counted_tick():
+            def counted_tick(now):
                 c0 = launch_counts()
                 t0 = time.perf_counter()
                 SEEN["phase"] = "chunks"
-                out = tick()   # ends in the chunk checkpoint's host copy
+                out = tick(now)   # ends in the chunk checkpoint's host copy
                 SEEN["phase"] = "decode"
                 if out:
                     self.tick_s.append(time.perf_counter() - t0)
@@ -2126,10 +2152,12 @@ class ServeRun:
     and the kernel observers of every phase; the rest is read from the
     ServeMetrics after the run. ``orch_kw`` adds Orchestrator options and
     ``scales`` the run's ScalePlans; each plan install records the
-    manager's per-EW load EMAs at that moment."""
+    manager's per-EW load EMAs at that moment. ``setup(engine)`` runs on
+    the new engine first. The engine's telemetry plane (on unless
+    ``telemetry=False``) stays readable as ``m.telemetry``."""
 
     def __init__(self, torch, cfg, params, wl, failures=(), *, orch_kw=None,
-                 scales=(), **ecfg_kw):
+                 scales=(), setup=None, **ecfg_kw):
         from repro_torch.core.orchestrator import Orchestrator
         from repro_torch.serving.engine import EngineConfig, InferenceEngine
         from repro_torch.serving.scheduler import (FailurePlan, ScalePlan,
@@ -2137,6 +2165,8 @@ class ServeRun:
         eng = InferenceEngine(cfg, EngineConfig(
             max_batch=8, max_seq=512, num_aw=2, num_ew=2, **ecfg_kw),
             params=params, device="cuda")
+        if setup is not None:
+            setup(eng)
         orch = Orchestrator(eng, worker_init_time=1.0, **(orch_kw or {}))
         sched = eng.scheduler
         prefill_group, install = sched._prefill_group, sched._install_recovery
@@ -2299,7 +2329,7 @@ class ServeRun:
         return {r for r, (a, b) in self.spans().items() if a <= t < b}
 
     def report(self, label, touched=()):
-        from repro_torch.serving.scheduler import pct
+        from repro_torch.serving.telemetry import pct
         m = self.m
         ttft, tbt, qd = m.ttft_values(), m.tbt_values(), \
             m.queue_delay_values()
@@ -2406,7 +2436,10 @@ def orchestrated_phase(torch, g, records, params):
         run.check_paths(label)
     same_outputs("(a) against the warm-up pass", warm)
 
-    ew = ServeRun(torch, cfg, params, wl, ORCH_EW_FAILURES)
+    # (b) and (c) attribute every token gap above 50 ms (the default 0.25 s
+    # leaves a seamless EW failover nothing to attribute)
+    ew = ServeRun(torch, cfg, params, wl, ORCH_EW_FAILURES,
+                  stall_threshold=0.05)
     ew.report(f"(b) EW0 at {ORCH_EW_FAILURES[0][0]} s, EW1 at "
               f"{ORCH_EW_FAILURES[1][0]} s",
               ew.touched_at(ORCH_EW_FAILURES[0][0]) |
@@ -2437,10 +2470,13 @@ def orchestrated_phase(torch, g, records, params):
         raise AssertionError("(b): no step emitted tokens while EW1 was "
                              "failed")
     print(f"  (b): EW1's experts served from the re-pointed shadow slots "
-          f"(slot_expert {want}) for {served} steps")
+          f"(slot_expert {want}) for {served} steps; EW0 provisioned at "
+          f"{prov[0][0]:.4f} s, {ORCH_EW_FAILURES[1][0] - prov[0][0]:.4f} s "
+          f"before EW1's failure (the timed plan leaves 0.9 s beyond T_w)")
 
     t_aw = aw_failure_time(base)
-    aw = ServeRun(torch, cfg, params, wl, ((t_aw, "aw", 0),))
+    aw = ServeRun(torch, cfg, params, wl, ((t_aw, "aw", 0),),
+                  stall_threshold=0.05)
     aw.report(f"(c) AW0 at {t_aw:.4f} s", [r for r, _ in aw.victims])
     aw.check_paths("(c)")
     same_outputs("(c) AW failure", aw)
@@ -2451,6 +2487,33 @@ def orchestrated_phase(torch, g, records, params):
                              f"{aw.restored})")
     print(f"  (c): AW0 held {aw.victims} (rid, tokens) at the failure; "
           f"restored {aw.restored}")
+    # the telemetry plane (on by default): every attributed stall's
+    # components sum to its gap, and run (c)'s Chrome trace parses back
+    # with one root span per request
+    for label, run in (("(b)", ew), ("(c)", aw)):
+        rep = run.m.telemetry.stall_report()
+        bad = [st for st in rep
+               if abs(sum(st["components"].values()) - st["gap"]) > 1e-9]
+        if bad:
+            raise AssertionError(f"{label}: stall components do not sum to "
+                                 f"the gap: {bad}")
+        causes = Counter(c for st in rep for c, v in st["components"].items()
+                         if v > 1e-12)
+        print(f"  {label}: {len(rep)} stall records (gap > "
+              f"{run.m.telemetry.stall_threshold} s), components summing to "
+              f"each gap within 1e-9 s; records by cause {dict(causes)}")
+    out = Path(__file__).resolve().parent / "build" / "orchestrated_c.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    aw.m.telemetry.export_chrome(str(out))
+    trace = json.loads(out.read_text())
+    roots = Counter(e["name"] for e in trace["traceEvents"]
+                    if e["ph"] == "X" and e.get("cat") == "request")
+    if roots != Counter({r.request_id: 1 for r in wl}):
+        raise AssertionError(f"(c): the Chrome trace's root spans {roots} "
+                             f"are not one per request")
+    print(f"  (c): Chrome trace {out.name} ({out.stat().st_size} bytes, "
+          f"{len(trace['traceEvents'])} events) parses back with one root "
+          f"span for each of the {len(roots)} requests")
 
     mega = ServeRun(torch, cfg, params, wl, ORCH_EW_FAILURES[:1],
                     tarragon=False, checkpoint=False)
@@ -2579,7 +2642,7 @@ def elastic_phase(torch, g, records, params):
     warm-up, and the host syncs are one a decode step. Before the runs,
     graph == eager after each kind of plan install."""
     from repro_torch.data.workloads import make_workload
-    from repro_torch.serving.scheduler import pct
+    from repro_torch.serving.telemetry import pct
     t_phase = time.perf_counter()
     cfg = mixtral_8_layers(capacity_factor=4.0)
     plan_graphs_equal_eager(torch, cfg, params)
@@ -2642,7 +2705,10 @@ def elastic_phase(torch, g, records, params):
     for k in ("scaled_out", "scaled_in"):
         if k not in kinds:
             raise AssertionError(f"(e): no {k} event: {e.events}")
-    print(f"  (e): {kinds.count('rebalanced')} automatic rebalance(s)")
+    joined = [t for t, kind, _, _ in e.events if kind == "scaled_out"]
+    print(f"  (e): {kinds.count('rebalanced')} automatic rebalance(s); EW2 "
+          f"joined at {joined[0]:.4f} s, "
+          f"{ELASTIC_SCALES[1][0] - joined[0]:.4f} s before its drain")
     if not any(n_split for *_, n_split in e.plans):
         raise AssertionError(f"(e): no plan split an expert: {e.plans}")
     same("(e) scale-out, auto-rebalance and drain against the "
@@ -2699,6 +2765,495 @@ def elastic_phase(torch, g, records, params):
                           "moe_ffn/tensor_core")}
     print(f"  elastic phase launches over its {len(runs)} runs: {launches}; "
           f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
+# the prefix-cache and telemetry phase: PREFIX_SESSIONS chat sessions of
+# PREFIX_TURNS turns on the orchestrated phase's weights. Turn 0 is a
+# shared seeded system prefix of PREFIX_SYSTEM tokens and a seeded session
+# part; each later turn appends seeded tokens to the previous prompt (far
+# longer turns than chat_history_tokens' 4-10 tokens, so 16-token pages
+# are really shared); every turn asks for PREFIX_MAX_NEW greedy tokens.
+# Session names hash 4 to each AW. PREFIX_KV_PAGES is the paged runs' page
+# budget per AW (parity is 4 slots x 64 blocks = 256): low enough that
+# admissions trim cached tails, high enough that the live requests always
+# fit (a host-side replay of these lengths fails at 96 pages)
+PREFIX_SESSIONS = 8
+PREFIX_TURNS = 3
+PREFIX_SYSTEM = 256
+PREFIX_SESSION_TOKENS = (64, 160)
+PREFIX_TURN_TOKENS = (48, 112)
+PREFIX_MAX_NEW = 16
+PREFIX_MAX_SEQ = 1024
+PREFIX_KV_PAGES = 104
+# (k): the launcher's prefix settings (--prefix-slots 3: chunk budget 16,
+# token cap 128, session affinity) over its multi_turn_chat workload
+PREFIX_WORKLOAD = dict(kind="multi_turn_chat", rate_rps=8.0, duration=1.5,
+                       seed=0, max_prompt=16, max_new=24)
+PREFIX_LAUNCHER = dict(chunk_token_budget=16, prefill_token_cap=128,
+                       prefix_cache_slots=3, placement="session_affinity")
+
+
+def chat_sessions(vocab: int, seed: int = 0):
+    """[(session name, [prompt of each turn])], seeded."""
+    import zlib
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    names, per, i = [], Counter(), 0
+    while len(names) < PREFIX_SESSIONS:
+        name = f"chat{i}"
+        aw = zlib.crc32(name.encode()) % 2
+        if per[aw] < PREFIX_SESSIONS // 2:
+            names.append(name)
+            per[aw] += 1
+        i += 1
+    system = rng.integers(1, vocab, PREFIX_SYSTEM).astype(np.int32)
+    out = []
+    for name in names:
+        p = np.concatenate([system, rng.integers(
+            1, vocab, int(rng.integers(PREFIX_SESSION_TOKENS[0],
+                                       PREFIX_SESSION_TOKENS[1] + 1)))
+            .astype(np.int32)])
+        turns = [p]
+        for _ in range(PREFIX_TURNS - 1):
+            p = np.concatenate([p, rng.integers(
+                1, vocab, int(rng.integers(PREFIX_TURN_TOKENS[0],
+                                           PREFIX_TURN_TOKENS[1] + 1)))
+                .astype(np.int32)])
+            turns.append(p)
+        out.append((name, turns))
+    return out
+
+
+def pinned_bytes(store) -> int:
+    """Bytes of the distinct host blocks the store's logs hold views of."""
+    blocks = {}
+    for log in store._logs.values():
+        for seg in log.segments.values():
+            for t in seg:
+                st = t.untyped_storage()
+                blocks[st.data_ptr()] = st.nbytes()
+    return sum(blocks.values())
+
+
+class SessionRun:
+    """The chat sessions through one engine in rounds: session 0's turn 0
+    alone (it caches the system prefix), the other sessions' turn 0, then
+    every session's turn 1 and turn 2. A session's turn is submitted after
+    its previous turn was released; finished requests are released after
+    every step (highest rid first). ``between(engine, round)`` runs before
+    a round's submissions, ``before_dispatch(engine, act)`` before every
+    decode dispatch. Keeps the streams by rid, each request's host-clock
+    TTFT (submit to first token) by turn, the launches per phase
+    ("prefill": admissions inside ``client.submit``; "chunks": the chunk
+    ticks; "decode": the rest of ``step()``), what the run gave the
+    kernels, the prefill tokens computed and the Gateway's prefix
+    counters; fails on a capture after the engine's warm-up, on other than
+    one host sync a decode step, and (paged) on ``PagePool.check()``."""
+
+    def __init__(self, torch, engine, sessions, between=None,
+                 before_dispatch=None):
+        from repro_torch.serving.api import RequestSpec
+        captures0 = engine.decode_plane.captures()
+        syncs0, steps0 = engine.gateway.stats.host_syncs, engine.steps
+        pf0 = engine.prefill_tokens_done()
+        pre = {k: 0 for k in launch_counts()}
+        chunk_counts = dict(pre)
+        tick, run = engine.chunked.tick, engine.decode_plane.run
+
+        def counted_tick(now):
+            c0 = launch_counts()
+            SEEN["phase"] = "chunks"
+            out = tick(now)
+            SEEN["phase"] = "decode"
+            for k, v in delta(c0, launch_counts()).items():
+                chunk_counts[k] += v
+            return out
+
+        def observed_run(act, seg_len):
+            before_dispatch(engine, act)
+            return run(act, seg_len)
+        rounds = [[(sessions[0], 0)], [(s, 0) for s in sessions[1:]]] + \
+            [[(s, t) for s in sessions] for t in range(1, PREFIX_TURNS)]
+        self.streams, self.ttft = {}, [[] for _ in range(PREFIX_TURNS)]
+        self.hits = []                 # the Gateway's prefix_hits by round
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(engine.chunked, tick=counted_tick))
+            if before_dispatch is not None:
+                stack.enter_context(patched(engine.decode_plane,
+                                            run=observed_run))
+            obs = stack.enter_context(observed(torch, "decode"))
+            for i, batch in enumerate(rounds):
+                if between is not None:
+                    between(engine, i)
+                hits0 = engine.gateway.stats.prefix_hits
+                SEEN["phase"] = "prefill"
+                c0 = launch_counts()
+                t_submit, handles = {}, {}
+                for (name, prompts), turn in batch:
+                    rid = f"{name}-t{turn}"
+                    t_submit[rid] = (time.perf_counter(), turn)
+                    handles[rid] = engine.client.submit(RequestSpec(
+                        rid=rid, prompt=prompts[turn],
+                        max_new=PREFIX_MAX_NEW, session=name))
+                for k, v in delta(c0, launch_counts()).items():
+                    pre[k] += v
+                SEEN["phase"] = "decode"
+                while not all(h.done() for h in handles.values()):
+                    out = engine.step()
+                    now = time.perf_counter()  # step() ends in a host sync
+                    for rid in out:
+                        if rid in t_submit and rid not in self.streams:
+                            self.streams[rid] = None
+                            t, turn = t_submit[rid]
+                            self.ttft[turn].append(now - t)
+                    for rid in sorted((r.rid for r in
+                                       engine.requests.values() if r.done),
+                                      reverse=True):
+                        engine.release_request(rid)
+                for rid, h in handles.items():
+                    self.streams[rid] = h.tokens()
+                self.hits.append(engine.gateway.stats.prefix_hits - hits0)
+        self.wall_s = time.perf_counter() - t0
+        self.ffn_c, self.attn, self.flash = obs.ffn_c, obs.attn, obs.flash
+        self.launches = {"prefill": pre, "chunks": chunk_counts,
+                         "decode": {k: v - pre[k] - chunk_counts[k]
+                                    for k, v in obs.ran.items()}}
+        self.prefill_tokens = engine.prefill_tokens_done() - pf0
+        st = engine.gateway.stats
+        self.prefix = {k: getattr(st, f"prefix_{k}") for k in (
+            "hits", "misses", "hit_tokens", "evictions", "restored",
+            "global_hits", "migrated")}
+        self.prefix["repins"] = st.session_repins
+        self.steps = engine.steps - steps0
+        if engine.decode_plane.captures() != captures0:
+            raise AssertionError("a chat run captured a step graph after "
+                                 "the engine's warm-up")
+        if st.host_syncs - syncs0 != self.steps:
+            raise AssertionError(f"{st.host_syncs - syncs0} host syncs in "
+                                 f"{self.steps} decode steps")
+        if engine.pages is not None:
+            engine.pages.check()
+
+    def total(self, k):
+        return sum(ph[k] for ph in self.launches.values())
+
+    def report(self, label):
+        cold, warm = self.ttft[0], self.ttft[1] + self.ttft[2]
+        print(f"  {label}: {len(self.streams)} requests in {self.steps} "
+              f"decode steps, {self.wall_s:.2f} s wall; prefill tokens "
+              f"computed {self.prefill_tokens}; host-clock TTFT p50 turn 0 "
+              f"{pct(cold, .5) * 1e3:.2f} ms, turns 1-2 "
+              f"{pct(warm, .5) * 1e3:.2f} ms (p99 {pct(cold, .99) * 1e3:.2f}"
+              f" / {pct(warm, .99) * 1e3:.2f} ms); prefix {self.prefix}; "
+              f"hits by round {self.hits}")
+        for phase, counts in self.launches.items():
+            print(f"    {phase}: { {k: v for k, v in counts.items() if v} }"
+                  + (f", expert FFN (C, path): "
+                     f"{dict(sorted(self.ffn_c[phase].items()))}"
+                     if phase in self.ffn_c else ""))
+
+
+def telemetry_timed(times):
+    """An engine set-up that times every TelemetryPlane hook the serving
+    path calls (host clock), summed into ``times`` by hook name as [seconds,
+    calls] (a hook called from another is counted in the outer one
+    only)."""
+    depth = [0]
+
+    def setup(eng):
+        tel = eng.telemetry
+        for name in dir(tel):
+            if not (name.startswith("on_") or name.startswith("observe_")):
+                continue
+            fn = getattr(tel, name)
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                depth[0] += 1
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    depth[0] -= 1
+                    if not depth[0]:
+                        acc = times.setdefault(_name, [0.0, 0])
+                        acc[0] += time.perf_counter() - t0
+                        acc[1] += 1
+            setattr(tel, name, timed)
+    return setup
+
+
+def prefix_phase(torch, g, records, params):
+    """The prefix-cache and telemetry planes on the orchestrated phase's
+    weights (Mixtral-8x7B widths at 8 layers, bf16, capacity factor 4.0:
+    no token dropped, so a stream depends on neither its slot, its
+    chunking nor an adopted prefix), 2 AWs x 2 EWs, max_batch 8, max_seq
+    PREFIX_MAX_SEQ, chunk budget CHUNK_BUDGET, ``session_affinity``, the
+    chat sessions of ``chat_sessions``: (h0) the cache off, contiguous;
+    (h) contiguous, ``prefix_cache_slots`` 2; (i) paged (PAGE_TOKENS-token
+    pages) with ``prefix_global_index``, ``prefix_migrate`` and
+    ``kv_pages`` PREFIX_KV_PAGES; (j) as (i) with ``fail_aw(0)`` and
+    ``recover_aw_requests`` between turns 1 and 2 while AW0 holds cached
+    entries (AW0 provisioned after the run). Every stream of (h)-(j)
+    equals (h0)'s bit for bit; (h) and (i) hit and adopt tokens; (i)
+    decodes at least one step with a page of refcount > 1 mapped in two
+    decoding rows, launches the paged decode kernel and never the fused
+    one, and trims at least one cached tail page; (j) restores a cached
+    prefix and hits after the failure. Then (k): ``run_serving`` with an
+    Orchestrator over PREFIX_WORKLOAD at the launcher's prefix settings,
+    cache off, and cache on with telemetry on and off: equal streams, one
+    host sync a decode step, no capture after warm-up; the hooks' host
+    time per decode step is printed. The expert FFN at every new (C,
+    path) is held to its plain versions."""
+    from repro_torch.data.workloads import make_workload
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    t_phase = time.perf_counter()
+    cfg = mixtral_8_layers(capacity_factor=4.0)
+    sessions = chat_sessions(cfg.vocab_size)
+    print(f"  {len(sessions)} sessions, prompt tokens by turn "
+          f"{[[len(p) for p in turns] for _, turns in sessions]} "
+          f"({PREFIX_SYSTEM}-token shared system prefix), "
+          f"{PREFIX_MAX_NEW} greedy tokens a turn")
+    base = dict(max_batch=8, max_seq=PREFIX_MAX_SEQ, num_aw=2, num_ew=2,
+                chunk_token_budget=CHUNK_BUDGET, placement="session_affinity")
+    paged_kw = dict(prefix_cache_slots=2, kv_page_tokens=PAGE_TOKENS,
+                    kv_pages=PREFIX_KV_PAGES, prefix_global_index=True,
+                    prefix_migrate=True)
+
+    def engine(**kw):
+        eng = InferenceEngine(cfg, EngineConfig(**base, **kw),
+                              params=params, device="cuda")
+        warm_step_graph(eng)
+        return eng
+    runs = {}
+    eng = engine()
+    runs["(h0)"] = SessionRun(torch, eng, sessions)
+    del eng
+    eng = engine(prefix_cache_slots=2)
+    runs["(h)"] = SessionRun(torch, eng, sessions)
+    del eng
+
+    # (i): shared pages in decoding rows, tail trims, adoption costs
+    eng = engine(**paged_kw)
+    shared, trims = [], []
+    adopt_s, copy_s, ckpt_s, in_start = [], [], [], []
+
+    def shared_pages(e, act):
+        rows = {}
+        for r in act:
+            for p in e.pages.slot_pages(r.slot):
+                rows.setdefault(p, set()).add(r.slot)
+        multi = [p for p, s in rows.items()
+                 if len(s) >= 2 and e.pages.ref[p] > 1]
+        if multi:
+            shared.append((len(multi), max(len(rows[p]) for p in multi)))
+    adopt, copy_page = eng._kv_adopt, eng.layout.copy_page
+    bulk, start = eng._bulk_checkpoint_group, eng.chunked.start
+
+    def timed_adopt(slot, pages, hit):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = adopt(slot, pages, hit)
+        torch.cuda.synchronize()
+        adopt_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_copy(cache, src, dst):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = copy_page(cache, src, dst)
+        torch.cuda.synchronize()
+        copy_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_bulk(items):
+        if not in_start:
+            return bulk(items)
+        t0 = time.perf_counter()
+        out = bulk(items)           # ends in its host copy's wait
+        ckpt_s.append((time.perf_counter() - t0,
+                       sum(n for _, _, n in items)))
+        return out
+
+    def flagged_start(q, aw, slot, now):
+        in_start.append(1)
+        try:
+            return start(q, aw, slot, now)
+        finally:
+            in_start.pop()
+    with contextlib.ExitStack() as stack:
+        for w in eng.aws:
+            trim = w.prefix_cache._trim_tail
+
+            def counted_trim(e, _trim=trim):
+                trims.append(len(e.pages))
+                return _trim(e)
+            stack.enter_context(patched(w.prefix_cache,
+                                        _trim_tail=counted_trim))
+        stack.enter_context(patched(eng, _kv_adopt=timed_adopt,
+                                    _bulk_checkpoint_group=timed_bulk))
+        stack.enter_context(patched(eng.layout, copy_page=timed_copy))
+        stack.enter_context(patched(eng.chunked, start=flagged_start))
+        runs["(i)"] = SessionRun(torch, eng, sessions,
+                                 before_dispatch=shared_pages)
+    pool = eng.pages
+    pin_end = pinned_bytes(eng.store)
+    n_entries = sum(len(w.prefix_cache.entries) for w in eng.aws)
+    for w in eng.aws:
+        for eid in list(w.prefix_cache.entries):
+            eng._kv_free_pages(w.prefix_cache.remove_entry(eid))
+    pool.check()
+    pin_evicted = pinned_bytes(eng.store)
+    if pool.stats()["pages_used"] or pin_evicted or eng.store._logs:
+        raise AssertionError(f"(i): after every entry was evicted, "
+                             f"{pool.stats()} pages, {pin_evicted} pinned "
+                             f"bytes, logs {sorted(eng.store._logs)} remain")
+    del eng
+
+    # (j): AW0 fails between turns 1 and 2, holding cached entries
+    eng = engine(**paged_kw)
+    failed, restore_s = {}, []
+
+    def fail_between(e, rnd):
+        if rnd != PREFIX_TURNS:          # before the last turn's round
+            return
+        failed["entries"] = len(e.aws[0].prefix_cache.entries)
+        if not failed["entries"]:
+            raise AssertionError("(j): AW0 held no cached entry")
+        restored0 = e.gateway.stats.prefix_restored
+        bytes0 = e.store.stats.bytes_restored
+        orphans = e.prefix_plane.restore_orphans
+
+        def timed_restore(now=0.0):
+            t0 = time.perf_counter()
+            out = orphans(now)
+            torch.cuda.synchronize()
+            restore_s.append(time.perf_counter() - t0)
+            return out
+        e.fail_aw(0)
+        with patched(e.prefix_plane, restore_orphans=timed_restore):
+            failed["requests"] = e.recover_aw_requests(now=float(e.steps))
+        failed["restored"] = e.gateway.stats.prefix_restored - restored0
+        failed["bytes"] = e.store.stats.bytes_restored - bytes0
+        e.pages.check()
+    runs["(j)"] = SessionRun(torch, eng, sessions, between=fail_between)
+    eng.provision_aw(0)
+    eng.pages.check()
+    del eng
+
+    for label, run in runs.items():
+        run.report(label)
+    want = runs["(h0)"].streams
+    for label in ("(h)", "(i)", "(j)"):
+        bad = sorted(r for r in want if runs[label].streams.get(r) != want[r])
+        if bad:
+            raise AssertionError(f"{label}: streams differ from (h0)'s for "
+                                 f"{bad}")
+        print(f"  {label}: {len(want)} streams bitwise equal to (h0)'s")
+    for label in ("(h)", "(i)"):
+        pf = runs[label].prefix
+        if pf["hits"] <= 0 or pf["hit_tokens"] <= 0:
+            raise AssertionError(f"{label}: no prefix hit: {pf}")
+    h, i, j = runs["(h)"], runs["(i)"], runs["(j)"]
+    if not shared:
+        raise AssertionError("(i): no decode step had a shared page mapped "
+                             "in two decoding rows")
+    if i.total("decode_attention_paged") <= 0 or \
+            i.total("decode_attention_fused") or \
+            h.total("decode_attention_paged"):
+        raise AssertionError(f"(i) launched the fused decode kernel, or no "
+                             f"paged one: {i.launches['decode']}")
+    if not trims:
+        raise AssertionError("(i): no cached tail page was trimmed")
+    if failed.get("restored", 0) < 1 or j.hits[-1] < 1:
+        raise AssertionError(f"(j): restored {failed.get('restored')} "
+                             f"prefixes, {j.hits[-1]} hits after the "
+                             f"failure")
+    for label, run in runs.items():
+        for phase, n in run.launches.items():
+            path = "skinny" if phase == "decode" else "tensor_core"
+            if n["moe_ffn"] and n[f"moe_ffn/{path}"] != n["moe_ffn"]:
+                raise AssertionError(f"{label}: the {phase} expert FFN "
+                                     f"launches did not all take the {path} "
+                                     f"path: {n}")
+    print(f"  prefill tokens computed: (h0) {runs['(h0)'].prefill_tokens}, "
+          f"(h) {h.prefill_tokens}, (i) {i.prefill_tokens}, (j) "
+          f"{j.prefill_tokens}")
+    print(f"  (i): {len(shared)} decode steps with pages of refcount > 1 "
+          f"mapped in two or more decoding rows (shared pages, most rows on "
+          f"one page): {shared[:4]}...; {len(trims)} tail pages trimmed; "
+          f"the paged kernel only ({i.total('decode_attention_paged')} "
+          f"launches, fused 0)")
+    def ms(xs):
+        return (f"p50 {pct(xs, .5) * 1e3:.3f} max {max(xs) * 1e3:.3f}"
+                if xs else "none")
+    # an adoption's time less its boundary copy's: the page mapping and the
+    # block table's upload
+    print(f"  (i) adoption host ms: {len(adopt_s)} adoptions, page mapping "
+          f"{ms([a - sum(copy_s) / max(len(copy_s), 1) for a in adopt_s])}"
+          f" (adoption less the mean boundary copy); copy_page "
+          f"({len(copy_s)} boundary copies) {ms(copy_s)}; the bulk "
+          f"re-checkpoint of the adopted prefix ({len(ckpt_s)}, tokens "
+          f"{[n for _, n in ckpt_s]}) {ms([t for t, _ in ckpt_s])}")
+    print(f"  (i) pinned host bytes the store holds: {pin_end} at the end "
+          f"({n_entries} cached entries, no live request), {pin_evicted} "
+          f"after every entry was evicted")
+    print(f"  (j): AW0 held {failed['entries']} cached entries; "
+          f"restore_orphans {restore_s[0] * 1e3:.3f} ms host, "
+          f"{failed['restored']} prefixes, {failed['bytes']} bytes "
+          f"restored; {j.hits[-1]} hits after the failure")
+
+    # (k): the launcher's prefix settings through run_serving
+    wl = make_workload(**PREFIX_WORKLOAD)
+    hooks = {}
+    k = {"(k0) cache off": ServeRun(torch, cfg, params, wl,
+                                    **{**PREFIX_LAUNCHER,
+                                       "prefix_cache_slots": 0}),
+         "(k) telemetry on": ServeRun(torch, cfg, params, wl,
+                                      setup=telemetry_timed(hooks),
+                                      **PREFIX_LAUNCHER),
+         "(k) telemetry off": ServeRun(torch, cfg, params, wl,
+                                       telemetry=False, **PREFIX_LAUNCHER)}
+    k0 = k["(k0) cache off"].m.outputs
+    for label, run in k.items():
+        run.report(label)
+        if len(run.m.finished) != run.n:
+            raise AssertionError(f"{label}: {len(run.m.finished)} of "
+                                 f"{run.n} requests finished")
+        if run.host_syncs != run.steps:
+            raise AssertionError(f"{label}: {run.host_syncs} host syncs in "
+                                 f"{run.steps} decode steps")
+        if run.m.outputs != k0:
+            raise AssertionError(f"{label}: streams differ from the cache-"
+                                 f"off run's")
+    on, off = k["(k) telemetry on"], k["(k) telemetry off"]
+    if on.m.gateway["prefix"]["hits"] <= 0:
+        raise AssertionError(f"(k): no prefix hit: {on.m.gateway['prefix']}")
+    hook_s = sum(t for t, _ in hooks.values())
+    ticks = hooks["on_step"][1]       # one a serving-loop tick, idle or not
+    print(f"  (k): {len(k0)} streams bitwise equal across cache off, "
+          f"telemetry on and telemetry off; prefix {on.m.gateway['prefix']};"
+          f" one host sync a decode step in each ({on.steps} steps)")
+    print(f"  (k) telemetry hooks: {hook_s * 1e3:.3f} ms host in all, "
+          f"{hook_s / ticks * 1e3:.4f} ms a serving-loop tick ({ticks} "
+          f"ticks, {on.steps} of them decode steps); by hook (ms, calls) "
+          f"{ {n: (round(t * 1e3, 3), c) for n, (t, c) in sorted(hooks.items())} }; "
+          f"0 off; run wall {on.wall_s * 1e3:.2f} ms on, "
+          f"{off.wall_s * 1e3:.2f} ms off; "
+          f"{len(on.m.telemetry.stall_report())} stall records")
+
+    seen = {key for run in list(runs.values()) + list(k.values())
+            for per in run.ffn_c.values() for key in per}
+    todo = sorted(seen - FFN_CHECKED)
+    if todo:
+        print(f"  expert FFN at the new (C, path) pairs of these runs: "
+              f"{todo}")
+        kernel_moe_gemm(torch, g, records,
+                        [(f"prefix-C{c}-{path}", c, path == "skinny", path)
+                         for c, path in todo], timed=set(), small=False)
+    print(f"  prefix phase wall {time.perf_counter() - t_phase:.1f} s; on "
+          f"{card_line()}")
     return runs
 
 
@@ -3323,8 +3878,14 @@ def main():
           f"{ELASTIC_WORKLOAD}, scale events {ELASTIC_SCALES}, EW0 "
           f"promoted; {SLO_WORKLOAD} with and without preemption")
     elastic_phase(torch, g, records, engine.params)
-    del engine
     phase("elastic + preemption")
+    print(f"prefix cache and telemetry: the same weights, "
+          f"{PREFIX_SESSIONS} chat sessions of {PREFIX_TURNS} turns, "
+          f"max_seq {PREFIX_MAX_SEQ}, chunk budget {CHUNK_BUDGET}; then "
+          f"{PREFIX_WORKLOAD} at the launcher's prefix settings")
+    prefix_phase(torch, g, records, engine.params)
+    del engine
+    phase("prefix cache + telemetry")
     print(f"hybrid: Zamba2-7B widths, {HYBRID_LAYERS} layers, bf16, "
           f"contiguous KV + recurrent state, 2 AWs")
     hybrid = hybrid_phase(torch, profile_dir=args.profile)

@@ -90,6 +90,21 @@ class CheckpointStore:
         if log is not None:
             self._aw_requests.get(log.aw_id, set()).discard(request_id)
 
+    def rename(self, old: str, new: str):
+        """Re-key a log: a finished request's log becomes its prefix-cache
+        entry's restoration backing under a reserved key, so the rid can
+        be reused by a fresh request without inheriting the cached
+        segments. The segments move with the log (their host blocks stay
+        held until the last log that views them is released)."""
+        if new in self._logs:
+            raise KeyError(f"checkpoint log {new!r} exists")
+        log = self._logs.pop(old)
+        self._logs[new] = log
+        s = self._aw_requests.get(log.aw_id)
+        if s is not None:
+            s.discard(old)
+            s.add(new)
+
     # -- write path ----------------------------------------------------------
     def next_seq(self, request_id: str) -> int:
         log = self._logs[request_id]

@@ -301,6 +301,22 @@ def failover_summary(c: SimConfig) -> Dict[str, float]:
 
 
 # --------------------------------------------------------------------------
+# live-engine event timeline (a consumer of the telemetry bus)
+# --------------------------------------------------------------------------
+
+def timeline_from_bus(bus, consumer: str = "events.timeline"
+                      ) -> List[str]:
+    """Fig. 9-style event annotations from a live engine's event bus
+    (serving/telemetry.py) instead of the cost model: each call drains
+    only the events past this ``consumer``'s own cursor, so the
+    exporters and this timeline observe the same failure without
+    stealing from each other."""
+    return [f"{ev.kind}@{ev.t:.2f}s {ev.worker}"
+            + (f" ({ev.detail})" if ev.detail else "")
+            for ev in bus.drain(consumer)]
+
+
+# --------------------------------------------------------------------------
 # AW-EW link occupancy trace (paper Fig. 8) and checkpoint interleaving
 # --------------------------------------------------------------------------
 

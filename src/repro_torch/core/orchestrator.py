@@ -85,9 +85,13 @@ class Orchestrator:
         self._failures: List[_PendingFailure] = []
         self._provisions: List[_PendingProvision] = []
         self._scales: List[_PendingScale] = []
+        # control-plane events also go to the engine's event bus at
+        # emission (serving/telemetry.py)
+        self.bus = engine.bus
 
     def _emit(self, ev: WorkerEvent):
         self.events.append(ev)
+        self.bus.publish(ev)
         return ev
 
     # -- failure injection (the SIGINT of §7.2) -----------------------------
@@ -168,6 +172,11 @@ class Orchestrator:
                 continue
             f.detected = True
             ev = WorkerEvent(now, "detected", f"{f.kind}{f.worker_id}")
+            tel = self.engine.telemetry
+            if tel is not None:
+                # the detection window [t_fail, now] is the detection part
+                # of every stall this failure causes
+                tel.on_failure_detected(f.kind, f.worker_id, f.t_fail, now)
             if f.kind == "ew":
                 # AW-side self-healing: ERT remap to shadows (instant once
                 # detected)

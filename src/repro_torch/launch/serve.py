@@ -7,6 +7,8 @@ injected through the orchestrator.
         [--scale add_ew@1.0] [--scale drain_ew:2@3.0] [--max-ew 4] \\
         [--ew-policy promote] [--rebalance] [--no-preempt] \\
         [--chunk-budget 16] [--placement session_affinity] \\
+        [--prefix-slots 3] [--no-telemetry] [--trace-out T.json] \\
+        [--metrics-out M.json] [--prom-out M.prom] \\
         [--no-tarragon] [--device cpu]
 
 The reduced model (capacity factor 4.0) runs on the card unless
@@ -14,15 +16,18 @@ The reduced model (capacity factor 4.0) runs on the card unless
 load-aware rebalancing and shadow promotion are placement-plan installs
 (core/placement.py). Blocked interactive requests preempt batch victims
 unless ``--no-preempt``; the prefill token cap is 8 x ``--chunk-budget``.
-The reference's flags whose planes are not ported yet are absent:
-``--prefix-slots`` (the prefix cache), ``--controller`` and its
-``--no-ctl-*`` switches, ``--no-telemetry``, ``--trace-out``,
-``--metrics-out``, ``--prom-out``, ``--postmortem`` and ``--watchdogs``.
+``--prefix-slots`` turns the prefix cache on (and chunked prefill, at a
+budget of 16 when none is given); telemetry is on unless
+``--no-telemetry``, and its stall attribution prints one ``[stall ...]``
+line per attributed gap. The reference's flags whose planes are not
+ported yet are absent: ``--controller`` and its ``--no-ctl-*``
+switches, ``--postmortem`` and ``--watchdogs``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 
 import torch
 
@@ -30,8 +35,9 @@ from repro_torch.configs import get_config
 from repro_torch.core.orchestrator import Orchestrator
 from repro_torch.data.workloads import make_workload
 from repro_torch.serving.engine import EngineConfig, InferenceEngine
-from repro_torch.serving.scheduler import (FailurePlan, ScalePlan, pct,
+from repro_torch.serving.scheduler import (FailurePlan, ScalePlan,
                                            run_serving)
+from repro_torch.serving.telemetry import pct
 
 
 def parse_failure(s: str) -> FailurePlan:
@@ -94,14 +100,28 @@ def main(argv=None):
     ap.add_argument("--no-preempt", action="store_true",
                     help="disable preempt-and-requeue (blocked interactive "
                          "requests wait instead of evicting batch victims)")
+    ap.add_argument("--prefix-slots", type=int, default=0,
+                    help="per-AW prefix-cache slot budget (0 = plane off; "
+                         "turns chunked prefill on)")
     ap.add_argument("--chunk-budget", type=int, default=0,
                     help="chunked-prefill token budget per tick "
                          "(0 = whole-prompt prefill)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-telemetry", action="store_true",
+                    help="turn the telemetry plane off (the streams are "
+                         "the same either way)")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Perfetto/Chrome trace_event JSON here")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the JSON metrics snapshot here")
+    ap.add_argument("--prom-out", default="",
+                    help="write the Prometheus text exposition here")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the engine (cuda or cpu)")
     args = ap.parse_args(argv)
     require_device(args.device)
+    if args.prefix_slots and not args.chunk_budget:
+        args.chunk_budget = 16
 
     cfg = get_config(args.arch).reduced()
     if cfg.moe.enabled:
@@ -118,7 +138,10 @@ def main(argv=None):
                         placement=args.placement,
                         preempt=not args.no_preempt,
                         chunk_token_budget=args.chunk_budget,
-                        prefill_token_cap=8 * args.chunk_budget)
+                        prefill_token_cap=8 * args.chunk_budget,
+                        prefix_cache_slots=args.prefix_slots,
+                        telemetry=not args.no_telemetry,
+                        trace_export_path=args.trace_out)
     eng = InferenceEngine(cfg, ecfg, seed=args.seed, device=args.device)
     orch = Orchestrator(eng, worker_init_time=1.0, weight_push_time=0.25,
                         ew_policy=args.ew_policy,
@@ -155,8 +178,13 @@ def main(argv=None):
         print(f"  expert plane: gen={mgr.plan.generation} "
               f"pool={sorted(eng.live_ews)} "
               f"imbalance={mgr.imbalance():.2f}")
-    if m.gateway.get("repins"):
-        print(f"  session repins: {m.gateway['repins']}")
+    pf = m.gateway["prefix"]
+    if pf["hits"] or pf["misses"]:
+        print(f"  prefix cache: {pf['hits']} hits, "
+              f"{pf['hit_tokens']} tokens adopted, "
+              f"{pf['restored']} restored, {pf['repins']} repins")
+    elif pf["repins"]:
+        print(f"  session repins: {pf['repins']}")
     if m.gateway.get("by_class"):
         print(f"  request plane: preemptions={m.gateway['preemptions']}")
         for cls, counts in sorted(m.gateway["by_class"].items()):
@@ -166,6 +194,24 @@ def main(argv=None):
             print(f"    {cls}: {counts}{extra}")
     for e in orch.events:
         print(f"  [orch t={e.t:.2f}] {e.kind} {e.worker} {e.detail}")
+    if m.telemetry is not None:
+        for st in m.telemetry.stall_report():
+            comps = ", ".join(f"{k}={v*1e3:.0f}ms"
+                              for k, v in sorted(st["components"].items())
+                              if v > 1e-6)
+            print(f"  [stall {st['rid']} {st['kind']} "
+                  f"{st['gap']*1e3:.0f}ms] {comps}")
+        if args.metrics_out:
+            with open(args.metrics_out, "w") as f:
+                json.dump(m.telemetry.snapshot(), f, indent=1)
+            print(f"  metrics snapshot -> {args.metrics_out}")
+        if args.prom_out:
+            with open(args.prom_out, "w") as f:
+                f.write(m.telemetry.prometheus_text())
+            print(f"  prometheus text -> {args.prom_out}")
+        if args.trace_out:
+            print(f"  perfetto trace -> {args.trace_out} "
+                  f"(open at ui.perfetto.dev)")
     return m
 
 

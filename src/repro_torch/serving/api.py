@@ -112,6 +112,8 @@ class RequestStatus:
     deadline_missed: bool = False
     completion_deadline: Optional[float] = None
     completion_deadline_missed: bool = False
+    prefix_hit: int = 0                # prompt tokens adopted from the
+    #                                    prefix cache at admission
 
 
 class RequestHandle:
@@ -158,6 +160,7 @@ class RequestHandle:
             st.deadline_missed = r.deadline_flagged
             st.completion_deadline_missed = r.completion_flagged
             st.ttft = r.ttft
+            st.prefix_hit = r.prefix_hit
         return st
 
     def tokens(self) -> List[int]:

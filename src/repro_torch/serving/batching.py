@@ -189,6 +189,9 @@ class ContinuousBatchScheduler:
                 st.done = True
                 st.t_done = now
         eng.requests[q.rid] = st
+        if eng.telemetry is not None:
+            eng.telemetry.on_whole_prefill(
+                q.rid, now, n, "padded" if padded else "exact")
 
         if eng.ecfg.checkpoint:
             eng.aws[aw].checkpointer.register(q.rid, prompt_len=n)
@@ -225,6 +228,8 @@ class ContinuousBatchScheduler:
         # counter-based draw is slot-independent, so the replayed stream is
         # the same wherever the request lands
         eng.decode_plane.bind(r)
+        if eng.telemetry is not None:
+            eng.telemetry.on_restore(q.rid, now, len(segs), r.prefilling)
 
         if r.prefilling:
             # resume the chunk stream after the restored prefix (committed
@@ -258,7 +263,7 @@ class ContinuousBatchScheduler:
             self.admit(t_now)
         eng.check_deadlines(t_now)
         if eng.chunked is not None:
-            eng.chunked.tick()
+            eng.chunked.tick(t_now)
         act = eng.active_requests()
         if not act:
             return {}

@@ -97,20 +97,44 @@ class ChunkedPrefillPlane:
                    for j in self.jobs.values() if j.rid in eng.requests)
 
     def start(self, q, aw: int, slot: int, now: float):
-        """Open a fresh prefill stream for an admitted request."""
+        """Open a fresh prefill stream for an admitted request.
+
+        A prefix-cache hit (``q.prefix_hit`` > 0) means the slot already
+        holds the prefix's KV (the donor's slot, or shared pages): the
+        stale tail is scrubbed instead of clearing the slot, the stream
+        starts at ``prefill_cursor = hit``, and the adopted prefix is
+        re-checkpointed into this request's own log through the bulk range
+        path, so its recovery never depends on the donor. A fully cached
+        prompt goes straight to decode."""
         eng = self.engine
         n = len(q.prompt)
-        eng._kv_clear_slot(slot)
+        hit = min(q.prefix_hit, n - 1)
+        if hit > 0:
+            eng._kv_scrub_slot(slot, hit)
+        else:
+            eng._kv_clear_slot(slot)
         r = eng.make_request_state(q, slot)
         r._aw = aw
         r.t_admit = now
         r.prefilling = True
-        r.prefill_cursor = 0
+        r.prefill_cursor = hit
         eng.requests[q.rid] = r
         if eng.ecfg.checkpoint:
             eng.aws[aw].checkpointer.register(q.rid, prompt_len=n)
+            if hit > 0:
+                # gathered on the current stream after the scrub (and, paged,
+                # the boundary page's copy), so the log gets the adopter's KV
+                eng._bulk_checkpoint_group([(r, 0, hit)])
+                eng.aws[aw].checkpointer.flush()
         self.stats.requests += 1
         self.stats.prefilled_tokens.setdefault(q.rid, 0)
+        if eng.telemetry is not None:
+            eng.telemetry.on_prefill_start(q.rid, now, hit, n)
+        if hit >= n - 1:
+            # the whole prompt prefix is cached: the next decode step emits
+            # the first token
+            self._finalize(r)
+            return
         self.jobs[q.rid] = _PrefillJob(q.rid, np.asarray(q.prompt), aw, slot,
                                        n_pre=n - 1)
 
@@ -165,7 +189,7 @@ class ChunkedPrefillPlane:
             left -= take
         return out
 
-    def tick(self) -> int:
+    def tick(self, now: float) -> int:
         """Run one iteration of budgeted prefill: one chunk call per
         distinct shape. Returns the real prompt tokens processed."""
         planned = self.plan()
@@ -176,14 +200,15 @@ class ChunkedPrefillPlane:
             by_shape.setdefault(self._shape_for(take), []).append((job, take))
         done = 0
         for shape in sorted(by_shape):
-            done += self._run_chunk_call(shape, by_shape[shape])
+            done += self._run_chunk_call(shape, by_shape[shape], now)
         return done
 
     # ------------------------------------------------------------------
     # one chunk call (one shape, >= 1 requests)
     # ------------------------------------------------------------------
     def _run_chunk_call(self, shape: int,
-                        entries: List[Tuple[_PrefillJob, int]]) -> int:
+                        entries: List[Tuple[_PrefillJob, int]],
+                        now: float) -> int:
         eng = self.engine
         rows = eng.ecfg.max_batch
         toks = np.zeros((rows, shape), np.int32)
@@ -223,6 +248,8 @@ class ChunkedPrefillPlane:
             r.prefill_cursor = c + take
             self.stats.prefilled_tokens[job.rid] = \
                 self.stats.prefilled_tokens.get(job.rid, 0) + take
+            if eng.telemetry is not None:
+                eng.telemetry.on_prefill_chunk(job.rid, now, take, shape)
             if r.prefill_cursor >= job.n_pre:
                 del self.jobs[job.rid]
                 self._finalize(r)
@@ -246,3 +273,6 @@ class ChunkedPrefillPlane:
         r.prefilling = False
         r.pos = len(r.prompt) - 1
         r.next_input = int(r.prompt[-1])
+        tel = self.engine.telemetry
+        if tel is not None:
+            tel.on_prefill_done(r.rid, tel.now)

@@ -37,6 +37,7 @@ drain brings both: no second sync a step, and nothing in the graphs.
 """
 from __future__ import annotations
 
+import gc
 import zlib
 from typing import Dict, List, Optional, Tuple
 
@@ -111,8 +112,20 @@ class StepGraph:
 
     def __init__(self, fn):
         self.graph = torch.cuda.CUDAGraph()
-        with build.deferred_counts() as counts, torch.cuda.graph(self.graph):
-            self.out = fn()
+        # a dead engine's graphs must not be destroyed while this one
+        # captures (a graph's reset is not permitted then, and it voids the
+        # capture): collect the cycles an engine leaves first, and hold the
+        # collector off until the capture ends
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with build.deferred_counts() as counts, \
+                    torch.cuda.graph(self.graph):
+                self.out = fn()
+        finally:
+            if enabled:
+                gc.enable()
         self.counts = counts
 
     def replay(self):
@@ -248,6 +261,12 @@ class DecodeLoopPlane:
             ring, self.loads = self.segment(key[0], key[1], self.route_state)
             self.graphs[key] = self.capture(key) \
                 if self.engine.device.type == "cuda" else None
+        tel = self.engine.telemetry
+        if tel is not None and seg_len > 1:
+            # host counters only: the dispatch above is untouched
+            tel.registry.inc("decode.segments")
+            tel.registry.inc("decode.segment_steps", seg_len)
+            tel.registry.observe("decode.segment_rows", len(act))
         if self.engine.collect_load:
             # queued on the step's stream ahead of the ring's copy, so the
             # ring's synchronising copy below completes it too

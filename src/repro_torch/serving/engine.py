@@ -36,6 +36,18 @@ the Gateway as a recovery entry that resumes from its cursor.
 lifecycle events (``preempted``, ``cancelled``, ``deadline_missed``) come
 out of ``drain_request_events``.
 
+Prefix-cache plane (``serving/prefixcache.py``, ``prefix_cache_slots`` >
+0, chunked prefill only): a finished request's slot (contiguous) or pages
+(paged) are offered to its AW's radix cache with its store log; a later
+prompt sharing a prefix adopts them and prefills only the tail. A dead
+AW's cached prefixes are restored from the store onto healthy AWs.
+
+Telemetry plane (``serving/telemetry.py``, ``telemetry`` True by default,
+as in the reference): every worker, placement and request-plane event is
+published on ``engine.bus``; ``engine.telemetry`` keeps histograms,
+spans and stall attribution from host hooks on values the host already
+holds (no device read, no capture).
+
 Placement plane (``core/placement.py``): with MoE and ``tarragon``, an
 ``ExpertPlacementManager`` versions the expert layout. ``add_ew``,
 ``drain_ew``, ``promote_shadows``, ``rebalance`` and ``repoint_shadows``
@@ -75,6 +87,8 @@ from repro_torch.serving.decode_loop import DecodeLoopPlane
 from repro_torch.serving.gateway import Gateway, QueuedRequest
 from repro_torch.serving.kvcache import (CacheLayout, PagedCacheLayout,
                                          PagePool)
+from repro_torch.serving.prefixcache import PrefixCachePlane
+from repro_torch.serving.telemetry import EventBus, TelemetryPlane
 from repro_torch.serving.workers import (AttentionWorker, ClusterSlotView,
                                          ExpertWorker)
 
@@ -114,6 +128,28 @@ class EngineConfig:
     #                                bulk range path, so a failure
     #                                mid-segment rewinds at most this many
     #                                tokens (the transformer family only)
+    # ---- prefix-cache plane (serving/prefixcache.py)
+    prefix_cache_slots: int = 0    # per-AW cached-prefix slot budget (0 =
+    #                                plane off; needs chunked prefill)
+    prefix_cache_tokens: int = 0   # per-AW cached-token budget (0 = slots
+    #                                only)
+    prefix_min_match: int = 4      # shortest prefix worth adopting
+    prefix_restore: bool = True    # restore a dead AW's cached prefixes
+    #                                from the store onto healthy AWs
+    kv_pages: int = 0              # per-AW physical page budget (0 = the
+    #                                contiguous footprint, slots x blocks)
+    prefix_global_index: bool = False  # one cluster-wide radix index routes
+    #                                arrivals to their best-match AW (paged)
+    prefix_migrate: bool = False   # replay a hot prefix onto a free AW when
+    #                                its home cannot take the hit (paged)
+    # ---- telemetry plane (serving/telemetry.py)
+    telemetry: bool = True         # metrics, spans and stall attribution
+    #                                (host only: on and off give the same
+    #                                streams and step graphs)
+    stall_threshold: float = 0.25  # TTFT/TBT gap (virtual s) above which
+    #                                the gap is attributed to causes
+    hist_buckets_per_decade: int = 32  # streaming-histogram resolution
+    trace_export_path: str = ""    # Chrome trace written at finalize
 
 
 @dataclass
@@ -138,6 +174,8 @@ class RequestState:
     deadline_flagged: bool = False     # deadline_missed already emitted
     completion_flagged: bool = False   # completion overrun already emitted
     preemptions: int = 0               # planned evictions survived
+    prefix_hit: int = 0                # prompt tokens adopted from the
+    #                                    prefix cache at admission
     sampling: Optional[SamplingParams] = None
     session: Optional[str] = None
     t_enqueue: float = 0.0
@@ -227,13 +265,18 @@ class InferenceEngine:
                 raise ValueError("paged KV needs chunked prefill "
                                  "(chunk_token_budget > 0)")
             self.pages = PagePool(ecfg.max_batch, ecfg.num_aw,
-                                  ecfg.max_seq // pt, pt)
+                                  ecfg.max_seq // pt, pt,
+                                  pages_per_aw=ecfg.kv_pages)
             self.layout = PagedCacheLayout(self.pages, ecfg.max_seq)
             self.cache = self.layout.make_cache(self.api.init_cache,
                                                 ecfg.max_batch)
         else:
             self.layout = CacheLayout()
             self.cache = self.api.init_cache(ecfg.max_batch, ecfg.max_seq)
+        if self.pages is None and (ecfg.prefix_global_index or
+                                   ecfg.prefix_migrate):
+            raise ValueError("prefix_global_index and prefix_migrate need "
+                             "the paged KV plane (kv_page_tokens > 0)")
         self.prefill_paddable = self.layout.prefill_paddable(
             self.cache, ecfg.max_seq)
         self.store = CheckpointStore()
@@ -242,6 +285,8 @@ class InferenceEngine:
         self.aws = [AttentionWorker(a, a * per_aw, (a + 1) * per_aw,
                                     self.store)
                     for a in range(ecfg.num_aw)]
+        for w in self.aws:
+            w.page_pool = self.pages
         max_ew = max(ecfg.max_ew or ecfg.num_ew, ecfg.num_ew)
         self.ews = [ExpertWorker(e, member=e < ecfg.num_ew)
                     for e in range(max_ew)]
@@ -264,6 +309,13 @@ class InferenceEngine:
 
         self.gateway = Gateway(self.aws, policy=ecfg.placement)
         self.scheduler = ContinuousBatchScheduler(self, self.gateway)
+        # ---- telemetry plane: the event bus always runs (it is the audit
+        # stream); the TelemetryPlane when ``telemetry`` is on
+        self.bus = EventBus()
+        self.gateway.attach_bus(self.bus)
+        self.telemetry: Optional[TelemetryPlane] = \
+            TelemetryPlane(self) if ecfg.telemetry else None
+        self.gateway.telemetry = self.telemetry
         self.decode_plane = DecodeLoopPlane(self)
         # chunked streams need slot == absolute position and no recurrent
         # state (a padded cache); other families keep the whole-prompt
@@ -273,6 +325,21 @@ class InferenceEngine:
             self.chunked = ChunkedPrefillPlane(self, ecfg.chunk_token_budget)
             self.gateway.prefill_load = self.chunked.outstanding_tokens
         self.gateway.prefill_token_cap = ecfg.prefill_token_cap
+        # ---- prefix-cache plane: adoption is a mid-prompt start of the
+        # chunk stream, so it needs the chunked plane
+        self.prefix_plane: Optional[PrefixCachePlane] = None
+        if ecfg.prefix_cache_slots > 0:
+            if self.chunked is None:
+                raise ValueError(
+                    "prefix_cache_slots > 0 needs the chunked-prefill plane "
+                    "(chunk_token_budget > 0 on a full-attention family)")
+            self.prefix_plane = PrefixCachePlane(
+                self, ecfg.prefix_cache_slots, ecfg.prefix_cache_tokens,
+                min_match=ecfg.prefix_min_match)
+        elif ecfg.prefix_global_index or ecfg.prefix_migrate:
+            raise ValueError("prefix_global_index and prefix_migrate need "
+                             "the prefix-cache plane (prefix_cache_slots "
+                             "> 0)")
         if ecfg.preempt:
             self.gateway.preemptor = self._preempt_for
         self.request_log: List[WorkerEvent] = []
@@ -303,6 +370,7 @@ class InferenceEngine:
                           slo_class=q.slo_class, deadline=q.deadline,
                           completion_deadline=q.completion_deadline,
                           sampling=q.sampling, session=q.session,
+                          prefix_hit=q.prefix_hit,
                           # a miss flagged while queued is not flagged again
                           deadline_flagged=q.deadline_flagged,
                           completion_flagged=q.completion_flagged)
@@ -352,7 +420,12 @@ class InferenceEngine:
     # exactly as a crash-recovered one does.
     def _note_request_event(self, kind: str, rid: str, now: float,
                             detail: str = ""):
-        self.request_log.append(WorkerEvent(now, kind, rid, detail))
+        ev = WorkerEvent(now, kind, rid, detail)
+        self.request_log.append(ev)
+        # published at emission for every cursor-based consumer
+        self.bus.publish(ev)
+        if self.telemetry is not None:
+            self.telemetry.on_request_event(ev)
 
     def drain_request_events(self) -> List[WorkerEvent]:
         """Request-plane events since the last drain: ``preempted``,
@@ -413,6 +486,11 @@ class InferenceEngine:
         committed = self._commit_resident_kv(r)
         if self.chunked is not None:
             self.chunked.drop(rid)
+        if self.prefix_plane is not None:
+            # an adopted prefix entry cannot outlive the eviction: the slot
+            # is cleared below (the victim's own log has what it resumes
+            # from)
+            self.prefix_plane.forget_slot(r._aw, r.slot)
         self._kv_clear_slot(r.slot)
         aw.slots.release(r.slot)
         r.paused = True
@@ -429,6 +507,8 @@ class InferenceEngine:
         self._note_request_event(
             "preempted", rid, now,
             f"slot freed on aw{aw.aw_id}, resume@{committed + 1}")
+        if self.telemetry is not None:
+            self.telemetry.on_preempt(rid, now)
         return True
 
     def _commit_resident_kv(self, r: RequestState) -> int:
@@ -572,10 +652,22 @@ class InferenceEngine:
         if pids:
             self.layout.scrub_pages(self.cache, pids)
 
+    def _kv_reclaim(self, aw: int):
+        """Page pressure: evict cached prefixes on ``aw`` (tail pages
+        first; a page with refcount > 1 survives its holder) until a page
+        frees or nothing is evictable."""
+        pc = self.aws[aw].prefix_cache
+        while pc is not None and self.pages.free_pages(aw) == 0:
+            freed = pc.evict_pages()
+            if not freed:
+                break
+            self._kv_free_pages(freed)
+
     def _kv_ensure(self, slot: int, upto: int):
         """Map pages so positions [0, upto) of ``slot`` have storage before
-        a prefill, chunk or decode step writes them. No-op on a
-        contiguous engine (the slot owns its whole extent)."""
+        a prefill, chunk or decode step writes them, reclaiming cached
+        prefixes' pages under pressure. No-op on a contiguous engine (the
+        slot owns its whole extent)."""
         if self.pages is None or upto <= 0:
             return
         pool = self.pages
@@ -586,9 +678,12 @@ class InferenceEngine:
                 continue
             pid = pool.alloc(aw)
             if pid < 0:
+                self._kv_reclaim(aw)
+                pid = pool.alloc(aw)
+            if pid < 0:
                 raise RuntimeError(
                     f"AW{aw} out of KV pages: slot {slot} needs block "
-                    f"{blk} ({need} total)")
+                    f"{blk} ({need} total) and nothing is evictable")
             pool.map_block(slot, blk, pid)
         self._kv_sync_bt()
 
@@ -601,6 +696,59 @@ class InferenceEngine:
             return
         self._kv_free_pages(self.pages.release_slot(slot))
         self._kv_sync_bt()
+
+    def _kv_scrub_slot(self, slot: int, valid_len: int):
+        """Mask positions >= valid_len of the slot, in place (prefix
+        adoption keeps [0, valid_len))."""
+        self.layout.scrub_slot(self.cache, slot, valid_len)
+
+    def _kv_adopt(self, slot: int, pages, hit: int) -> int:
+        """Map a cached entry's pages into ``slot`` (copy-on-extend): pages
+        wholly below the hit are shared (refcount bumped, no KV copied),
+        and the boundary page the adopter extends past the hit is copied
+        into a private page on the current stream, before any later gather
+        reads it. The block table is uploaded once, at the end. Returns
+        the usable hit: without a free page for the boundary copy it falls
+        to the last full page."""
+        pool = self.pages
+        pt = pool.page_tokens
+        full = min(hit // pt, len(pages))
+        aw = pool.aw_of_slot(slot)
+        for b in range(full):
+            pool.incref(pages[b])
+            pool.map_block(slot, b, pages[b])
+        rem = hit - full * pt
+        if rem > 0 and full < len(pages):
+            # pin the boundary source first: a reclaim may trim the very
+            # entry being adopted, and an unpinned page could be freed and
+            # scrubbed before the copy reads it
+            src = int(pages[full])
+            pool.incref(src)
+            pid = pool.alloc(aw)
+            if pid < 0:
+                self._kv_reclaim(aw)
+                pid = pool.alloc(aw)
+            if pid < 0:
+                hit = full * pt          # degrade: whole shared pages only
+            else:
+                self.layout.copy_page(self.cache, src, pid)
+                pool.map_block(slot, full, pid)
+            if pool.decref(src):
+                self._kv_free_pages([src])
+        elif rem > 0:
+            hit = full * pt
+        self._kv_sync_bt()
+        return hit
+
+    def _kv_snapshot(self, slot: int, n: int):
+        """Pin the pages covering positions [0, n) of ``slot`` (one
+        reference each): the backing of a new prefix-cache entry, which
+        keeps them alive after the slot releases."""
+        pool = self.pages
+        pids = pool.slot_pages(slot, upto_blocks=-(-n // pool.page_tokens))
+        for pid in pids:
+            pool.incref(pid)
+        return pids
 
     # -- failures -----------------------------------------------------------
     @property
@@ -618,6 +766,10 @@ class InferenceEngine:
         resumes it from the committed cursor. Requests the store does not
         know (``checkpoint=False``) cannot be restored: as in the
         reference, they keep decoding against the dead worker's slot."""
+        if self.prefix_plane is not None:
+            # snapshot the dying AW's cached prefixes before fail() clears
+            # them: checkpoint-backed entries become restorable orphans
+            self.prefix_plane.note_aw_failed(aw)
         recoverable = set(self.store.active_requests_on(aw))
         if self.pages is not None:
             # the AW's physical pages die with it, except those of
@@ -628,6 +780,11 @@ class InferenceEngine:
                     r.rid not in recoverable}
             per = self.slots.per_aw
             freed = []
+            pc = self.aws[aw].prefix_cache
+            if pc is not None:
+                # the entries' references go first (restoration replays
+                # the orphans from the store into fresh pages)
+                freed += pc.release_all_pages()
             for s in range(aw * per, (aw + 1) * per):
                 if s not in keep:
                     freed += self.pages.release_slot(s)
@@ -652,6 +809,8 @@ class InferenceEngine:
                 if r is None or r.done or r.queued_for_recovery:
                     continue
                 r.queued_for_recovery = True
+                if self.telemetry is not None:
+                    self.telemetry.on_failover(rid, now)
                 # the recovery waiting spell starts now; class, deadline
                 # and sampling survive the crash with the state
                 entries.append(QueuedRequest(
@@ -662,6 +821,10 @@ class InferenceEngine:
                     sampling=r.sampling, session=r.session))
         self.gateway.requeue_recovery(entries)
         admitted = set(self.scheduler.admit(now))
+        if self.prefix_plane is not None:
+            # live requests took their slots first; now the dead AWs'
+            # cached session prefixes move to healthy AWs
+            self.prefix_plane.restore_orphans(now)
         return [q.rid for q in entries if q.rid in admitted]
 
     def provision_aw(self, aw: int):
@@ -723,9 +886,12 @@ class InferenceEngine:
         charged its weight push to the virtual clock)."""
         self.route_state = self.route_state._replace(
             **self._plan_arrays(plan))
-        self.plan_log.append(WorkerEvent(now, "placement_changed",
-                                         f"gen{plan.generation}",
-                                         detail or plan.reason))
+        ev = WorkerEvent(now, "placement_changed", f"gen{plan.generation}",
+                         detail or plan.reason)
+        self.plan_log.append(ev)
+        self.bus.publish(ev)
+        if self.telemetry is not None:
+            self.telemetry.registry.inc("placement.plans_installed")
 
     def drain_plan_events(self) -> List[WorkerEvent]:
         evs, self.plan_log = self.plan_log, []
@@ -800,6 +966,8 @@ class InferenceEngine:
                 return False
             self.gateway.stats.bump(entry.slo_class, "cancelled")
             self._note_request_event("cancelled", rid, now, "while queued")
+            if self.telemetry is not None:
+                self.telemetry.on_drop(rid, now, "cancelled")
             return True
         if r.done:
             return False
@@ -807,6 +975,8 @@ class InferenceEngine:
         r.done = True
         self.gateway.stats.bump(r.slo_class, "cancelled")
         self._note_request_event("cancelled", rid, now, r.state)
+        if self.telemetry is not None:
+            self.telemetry.on_cancel(rid, now, "in_flight")
         self.release_request(rid)
         return True
 
@@ -815,7 +985,12 @@ class InferenceEngine:
         stale recovery entry, the owning AW's slot, prefill cursor and
         pending checkpoint WRs, and the store log. Safe for done,
         cancelled and crash-paused requests alike (the slot is released
-        only when this request still holds it)."""
+        only when this request still holds it).
+
+        With the prefix-cache plane on, a completed request's slot is
+        offered to its AW's cache: the cache adopts the slot (contiguous)
+        or pins its pages (paged), with the store log under a reserved
+        key."""
         r = self.requests.pop(rid, None)
         if r is None:
             return
@@ -842,14 +1017,32 @@ class InferenceEngine:
         if r.queued_for_recovery:
             # a stale recovery entry must not reach the scheduler
             self.gateway.drop(rid)
+        cached = False
         if r._aw >= 0 and self.aws[r._aw].alive:
             aw = self.aws[r._aw]
+            if not r.paused and self.prefix_plane is not None and \
+                    r.done and not r.cancelled:
+                # commit the resident tail, then offer the slot (its KV and
+                # store log) to the AW's prefix cache
+                aw.checkpointer.flush()
+                cached = self.prefix_plane.offer(r)
             # pending WRs and the prefill cursor die with the request (they
             # reference a log about to be released)
             aw.drop_request(rid)
-            if not r.paused:
+            if not r.paused and (not cached or self.pages is not None):
+                # paged: the slot always releases (a cached entry pinned
+                # its own page references); contiguous: a cached slot
+                # belongs to its entry now and is not cleared
+                if self.prefix_plane is not None and not cached:
+                    # e.g. a cancelled adopter: its live entry must not
+                    # survive the clear below
+                    self.prefix_plane.forget_slot(r._aw, r.slot)
                 self._kv_clear_slot(r.slot)
                 aw.slots.release(r.slot)
+        # a cached entry's log moved to its reserved key, so this releases
+        # nothing of it
         self.store.release(rid)
+        if self.telemetry is not None:
+            self.telemetry.on_release(r)
         for hook in self._release_hooks:
             hook(r)

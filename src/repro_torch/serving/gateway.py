@@ -10,17 +10,19 @@ placed blocks only its own class for this tick.
 
 Placement policies (a healthy AW with free capacity, or None):
 ``least_loaded`` (most free slots; ties -> lowest id), ``round_robin``
-and ``session_affinity`` (a session's home is the stable hash of its key,
-the explicit ``session`` when given, else the rid's session prefix
-``rid.rsplit('-', 1)[0]``; the session is pinned there, a full home
-spills to least-loaded for one request, a dead home re-pins the session
-with a ``session_repinned`` event). The prefix-aware part of session
-affinity arrives with the prefix cache.
+and ``session_affinity`` (a session's home is the AW holding the longest
+cached prefix of the prompt when the prefix cache is on, else the stable
+hash of its key, the explicit ``session`` when given, else the rid's
+session prefix ``rid.rsplit('-', 1)[0]``; the session is pinned there, a
+full home spills to least-loaded for one request, a dead home re-pins the
+session with a ``session_repinned`` event). Free capacity counts the
+prefix cache's evictable slots, and admission adopts a matching cached
+prefix (``QueuedRequest.prefix_hit``).
 
 Admission is token-aware when ``prefill_token_cap`` is set: a head waits
 while the prompt tokens admitted but not yet prefilled would pass the cap
 (recovery entries bypass it; the first admission of a tick always
-passes). Preempt-and-requeue: when a head of a class in
+passes; a prompt is charged less its best cached prefix). Preempt-and-requeue: when a head of a class in
 ``PREEMPTING_CLASSES`` cannot be placed, the engine-installed
 ``preemptor`` may checkpoint a batch victim out of its slot and requeue
 it as a recovery entry, and placement is tried once more.
@@ -55,6 +57,8 @@ class QueuedRequest:
     completion_deadline: Optional[float] = None   # last-token deadline
     deadline_flagged: bool = False     # deadline_missed already emitted
     completion_flagged: bool = False   # completion overrun already emitted
+    prefix_hit: int = 0             # tokens adopted from the prefix cache
+    #                                 at placement (0 = cold admission)
 
     @property
     def deadline_key(self) -> float:
@@ -114,16 +118,38 @@ class SessionAffinityPolicy:
         self.pins: Dict[str, int] = {}
         self.events: List[WorkerEvent] = []
         self.stats = None            # bound by the owning Gateway
+        self.bus = None              # bound by Gateway.attach_bus
+        # installed by the prefix-cache plane with the cluster-wide index:
+        # (workers, prompt) -> aw_id or None, one global lookup (which may
+        # migrate the matched prefix to a free AW first)
+        self.global_router = None
 
     @staticmethod
     def session_key(rid: str) -> str:
         """Session prefix of a request id (``sess-3`` -> ``sess``)."""
         return rid.rsplit("-", 1)[0]
 
+    def _prefix_best(self, workers, prompt) -> Optional[int]:
+        """The healthy AW with capacity holding the longest cached prefix
+        of ``prompt`` (None without a match or without prefix caches)."""
+        if prompt is None:
+            return None
+        if self.global_router is not None:
+            # one cluster-wide lookup answers for every AW
+            return self.global_router(workers, prompt)
+        best, best_len = None, 0
+        for w in workers:
+            if w.prefix_cache is None or not w.has_capacity():
+                continue
+            lcp = w.prefix_cache.match_len(prompt)
+            if lcp > best_len:
+                best, best_len = w.aw_id, lcp
+        return best
+
     def _choose_home(self, workers, key: str, prompt) -> Optional[int]:
-        # the prefix-cache plane's choice (the AW holding the longest
-        # cached prefix of ``prompt``, the reference's ``_prefix_best`` and
-        # its ``global_router``) goes first here once that plane is ported
+        best = self._prefix_best(workers, prompt)
+        if best is not None:
+            return best
         home = zlib.crc32(key.encode()) % len(workers)
         if workers[home].has_capacity():
             return home
@@ -145,8 +171,11 @@ class SessionAffinityPolicy:
             if new is None:
                 return None        # nothing placeable now; keep the pin
             self.pins[key] = new
-            self.events.append(WorkerEvent(now, "session_repinned", key,
-                                           f"aw{pin}->aw{new}"))
+            ev = WorkerEvent(now, "session_repinned", key,
+                             f"aw{pin}->aw{new}")
+            self.events.append(ev)
+            if self.bus is not None:
+                self.bus.publish(ev)
             if self.stats is not None:
                 self.stats.session_repins += 1
             return new
@@ -171,6 +200,14 @@ class GatewayStats:
     requeued: int = 0               # recovery re-admissions queued
     preemptions: int = 0            # victims evicted to place a higher class
     host_syncs: int = 0             # decode-path device->host token drains
+    # the prefix-cache plane (serving/prefixcache.py)
+    prefix_hits: int = 0            # admissions that adopted a cached prefix
+    prefix_misses: int = 0          # cache-eligible admissions without a hit
+    prefix_hit_tokens: int = 0      # prompt tokens adopted (prefill skipped)
+    prefix_evictions: int = 0       # cached prefixes evicted or trimmed
+    prefix_restored: int = 0        # dead-AW prefixes restored on failover
+    prefix_global_hits: int = 0     # placements by the cluster-wide index
+    prefix_migrated: int = 0        # prefixes moved by checkpoint replay
     session_repins: int = 0         # sessions re-pinned off a dead AW
     queue_delay: Dict[str, float] = field(default_factory=dict)
     by_class: Dict[str, Dict[str, int]] = field(default_factory=dict)
@@ -199,9 +236,22 @@ class Gateway:
         # is the engine's probe of the chunked plane's outstanding tokens
         self.prefill_token_cap: int = 0
         self.prefill_load = None
+        # the prefix-cache plane's probe, prompt -> best cluster-wide
+        # match length (the global index); replaces the per-AW scan
+        self.match_probe = None
         # engine-installed hook: (blocked head, now) -> True when a
         # victim's slot was freed and placement should be tried again
         self.preemptor = None
+        # the telemetry plane: the engine installs the event bus and,
+        # when telemetry is on, the TelemetryPlane
+        self.bus = None
+        self.telemetry = None
+
+    def attach_bus(self, bus):
+        """Install the event bus; the placement policy shares it, so
+        ``session_repinned`` publishes at emission."""
+        self.bus = bus
+        self.policy.bus = bus
 
     def enqueue(self, rid: str, prompt: np.ndarray, max_new: int, *,
                 now: float = 0.0, slo_class: str = STANDARD,
@@ -219,6 +269,8 @@ class Gateway:
                                    completion_deadline=completion_deadline))
         self.stats.enqueued += 1
         self.stats.bump(slo_class, "enqueued")
+        if self.telemetry is not None:
+            self.telemetry.on_enqueue(rid, now, slo_class)
 
     def _insert(self, entry: QueuedRequest):
         """Deadline-aware stable insertion: after every recovery entry,
@@ -269,9 +321,15 @@ class Gateway:
 
     def _cached_match_len(self, prompt) -> int:
         """The token cap's estimate of how much of ``prompt`` a cached
-        prefix would cover: 0 until the prefix cache is ported, so a
-        prompt is charged in full."""
-        return 0
+        prefix would cover: the best match over live AWs (the exact tail
+        is charged after placement)."""
+        if self.match_probe is not None:
+            return self.match_probe(prompt)
+        best = 0
+        for w in self.workers:
+            if w.alive and w.prefix_cache is not None:
+                best = max(best, w.prefix_cache.match_len(prompt))
+        return best
 
     def drain_events(self) -> List[WorkerEvent]:
         """Placement events (``session_repinned``) the policy emitted since
@@ -335,14 +393,27 @@ class Gateway:
                         blocked.add(cls)
                         break
                     q.popleft()
-                    slot, _ = self.workers[aw].take_slot(match_prompt, now)
+                    slot, head.prefix_hit = self.workers[aw].take_slot(
+                        match_prompt, now)
                     if not head.recovery:
-                        new_tokens += len(head.prompt)
+                        # adopted tokens never reach the prefill plane
+                        new_tokens += len(head.prompt) - head.prefix_hit
+                    if self.workers[aw].prefix_cache is not None and \
+                            match_prompt is not None:
+                        if head.prefix_hit:
+                            self.stats.prefix_hits += 1
+                            self.stats.prefix_hit_tokens += head.prefix_hit
+                        else:
+                            self.stats.prefix_misses += 1
                     self.stats.admitted += 1
                     self.stats.bump(cls, "admitted")
                     self.stats.queue_delay[head.rid] = \
                         self.stats.queue_delay.get(head.rid, 0.0) + \
                         (now - head.t_enqueue)
+                    if self.telemetry is not None:
+                        self.telemetry.on_admit(
+                            head.rid, now, aw, slot, cls, head.recovery,
+                            head.prefix_hit, now - head.t_enqueue)
                     admitted.append((head, aw, slot))
                     progressed = True
             if not progressed:

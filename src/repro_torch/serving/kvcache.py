@@ -224,6 +224,17 @@ class CacheLayout(_SegmentOps):
             cache[name][slot].copy_(state[name])
         return cache
 
+    def scrub_slot(self, cache, slot: int, valid_len: int):
+        """Invalidate positions >= ``valid_len`` of one slot, in place:
+        prefix-cache adoption keeps the adopted prefix [0, valid_len) and
+        masks the donor's stale tail (K/V stay, unreachable at -1).
+        Attention caches with slot == position only (the chunked plane's
+        precondition)."""
+        for layer in cache["layers"]:
+            pos = layer["pos"][slot]
+            pos.masked_fill_(pos >= valid_len, -1)
+        return cache
+
     def clear_slot(self, cache, slot: int):
         """Reset one slot (a finished or released request): K/V zeroed,
         positions -1, recurrent state zeroed."""
@@ -320,6 +331,30 @@ class PagedCacheLayout(_SegmentOps):
                 t[pages] = src[blk].to(t.dtype)
         return cache
 
+    def scrub_slot(self, cache, slot: int, valid_len: int):
+        """Mask positions >= ``valid_len`` in the slot's mapped pages, in
+        place (page ids from the host mirror: no device read). A page
+        shared with another holder lies wholly below ``valid_len`` (only
+        the boundary page is copied private), so its values are
+        unchanged."""
+        pids = self.pool.slot_pages(slot)
+        if pids:
+            dev = cache["layers"][0]["k"].device
+            idx = torch.as_tensor(pids, dtype=torch.long, device=dev)
+            for layer in cache["layers"]:
+                sub = layer["pos"][idx]
+                layer["pos"][idx] = sub.masked_fill(sub >= valid_len, -1)
+        return cache
+
+    def copy_page(self, cache, src: int, dst: int):
+        """Copy-on-extend: duplicate physical page ``src`` into ``dst`` in
+        every layer (K, V and positions), in place on the current stream,
+        so a gather queued after it reads the copy."""
+        for layer in cache["layers"]:
+            for t in layer.values():
+                t[dst].copy_(t[src])
+        return cache
+
     def scrub_pages(self, cache, pages: List[int]):
         """Invalidate freed pages' positions, so a recycled page can never
         leak stale entries into its next owner's attention."""
@@ -344,16 +379,21 @@ class PagePool:
     pages), refcounts, and the host mirror of the device block table.
 
     Page ids are global; page 0 is reserved (never allocated). An
-    allocated page starts at refcount 1 and returns to its AW's free list
-    only when the count hits 0."""
+    allocated page starts at refcount 1; prefix-cache entries and adopting
+    slots each hold one reference, and a page returns to its AW's free
+    list only when the count hits 0 (a page with refcount > 1 is never
+    freed)."""
 
     def __init__(self, num_slots: int, num_aw: int, blocks_per_slot: int,
-                 page_tokens: int):
+                 page_tokens: int, pages_per_aw: int = 0):
         self.page_tokens = page_tokens
         self.nblk = blocks_per_slot
         self.num_aw = num_aw
         self.slots_per_aw = num_slots // num_aw
-        self.pages_per_aw = self.slots_per_aw * blocks_per_slot
+        # 0 = parity with the contiguous footprint; a smaller budget trades
+        # capacity against prefix sharing (cached entries pin pages)
+        self.pages_per_aw = pages_per_aw or \
+            self.slots_per_aw * blocks_per_slot
         self.num_pages = 1 + self.pages_per_aw * num_aw
         self._free = [deque(range(1 + a * self.pages_per_aw,
                                   1 + (a + 1) * self.pages_per_aw))
@@ -405,8 +445,13 @@ class PagePool:
     def mapped_blocks(self, slot: int) -> int:
         return int((self.bt[slot] > 0).sum())
 
-    def slot_pages(self, slot: int) -> List[int]:
-        return [int(p) for p in self.bt[slot] if p > 0]
+    def slot_pages(self, slot: int, upto_blocks: int = -1) -> List[int]:
+        """The slot's mapped pages, in block order (the first
+        ``upto_blocks`` blocks only, when given)."""
+        row = self.bt[slot]
+        if upto_blocks >= 0:
+            row = row[:upto_blocks]
+        return [int(p) for p in row if p > 0]
 
     def release_slot(self, slot: int) -> List[int]:
         """Unmap the whole slot and decref its pages; returns the pages

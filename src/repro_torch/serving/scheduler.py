@@ -16,9 +16,13 @@ prefilled in the step.
 
 ``scale_events`` (``ScalePlan``) ask the orchestrator to grow, shrink or
 re-pack the EW pool at their virtual times; the orchestrator completes
-them T_w or T_push later on the same clock. The reference's telemetry,
-flight recorder, controller and prefix-cache lines are left out: those
-planes are not ported.
+them T_w or T_push later on the same clock. With the engine's telemetry
+plane on (the default), the loop feeds it each step's span, every
+token's stamp and each TTFT, and finalizes it at the end
+(``ServeMetrics.telemetry``); the gateway's ``prefix`` block counts the
+prefix cache's hits, adopted tokens, evictions, restores, global-index
+hits, migrations and session re-pins. The reference's flight-recorder
+and controller lines are left out: those planes are not ported.
 """
 from __future__ import annotations
 
@@ -30,12 +34,6 @@ import numpy as np
 
 from repro_torch.core.orchestrator import Orchestrator
 from repro_torch.data.workloads import Request
-
-
-def pct(values, q: float) -> float:
-    """``np.percentile`` with the empty-array guard every caller needs."""
-    a = np.asarray(values, dtype=float)
-    return float(np.percentile(a, q)) if a.size else 0.0
 
 
 @dataclass
@@ -55,6 +53,9 @@ class ServeMetrics:
     prefill: dict = field(default_factory=dict)  # scheduler PrefillStats
     slo_class: Dict[str, str] = field(default_factory=dict)  # rid -> class
     gateway: dict = field(default_factory=dict)  # GatewayStats snapshot
+    telemetry: object = None   # the engine's TelemetryPlane (None = off):
+    #                            streamed twins of the lists above, spans
+    #                            and per-cause stall attribution
 
     def throughput(self) -> float:
         return len(self.token_log) / self.duration if self.duration else 0.0
@@ -125,6 +126,8 @@ def run_serving(engine, workload: List[Request], duration: float, *,
     it is for co-resident decodes."""
     m = ServeMetrics()
     gw = engine.gateway
+    tel = engine.telemetry
+    m.telemetry = tel
     clock = 0.0
     pending = sorted(workload, key=lambda r: r.arrival)
     qi = 0
@@ -188,9 +191,18 @@ def run_serving(engine, workload: List[Request], duration: float, *,
                 break
             dt = max(dt, 1e-3)
         clock += dt
+        if tel is not None:
+            pf_done = engine.prefill_tokens_done() - pf0
+            tel.on_step(clock - dt, clock, pf_done,
+                        pf_done * (prefill_token_time or 0.0),
+                        sum(len(t) for t in out.values()))
         for rid, toks in out.items():
             for _ in toks:
                 m.token_log.append(TokenRecord(clock, rid))
+            if tel is not None and toks:
+                # the streamed twin of token_log: the same stamps and gaps
+                tel.observe_tokens(rid, clock, len(toks),
+                                   m.slo_class.get(rid, "standard"))
             if rid not in seen_first and toks:
                 seen_first.add(rid)
                 r = engine.requests.get(rid)
@@ -201,14 +213,24 @@ def run_serving(engine, workload: List[Request], duration: float, *,
                     if len(r.tokens) == len(toks):
                         r.t_first_token = clock
                     m.ttft[rid] = r.ttft
+                    if tel is not None:
+                        tel.observe_ttft(rid, r.ttft,
+                                         m.slo_class.get(rid, "standard"),
+                                         r.t_enqueue)
         for r in list(engine.requests.values()):
             if r.done and r.rid not in m.finished:
                 m.finished.append(r.rid)
                 m.ttft[r.rid] = r.ttft
+                if tel is not None:
+                    tel.observe_ttft(r.rid, r.ttft,
+                                     m.slo_class.get(r.rid, "standard"),
+                                     r.t_enqueue)
                 m.outputs[r.rid] = list(r.tokens)
                 engine.release_request(r.rid)
         steps += 1
     m.duration = clock
+    if tel is not None:
+        tel.finalize(clock)
     m.queue_delay = dict(gw.stats.queue_delay)
     m.prefill = engine.prefill_snapshot()
     m.gateway = {"preemptions": gw.stats.preemptions,
@@ -217,7 +239,14 @@ def run_serving(engine, workload: List[Request], duration: float, *,
                  "requeued": gw.stats.requeued,
                  "by_class": {c: dict(v)
                               for c, v in gw.stats.by_class.items()},
-                 "repins": gw.stats.session_repins}
+                 "prefix": {"hits": gw.stats.prefix_hits,
+                            "misses": gw.stats.prefix_misses,
+                            "hit_tokens": gw.stats.prefix_hit_tokens,
+                            "evictions": gw.stats.prefix_evictions,
+                            "restored": gw.stats.prefix_restored,
+                            "global_hits": gw.stats.prefix_global_hits,
+                            "migrated": gw.stats.prefix_migrated,
+                            "repins": gw.stats.session_repins}}
     if engine.pages is not None:
         m.gateway["pages"] = engine.pages.stats()
     return m

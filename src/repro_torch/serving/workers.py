@@ -5,9 +5,9 @@ worker object owns exactly the state that dies with it.
 
   * ``AttentionWorker`` owns its slice of the slot space (a
     ``SlotPartition`` over the shared cache), its checkpoint stream (a
-    ``KVCheckpointer``), its in-flight chunked-prefill streams and its
-    liveness bit; ``fail`` loses the slots, the streams and every
-    checkpoint write not yet delivered.
+    ``KVCheckpointer``), its prefix cache (serving/prefixcache.py, when
+    the plane is on) and its liveness bit; ``fail`` loses the slots, the
+    cached prefixes and every checkpoint write not yet delivered.
   * ``ExpertWorker`` owns its liveness bit and its pool membership; its
     experts' reachability is carried by the RouteState health mask, so
     ``fail``/``provision``/``retire`` are pure RouteState transitions.
@@ -61,23 +61,59 @@ class SlotPartition:
 
 
 class AttentionWorker:
-    """One AW: cache partition, checkpoint stream and liveness."""
+    """One AW: cache partition, checkpoint stream, prefix cache and
+    liveness."""
 
     def __init__(self, aw_id: int, lo: int, hi: int, store: CheckpointStore):
         self.aw_id = aw_id
         self.slots = SlotPartition(lo, hi)
         self.checkpointer = KVCheckpointer(store, aw_id, seed=aw_id)
+        # the AW's prefix cache, attached by the engine's PrefixCachePlane:
+        # cached slots are this worker's retained KV (evictable capacity,
+        # lost with the worker); a paged cache pins pages, not slots
+        self.prefix_cache = None
+        # a paged engine's PagePool: this AW's pages are its second
+        # capacity axis (``kv_page_stats``)
+        self.page_pool = None
         self.alive = True
 
     def free_slots(self) -> int:
-        return self.slots.free_count() if self.alive else 0
+        if not self.alive:
+            return 0
+        free = self.slots.free_count()
+        if self.prefix_cache is not None:
+            free += self.prefix_cache.evictable_count()
+        return free
 
     def has_capacity(self) -> bool:
         return self.alive and self.free_slots() > 0
 
+    def slot_occupancy(self) -> tuple:
+        """(slots in use, partition capacity); cached-prefix slots count
+        as in use until evicted, and a dead worker reports all of them."""
+        cap = self.slots.capacity
+        if not self.alive:
+            return (cap, cap)
+        return (cap - self.slots.free_count(), cap)
+
+    def kv_page_stats(self):
+        """(pages in use, partition pages) of this AW's slice of the page
+        pool, or None on a contiguous engine; a dead worker reports all of
+        them."""
+        if self.page_pool is None:
+            return None
+        total = self.page_pool.pages_per_aw
+        if not self.alive:
+            return (total, total)
+        return (total - self.page_pool.free_pages(self.aw_id), total)
+
     def take_slot(self, prompt=None, now: float = 0.0):
-        """Allocate a slot for an admission. Returns (slot, matched prefix
-        length), the latter 0 until the prefix cache is ported."""
+        """Allocate a slot for an admission: through the prefix cache when
+        there is one (a matching cached prefix is adopted, else a free
+        slot, else the cache's LRU entry is evicted), else a free slot.
+        Returns (slot, adopted prefix length)."""
+        if self.prefix_cache is not None:
+            return self.prefix_cache.take_slot(prompt, now)
         return self.slots.alloc(), 0
 
     def drop_request(self, rid: str) -> int:
@@ -92,6 +128,9 @@ class AttentionWorker:
         watermark freezes at the last delivered contiguous prefix."""
         self.alive = False
         self.slots.drop()
+        if self.prefix_cache is not None:
+            # the plane took its orphan snapshot before this
+            self.prefix_cache.clear()
         self.checkpointer.drop_pending()
         return selfheal.fail_aw(route_state, self.aw_id)
 

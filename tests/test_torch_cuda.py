@@ -1317,3 +1317,194 @@ def test_segments_capture_nothing_new_after_warm_up(dev):
             eng.step()
         assert eng.decode_plane.captures() == base
     assert streams[8] == streams[1]
+
+
+# --------------------------------------------------------------------------
+# the prefix-cache and telemetry planes on the card
+# --------------------------------------------------------------------------
+
+def _prefix_engine(**kw):
+    """A reduced float32 Mixtral engine on the card (capacity factor 4,
+    max_batch 4, max_seq 64, chunk budget 8, session affinity) with the
+    prefix cache on (``prefix_cache_slots`` 2) unless ``kw`` says
+    otherwise."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    cfg = get_config("mixtral_8x7b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=4.0))
+    opts = dict(max_batch=4, max_seq=64, num_aw=2, num_ew=2,
+                chunk_token_budget=8, placement="session_affinity",
+                prefix_cache_slots=2)
+    opts.update(kw)
+    return InferenceEngine(cfg, EngineConfig(**opts), seed=7, device="cuda")
+
+
+def _all_leaves(cache):
+    """Every tensor of a cache, the paged block table included."""
+    return _leaves(cache) + [t for k, t in cache.items() if k != "layers"]
+
+
+def _run_turns(eng, turns, max_new=4):
+    """Submit each (rid, prompt, session) of ``turns`` together, step to
+    the end releasing finished requests; the streams by rid."""
+    from repro_torch.serving.api import RequestSpec
+    hs = [eng.client.submit(RequestSpec(rid=rid, prompt=p, max_new=max_new,
+                                        session=s)) for rid, p, s in turns]
+    while not all(h.done() for h in hs):
+        eng.step()
+        for rid in [r.rid for r in eng.requests.values() if r.done]:
+            eng.release_request(rid)
+    return {h.rid: h.tokens() for h in hs}
+
+
+PREFIX_P1 = np.arange(1, 27, dtype=np.int32)
+PREFIX_TURNS = [[("a", PREFIX_P1, "s")],
+                [("b", np.concatenate([PREFIX_P1, np.arange(40, 47)]), "s"),
+                 ("c", np.concatenate([PREFIX_P1, np.arange(60, 69)]),
+                  "t")]]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_prefix_adoption_writes_the_cache_in_place(dev, paged):
+    """``copy_page``, ``scrub_slot`` and the adoptions of a warm turn write
+    into the cache's own tensors (every leaf's ``data_ptr`` unchanged), so
+    the step graphs that captured them read the adopter's KV; the warm
+    streams equal a cache-off engine's."""
+    kw = {"kv_page_tokens": 16} if paged else {}
+    eng = _prefix_engine(**kw)
+    ptrs = [t.data_ptr() for t in _all_leaves(eng.cache)]
+    got = {}
+    for turn in PREFIX_TURNS:
+        got.update(_run_turns(eng, turn))
+    assert eng.gateway.stats.prefix_hits >= 1
+    cold = _prefix_engine(prefix_cache_slots=0, **kw)
+    want = {}
+    for turn in PREFIX_TURNS:
+        want.update(_run_turns(cold, turn))
+    assert got == want
+    eng.layout.scrub_slot(eng.cache, 0, 5)
+    if paged:
+        eng.layout.copy_page(eng.cache, 1, 2)
+        assert all(torch.equal(t[1], t[2]) for t in _leaves(eng.cache))
+        eng.pages.check()
+    else:
+        assert (eng.cache["layers"][0]["pos"][0] < 5).all()
+    assert [t.data_ptr() for t in _all_leaves(eng.cache)] == ptrs
+
+
+def test_paged_graph_replay_after_adoption_equals_eager(dev):
+    """Two requests adopt one cached entry's pages (shared pages mapped in
+    two decoding rows, a private boundary copy each): a replay of the
+    paged step graph equals the eager step from the same state, and the
+    streams equal a contiguous cache-off engine's."""
+    from repro_torch.serving.api import RequestSpec
+    eng = _prefix_engine(kv_page_tokens=16, prefix_global_index=True)
+    _run_turns(eng, PREFIX_TURNS[0])
+    base = eng.decode_plane.captures()
+    hs = [eng.client.submit(RequestSpec(rid=rid, prompt=p, max_new=6,
+                                        session=s))
+          for rid, p, s in PREFIX_TURNS[1]]
+    while eng.prefilling_requests() or len(eng.active_requests()) < 2:
+        eng.step()
+    assert all(eng.requests[h.rid].prefix_hit > 0 for h in hs)
+    rows = [set(eng.pages.slot_pages(r.slot)) for r in eng.active_requests()]
+    assert any(eng.pages.ref[p] > 1 for p in rows[0] & rows[1])
+    _replay_equals_eager(eng, 1)
+    while not all(h.done() for h in hs):
+        eng.step()
+    assert eng.decode_plane.captures() == base
+    got = {h.rid: h.tokens() for h in hs}
+    cold = _prefix_engine(prefix_cache_slots=0)
+    _run_turns(cold, PREFIX_TURNS[0])
+    assert got == _run_turns(cold, PREFIX_TURNS[1], max_new=6)
+
+
+def test_telemetry_adds_no_capture_and_no_host_sync(dev):
+    """``run_serving`` over a chat workload, where every hook fires: with
+    telemetry on, no hook makes a synchronizing CUDA call (counted by
+    ``torch.cuda.set_sync_debug_mode``) while the serving path makes its
+    own (the token drains); telemetry on and off give the same streams,
+    the same step-graph keys and the same host-sync count."""
+    import warnings
+
+    from repro_torch.data.workloads import make_workload
+    from repro_torch.serving.scheduler import run_serving
+
+    def syncs(caught):
+        return sum("synchroniz" in str(w.message) for w in caught)
+    out = {}
+    for tel in (True, False):
+        eng = _prefix_engine(telemetry=tel)
+        wl = make_workload("multi_turn_chat", 8.0, 1.0, seed=0,
+                           max_prompt=16, max_new=8)
+        in_hooks = []
+        if tel:
+            plane = eng.telemetry
+            for name in dir(plane):
+                if not name.startswith(("on_", "observe_")):
+                    continue
+
+                def hooked(*a, _fn=getattr(plane, name), **kw):
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        try:
+                            return _fn(*a, **kw)
+                        finally:
+                            in_hooks.extend(caught)
+                setattr(plane, name, hooked)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                m = run_serving(eng, wl, 60.0, step_time=0.05)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert syncs(caught) >= eng.steps > 0
+        assert syncs(in_hooks) == 0
+        out[tel] = (m.outputs, sorted(eng.decode_plane.graphs),
+                    eng.gateway.stats.host_syncs)
+        if tel:
+            assert m.telemetry.registry.hist("tbt").count > 0
+    assert out[True] == out[False]
+
+
+def test_capture_survives_a_dead_engine_collected_mid_capture(dev):
+    """An engine holds reference cycles, so a dropped one (with its step
+    graphs) is freed by the garbage collector, whenever that runs. A
+    graph's reset while another graph captures voids the capture: here
+    the collector is made to run inside the capture (a low threshold and
+    allocations while the stream captures), with a dropped engine still
+    uncollected; the new engine captures its step graph all the same and
+    gives the dropped engine's streams."""
+    import gc
+    old, handles = _graph_engine()
+    while not all(h.done() for h in handles):
+        old.step()
+    want = [h.tokens() for h in handles]
+    assert old.decode_plane.captures() == 1
+    threshold = gc.get_threshold()
+    gc.disable()
+    del old, handles                 # garbage, not collected yet
+    try:
+        eng, handles = _graph_engine()
+        plane = eng.decode_plane
+        segment = plane.segment
+
+        def collecting(*args, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                gc.set_threshold(1, 1, 1)
+                _ = [[] for _ in range(2000)]   # collections, if enabled
+            return segment(*args, **kw)
+        plane.segment = collecting
+        gc.set_threshold(1 << 30)
+        gc.enable()
+        while not all(h.done() for h in handles):
+            eng.step()
+    finally:
+        gc.set_threshold(*threshold)
+        gc.enable()
+    assert eng.decode_plane.captures() == 1
+    assert [h.tokens() for h in handles] == want

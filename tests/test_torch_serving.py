@@ -17,6 +17,7 @@ import contextlib
 import dataclasses
 import importlib.util
 import io
+import sys
 from pathlib import Path
 
 import jax
@@ -27,6 +28,7 @@ import torch
 from conftest import reduced
 from repro.core.orchestrator import Orchestrator as JOrch
 from repro.launch import serve as jserve
+from repro.serving import prefixcache as jprefixcache
 from repro.data.workloads import make_workload as jmake_workload
 from repro.serving.engine import EngineConfig as JEngineConfig
 from repro.serving.engine import InferenceEngine as JEngine
@@ -263,6 +265,41 @@ def test_launcher_twin_on_cpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             tserve.main(["--duration", "0.1"])
+
+
+def test_launcher_prefix_cache_matches_reference(monkeypatch):
+    """``--workload multi_turn_chat --prefix-slots 3`` through both
+    launchers, with AW1 (the home of a cached session) failing: the same
+    prefix-cache line (hits, adopted tokens, restored prefixes, re-pins),
+    orchestrator events (``prefix_restored``, ``session_repinned``) and
+    stall lines. Every request ends at max_new, so these lines do not
+    depend on the two launchers' weights."""
+    args = ["--workload", "multi_turn_chat", "--rps", "8", "--duration",
+            "1.5", "--prefix-slots", "3", "--fail", "aw:1@0.9"]
+
+    def lines(text):
+        keep = ("requests finished", "prefix cache", "[orch", "[stall")
+        return [ln.strip() for ln in text.splitlines()
+                if ln.strip().startswith(keep)]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        tserve.main(["--device", "cpu"] + args)
+    got = lines(out.getvalue())
+    # the reference with the port's one rule of the prefix cache: an entry
+    # stops at its prefill-computed positions (tests/test_torch_prefixcache)
+    offer = jprefixcache.PrefixCachePlane.offer
+    monkeypatch.setattr(
+        jprefixcache.PrefixCachePlane, "offer",
+        lambda plane, r: offer(plane, dataclasses.replace(
+            r, pos=min(r.pos, len(r.prompt) - 1))))
+    out = io.StringIO()
+    monkeypatch.setattr(sys, "argv", ["serve"] + args)
+    with contextlib.redirect_stdout(out):
+        jserve.main()
+    assert got == lines(out.getvalue())
+    assert "prefix cache: 6 hits, 84 tokens adopted, 1 restored, 1 repins" \
+        in got
+    assert any("prefix_restored" in ln for ln in got)
 
 
 def _load_reference_demo():
