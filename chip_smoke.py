@@ -184,6 +184,31 @@ Phases, each of which raises on failure (exit code != 0):
                 copy and re-checkpoint host ms, ``restore_orphans`` host ms
                 and bytes, pinned bytes at the end and after every entry
                 was evicted, and the telemetry hooks' host ms a step.
+ 16. control plane and flight recorder (runs after phase 15, on its
+                weights; max_ew 3, paged KV, chunk budget CTL_BUDGET and
+                a token cap of 8x it) — the reference incident
+                (CTL_WORKLOAD: a batch wave of 8 x 40 tokens, then
+                interactive arrivals with 0.3 s first-token deadlines;
+                ``fail_aw(0)`` at 0.4 s; detection 0.05 s x 2, T_w 0.5
+                s) through ``run_serving`` on a fixed virtual clock
+                (CTL_CLOCK: a replay refuses host step times): (l) the
+                controller on (every policy, ``victim_policy=
+                "controller"``), the recorder and watchdogs on, autodump
+                at detection; (m) (l)'s bundle in script mode (the tool
+                refuses controller victims, as the reference's does, so
+                the decisions run with remaining-work victims); (n) the
+                bundle read back from its JSON file, exact mode, with the
+                weights as ``params``; (o) (l) with the recorder and
+                watchdogs off. Every stream of (m)-(o) equals (l)'s bit
+                for bit; (n) reports BIT-IDENTICAL with its config hash;
+                (l) makes a budget and a preempt decision and trips no
+                watchdog; ``PagePool.check()`` after each run; no capture
+                after warm-up, one host sync a decode step. Prints the
+                decisions by kind, the bundle's bytes, records and
+                fingerprints, the dump's host ms, the replay reports, the
+                controller's and recorder's host ms a serving-loop tick;
+                the expert FFN at any new (C, path) is held to its plain
+                versions, the flash kernel's new shapes in phase 14.
  10. hybrid   — Zamba2-7B widths at 13 layers in bfloat16 (2 units of 6
                 Mamba2 blocks + the shared attention block, 1 trailing
                 block), 8 requests of 128 prompt tokens and 16 greedy new
@@ -2150,14 +2175,16 @@ class ServeRun:
     around each prefill group, the record of the group, the record (and
     host time) of each restored request and of each preemption's commit,
     and the kernel observers of every phase; the rest is read from the
-    ServeMetrics after the run. ``orch_kw`` adds Orchestrator options and
-    ``scales`` the run's ScalePlans; each plan install records the
-    manager's per-EW load EMAs at that moment. ``setup(engine)`` runs on
-    the new engine first. The engine's telemetry plane (on unless
-    ``telemetry=False``) stays readable as ``m.telemetry``."""
+    ServeMetrics after the run. ``orch_kw`` adds (or overrides)
+    Orchestrator options and ``scales`` the run's ScalePlans; each plan
+    install records the manager's per-EW load EMAs at that moment.
+    ``clock`` (``step_time``, ``prefill_token_time``) puts the run on a
+    fixed virtual clock instead. ``setup(engine)`` runs on the new engine
+    first. The engine's telemetry plane (on unless ``telemetry=False``)
+    stays readable as ``m.telemetry``."""
 
     def __init__(self, torch, cfg, params, wl, failures=(), *, orch_kw=None,
-                 scales=(), setup=None, **ecfg_kw):
+                 scales=(), setup=None, clock=None, **ecfg_kw):
         from repro_torch.core.orchestrator import Orchestrator
         from repro_torch.serving.engine import EngineConfig, InferenceEngine
         from repro_torch.serving.scheduler import (FailurePlan, ScalePlan,
@@ -2167,7 +2194,8 @@ class ServeRun:
             params=params, device="cuda")
         if setup is not None:
             setup(eng)
-        orch = Orchestrator(eng, worker_init_time=1.0, **(orch_kw or {}))
+        orch = Orchestrator(eng, **{"worker_init_time": 1.0,
+                                    **(orch_kw or {})})
         sched = eng.scheduler
         prefill_group, install = sched._prefill_group, sched._install_recovery
         fail_aw, fail_ew = eng.fail_aw, eng.fail_ew
@@ -2253,7 +2281,8 @@ class ServeRun:
                                  failures=[FailurePlan(*f)
                                            for f in failures],
                                  scale_events=[ScalePlan(*sc)
-                                               for sc in scales])
+                                               for sc in scales],
+                                 **(clock or {}))
             self.wall_s = time.perf_counter() - t0
         if eng.decode_plane.captures() != captures:
             raise AssertionError("run_serving captured a step graph after "
@@ -2955,33 +2984,39 @@ class SessionRun:
                      if phase in self.ffn_c else ""))
 
 
-def telemetry_timed(times):
-    """An engine set-up that times every TelemetryPlane hook the serving
-    path calls (host clock), summed into ``times`` by hook name as [seconds,
-    calls] (a hook called from another is counted in the outer one
-    only)."""
+def hooks_timed(times, pick):
+    """An engine set-up that times, on the host clock, the hooks that
+    ``pick(engine)`` names as (object, label, method names), summed into
+    ``times`` by "label.name" (or the name alone when the label is None)
+    as [seconds, calls]; a hook called from another one is counted in the
+    outer one only."""
     depth = [0]
 
     def setup(eng):
-        tel = eng.telemetry
-        for name in dir(tel):
-            if not (name.startswith("on_") or name.startswith("observe_")):
-                continue
-            fn = getattr(tel, name)
+        for obj, label, names in pick(eng):
+            for name in names:
+                key = name if label is None else f"{label}.{name}"
 
-            def timed(*a, _fn=fn, _name=name, **kw):
-                depth[0] += 1
-                t0 = time.perf_counter()
-                try:
-                    return _fn(*a, **kw)
-                finally:
-                    depth[0] -= 1
-                    if not depth[0]:
-                        acc = times.setdefault(_name, [0.0, 0])
-                        acc[0] += time.perf_counter() - t0
-                        acc[1] += 1
-            setattr(tel, name, timed)
+                def timed(*a, _fn=getattr(obj, name), _key=key, **kw):
+                    depth[0] += 1
+                    t0 = time.perf_counter()
+                    try:
+                        return _fn(*a, **kw)
+                    finally:
+                        depth[0] -= 1
+                        if not depth[0]:
+                            acc = times.setdefault(_key, [0.0, 0])
+                            acc[0] += time.perf_counter() - t0
+                            acc[1] += 1
+                setattr(obj, name, timed)
     return setup
+
+
+def telemetry_timed(times):
+    """Times every TelemetryPlane hook the serving path calls."""
+    return hooks_timed(times, lambda eng: [(eng.telemetry, None, [
+        n for n in dir(eng.telemetry)
+        if n.startswith(("on_", "observe_"))])])
 
 
 def prefix_phase(torch, g, records, params):
@@ -3254,6 +3289,230 @@ def prefix_phase(torch, g, records, params):
                          for c, path in todo], timed=set(), small=False)
     print(f"  prefix phase wall {time.perf_counter() - t_phase:.1f} s; on "
           f"{card_line()}")
+    return runs
+
+
+# the control-plane and forensics phase, on the orchestrated phase's
+# weights, in the reference incident's shape (tests/test_flightrec.py):
+# CTL_WORKLOAD (a batch wave that fills every slot, then interactive
+# arrivals with 0.3 s first-token deadlines), AW0 failed at 0.4 s,
+# detection 0.05 s x 2, T_w 0.5 s; a fixed virtual clock (a replay refuses
+# host step times), chunked prefill at CTL_BUDGET tokens a tick with the
+# token cap at 8x it, paged KV, max_ew 3
+CTL_WORKLOAD = dict(kind="mixed_slo", rate_rps=3.0, duration=2.0, seed=7,
+                    max_new=40, interactive_deadline=0.3, batch_wave=8,
+                    batch_every=3.0)
+CTL_FAILURES = ((0.4, "aw", 0),)
+CTL_CLOCK = dict(step_time=0.02, prefill_token_time=0.002)
+CTL_BUDGET = 64
+CTL_ENGINE = dict(max_ew=3, chunk_token_budget=CTL_BUDGET,
+                  prefill_token_cap=8 * CTL_BUDGET,
+                  kv_page_tokens=PAGE_TOKENS)
+
+
+def planes_timed(times, keep):
+    """Keeps the engine in ``keep`` and times the control plane's and the
+    flight recorder's hooks (``hooks_timed``)."""
+    timed = hooks_timed(times, lambda eng: [
+        (eng.controller, "controller", ("tick", "choose_victim")),
+        (eng.flightrec, "flightrec",
+         [n for n in dir(eng.flightrec) if n.startswith(("on_", "note_"))]
+         + ["tick"])])
+
+    def setup(eng):
+        keep.append(eng)
+        timed(eng)
+    return setup
+
+
+def control_phase(torch, g, records, params):
+    """The control plane and the flight recorder on the orchestrated
+    phase's weights (Mixtral-8x7B widths at 8 layers, bf16, capacity
+    factor 4.0: no token dropped, so neither a victim's eviction nor a
+    plan or budget change can change a stream), ``run_serving`` on the
+    fixed virtual clock CTL_CLOCK over CTL_WORKLOAD with AW0 failed at
+    0.4 s: (l) the controller on (every policy, controller-chosen
+    victims), the recorder and watchdogs on, autodump at detection; (m)
+    (l)'s bundle replayed in script mode (controller off, its decisions as
+    ScalePlans and a budget timeline); (n) the bundle read back from its
+    JSON file and replayed in exact mode; (o) (l) with the recorder and
+    watchdogs off. Every stream of (m)-(o) equals (l)'s bit for bit; (l)
+    makes at least one budget and one preempt decision and trips no
+    watchdog; ``PagePool.check()`` after each run; no capture after the
+    warm-up and one host sync a decode step in each."""
+    import copy
+
+    from repro_torch.core.costmodel import TarragonProfile
+    from repro_torch.data.workloads import make_workload
+    from repro_torch.launch import replay
+    t_phase = time.perf_counter()
+    cfg = mixtral_8_layers(capacity_factor=4.0)
+    wl = make_workload(**CTL_WORKLOAD)
+    out_dir = Path(__file__).resolve().parent / "build" / "control_phase"
+    bundle_path = out_dir / "incident.postmortem.json"
+    auto_path = out_dir / "autodump.postmortem.json"
+    for p in (bundle_path, auto_path):
+        p.unlink(missing_ok=True)
+    print(f"  mixed_slo workload: {len(wl)} requests "
+          f"({sum(r.slo_class == 'batch' for r in wl)} batch at 0 s, "
+          f"{sum(r.slo_class == 'interactive' for r in wl)} interactive at "
+          f"{sorted(round(r.arrival, 3) for r in wl if r.slo_class == 'interactive')} s); "
+          f"AW0 fails at {CTL_FAILURES[0][0]} s; virtual clock {CTL_CLOCK}")
+    orch_kw = dict(profile=TarragonProfile(detect=0.05, detect_retries=2),
+                   worker_init_time=0.5)
+    kw = dict(orch_kw=orch_kw, clock=CTL_CLOCK, **CTL_ENGINE)
+    hooks, held = {}, []
+    runs = {"(l)": ServeRun(torch, cfg, params, wl, CTL_FAILURES,
+                            setup=planes_timed(hooks, held),
+                            controller="on", victim_policy="controller",
+                            watchdogs=True, flight_autodump=str(auto_path),
+                            **kw)}
+    eng = held[0]
+    held.clear()
+    runs["(o)"] = ServeRun(torch, cfg, params, wl, CTL_FAILURES,
+                           setup=held.append, controller="on",
+                           victim_policy="controller",
+                           flight_recorder=False, **kw)
+    engines = {"(l)": eng, "(o)": held[0]}
+    held.clear()
+    fr, ctl = eng.flightrec, eng.controller
+    t0 = time.perf_counter()
+    bundle = fr.dump(str(bundle_path), reason="control phase, end of (l)")
+    dump_s = time.perf_counter() - t0
+    auto = json.loads(auto_path.read_text())
+    if not auto["reason"].startswith("failure detected"):
+        raise AssertionError(f"(l): the autodump's reason is "
+                             f"{auto['reason']!r}")
+
+    # the replays build their own engines: warm each one's step graph
+    # before its run, as ServeRun does, and observe what it gives the
+    # kernels
+    replay_engine = replay.InferenceEngine
+
+    def replayed(label, b, mode):
+        made = []
+
+        def warm_engine(*a, **k):
+            e = replay_engine(*a, **k)
+            warm_step_graph(e)
+            made.append((e, e.decode_plane.captures()))
+            return e
+        with patched(replay, InferenceEngine=warm_engine), \
+                observed(torch, "decode") as obs:
+            t0 = time.perf_counter()
+            report = replay.replay_bundle(b, mode, params=params,
+                                          device="cuda")
+            wall = time.perf_counter() - t0
+        e, captures = made[0]
+        if e.decode_plane.captures() != captures:
+            raise AssertionError(f"{label}: the replay captured a step "
+                                 f"graph after its engine's warm-up")
+        engines[label] = e
+        runs[label] = SimpleNamespace(
+            ffn_c=obs.ffn_c, ran=obs.ran, host_syncs=e.gateway.stats
+            .host_syncs, steps=e.steps, report=report, wall_s=wall)
+        return report
+    # script mode cannot re-run controller-chosen victims (not recorded as
+    # decisions); the tool refuses (l)'s bundle as the reference's does,
+    # so (m) runs the decisions with remaining-work victims: at capacity
+    # factor 4.0 a victim's choice changes no stream
+    try:
+        replay.replay_bundle(copy.deepcopy(bundle), "script", params=params,
+                             device="cuda")
+        raise AssertionError("(m): script mode took controller victims")
+    except replay.BundleError as e:
+        refusal = str(e)
+    script = copy.deepcopy(bundle)
+    script["config"]["engine"]["victim_policy"] = "remaining_work"
+    rm = replayed("(m)", script, "script")
+    rn = replayed("(n)", replay.load_bundle(str(bundle_path)), "exact")
+
+    l_out = runs["(l)"].m.outputs
+    for label, run in runs.items():
+        if label in ("(l)", "(o)"):
+            run.report(label)
+            if len(run.m.finished) != run.n:
+                raise AssertionError(f"{label}: {len(run.m.finished)} of "
+                                     f"{run.n} requests finished")
+            if run.m.outputs != l_out:
+                raise AssertionError(f"{label}: streams differ from (l)'s")
+        else:
+            rep = run.report
+            if not rep["ok"] or rep["extra_finished"] or \
+                    rep["requests_replayed"] != len(l_out) or \
+                    rep["matched"] != len(l_out):
+                raise AssertionError(f"{label}: the replay diverged: {rep}")
+        if run.host_syncs != run.steps:
+            raise AssertionError(f"{label}: {run.host_syncs} host syncs in "
+                                 f"{run.steps} decode steps")
+        engines[label].pages.check()
+    if not rn["config_hash_ok"]:
+        raise AssertionError(f"(n): config hash mismatch: {rn}")
+    counts = ctl.counts
+    if counts["budget"] < 1 or counts["preempt"] < 1:
+        raise AssertionError(f"(l): no budget or no preempt decision: "
+                             f"{counts}")
+    wd = fr.watchdogs
+    if wd.trips:
+        raise AssertionError(f"(l): watchdog trips {wd.trips}")
+    by_kind = {}
+    for d in ctl.decisions:
+        by_kind.setdefault(d["kind"], []).append(
+            f"t={d['t']:.3f} {d['detail']}")
+    print(f"  (l) decisions {counts}; preemptions "
+          f"{runs['(l)'].m.gateway['preemptions']}; final chunk budget "
+          f"{ctl.stats()['chunk_budget']}, pool {runs['(l)'].live_ews}")
+    for kind, details in by_kind.items():
+        print(f"    {kind}: {details[:3]}"
+              + (f" (+{len(details) - 3} more)" if len(details) > 3 else ""))
+    print(f"  (l) watchdogs: 0 trips over {wd.intervals} intervals; "
+          f"autodump at detection: {auto['reason']!r}, "
+          f"{len(auto['records'])} records")
+    print(f"  (l) bundle: {bundle_path.stat().st_size} bytes, "
+          f"{len(bundle['records'])} records ({fr.records_dropped} dropped), "
+          f"{fr.fingerprints} fingerprints, {len(bundle['submissions'])} "
+          f"submissions, {len(bundle['outputs'])} outputs; dump "
+          f"{dump_s * 1e3:.3f} ms host")
+    print(f"  (m) script mode: (l)'s bundle refused as recorded "
+          f"({refusal!r}); with remaining-work victims: {rm}; "
+          f"{runs['(m)'].wall_s:.2f} s wall")
+    print(f"  (n) exact mode from {bundle_path.name}: {rn}; verdict "
+          f"{'BIT-IDENTICAL' if rn['ok'] else 'DIVERGED'}; "
+          f"{runs['(n)'].wall_s:.2f} s wall")
+    print(f"  (l), (m), (n), (o): {len(l_out)} streams bitwise equal to "
+          f"(l)'s; PagePool.check() after each; one host sync a decode step "
+          f"in each ({', '.join(f'{k} {r.steps}' for k, r in runs.items())} "
+          f"steps); no capture after warm-up")
+    ticks = hooks["flightrec.tick"][1]
+    per_tick = {n: t / ticks for n, (t, _) in hooks.items()}
+    print(f"  (l) hook host ms a serving-loop tick ({ticks} ticks, "
+          f"{runs['(l)'].steps} decode steps): controller "
+          f"{sum(v for n, v in per_tick.items() if n.startswith('controller')) * 1e3:.4f}, "
+          f"flight recorder "
+          f"{sum(v for n, v in per_tick.items() if n.startswith('flightrec')) * 1e3:.4f}; "
+          f"by hook (ms in all, calls) "
+          f"{ {n: (round(t * 1e3, 3), c) for n, (t, c) in sorted(hooks.items())} }; "
+          f"run wall (l) {runs['(l)'].wall_s * 1e3:.2f} ms, (o) "
+          f"{runs['(o)'].wall_s * 1e3:.2f} ms")
+
+    seen = {key for run in runs.values() for per in run.ffn_c.values()
+            for key in per}
+    todo = sorted(seen - FFN_CHECKED)
+    if todo:
+        print(f"  expert FFN at the new (C, path) pairs of these runs: "
+              f"{todo}")
+        kernel_moe_gemm(torch, g, records,
+                        [(f"control-C{c}-{path}", c, path == "skinny", path)
+                         for c, path in todo], timed=set(), small=False)
+    launches = Counter()
+    for label, run in runs.items():
+        ran = run.ran if hasattr(run, "ran") else {
+            k: sum(run.launches[ph][k] for ph in run.launches)
+            for k in run.launches["decode"]}
+        launches.update({k: v for k, v in ran.items() if v})
+    print(f"  control phase launches over its {len(runs)} runs: "
+          f"{dict(sorted(launches.items()))}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s; on {card_line()}")
     return runs
 
 
@@ -3884,8 +4143,15 @@ def main():
           f"max_seq {PREFIX_MAX_SEQ}, chunk budget {CHUNK_BUDGET}; then "
           f"{PREFIX_WORKLOAD} at the launcher's prefix settings")
     prefix_phase(torch, g, records, engine.params)
-    del engine
     phase("prefix cache + telemetry")
+    print(f"control plane and flight recorder: the same weights, "
+          f"{CTL_WORKLOAD['kind']} with AW0 failed at "
+          f"{CTL_FAILURES[0][0]} s, chunk budget {CTL_BUDGET}, paged KV, "
+          f"virtual clock {CTL_CLOCK}; recorded, replayed in script and "
+          f"exact mode, and run with the recorder off")
+    control_phase(torch, g, records, engine.params)
+    del engine
+    phase("control plane + flight recorder")
     print(f"hybrid: Zamba2-7B widths, {HYBRID_LAYERS} layers, bf16, "
           f"contiguous KV + recurrent state, 2 AWs")
     hybrid = hybrid_phase(torch, profile_dir=args.profile)

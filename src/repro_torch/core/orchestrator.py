@@ -88,6 +88,15 @@ class Orchestrator:
         # control-plane events also go to the engine's event bus at
         # emission (serving/telemetry.py)
         self.bus = engine.bus
+        # the control plane decides and this orchestrator actuates, so its
+        # scale and rebalance requests land on the same virtual clock as
+        # scripted ones (serving/controller.py)
+        if engine.controller is not None:
+            engine.controller.attach_orchestrator(self)
+        # the forensics plane pins the timing and policy parameters, so a
+        # bundle can rebuild an identically clocked orchestrator
+        if engine.flightrec is not None:
+            engine.flightrec.note_orchestrator(self)
 
     def _emit(self, ev: WorkerEvent):
         self.events.append(ev)

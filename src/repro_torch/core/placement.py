@@ -120,6 +120,12 @@ class ExpertPlacementManager:
             ema_ew=np.zeros((self.max_ew,), np.float64), decay=ema_decay)
         self.rebalance_threshold = rebalance_threshold
         self.min_load_signal = min_load_signal
+        # replica packing of leftover slots: "parity" (hottest-first onto
+        # the lightest EW) or "weighted" (best-fit-decreasing against the
+        # measured per-EW deficit; the control plane sets it). Either way
+        # a replica takes half its expert's traffic on the device, so the
+        # mode changes which experts replicate and where, not routing.
+        self.split_mode = "parity"
         self.plan = self._initial_plan()
         self.history: List[PlacementPlan] = [self.plan]
 
@@ -235,27 +241,71 @@ class ExpertPlacementManager:
         # replicas into leftover slots; a replica on a different EW than
         # the primary takes half the expert's traffic
         split_slot = np.full((e,), -1, np.int32)
-        # hottest experts first, each onto the globally lightest EW with
-        # a free slot
-        for ex in order:
-            if primary[ex] < 0 or split_slot[ex] >= 0:
-                continue
-            home = int(slot_owner[primary[ex]])
-            cands = [m for m in members if free[m] and m != home]
-            if not cands:
-                continue
-            half = float(load[ex]) / 2.0
-            m = min(cands, key=lambda w: (ew_load[w], w))
-            # only replicate if it actually helps the imbalance
-            if ew_load[m] + half >= ew_load[home]:
-                continue
-            s = free[m].pop(0)
-            slot_expert[s] = ex
-            split_slot[ex] = s
-            ew_load[m] += half
-            ew_load[home] -= half
+        if self.split_mode == "weighted":
+            self._weighted_splits(load, slot_owner, members, free, ew_load,
+                                  slot_expert, primary, split_slot)
+        else:
+            # hottest experts first, each onto the globally lightest EW
+            # with a free slot
+            for ex in order:
+                if primary[ex] < 0 or split_slot[ex] >= 0:
+                    continue
+                home = int(slot_owner[primary[ex]])
+                cands = [m for m in members if free[m] and m != home]
+                if not cands:
+                    continue
+                half = float(load[ex]) / 2.0
+                m = min(cands, key=lambda w: (ew_load[w], w))
+                # only replicate if it actually helps the imbalance
+                if ew_load[m] + half >= ew_load[home]:
+                    continue
+                s = free[m].pop(0)
+                slot_expert[s] = ex
+                split_slot[ex] = s
+                ew_load[m] += half
+                ew_load[home] -= half
         return self._commit(slot_expert, slot_owner, primary, split_slot,
                             reason)
+
+    @staticmethod
+    def _weighted_splits(load, slot_owner, members, free, ew_load,
+                         slot_expert, primary, split_slot):
+        """Best-fit-decreasing replica packing (``split_mode="weighted"``):
+        each round takes the most deficient member EW and gives it the
+        un-split expert whose half load best fills its gap to the pool
+        mean. Mutates ``free``, ``ew_load``, ``slot_expert`` and
+        ``split_slot`` in place."""
+        while True:
+            mean = sum(ew_load.values()) / max(1, len(ew_load))
+            targets = [m for m in members if free[m] and ew_load[m] < mean]
+            if not targets:
+                return
+            m = min(targets, key=lambda w: (ew_load[w], w))
+            deficit = mean - ew_load[m]
+            best_ex, best_fit = -1, None
+            for ex in range(len(primary)):
+                if primary[ex] < 0 or split_slot[ex] >= 0:
+                    continue
+                home = int(slot_owner[primary[ex]])
+                if home == m:
+                    continue
+                half = float(load[ex]) / 2.0
+                # the parity mode's guard: a split that overshoots past its
+                # donor makes the imbalance worse
+                if ew_load[m] + half >= ew_load[home]:
+                    continue
+                fit = abs(deficit - half)
+                if best_fit is None or fit < best_fit - 1e-12:
+                    best_ex, best_fit = ex, fit
+            if best_ex < 0:
+                return
+            home = int(slot_owner[primary[best_ex]])
+            half = float(load[best_ex]) / 2.0
+            s = free[m].pop(0)
+            slot_expert[s] = best_ex
+            split_slot[best_ex] = s
+            ew_load[m] += half
+            ew_load[home] -= half
 
     def adopt(self, slot_expert, slot_owner=None, primary=None,
               split_slot=None, reason: str = "custom") -> PlacementPlan:

@@ -9,6 +9,8 @@ injected through the orchestrator.
         [--chunk-budget 16] [--placement session_affinity] \\
         [--prefix-slots 3] [--no-telemetry] [--trace-out T.json] \\
         [--metrics-out M.json] [--prom-out M.prom] \\
+        [--controller] [--no-ctl-autoscale] [--no-ctl-rebalance] \\
+        [--no-ctl-budget] [--postmortem P.json] [--watchdogs] \\
         [--no-tarragon] [--device cpu]
 
 The reduced model (capacity factor 4.0) runs on the card unless
@@ -19,9 +21,14 @@ unless ``--no-preempt``; the prefill token cap is 8 x ``--chunk-budget``.
 ``--prefix-slots`` turns the prefix cache on (and chunked prefill, at a
 budget of 16 when none is given); telemetry is on unless
 ``--no-telemetry``, and its stall attribution prints one ``[stall ...]``
-line per attributed gap. The reference's flags whose planes are not
-ported yet are absent: ``--controller`` and its ``--no-ctl-*``
-switches, ``--postmortem`` and ``--watchdogs``.
+line per attributed gap. ``--controller`` turns the control plane on
+(EW autoscaling, trajectory-triggered weighted rebalance, the adaptive
+chunk budget and, unless ``--no-preempt``, deadline-aware preemption;
+``--no-ctl-*`` switch single policies off) and prints one ``[ctl ...]``
+line per decision. ``--watchdogs`` turns the health watchdogs on and
+prints their summary; ``--postmortem PATH`` dumps the flight recorder's
+bundle at exit, which ``python -m repro_torch.launch.replay PATH`` re-runs
+(add ``--device cpu`` there too for a CPU run).
 """
 from __future__ import annotations
 
@@ -97,6 +104,18 @@ def main(argv=None):
                          "permanent shadow promotion (pool shrinks)")
     ap.add_argument("--rebalance", action="store_true",
                     help="auto-rebalance expert placement under load skew")
+    ap.add_argument("--controller", action="store_true",
+                    help="SLO-driven closed-loop control plane: EW "
+                         "autoscaling, trajectory-triggered rebalance with "
+                         "weighted splits, adaptive chunk budget, and "
+                         "deadline-aware preemption (serving/controller.py)")
+    ap.add_argument("--no-ctl-autoscale", action="store_true",
+                    help="with --controller: disable the autoscale policy")
+    ap.add_argument("--no-ctl-rebalance", action="store_true",
+                    help="with --controller: disable the rebalance policy")
+    ap.add_argument("--no-ctl-budget", action="store_true",
+                    help="with --controller: disable the adaptive "
+                         "chunk budget policy")
     ap.add_argument("--no-preempt", action="store_true",
                     help="disable preempt-and-requeue (blocked interactive "
                          "requests wait instead of evicting batch victims)")
@@ -112,6 +131,14 @@ def main(argv=None):
                          "the same either way)")
     ap.add_argument("--trace-out", default="",
                     help="write a Perfetto/Chrome trace_event JSON here")
+    ap.add_argument("--postmortem", default="", metavar="PATH",
+                    help="dump the flight-recorder postmortem bundle here "
+                         "at exit (replay: python -m "
+                         "repro_torch.launch.replay PATH)")
+    ap.add_argument("--watchdogs", action="store_true",
+                    help="health watchdogs: leak and stall-regression "
+                         "detectors and invariant probes (prints the "
+                         "health summary at exit)")
     ap.add_argument("--metrics-out", default="",
                     help="write the JSON metrics snapshot here")
     ap.add_argument("--prom-out", default="",
@@ -141,7 +168,14 @@ def main(argv=None):
                         prefill_token_cap=8 * args.chunk_budget,
                         prefix_cache_slots=args.prefix_slots,
                         telemetry=not args.no_telemetry,
-                        trace_export_path=args.trace_out)
+                        trace_export_path=args.trace_out,
+                        controller="on" if args.controller else "off",
+                        ctl_autoscale=not args.no_ctl_autoscale,
+                        ctl_rebalance=not args.no_ctl_rebalance,
+                        ctl_chunk_budget=not args.no_ctl_budget,
+                        victim_policy="controller" if args.controller and
+                        not args.no_preempt else "remaining_work",
+                        watchdogs=args.watchdogs)
     eng = InferenceEngine(cfg, ecfg, seed=args.seed, device=args.device)
     orch = Orchestrator(eng, worker_init_time=1.0, weight_push_time=0.25,
                         ew_policy=args.ew_policy,
@@ -194,6 +228,9 @@ def main(argv=None):
             print(f"    {cls}: {counts}{extra}")
     for e in orch.events:
         print(f"  [orch t={e.t:.2f}] {e.kind} {e.worker} {e.detail}")
+    if eng.controller is not None:
+        for d in eng.controller.decisions:
+            print(f"  [ctl t={d['t']:.2f}] {d['kind']} {d['detail']}")
     if m.telemetry is not None:
         for st in m.telemetry.stall_report():
             comps = ", ".join(f"{k}={v*1e3:.0f}ms"
@@ -212,6 +249,19 @@ def main(argv=None):
         if args.trace_out:
             print(f"  perfetto trace -> {args.trace_out} "
                   f"(open at ui.perfetto.dev)")
+    fr = eng.flightrec
+    if fr is not None and fr.watchdogs is not None:
+        hs = fr.watchdogs.summary()
+        print(f"  health: {hs['trips']} watchdog trip(s) over "
+              f"{hs['intervals']} interval(s) {dict(hs['by_kind'])}")
+        for t in hs["last_trips"]:
+            print(f"    [health t={t['t']:.2f}] {t['kind']} "
+                  f"{t['what']}: {t['detail']}")
+    if args.postmortem and fr is not None:
+        fr.dump(args.postmortem, reason="postmortem on demand (--postmortem)")
+        dev = "" if args.device == "cuda" else f" --device {args.device}"
+        print(f"  postmortem bundle -> {args.postmortem} (replay: python -m "
+              f"repro_torch.launch.replay {args.postmortem}{dev})")
     return m
 
 

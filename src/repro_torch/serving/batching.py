@@ -230,6 +230,8 @@ class ContinuousBatchScheduler:
         eng.decode_plane.bind(r)
         if eng.telemetry is not None:
             eng.telemetry.on_restore(q.rid, now, len(segs), r.prefilling)
+        if eng.flightrec is not None:
+            eng.flightrec.on_restore(q.rid, now, len(segs), r.prefilling)
 
         if r.prefilling:
             # resume the chunk stream after the restored prefix (committed
@@ -252,16 +254,27 @@ class ContinuousBatchScheduler:
 
     # -- decode -------------------------------------------------------------
     def step(self, now: Optional[float] = None) -> Dict[str, List[int]]:
-        """One iteration: an admission pass when anything waits, deadline
-        accounting, a budgeted slice of chunked prefill (when the plane is
-        on), then one decode
+        """One iteration: the control plane's decision pass (when it is
+        on), an admission pass when anything waits, deadline accounting,
+        the flight recorder's tick, a budgeted slice of chunked prefill
+        (when the plane is on), then one decode
         dispatch over all active slots: a step, or a segment of
         ``decode_segment_len`` steps. Returns {rid: new_tokens}."""
         eng = self.engine
         t_now = now if now is not None else float(eng.steps)
+        if eng.controller is not None:
+            # the control plane's decision pass comes before admission:
+            # scale and rebalance requests land on the orchestrator's
+            # clock, and the chunk budget is set before this tick's plan
+            eng.controller.tick(t_now)
         if self.gateway.depth():
             self.admit(t_now)
         eng.check_deadlines(t_now)
+        if eng.flightrec is not None:
+            # the forensics plane: drain the bus through the recorder's
+            # cursor, fingerprint when due, advance the watchdogs (host
+            # bookkeeping only)
+            eng.flightrec.tick(t_now)
         if eng.chunked is not None:
             eng.chunked.tick(t_now)
         act = eng.active_requests()

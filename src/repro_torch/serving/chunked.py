@@ -87,6 +87,16 @@ class ChunkedPrefillPlane:
         self.jobs: Dict[str, _PrefillJob] = {}   # rid -> job, FIFO order
         self.stats = ChunkedPrefillStats()
 
+    def set_budget(self, budget: int) -> int:
+        """The control plane's actuator: retarget the per-tick token
+        budget, a host int ``plan()`` reads each tick. The chunk shapes
+        (powers of two capped at ``max_shape``) do not depend on it, and
+        every dense call runs on fixed 128-row blocks, so a new budget
+        changes neither a stream's bits nor any graph. Returns the clamped
+        value now in effect."""
+        self.budget = max(1, int(budget))
+        return self.budget
+
     # ------------------------------------------------------------------
     # admission-side API
     # ------------------------------------------------------------------
@@ -250,6 +260,8 @@ class ChunkedPrefillPlane:
                 self.stats.prefilled_tokens.get(job.rid, 0) + take
             if eng.telemetry is not None:
                 eng.telemetry.on_prefill_chunk(job.rid, now, take, shape)
+            if eng.flightrec is not None:
+                eng.flightrec.on_chunk(job.rid, now, take, shape, c)
             if r.prefill_cursor >= job.n_pre:
                 del self.jobs[job.rid]
                 self._finalize(r)

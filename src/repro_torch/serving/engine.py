@@ -48,6 +48,16 @@ published on ``engine.bus``; ``engine.telemetry`` keeps histograms,
 spans and stall attribution from host hooks on values the host already
 holds (no device read, no capture).
 
+Control plane (``serving/controller.py``, ``controller="on"``): one
+decision pass per tick autoscales the EW pool, triggers weighted
+rebalances off the load trajectory, adapts the chunk budget to deadline
+headroom and, under ``victim_policy="controller"``, gates preemption on
+deadline risk. Forensics plane (``serving/flightrec.py``,
+``flight_recorder`` True by default, as in the reference): a bounded
+recorder of events, submissions, outputs and state fingerprints on the
+bus, postmortem bundles that ``launch/replay.py`` re-runs, and health
+watchdogs (``watchdogs``). Both planes read host state only.
+
 Placement plane (``core/placement.py``): with MoE and ``tarragon``, an
 ``ExpertPlacementManager`` versions the expert layout. ``add_ew``,
 ``drain_ew``, ``promote_shadows``, ``rebalance`` and ``repoint_shadows``
@@ -83,7 +93,9 @@ from repro_torch.serving.api import (CANCELLED, DECODING, DONE, PLACED,
                                      SamplingParams)
 from repro_torch.serving.batching import ContinuousBatchScheduler
 from repro_torch.serving.chunked import ChunkedPrefillPlane
+from repro_torch.serving.controller import ServingController
 from repro_torch.serving.decode_loop import DecodeLoopPlane
+from repro_torch.serving.flightrec import FlightRecorder
 from repro_torch.serving.gateway import Gateway, QueuedRequest
 from repro_torch.serving.kvcache import (CacheLayout, PagedCacheLayout,
                                          PagePool)
@@ -119,8 +131,11 @@ class EngineConfig:
     preempt: bool = True           # a blocked interactive head may evict a
     #                                batch victim (preempt-and-requeue)
     victim_policy: str = "remaining_work"  # "remaining_work" (most tokens
-    #                                left, prefill debt included) or
-    #                                "youngest" (latest arrival)
+    #                                left, prefill debt included),
+    #                                "youngest" (latest arrival) or
+    #                                "controller" (the control plane's
+    #                                deadline- and KV-aware choice; needs
+    #                                controller="on")
     decode_segment_len: int = 1    # decode steps per dispatch (one CUDA
     #                                graph replay on the card); > 1 drains
     #                                the tokens once per segment and
@@ -150,6 +165,55 @@ class EngineConfig:
     #                                the gap is attributed to causes
     hist_buckets_per_decade: int = 32  # streaming-histogram resolution
     trace_export_path: str = ""    # Chrome trace written at finalize
+    # ---- control plane (serving/controller.py)
+    controller: str = "off"        # "off" (every knob static) or "on"
+    #                                (one decision pass per tick; host
+    #                                only: on equals its decisions replayed
+    #                                as a script, bit for bit)
+    ctl_autoscale: bool = True     # policy 1: EW pool size from queue-depth
+    #                                EMA watermarks
+    ctl_rebalance: bool = True     # policy 2: trajectory-triggered
+    #                                rebalance and weighted split plans
+    ctl_chunk_budget: bool = True  # policy 3: chunk budget from SLO
+    #                                headroom
+    ctl_queue_high: float = 3.0    # scale-out watermark (queue EMA)
+    ctl_queue_low: float = 0.25    # scale-in watermark (queue EMA; the
+    #                                pool must also be idle and above its
+    #                                boot size)
+    ctl_scale_dwell: float = 0.0   # debounce between scale decisions (0 =
+    #                                T_w + 2*T_push of the orchestrator)
+    ctl_headroom: float = 0.25     # interactive deadline headroom (virtual
+    #                                s) under which the budget reacts
+    ctl_budget_min: int = 0        # budget floor (0 = max(min_chunk,
+    #                                base/4))
+    ctl_budget_max: int = 0        # budget ceiling (0 = 4x the base)
+    ctl_deadline_risk: float = 0.1  # head deadline headroom (virtual s)
+    #                                below which the preemption gate opens
+    #                                (victim_policy="controller")
+    ctl_kv_weight: float = 1.0     # victim pricing: weight of the resident
+    #                                or exclusive KV subtracted from the
+    #                                remaining work
+    # ---- forensics plane (serving/flightrec.py)
+    flight_recorder: bool = True   # black box riding the EventBus (host
+    #                                only: on and off give the same streams
+    #                                and step graphs)
+    flight_capacity: int = 4096    # ring size of records, submissions and
+    #                                outputs (older drop, drops counted)
+    flight_fingerprint_every: float = 0.5  # virtual s between engine-state
+    #                                fingerprints (0 = only on dump)
+    flight_autodump: str = ""      # write a bundle here on the first
+    #                                failure detection or watchdog trip
+    watchdogs: bool = False        # leak, stall-regression and invariant
+    #                                detectors (need the recorder)
+    wd_interval: float = 0.25      # watchdog interval (virtual s)
+    wd_window: int = 8             # sliding window (intervals) of the
+    #                                trend tests
+    wd_leak_min_drop: int = 2      # free-list watermark drop over a full
+    #                                window that counts as a leak
+    wd_stall_factor: float = 2.0   # windowed TTFT/TBT p99 multiple of the
+    #                                baseline that trips
+    wd_settle: float = 1.0         # quiet time after a disturbance before
+    #                                leak and stall judgments resume
 
 
 @dataclass
@@ -221,19 +285,30 @@ class InferenceEngine:
         self.device = torch.device(device)
         self.api = get_model(cfg, num_aw=ecfg.num_aw, num_ew=ecfg.num_ew,
                              tarragon=ecfg.tarragon, device=self.device)
+        # how the weights were made, pinned so a postmortem bundle can
+        # rebuild this engine: the seed of the engine's own draw, or None
+        # for weights the caller passed in (a replay then needs them)
+        self.weights_source: Optional[dict] = None
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.api.init_params(gen)
+            self.weights_source = {"seed": int(seed)}
         self.params = params
         self.route_state: RouteState = self.api.init_route_state()
         if ecfg.max_batch % ecfg.num_aw:
             raise ValueError("max_batch must be a multiple of num_aw")
-        if ecfg.victim_policy == "controller":
-            raise ValueError(
-                'victim_policy="controller" needs the control plane '
-                '(serving/controller.py), which the port does not have')
-        if ecfg.victim_policy not in ("remaining_work", "youngest"):
+        if ecfg.victim_policy not in ("remaining_work", "youngest",
+                                      "controller"):
             raise ValueError(f"unknown victim_policy {ecfg.victim_policy!r}")
+        if ecfg.controller not in ("off", "on"):
+            raise ValueError(f"unknown controller mode {ecfg.controller!r}")
+        if ecfg.victim_policy == "controller" and ecfg.controller != "on":
+            raise ValueError('victim_policy="controller" needs the control '
+                             'plane (controller="on")')
+        if ecfg.watchdogs and not ecfg.flight_recorder:
+            raise ValueError("watchdogs=True needs flight_recorder=True "
+                             "(the watchdogs ride the recorder's bus "
+                             "cursor and trigger its dump)")
         if ecfg.decode_segment_len > 1 and \
                 not self.api.supports_decode_segments:
             raise ValueError(
@@ -347,6 +422,15 @@ class InferenceEngine:
         self._release_hooks: List[Callable] = []
         self._client: Optional[Client] = None
         self.steps = 0
+        # ---- control plane: one decision pass per tick over host signals
+        # the stack already keeps, acting through existing mechanisms
+        self.controller: Optional[ServingController] = \
+            ServingController(self) if ecfg.controller == "on" else None
+        # ---- forensics plane: bounded black box and health watchdogs on
+        # the bus, host bookkeeping only
+        self.flightrec: Optional[FlightRecorder] = \
+            FlightRecorder(self) if ecfg.flight_recorder else None
+        self.gateway.flightrec = self.flightrec
 
     # -- expert capacity ----------------------------------------------------
     def prefill_capacity(self, n_real_tokens: int) -> Optional[int]:
@@ -442,11 +526,16 @@ class InferenceEngine:
         debt = (len(r.prompt) - 1 - r.prefill_cursor) if r.prefilling else 0
         return (r.max_new - len(r.tokens)) + debt
 
-    def _choose_victim(self, exclude: str = "") -> Optional[RequestState]:
+    def _choose_victim(self, exclude: str = "", head=None,
+                       now: float = 0.0) -> Optional[RequestState]:
         """The preemption victim among preemptible-class requests resident
         on live AWs: the most remaining work (``remaining_work``) or the
         latest arrival (``youngest``); among equals the one preempted the
-        fewest times, then the highest rid."""
+        fewest times, then the highest rid. ``controller`` delegates to
+        the control plane, which evicts only when the blocked head's
+        deadline is at risk and prices in the victim's exclusive KV and
+        adopted prefix. The candidate filter is shared, so interactive
+        work is never a victim."""
         cands = [r for r in self.requests.values()
                  if r.slo_class in PREEMPTIBLE_CLASSES and not r.done
                  and not r.paused and not r.cancelled
@@ -454,6 +543,8 @@ class InferenceEngine:
                  and r._aw >= 0 and self.aws[r._aw].alive]
         if not cands:
             return None
+        if self.ecfg.victim_policy == "controller":
+            return self.controller.choose_victim(cands, head=head, now=now)
         if self.ecfg.victim_policy == "youngest":
             return max(cands, key=lambda r: (r.t_enqueue, -r.preemptions,
                                              r.rid))
@@ -463,7 +554,7 @@ class InferenceEngine:
     def _preempt_for(self, head: QueuedRequest, now: float) -> bool:
         """The Gateway's preemptor: a blocked interactive head asks for a
         slot; evict a batch victim if there is one."""
-        victim = self._choose_victim(exclude=head.rid)
+        victim = self._choose_victim(exclude=head.rid, head=head, now=now)
         if victim is None:
             return False
         return self.preempt_request(victim.rid, now=now)
@@ -1044,5 +1135,7 @@ class InferenceEngine:
         self.store.release(rid)
         if self.telemetry is not None:
             self.telemetry.on_release(r)
+        if self.flightrec is not None:
+            self.flightrec.on_release(r)
         for hook in self._release_hooks:
             hook(r)

@@ -246,6 +246,9 @@ class Gateway:
         # when telemetry is on, the TelemetryPlane
         self.bus = None
         self.telemetry = None
+        # the forensics plane: records every external submission (the
+        # replay workload) at the enqueue boundary
+        self.flightrec = None
 
     def attach_bus(self, bus):
         """Install the event bus; the placement policy shares it, so
@@ -262,15 +265,17 @@ class Gateway:
         if slo_class not in SLO_CLASSES:
             raise ValueError(f"unknown slo_class {slo_class!r}: expected "
                              f"one of {SLO_CLASSES}")
-        self._insert(QueuedRequest(rid, np.asarray(prompt, np.int32),
-                                   max_new, now, slo_class=slo_class,
-                                   deadline=deadline, sampling=sampling,
-                                   session=session,
-                                   completion_deadline=completion_deadline))
+        entry = QueuedRequest(rid, np.asarray(prompt, np.int32), max_new,
+                              now, slo_class=slo_class, deadline=deadline,
+                              sampling=sampling, session=session,
+                              completion_deadline=completion_deadline)
+        self._insert(entry)
         self.stats.enqueued += 1
         self.stats.bump(slo_class, "enqueued")
         if self.telemetry is not None:
             self.telemetry.on_enqueue(rid, now, slo_class)
+        if self.flightrec is not None:
+            self.flightrec.on_submit(entry, now)
 
     def _insert(self, entry: QueuedRequest):
         """Deadline-aware stable insertion: after every recovery entry,
@@ -301,6 +306,17 @@ class Gateway:
 
     def depth(self) -> int:
         return sum(len(q) for q in self.queues.values())
+
+    # -- control-plane signals (serving/controller.py) ----------------------
+    def class_depth(self, slo_class: str) -> int:
+        return len(self.queues[slo_class])
+
+    def min_queued_deadline(self, slo_class: str) -> Optional[float]:
+        """Earliest first-token deadline waiting in one class queue (None
+        when the queue is empty or nothing in it carries a deadline)."""
+        dls = [e.deadline for e in self.queues[slo_class]
+               if e.deadline is not None]
+        return min(dls) if dls else None
 
     def find(self, rid: str) -> Optional[QueuedRequest]:
         for q in self.queues.values():

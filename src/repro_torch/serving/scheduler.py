@@ -21,8 +21,11 @@ plane on (the default), the loop feeds it each step's span, every
 token's stamp and each TTFT, and finalizes it at the end
 (``ServeMetrics.telemetry``); the gateway's ``prefix`` block counts the
 prefix cache's hits, adopted tokens, evictions, restores, global-index
-hits, migrations and session re-pins. The reference's flight-recorder
-and controller lines are left out: those planes are not ported.
+hits, migrations and session re-pins. With the flight recorder on (the
+default), the loop pins its clock parameters (``note_loop``) and every
+scripted failure and scale event (``note_injection``), so a postmortem
+bundle can re-run it (``launch/replay.py``); with the control plane on,
+``ServeMetrics.controller`` carries its decision history and counters.
 """
 from __future__ import annotations
 
@@ -56,6 +59,8 @@ class ServeMetrics:
     telemetry: object = None   # the engine's TelemetryPlane (None = off):
     #                            streamed twins of the lists above, spans
     #                            and per-cause stall attribution
+    controller: dict = field(default_factory=dict)  # control-plane audit
+    #                            (decision history and counters; {} = off)
 
     def throughput(self) -> float:
         return len(self.token_log) / self.duration if self.duration else 0.0
@@ -128,6 +133,12 @@ def run_serving(engine, workload: List[Request], duration: float, *,
     gw = engine.gateway
     tel = engine.telemetry
     m.telemetry = tel
+    fr = engine.flightrec
+    if fr is not None:
+        # a bundle replays the incident only if it can re-run this loop
+        fr.note_loop(duration=duration, step_time=step_time,
+                     prefill_token_time=prefill_token_time,
+                     max_steps=max_steps)
     clock = 0.0
     pending = sorted(workload, key=lambda r: r.arrival)
     qi = 0
@@ -142,6 +153,8 @@ def run_serving(engine, workload: List[Request], duration: float, *,
                 if orchestrator is None:
                     raise ValueError("failures need an orchestrator")
                 orchestrator.inject_failure(f.kind, f.worker_id, clock)
+                if fr is not None:
+                    fr.note_injection("failure", f)
                 injected[i] = True
         # elasticity requests (the orchestrator clocks their completion)
         for i, s in enumerate(scale_events):
@@ -157,6 +170,8 @@ def run_serving(engine, workload: List[Request], duration: float, *,
                 else:
                     raise ValueError(f"unknown scale event kind {s.kind!r}"
                                      " (add_ew | drain_ew | rebalance)")
+                if fr is not None:
+                    fr.note_injection("scale", s)
                 scaled[i] = True
         if orchestrator is not None:
             orchestrator.tick(clock)
@@ -249,4 +264,6 @@ def run_serving(engine, workload: List[Request], duration: float, *,
                             "repins": gw.stats.session_repins}}
     if engine.pages is not None:
         m.gateway["pages"] = engine.pages.stats()
+    if engine.controller is not None:
+        m.controller = engine.controller.snapshot()
     return m

@@ -858,6 +858,16 @@ class TelemetryPlane:
             self.registry.set_counter("prefill.chunked.real_tokens",
                                       cs.real_tokens)
             self.registry.set_counter("prefill.chunked.resumed", cs.resumed)
+        ctl = eng.controller
+        if ctl is not None:
+            # the control plane: decision counters and live signals, beside
+            # the events.controller_* counters and req:controller instants
+            # its decisions emit
+            for k, v in ctl.stats().items():
+                if isinstance(v, float):
+                    self.registry.gauge(f"controller.{k}", v)
+                else:
+                    self.registry.set_counter(f"controller.{k}", int(v))
         # the no-new-capture invariant, as a gauge anyone can scrape (the
         # reference's jit.decode_traces: step graphs are the port's traces)
         self.registry.gauge("graph.decode_captures",
@@ -866,6 +876,21 @@ class TelemetryPlane:
         self.registry.gauge("bus.dropped", eng.bus.dropped)
         # events lost to the bus cap, as a counter Prometheus scrapes
         self.registry.set_counter("events.dropped", eng.bus.dropped)
+        fr = eng.flightrec
+        if fr is not None:
+            # the forensics plane: recorder occupancy and watchdog trips
+            self.registry.gauge("flightrec.records", len(fr.records))
+            self.registry.set_counter("flightrec.records_total",
+                                      fr.records_total)
+            self.registry.set_counter("flightrec.records_dropped",
+                                      fr.records_dropped)
+            self.registry.gauge("flightrec.fingerprints", fr.fingerprints)
+            wd = fr.watchdogs
+            if wd is not None:
+                self.registry.gauge("health.intervals", wd.intervals)
+                self.registry.set_counter("health.trips", len(wd.trips))
+                for k, v in wd.trip_counts.items():
+                    self.registry.set_counter(f"health.trips.{k}", v)
 
     def snapshot(self) -> dict:
         self.sync()

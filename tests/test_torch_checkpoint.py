@@ -11,6 +11,7 @@ import torch
 
 from repro.core.checkpoint import CheckpointStore as JStore
 from repro.core.checkpoint import KVCheckpointer as JCheckpointer
+from torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.configs import get_config
 from repro_torch.core.checkpoint import CheckpointStore, KVCheckpointer
 from repro_torch.models import get_model

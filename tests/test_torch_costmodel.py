@@ -11,6 +11,7 @@ import pytest
 from repro.core import costmodel as jcm
 from repro.core import events as jev
 from repro.data import workloads as jwl
+from torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.core import costmodel as tcm
 from repro_torch.core import events as tev
 from repro_torch.data import workloads as twl

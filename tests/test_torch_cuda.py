@@ -1508,3 +1508,111 @@ def test_capture_survives_a_dead_engine_collected_mid_capture(dev):
         gc.enable()
     assert eng.decode_plane.captures() == 1
     assert [h.tokens() for h in handles] == want
+
+
+def _incident_engine(**kw):
+    """A reduced float32 Mixtral engine on the card (capacity factor 4,
+    max_batch 8, max_seq 96, chunk budget 16, paged KV) for the reference
+    incident's shape (tests/test_flightrec.py), seeded weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    cfg = get_config("mixtral_8x7b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=4.0))
+    opts = dict(max_batch=8, max_seq=96, num_aw=2, num_ew=2,
+                chunk_token_budget=16, prefill_token_cap=128,
+                kv_page_tokens=16)
+    opts.update(kw)
+    return InferenceEngine(cfg, EngineConfig(**opts), seed=7, device="cuda")
+
+
+def _incident(eng):
+    """mixed_slo at 3 rps for 2 s, AW0 failed at 0.4 s, on the virtual
+    clock of 20 ms a step and 2 ms a prefill token."""
+    from repro_torch.core.costmodel import TarragonProfile
+    from repro_torch.core.orchestrator import Orchestrator
+    from repro_torch.data.workloads import make_workload
+    from repro_torch.serving.scheduler import FailurePlan, run_serving
+    wl = make_workload("mixed_slo", rate_rps=3.0, duration=2.0, seed=7,
+                       max_new=40, interactive_deadline=0.3, batch_wave=8,
+                       batch_every=3.0)
+    orch = Orchestrator(eng, profile=TarragonProfile(detect=0.05,
+                                                     detect_retries=2),
+                        worker_init_time=0.5)
+    return run_serving(eng, wl, 60.0, orchestrator=orch,
+                       failures=[FailurePlan(0.4, "aw", 0)],
+                       step_time=0.02, prefill_token_time=0.002)
+
+
+def test_control_and_forensics_hooks_make_no_host_sync(dev):
+    """The controller (every policy, controller-chosen victims), the
+    flight recorder and the watchdogs on, through the reference incident:
+    no hook of either plane makes a synchronizing CUDA call (counted by
+    ``torch.cuda.set_sync_debug_mode``) while the serving path makes its
+    own; recorder and watchdogs on and off give the same streams, step
+    graph keys and host-sync count, one sync a decode step."""
+    import warnings
+
+    def syncs(caught):
+        return sum("synchroniz" in str(w.message) for w in caught)
+    out = {}
+    for on in (True, False):
+        eng = _incident_engine(controller="on", victim_policy="controller",
+                               max_ew=3, flight_recorder=on, watchdogs=on)
+        in_hooks = []
+
+        def hook(obj, names):
+            for name in names:
+                def hooked(*a, _fn=getattr(obj, name), **kw):
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        try:
+                            return _fn(*a, **kw)
+                        finally:
+                            in_hooks.extend(caught)
+                setattr(obj, name, hooked)
+        hook(eng.controller, ("tick", "choose_victim", "stats"))
+        if on:
+            fr = eng.flightrec
+            hook(fr, [n for n in dir(fr) if n.startswith(("on_", "note_"))]
+                 + ["tick", "fingerprint", "dump"])
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                m = _incident(eng)
+                if on:
+                    bundle = eng.flightrec.dump(reason="sync test")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert syncs(caught) >= eng.steps > 0
+        assert syncs(in_hooks) == 0
+        assert eng.gateway.stats.host_syncs == eng.steps
+        eng.pages.check()
+        out[on] = (m.outputs, sorted(eng.decode_plane.graphs),
+                   eng.gateway.stats.host_syncs)
+        if on:
+            counts = eng.controller.counts
+            assert counts["budget"] >= 1 and counts["preempt"] >= 1, counts
+            assert eng.flightrec.watchdogs.trips == []
+            assert bundle["outputs"] == m.outputs
+    assert out[True] == out[False]
+
+
+def test_exact_replay_on_the_card_is_bit_identical(dev, tmp_path):
+    """A seed-built engine's bundle names its seed; the replay rebuilds
+    the weights on the card and gives every recorded stream bit for bit
+    (``python -m repro_torch.launch.replay`` does the same)."""
+    from repro_torch.launch.replay import load_bundle, replay_bundle
+    eng = _incident_engine(controller="on", victim_policy="controller",
+                           max_ew=3)
+    m = _incident(eng)
+    path = str(tmp_path / "incident.postmortem.json")
+    eng.flightrec.dump(path, reason="card replay")
+    bundle = load_bundle(path)
+    assert bundle["config"]["weights"] == {"seed": 7}
+    report = replay_bundle(bundle, device="cuda")
+    assert report["ok"] and report["config_hash_ok"], report
+    assert report["matched"] == len(m.outputs) > 0

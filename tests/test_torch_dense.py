@@ -32,6 +32,7 @@ from repro.models import get_model as jget_model
 from repro.serving.api import RequestSpec as JSpec
 from repro.serving.engine import EngineConfig as JEngineConfig
 from repro.serving.engine import InferenceEngine as JEngine
+from torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_reference
 from repro_torch.models import get_model as tget_model

@@ -15,6 +15,7 @@ from repro.kernels.decode_attention import (decode_attention_fused,
 from repro.kernels.flash_attention import flash_attention
 from repro.kernels.moe_gemm import moe_gemm
 from repro.models.attention import blockwise_attention as jblockwise
+from torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import (

@@ -31,6 +31,7 @@ from repro.models import attention as jattn
 from repro.serving.api import RequestSpec as JSpec
 from repro.serving.engine import EngineConfig as JEngineConfig
 from repro.serving.engine import InferenceEngine as JEngine
+from torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_reference
 from repro_torch.kernels import decode_attention as tda

@@ -14,6 +14,7 @@ import torch
 from repro.configs import get_config as jget_config
 from repro.core import selfheal as jheal
 from repro.models import get_model as jget_model
+from torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_reference
 from repro_torch.core import selfheal as theal

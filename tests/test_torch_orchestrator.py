@@ -27,6 +27,7 @@ from repro.core.orchestrator import Orchestrator as JOrch
 from repro.core.refe import RouteState as JRoute
 from repro.serving.engine import EngineConfig as JEngineConfig
 from repro.serving.engine import InferenceEngine as JEngine
+from torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_reference
 from repro_torch.core import ert as tert

@@ -44,6 +44,7 @@ from repro.serving.prefixcache import AWPrefixCache as JAWPrefixCache
 from repro.serving.prefixcache import RadixIndex as JRadixIndex
 from repro.serving.scheduler import run_serving as jrun_serving
 from repro.serving.workers import AttentionWorker as JAttentionWorker
+from torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_reference
 from repro_torch.core.checkpoint import CheckpointStore

@@ -12,6 +12,7 @@ import random
 import numpy as np
 import pytest
 
+from torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.serving.api import RequestSpec, SamplingParams
 from test_torch_prefixcache import (both, capped_reference, cold,  # noqa: F401
                                     make_engine, prefix_stats, prompts,

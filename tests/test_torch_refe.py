@@ -11,6 +11,7 @@ import torch
 from repro.core import ert as jert
 from repro.core import refe as jrefe
 from repro.core import selfheal as jheal
+from torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.core import ert as tert
 from repro_torch.core import refe as trefe
 from repro_torch.core import selfheal as theal

@@ -37,6 +37,7 @@ from repro.serving.scheduler import ScalePlan as JScalePlan
 from repro.serving.scheduler import ServeMetrics as JServeMetrics
 from repro.serving.scheduler import TokenRecord as JTokenRecord
 from repro.serving.scheduler import run_serving as jrun_serving
+from torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_reference
 from repro_torch.core.orchestrator import Orchestrator as TOrch

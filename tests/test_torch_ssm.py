@@ -17,6 +17,7 @@ from repro.configs import get_config as jget_config
 from repro.kernels import ref as jref
 from repro.kernels.ssm_scan import ssm_scan as pallas_scan
 from repro.models import mamba2 as jmamba
+from torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.configs import get_config as tget_config
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref

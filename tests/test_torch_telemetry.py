@@ -37,6 +37,7 @@ from repro.serving.engine import EngineConfig as JEngineConfig
 from repro.serving.engine import InferenceEngine as JEngine
 from repro.serving.scheduler import FailurePlan as JFailurePlan
 from repro.serving.scheduler import run_serving as jrun_serving
+from torch_threads import one_intra_op_thread  # noqa: F401
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_reference
 from repro_torch.core.costmodel import TarragonProfile
@@ -274,8 +275,7 @@ def scenario(pkg: str, telemetry: bool = True):
                 stall_threshold=0.1)
     if pkg == "jax":
         jprefixcache.PrefixCachePlane.offer = _capped_offer
-        eng = JEngine(_cfg(jget_config),
-                      JEngineConfig(**opts, flight_recorder=False),
+        eng = JEngine(_cfg(jget_config), JEngineConfig(**opts),
                       jax.random.PRNGKey(1))
         orch = JOrch(eng, profile=JProfile(detect=0.05, detect_retries=2),
                      worker_init_time=0.5)
