@@ -31,12 +31,20 @@ Phases, each of which raises on failure (exit code != 0):
                 G 2, softcap 50, a wrapped 4096-token ring with window 4096
                 and a global cache; Danube: Dh 80, G 4, window 4096;
                 Qwen2: Dh 128, G 6, contiguous and paged decode; flash
-                for each on a 128-token prompt); the partial decode
+                for each on a 128-token prompt) and at phase 17's families'
+                (fused decode at B 8 over a 256-slot cache: Qwen1.5-MoE
+                Dh 128 G 1, Kimi-K2 Dh 112 G 8 at H 64, Chameleon Dh 128
+                G 8, Granite Dh 128 G 48 on one KV head; paged decode at
+                Qwen1.5-MoE's and Granite's; flash on each 128-token
+                prompt; the G-48 fused and paged calls bitwise six G-8
+                calls on the head slices, float32 and bf16); the partial decode
                 kernel at Mixtral's and both Gemma2 decode shapes (m and
                 l, and acc / l, to the float32 bar; combined, against the
                 fused kernel; timed also in a CUDA graph from HBM);
-                the expert FFN at every (C, path) a later phase gives it
-                (MOE_SHAPES; phases 8 and 9 check their own C), the SSD scan at every (B, S) (SCAN_SHAPES)
+                the expert FFN at every (P, C, D, F, path) a later phase
+                gives it (MOE_SHAPES; phases 8, 9, 15 and 16 check their
+                own new shapes, phase 17 its shapes after its runs), the
+                SSD scan at every (B, S) (SCAN_SHAPES)
                 and each attention kernel at every (Dh, G) (CHECKED),
                 all checked after the runs; kernel, plain-version and
                 library-call times by CUDA events (median of 20 after
@@ -49,10 +57,11 @@ Phases, each of which raises on failure (exit code != 0):
                 fits L2). The flash kernel's records
                 come from phase 14.
   3. reference — a reduced float32 Mixtral, a reduced float32 Zamba2 with
-                a trailing block, and reduced float32 Gemma2, Danube and
-                Qwen2 (24-token prompts past their 16-token windows), on
-                the card against the same model's plain path on the CPU
-                (logits to 1e-3).
+                a trailing block, reduced float32 Gemma2, Danube and
+                Qwen2 (24-token prompts past their 16-token windows), and
+                reduced float32 Qwen1.5-MoE, Kimi-K2, Chameleon and
+                Granite, on the card against the same model's plain path
+                on the CPU (logits to 1e-3).
   4. serve    — Mixtral-8x7B widths at 8 layers in bfloat16 with seeded
                 random weights, contiguous KV, whole-prompt prefill: 8
                 requests of 128 prompt tokens and 32 greedy new tokens
@@ -124,7 +133,7 @@ Phases, each of which raises on failure (exit code != 0):
                 the FFN's tensor-core path in prefill and its decode path
                 in decode, and flash). Then the failover demo twin at the
                 same widths (its EW and AW sections must equal its
-                reference section), and the expert FFN at every (C, path)
+                reference section), and the expert FFN at every (P, C, D, F, path)
                 of this phase's runs and the demo's that MOE_SHAPES lacks
                 (earlier phases' shapes stay with MOE_SHAPES), held to its
                 plain
@@ -161,8 +170,8 @@ Phases, each of which raises on failure (exit code != 0):
                 each commit held and moved through the bulk path and the
                 bytes each resume restored, TTFT and TBT
                 p50/p99 per class, EW2's margin before its drain, and the
-                phase's wall time; the expert FFN at any new (C, path) is
-                held to its plain versions.
+                phase's wall time; the expert FFN at any new (P, C, D,
+                F, path) is held to its plain versions.
  15. prefix cache and telemetry (runs after phase 9, on its weights) —
                 8 chat sessions of 3 turns (a shared 256-token system
                 prefix, seeded turns of 48-160 tokens, 16 greedy tokens a
@@ -207,8 +216,9 @@ Phases, each of which raises on failure (exit code != 0):
                 decisions by kind, the bundle's bytes, records and
                 fingerprints, the dump's host ms, the replay reports, the
                 controller's and recorder's host ms a serving-loop tick;
-                the expert FFN at any new (C, path) is held to its plain
-                versions, the flash kernel's new shapes in phase 14.
+                the expert FFN at any new (P, C, D, F, path) is held to
+                its plain versions, the flash kernel's new shapes in
+                phase 14.
  10. hybrid   — Zamba2-7B widths at 13 layers in bfloat16 (2 units of 6
                 Mamba2 blocks + the shared attention block, 1 trailing
                 block), 8 requests of 128 prompt tokens and 16 greedy new
@@ -250,6 +260,36 @@ Phases, each of which raises on failure (exit code != 0):
                 bit; the paged run launches the paged kernel at G 6 and
                 never the fused one), then the paged engine under
                 ``fail_aw(0)`` after 8 tokens, bitwise equal.
+ 17. MoE and dense families (after the dense phases, with the earlier
+                engines and weights dropped) — FAMILIES in bf16 with seeded
+                weights (each tensor cast as it is drawn: Kimi's init
+                peaks near 61 GB), 2 AWs, 8 requests of 128 prompt tokens
+                and 16 greedy new tokens, step graphs on: Qwen1.5-MoE-A2.7B
+                whole (24 layers, 8 EWs: 60 experts in 64 stored rows and
+                80 slots), Kimi-K2 at 2 of 61 layers (the dense first
+                layer and one MoE layer; 2 EWs: 768 slots), the two at
+                capacity factor E / top-k (no call drops a token),
+                Chameleon-34B at 16 of 48 layers and Granite-34B at 16 of
+                88 (MQA, G 48). Each run launches flash and the
+                fused decode kernel at its (Dh, G), the MoE pair the expert
+                FFN's tensor-core path in every prefill call and its
+                decode path in every decode step; the MoE pair's streams
+                under ``fail_ew(0)`` after 8 steps equal the failure-free
+                ones bit for bit; ``fail_aw(0)`` once every request has 8
+                tokens, recover, provision: bitwise (on the paged engine
+                for Qwen1.5-MoE and Granite, which also run chunked and
+                paged: paged == contiguous, chunked == whole-prompt, the
+                paged kernel only, at G 1 and G 48); the seg-1 step graph
+                against the eager step; TTFT, TBT, the decode step's wall
+                time and device busy; eager MoE steps make no tensor map
+                again (the decode path keeps every bank's). Then the
+                expert FFN at every (P, C, D, F, path) of these runs on
+                the model's whole bank (a row a primary slot), the checked
+                slots on its last 8 rows (Kimi's 376-383: their offsets pass 2^31
+                elements; shadow slots bitwise their primaries), and one
+                timed record per MoE model and path, which replays the
+                slot experts and counts of a call the run made (its most
+                launched decode shape, its largest prefill or chunk C).
  14. flash at the served shapes — every (B, Sq, Sk, heads, window,
                 softcap) the runs gave the flash kernel, on the positions
                 of that shape's first call (pad tails, rows outside a
@@ -302,15 +342,24 @@ PAGE_TOKENS = 16
 # steps take the decode path ("skinny", C <= 8): prefill and chunk calls
 # take the tensor-core path at every C, chunk calls at C 8 and tails at C
 # 2 and 4 included, so a token rounds one way whatever its call's C.
-# main() fails if a run gives the kernel a (C, path) that is not here.
-MOE_SHAPES = [("decode", 2, True, "skinny"),
-              ("prefill", 64, False, "tensor_core"),
-              ("decode-kv", 8, True, "skinny"),
-              ("prefill-kv", 128, False, "tensor_core"),
-              ("chunk-8", 8, False, "tensor_core"),
-              ("chunk-tail", 4, False, "tensor_core"),
-              ("chunk-tail-2", 2, False, "tensor_core"),
-              ("chunk", 256, False, "tensor_core")]
+# main() fails if a run gives the kernel a (P, C, D, F, path) that no
+# check held to its plain version.
+
+
+def mixtral_ffn(c, path, p=16):
+    """The key of an expert FFN call at Mixtral-8x7B's widths, (P, C, D, F,
+    path): P 16 is 8 primary and 8 shadow slots on 2 EWs."""
+    return p, c, 4096, 14336, path
+
+
+MOE_SHAPES = [("decode", mixtral_ffn(2, "skinny")),
+              ("prefill", mixtral_ffn(64, "tensor_core")),
+              ("decode-kv", mixtral_ffn(8, "skinny")),
+              ("prefill-kv", mixtral_ffn(128, "tensor_core")),
+              ("chunk-8", mixtral_ffn(8, "tensor_core")),
+              ("chunk-tail", mixtral_ffn(4, "tensor_core")),
+              ("chunk-tail-2", mixtral_ffn(2, "tensor_core")),
+              ("chunk", mixtral_ffn(256, "tensor_core"))]
 # Zamba2-7B as the hybrid phases serve it: 13 of 81 layers (two units of 6
 # Mamba2 blocks + the shared block, then one trailing block)
 HYBRID_LAYERS = 13
@@ -326,6 +375,22 @@ GEMMA2_LENS = (4088, 128, 4160, 128, 128, 4088, 128, 4160)
 DANUBE_LENS = (4088, 128, 4160, 128)
 QWEN2_MAX_SEQ = 1024
 QWEN2_LENS = (96, 700)             # seeded prompt lengths, inclusive
+# the rest of the transformer family (phase 17), each in bf16 with seeded
+# weights, 2 AWs, 8 requests of FAMILY_PROMPT tokens and FAMILY_NEW greedy
+# new tokens: (label, arch, layers served, EWs, chunked and paged runs?).
+# Qwen1.5-MoE-A2.7B whole (60 experts in 64 stored rows and 80 slots on 8
+# EWs, G 1, QKV bias); Kimi-K2 at 2 of 61 layers (the dense
+# first layer and one MoE layer of 384 experts: 768 slots on 2 EWs; Dh
+# 112, G 8); Chameleon-34B at 16 of 48 layers (qk-norm, G 8); Granite-34B
+# at 16 of 88 layers (MQA, G 48; ungated tanh-GeLU). The MoE pair runs at
+# capacity factor E / top-k (15 and 48; family_phase)
+FAMILIES = (("qwen-moe", "qwen2_moe_a2_7b", 24, 8, True),
+            ("kimi", "kimi_k2_1t_a32b", 2, 2, False),
+            ("chameleon", "chameleon_34b", 16, 1, False),
+            ("granite", "granite_34b", 16, 1, True))
+FAMILY_MAX_SEQ = 256
+FAMILY_PROMPT = 128
+FAMILY_NEW = 16
 
 
 def card_line() -> str:
@@ -829,6 +894,59 @@ def kernel_dense_family(torch, g, records):
     flash_attention_at(torch, g, 1, 128, 12, 2, 128)
 
 
+def kernel_families(torch, g, records):
+    """The attention kernels at the shapes phase 17's runs give them: the
+    fused decode kernel for each family (8 rows, a FAMILY_MAX_SEQ cache),
+    the paged one for the two families served paged (Qwen1.5-MoE at G 1,
+    Granite at G 48), and flash on each family's FAMILY_PROMPT-token
+    prompt, in float32 and bf16 (bf16 also against the float32 plain
+    version); then G 48 bitwise six G-8 calls on the head slices. The
+    expert FFN's shapes are checked after the runs (family_ffn_checks)."""
+    from repro_torch.configs import get_config
+    for label, arch, _, _, paged in FAMILIES:
+        cfg = get_config(arch)
+        h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+        print(f"{cfg.name} attention (Dh {dh}, G {h // hkv})")
+        decode_attention_at(torch, g, records,
+                            f"decode_attention_fused[{label}]", 8, h, hkv,
+                            dh, FAMILY_MAX_SEQ)
+        if paged:
+            kernel_decode_attention_paged(
+                torch, g, records, f"decode_attention_paged[{label}]", 8, h,
+                hkv, dh, FAMILY_MAX_SEQ // PAGE_TOKENS)
+        flash_attention_at(torch, g, 1, FAMILY_PROMPT, h, hkv, dh)
+    g48_is_six_g8_calls(torch, g)
+
+
+def g48_is_six_g8_calls(torch, g):
+    """Granite's decode shape (B 8, H 48 on one KV head, Dh 128): the G-48
+    call of the fused and of the paged kernel, in float32 and bf16, is
+    bitwise the six G-8 calls on the six head slices over the same cache
+    (a head's running max, sums and order of sums depend on its q only)."""
+    from repro_torch.kernels import decode_attention as da
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in ("fused", "paged"):
+            if kind == "fused":
+                args = list(decode_inputs(torch, g, 8, 48, 1, 128,
+                                          FAMILY_MAX_SEQ, dtype, 128))
+                fn = da.decode_attention_cuda
+            else:
+                args = list(paged_inputs(
+                    torch, g, 8, 48, 1, 128, FAMILY_MAX_SEQ // PAGE_TOKENS,
+                    PAGE_TOKENS, dtype, 128)[0])
+                fn = da.decode_attention_paged_cuda
+            whole = fn(*args)
+            bad = [i for i in range(6) if not torch.equal(
+                whole[:, 8 * i:8 * i + 8],
+                fn(args[0][:, 8 * i:8 * i + 8].contiguous(), *args[1:]))]
+            if bad:
+                raise AssertionError(f"{kind} decode at G 48 ({dtype}) "
+                                     f"differs from the G-8 calls on head "
+                                     f"slices {bad}")
+            print(f"  {kind} decode at G 48, {dtype}: bitwise the six G-8 "
+                  f"calls on the head slices")
+
+
 def kernel_flash_attention(torch, g):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.attention import blockwise_attention
@@ -1073,11 +1191,12 @@ def kernel_ssm_scan(torch, g, records, shapes):
 
 
 def kernel_moe_gemm(torch, g, records, shapes, *, timed=None, small=True):
-    """``shapes``: (label, C, whether the call is a decode step, the
-    kernel path it must take). Each is held to the plain versions and
-    added to FFN_CHECKED; those whose label is in ``timed`` (None = all)
-    are also timed and recorded. ``small`` adds the float32 cases at
-    small widths."""
+    """``shapes``: (label, (P, C, D, F, path)), calls at Mixtral-8x7B's
+    widths on P slots at capacity C that take the kernel path ``path`` (a
+    decode step takes "skinny"). Each is held to the plain versions and
+    its key added to FFN_CHECKED; those whose label is in ``timed`` (None
+    = all) are also timed and recorded. ``small`` adds the float32 cases
+    at small widths."""
     from repro_torch.kernels import moe_gemm as mg
     print("moe_gemm (grouped expert FFN, csrc/moe_gemm.cu)")
     # fp32 small, both paths (C <= 4 streams split-K; larger C tiles):
@@ -1098,18 +1217,23 @@ def kernel_moe_gemm(torch, g, records, shapes, *, timed=None, small=True):
                                      act=act),
                   mg.expert_ffn_plain(x, wg, w[1], wd, se, cnt, act=act),
                   "float32")
-    # the serving shapes: Mixtral's 8-expert bank, 16 slots on 2 EWs
-    d, f, n_exp, n_slot = 4096, 14336, 8, 16
+    # the serving shapes: Mixtral's 8-expert bank
+    d, f, n_exp = 4096, 14336, 8
     std = 1.0 / d ** 0.5
     bank = [(torch.randn((n_exp, d, f), generator=g, device="cuda") *
              std).bfloat16() for _ in range(2)]
     wdn = (torch.randn((n_exp, f, d), generator=g, device="cuda") *
            f ** -0.5).bfloat16()
-    # primaries 0..7, shadows replicate EW 0's experts (the initial plan)
-    se = torch.tensor(list(range(8)) + [0, 1, 2, 3, 0, 1, 2, 3],
-                      dtype=torch.int32, device="cuda")
-    for label, c, decode, path in shapes:
-        cnt = torch.tensor([c] * 8 + [0] * 8, dtype=torch.int32,
+    for label, (n_slot, c, d_, f_, path) in shapes:
+        if (d_, f_) != (d, f):
+            raise AssertionError(f"moe_gemm[{label}]: D {d_} F {f_} are "
+                                 f"not Mixtral-8x7B's widths")
+        decode = path == "skinny"
+        # primaries 0..7, shadows replicate EW 0's experts (the initial
+        # plan)
+        se = torch.tensor(list(range(8)) + [i % 4 for i in range(n_slot - 8)],
+                          dtype=torch.int32, device="cuda")
+        cnt = torch.tensor([c] * 8 + [0] * (n_slot - 8), dtype=torch.int32,
                            device="cuda")
         x = torch.randn((n_slot, c, d), generator=g,
                         device="cuda").bfloat16()
@@ -1138,11 +1262,11 @@ def kernel_moe_gemm(torch, g, records, shapes, *, timed=None, small=True):
                                   bank[1].float(), wdn.float(), se[:8],
                                   cnt[:8]),
               atol=ROUND_ATOL, rtol=ROUND_RTOL)
-        FFN_CHECKED.add((c, path))
+        FFN_CHECKED.add((n_slot, c, d, f, path))
         del got
         torch.cuda.empty_cache()
         if timed is not None and label not in timed:
-            del x, cnt
+            del x, cnt, se
             continue
         plain_ms = time_ms(torch, plain)
         # library yardstick: the per-slot matmul chain over active slots
@@ -1177,7 +1301,7 @@ def kernel_moe_gemm(torch, g, records, shapes, *, timed=None, small=True):
               f"graph {dev_ms:.4f}), plain {plain_ms:.4f} ms, bmm chain "
               f"{lib_ms:.4f} ms ({t[1]:.4f} / {t[2]:.4f}; in a CUDA graph "
               f"{lib_dev_ms:.4f}), bound {b_ms:.4f} ms ({b_by})")
-        del x, cnt
+        del x, cnt, se
     del bank, wdn
     torch.cuda.empty_cache()
 
@@ -1249,12 +1373,15 @@ def launch_counts():
 
 # what each Run gives the kernels, observed around the wrappers (the launch
 # counts stay the wrappers' own): per phase of the current Run, a Counter of
-# the expert FFN's (C, path); over all runs, the (C, path) pairs, the C of
+# the expert FFN's (P, C, D, F, path); over all runs, those keys, the
+# slot experts and counts of the first call at each key made outside a
+# step graph's capture (``ffn_calls``), the C of
 # prefill and chunk calls, the SSD scan's (B, S), the row counts of the
 # row-blocked projections and norms (prefill and chunk calls only), the
 # attention kernels' (kernel, Dh, G, window?, softcap?) and every flash
 # call's whole shape (FlashShape) with the positions of its first call
-SEEN = {"phase": None, "run": None, "ffn": Counter(), "ffn_prefill_c": set(),
+SEEN = {"phase": None, "run": None, "ffn": Counter(), "ffn_calls": {},
+        "ffn_prefill_c": set(),
         "scan": set(), "rows": set(), "attn": Counter(),
         "attn_run": Counter(), "flash": {}, "flash_run": Counter()}
 # the (kernel, Dh, G) each attention kernel was held to its plain version
@@ -1263,8 +1390,9 @@ CHECKED = set()
 # the flash shapes held to the plain version on their recorded positions
 # (served_flash_phase); main() fails if a run gave the kernel another
 FLASH_CHECKED = set()
-# the expert FFN's (C, path) pairs held to the plain versions
-# (kernel_moe_gemm); main() fails if a run gave the kernel another
+# the expert FFN's (P, C, D, F, path) held to the plain versions
+# (kernel_moe_gemm, family_ffn_checks); main() fails if a run gave the
+# kernel another
 FFN_CHECKED = set()
 
 
@@ -1273,6 +1401,7 @@ def observe_kernel_shapes():
     observation is added through ``build.count``, as a launch count is: a
     call captured in a step graph is observed on each replay of the graph,
     under the phase and run of the replay."""
+    import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import ops
@@ -1285,11 +1414,16 @@ def observe_kernel_shapes():
             SEEN["run"].setdefault(SEEN["phase"], Counter())[key] += 1
             SEEN["ffn"][key] += 1
             if SEEN["phase"] in ("prefill", "chunks"):
-                SEEN["ffn_prefill_c"].add(key[0])
+                SEEN["ffn_prefill_c"].add(key[1])
 
     def ffn_observed(x, *args, **kw):
         y = ffn(x, *args, **kw)
-        build.count(functools.partial(ffn_seen, (x.shape[1], mg.last_path)))
+        p, c, d = x.shape
+        key = (p, c, d, args[1].shape[2], mg.last_path)   # w_up [E, D, F]
+        if key not in SEEN["ffn_calls"] and \
+                not torch.cuda.is_current_stream_capturing():
+            SEEN["ffn_calls"][key] = (args[3].clone(), args[4].clone())
+        build.count(functools.partial(ffn_seen, key))
         return y
 
     def scan_observed(x, *args, **kw):
@@ -1376,7 +1510,8 @@ def observed(torch, phase):
     object with the launch counts at the start (``c0``) and, after the
     block, at the end (``c_end``) and their difference (``ran``), and what
     the run gave the kernels (``ffn_c``: per phase, a Counter of the
-    expert FFN's (C, path); ``attn``; ``flash``: (phase, FlashShape)).
+    expert FFN's (P, C, D, F, path); ``attn``; ``flash``: (phase,
+    FlashShape)).
     Fails if a bf16 flash call took the CUDA-core path or an expert FFN
     launch bypassed the observer."""
     torch.cuda.synchronize()
@@ -1526,7 +1661,7 @@ class Run:
                   f"{', '.join(f'{t * 1e3:.1f}' for t in self.tick_s)} ms")
         for phase, counts in self.launches.items():
             print(f"    {phase}: { {k: v for k, v in counts.items() if v} }"
-                  + (f", expert FFN (C, path): "
+                  + (f", expert FFN (P, C, D, F, path): "
                      f"{dict(sorted(self.ffn_c[phase].items()))}"
                      if phase in self.ffn_c else ""))
 
@@ -1631,11 +1766,11 @@ def device_busy_ms(torch, fn, calls):
     return busy / 1e3 / calls, len(spans) / calls
 
 
-def step_times(torch, engine, prompts, label, reps=6):
+def step_times(torch, engine, prompts, label, reps=6, segs=(1, 8)):
     """Per decode step, at the batch of ``prompts`` two steps into decode:
     the eager step (the plane's segment function, launched op by op)
-    against its graph replay, at seg 1 and seg 8 (a segment's times over
-    8). Wall: host clock from the dispatch through the token drain,
+    against its graph replay, at each seg of ``segs`` (a segment's times
+    over its length). Wall: host clock from the dispatch through the token drain,
     median of ``reps`` (3 for the eager segment); device busy: the union
     of the device spans under torch.profiler. The repeated steps rewrite
     the same KV; the requests then run to their end and are released."""
@@ -1648,7 +1783,7 @@ def step_times(torch, engine, prompts, label, reps=6):
         engine.step()
     act = engine.active_requests()
     out = {}
-    for seg in (1, 8):
+    for seg in segs:
         key = plane.load(act, seg)
 
         def eager():
@@ -2386,7 +2521,7 @@ class ServeRun:
             print(f"    [orch t={t:.4f}] {kind} {worker} {detail}")
         for phase, counts in self.launches.items():
             print(f"    {phase}: { {k: v for k, v in counts.items() if v} }"
-                  + (f", expert FFN (C, path): "
+                  + (f", expert FFN (P, C, D, F, path): "
                      f"{dict(sorted(self.ffn_c[phase].items()))}"
                      if phase in self.ffn_c else ""))
 
@@ -2572,23 +2707,24 @@ def orchestrated_phase(torch, g, records, params):
           f"...); AW section events {demo['events']}; session placements "
           f"{demo['session']}")
 
-    # the expert FFN at every (C, path) this phase's runs gave it that the
-    # kernel phase did not check (a prefill group's C follows from its
-    # prompts), held to the plain versions; the largest prefill C of run
-    # (a) timed. Earlier phases' shapes stay with main()'s MOE_SHAPES gate
-    base_c = max(c for c, _ in base.ffn_c["prefill"])
+    # the expert FFN at every (P, C, D, F, path) this phase's runs gave it
+    # that the kernel phase did not check (a prefill group's C follows
+    # from its prompts), held to the plain versions; the largest prefill
+    # call of run (a) timed. Earlier phases' shapes stay with main()'s
+    # MOE_SHAPES gate
+    base_key = max(base.ffn_c["prefill"], key=lambda k: k[1])
     seen = {key for obs in (warm, base, ew, aw, mega, demo_obs)
             for per_phase in obs.ffn_c.values() for key in per_phase}
-    todo = (seen - FFN_CHECKED) | {(base_c, "tensor_core")}
-    shapes = [("orchestrated" if (c, path) == (base_c, "tensor_core") else
-               f"orchestrated-C{c}-{path}", c, path == "skinny", path)
-              for c, path in sorted(todo)]
-    print(f"  expert FFN at the {len(shapes)} (C, path) pairs of these runs "
-          f"the kernel phase did not hold to the plain versions (and run "
-          f"(a)'s largest prefill C): {sorted(todo)}")
+    todo = (seen - FFN_CHECKED) | {base_key}
+    shapes = [("orchestrated" if key == base_key else
+               f"orchestrated-C{key[1]}-{key[4]}", key)
+              for key in sorted(todo)]
+    print(f"  expert FFN at the {len(shapes)} (P, C, D, F, path) of these "
+          f"runs the kernel phase did not hold to the plain versions (and "
+          f"run (a)'s largest prefill call): {sorted(todo)}")
     kernel_moe_gemm(torch, g, records, shapes, timed={"orchestrated"},
                     small=False)
-    records[-1]["launches"] = base.ffn_c["prefill"][(base_c, "tensor_core")]
+    records[-1]["launches"] = base.ffn_c["prefill"][base_key]
     return base
 
 
@@ -2776,17 +2912,17 @@ def elastic_phase(torch, g, records, params):
     if bad:
         raise AssertionError(f"(g) bulk: a commit did not move the whole "
                              f"resident state through the bulk path: {bad}")
-    # the expert FFN at the (C, path) pairs these runs gave it that no
+    # the expert FFN at the (P, C, D, F, path) these runs gave it that no
     # earlier check held to the plain versions
     seen = {key for run in runs.values() for per in run.ffn_c.values()
             for key in per}
     todo = sorted(seen - FFN_CHECKED)
     if todo:
-        print(f"  expert FFN at the new (C, path) pairs of these runs: "
+        print(f"  expert FFN at the new (P, C, D, F, path) of these runs: "
               f"{todo}")
         kernel_moe_gemm(torch, g, records,
-                        [(f"elastic-C{c}-{path}", c, path == "skinny", path)
-                         for c, path in todo], timed=set(), small=False)
+                        [(f"elastic-C{key[1]}-{key[4]}", key) for key in todo],
+                        timed=set(), small=False)
     launches = {k: sum(run.launches[ph][k] for run in runs.values()
                        for ph in run.launches)
                 for k in ("decode_attention_fused", "flash_attention",
@@ -2979,7 +3115,7 @@ class SessionRun:
               f"hits by round {self.hits}")
         for phase, counts in self.launches.items():
             print(f"    {phase}: { {k: v for k, v in counts.items() if v} }"
-                  + (f", expert FFN (C, path): "
+                  + (f", expert FFN (P, C, D, F, path): "
                      f"{dict(sorted(self.ffn_c[phase].items()))}"
                      if phase in self.ffn_c else ""))
 
@@ -3282,11 +3418,11 @@ def prefix_phase(torch, g, records, params):
             for per in run.ffn_c.values() for key in per}
     todo = sorted(seen - FFN_CHECKED)
     if todo:
-        print(f"  expert FFN at the new (C, path) pairs of these runs: "
+        print(f"  expert FFN at the new (P, C, D, F, path) of these runs: "
               f"{todo}")
         kernel_moe_gemm(torch, g, records,
-                        [(f"prefix-C{c}-{path}", c, path == "skinny", path)
-                         for c, path in todo], timed=set(), small=False)
+                        [(f"prefix-C{key[1]}-{key[4]}", key) for key in todo],
+                        timed=set(), small=False)
     print(f"  prefix phase wall {time.perf_counter() - t_phase:.1f} s; on "
           f"{card_line()}")
     return runs
@@ -3499,11 +3635,11 @@ def control_phase(torch, g, records, params):
             for key in per}
     todo = sorted(seen - FFN_CHECKED)
     if todo:
-        print(f"  expert FFN at the new (C, path) pairs of these runs: "
+        print(f"  expert FFN at the new (P, C, D, F, path) of these runs: "
               f"{todo}")
         kernel_moe_gemm(torch, g, records,
-                        [(f"control-C{c}-{path}", c, path == "skinny", path)
-                         for c, path in todo], timed=set(), small=False)
+                        [(f"control-C{key[1]}-{key[4]}", key) for key in todo],
+                        timed=set(), small=False)
     launches = Counter()
     for label, run in runs.items():
         ran = run.ran if hasattr(run, "ran") else {
@@ -3892,6 +4028,307 @@ def qwen2_phase(torch, profile_dir=None):
     return runs
 
 
+def graph_check(torch, engine, prompts, label):
+    """The seg-1 step graph replayed against the eager step from the same
+    state, three steps into decode of ``prompts``; the requests then run
+    to their end and are released."""
+    from repro_torch.serving.api import RequestSpec
+    handles = [engine.client.submit(RequestSpec(
+        rid=f"g{i}", prompt=p, max_new=FAMILY_NEW)) for i, p in
+        enumerate(prompts)]
+    for _ in range(3):
+        engine.step()
+    graph_equals_eager(torch, engine, 1, label)
+    for h in reversed(handles):
+        while not h.done():
+            engine.step()
+        engine.release_request(h.rid)
+
+
+def family_phase(torch, label, arch, layers, num_ew, kv_plane):
+    """One family of phase 17 in bf16 with seeded weights, 2 AWs, 8
+    requests of FAMILY_PROMPT tokens and FAMILY_NEW greedy new tokens,
+    step graphs on: the failure-free run (every kernel of the path
+    launched: flash, the fused decode kernel at the family's (Dh, G), and
+    for a MoE model the expert FFN's tensor-core path in prefill and its
+    decode path in every decode step); for a MoE model ``fail_ew(0)``
+    after 8 steps, bitwise the failure-free streams; ``fail_aw(0)`` once
+    every request has 8 tokens, bitwise; with ``kv_plane`` the chunked
+    and paged engines (``kv_plane_phase``: paged == contiguous, chunked ==
+    whole-prompt, the paged kernel only, its AW failover) instead of the
+    whole engine's failover; the seg-1 step graph against the eager step;
+    the decode step's wall time and device busy. Returns the failure-free
+    Runs by engine."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    t_fam = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              dtype="bfloat16")
+    if cfg.moe.enabled:
+        # capacity factor E / top-k: a slot's capacity is at least its
+        # call's token count, so no call drops a token whatever its size
+        # (Mixtral's 4.0 in the KV plane). At 4.0 Qwen's chunk tails of a
+        # few tokens got capacity 1-2 and dropped tokens, so chunked
+        # streams parted from whole-prompt ones; a drop also depends on
+        # the batch row, which an AW failover changes.
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    dh, grp = cfg.head_dim_, cfg.num_heads // cfg.num_kv_heads
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(FAMILY_PROMPT,)).astype(
+        np.int32) for _ in range(8)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if kv_plane:
+        runs, engines = kv_plane_phase(
+            torch, label, cfg, prompts, max_seq=FAMILY_MAX_SEQ,
+            num_ew=num_ew, max_new=FAMILY_NEW, fail_tokens=8)
+        engine, run = engines["whole"], runs["whole"]
+        if not any(k[0] == "decode_attention_paged" and k[1:3] == (dh, grp)
+                   for k in runs["paged"].attn):
+            raise AssertionError(f"{label}: the paged run did not launch the "
+                                 f"paged kernel at (Dh {dh}, G {grp}): "
+                                 f"{dict(runs['paged'].attn)}")
+    else:
+        t0 = time.perf_counter()
+        engine = InferenceEngine(cfg, EngineConfig(
+            max_batch=8, max_seq=FAMILY_MAX_SEQ, num_aw=2, num_ew=num_ew),
+            seed=0, device="cuda")
+        torch.cuda.synchronize()
+        print(f"  engine: {cfg.name}, {cfg.num_layers} layers bf16, "
+              f"{cfg.param_count / 1e9:.2f}B params, seeded init "
+              f"{time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+        Run(torch, engine, prompts, 2, warm_up=True)
+        reset_counts()
+        run = Run(torch, engine, prompts, FAMILY_NEW)
+        run.report(label)
+        runs = {"whole": run}
+    print(f"  peak device memory (init and runs): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    for st in run.streams:
+        if len(st) != FAMILY_NEW or not all(0 <= t < cfg.vocab_size
+                                            for t in st):
+            raise AssertionError(f"{label}: bad stream {st}")
+    launches = {k: sum(ph[k] for ph in run.launches.values())
+                for k in run.launches["decode"]}
+    for k in ("decode_attention_fused", "flash_attention"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{label}: {k} was not launched")
+    if not any(k[0] == "decode_attention_fused" and k[1:3] == (dh, grp)
+               for k in run.attn):
+        raise AssertionError(f"{label}: the fused decode kernel did not run "
+                             f"at (Dh {dh}, G {grp}): {dict(run.attn)}")
+    if cfg.moe.enabled:
+        for name, r in runs.items():
+            for phase, n in r.launches.items():
+                path = "skinny" if phase == "decode" else "tensor_core"
+                if n["moe_ffn"] != n[f"moe_ffn/{path}"]:
+                    raise AssertionError(f"{label} {name}: the expert FFN's "
+                                         f"{phase} launches did not all take "
+                                         f"the {path} path: {n}")
+        dec = run.launches["decode"]
+        if dec["moe_ffn"] <= 0 or run.launches["prefill"]["moe_ffn"] <= 0:
+            raise AssertionError(f"{label}: the expert FFN was not launched "
+                                 f"in prefill and decode: {run.launches}")
+        print(f"  {label}: every decode step on the expert FFN's decode path "
+              f"({dec['moe_ffn/skinny']} launches of {dec['moe_ffn']}, "
+              f"{run.steps} steps x {layers - cfg.moe.first_k_dense} MoE "
+              f"layers), every prefill call on the tensor-core path "
+              f"({run.launches['prefill']['moe_ffn/tensor_core']} launches)")
+        print(f"{label} EW failover: fail_ew(0) after 8 decode steps")
+
+        def fail_ew(eng, handles, steps):
+            if steps == 8:
+                eng.fail_ew(0)
+                return []
+            return None
+        failed = Run(torch, engine, prompts, FAMILY_NEW, fail=fail_ew)
+        same_streams(f"{label} streams under fail_ew(0)", failed, run)
+        print(f"  {len(run.streams)} streams bitwise equal to the "
+              f"failure-free run (EW0 failed: {sorted(engine.failed_ews)}; "
+              f"{engine.api.placement.num_slots} slots, "
+              f"{engine.api.placement.primary_slots} primary)")
+        engine.provision_ew(0)
+    if not kv_plane:
+        aw_failover(torch, label, engine, prompts, FAMILY_NEW, run, 8)
+    print(f"{label} graph == eager: the seg-1 step graph against the eager "
+          f"step from the same state")
+    graph_check(torch, engine, prompts, label)
+    maps = mg.tensor_maps_encoded() if cfg.moe.enabled else None
+    step_times(torch, engine, prompts, label, segs=(1,))
+    if maps is not None:
+        if mg.tensor_maps_encoded() != maps:
+            raise AssertionError(f"{label}: eager decode steps made "
+                                 f"{mg.tensor_maps_encoded() - maps} tensor "
+                                 f"maps again (the cache thrashes)")
+        print(f"  {label}: eager decode steps made no tensor map "
+              f"({maps} made in the process: every bank's maps kept)")
+    print(f"  [{label}: {time.perf_counter() - t_fam:.1f} s]")
+    return runs
+
+
+def draw_bank(torch, g, e, rows, cols):
+    """A bf16 expert bank [e, rows, cols] of N(0, 1 / rows) draws, 16
+    experts at a time (Kimi-K2's whole bank in float32 would be 22.5 GB)."""
+    w = torch.empty((e, rows, cols), dtype=torch.bfloat16, device="cuda")
+    for i in range(0, e, 16):
+        w[i:i + 16] = torch.randn((min(16, e - i), rows, cols), generator=g,
+                                  device="cuda").mul_(rows ** -0.5)
+    return w
+
+
+def family_ffn_checks(torch, g, records, runs_by_label):
+    """The expert FFN at every (P, C, D, F, path) phase 17's runs gave it,
+    held to its plain versions on the model's whole bank (its placement's
+    primary slots: Qwen1.5-MoE's 60 experts in 64 stored rows, Kimi-K2's
+    384 rows of 5.6 G elements a tensor): slots 0-7 run the last 8 rows (Kimi's 376-383, whose offsets pass 2^31 elements) and the
+    last 8 slots are their shadows with the same token rows (bitwise
+    their primaries' outputs), every other slot empty (exact zeros); the
+    live slots against the bf16 plain version and slots 0-7 against the
+    float32 one (half a bf16 ulp + 1e-4). Then per model and path one
+    record, timed at the most launched decode shape and the largest
+    prefill or chunk C, on the slot experts and counts of the first call
+    at that shape (``SEEN["ffn_calls"]``): a live slot computes its C
+    rows, so the bound counts the live slots' rows and their distinct
+    experts' weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ert
+    from repro_torch.kernels import moe_gemm as mg
+    print(f"expert FFN at phase 17's (P, C, D, F, path); "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held on the "
+          f"card before its banks")
+    for label, arch, _, num_ew, _ in FAMILIES:
+        cfg = get_config(arch)
+        if not cfg.moe.enabled:
+            continue
+        d, f = cfg.d_model, cfg.moe.d_ff
+        e = ert.default_placement(cfg.moe.num_experts, num_ew).primary_slots
+        mine = sorted(k for k in SEEN["ffn"] if k[2:4] == (d, f))
+        if not mine:
+            raise AssertionError(f"{label}: phase 17 gave the expert FFN no "
+                                 f"shape")
+        bank = [draw_bank(torch, g, e, d, f) for _ in range(2)]
+        wdn = draw_bank(torch, g, e, f, d)
+        last = torch.arange(e - 8, e, device="cuda", dtype=torch.int32)
+        for p, c, _, _, path in mine:
+            se = torch.arange(p, device="cuda", dtype=torch.int32) % e
+            se[:8] = se[p - 8:] = last
+            live = torch.zeros(p, dtype=torch.bool, device="cuda")
+            live[:8] = live[p - 8:] = True
+            cnt = torch.where(live, c, 0).to(torch.int32)
+            x = torch.randn((p, c, d), generator=g, device="cuda").bfloat16()
+            x[p - 8:] = x[:8]
+            got = mg.expert_ffn_cuda(x, bank[0], bank[1], wdn, se, cnt,
+                                     decode=path == "skinny")
+            if mg.last_path != path:
+                raise AssertionError(f"moe_gemm at P{p} C{c} D{d} F{f} took "
+                                     f"{mg.last_path}, expected {path}")
+            tag = f"bf16 P{p} C{c} D{d} F{f} ({label}, {path} path)"
+            idx = live.nonzero().flatten()
+            check(tag, got[idx], mg.expert_ffn_plain(
+                x[idx], bank[0], bank[1], wdn, se[idx], cnt[idx]),
+                "bfloat16")
+            check(f"{tag} slots 0-7 (rows {e - 8}-{e - 1}) vs float32 "
+                  f"plain", got[:8],
+                  mg.expert_ffn_plain(x[:8].float(), bank[0][e - 8:].float(),
+                                      bank[1][e - 8:].float(),
+                                      wdn[e - 8:].float(), se[:8] - (e - 8),
+                                      cnt[:8]),
+                  atol=ROUND_ATOL, rtol=ROUND_RTOL)
+            if not torch.equal(got[p - 8:], got[:8]) or \
+                    got[~live].float().abs().max().item():
+                raise AssertionError(f"{tag}: a shadow slot differs from "
+                                     f"its primary, or an empty slot is not "
+                                     f"zero")
+            FFN_CHECKED.add((p, c, d, f, path))
+            del x, got
+        print(f"  {label}: on rows {e - 8}-{e - 1} of {e}, shadow slots "
+              f"bitwise their primaries, empty slots zero, at every shape")
+        run = runs_by_label[label]
+        timed = []
+        dec = run["whole"].ffn_c.get("decode", Counter())
+        if dec:
+            timed.append(("decode", dec.most_common(1)[0][0]))
+        pre = [k for r in run.values() for ph in ("prefill", "chunks")
+               for k in r.ffn_c.get(ph, {})]
+        if pre:
+            timed.append(("prefill", max(pre, key=lambda k: k[1])))
+        for kind, key in timed:
+            p, c, _, _, path = key
+            if key not in SEEN["ffn_calls"]:
+                raise AssertionError(f"{label}: no call at {key} was made "
+                                     f"outside a step graph's capture")
+            se, cnt = SEEN["ffn_calls"][key]
+            live = (cnt > 0).nonzero().flatten()
+            n_live, n_exp = live.numel(), se[live].unique().numel()
+            x = torch.randn((p, c, d), generator=g, device="cuda").bfloat16()
+
+            def kern():
+                return mg.expert_ffn_cuda(x, bank[0], bank[1], wdn, se, cnt,
+                                          decode=path == "skinny")
+
+            def plain():
+                return mg.expert_ffn_plain(x[live], bank[0], bank[1], wdn,
+                                           se[live], cnt[live])
+            tag = (f"bf16 P{p} C{c} D{d} F{f} ({label} {kind}, the run's "
+                   f"{n_live} live slots on {n_exp} experts)")
+            err = check(tag, kern()[live], plain(), "bfloat16")
+            if not kern()[cnt <= 0].eq(0).all():
+                raise AssertionError(f"{tag}: an empty slot is not zero")
+            plain_ms = time_ms(torch, plain)
+            # in turns (kernel, chain, chain, kernel); the chain's weights,
+            # the live slots' experts gathered (up to 31 GB for Kimi), are
+            # made after the plain version's timing, which gathers them too
+            t0 = time_ms(torch, kern)
+            xa = x[live]
+            wg_, wu_, wd_ = (w[se[live].long()] for w in (bank[0], bank[1],
+                                                          wdn))
+
+            def chain():
+                return torch.bmm(torch.nn.functional.silu(
+                    torch.bmm(xa, wg_)) * torch.bmm(xa, wu_), wd_)
+            t = [t0, time_ms(torch, chain), time_ms(torch, chain),
+                 time_ms(torch, kern)]
+            ms, lib_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            dev_ms, lib_dev_ms = graph_ms(torch, kern), graph_ms(torch, chain)
+            del xa, wg_, wu_, wd_
+            # each live slot's C rows read and the whole output written
+            # once, each distinct expert's three matrices read once
+            nbytes = (n_exp * 3 * d * f + n_live * c * d + p * c * d) * 2 + \
+                2 * p * 4
+            flops = n_live * 2.0 * c * d * f * 3
+            b_ms, b_by = bound(nbytes, flops)
+            name = f"moe_gemm[{label} {kind}]"
+            records.append(dict(
+                name=name, route="cuda",
+                source="src/repro_torch/csrc/moe_gemm.cu",
+                replaces=mg.KERNEL.replaces, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, library="bmm chain", graph_ms=dev_ms,
+                library_graph_ms=lib_dev_ms,
+                launches=sum(per[key] for r in run.values()
+                             for per in r.ffn_c.values()),
+                shape=f"P{p} ({n_live} live on {n_exp} experts, a served "
+                      f"call's) C{c} D{d} F{f} bf16, "
+                      f"{'decode step' if kind == 'decode' else 'prefill/chunk call'}"
+                      f", {path} path"))
+            print(f"  {name}: {n_live} live slots on {n_exp} experts "
+                  f"({int(cnt.sum())} token rows routed); time {ms:.4f} ms "
+                  f"({t[0]:.4f} / {t[3]:.4f}; in a CUDA graph {dev_ms:.4f}),"
+                  f" plain {plain_ms:.4f} ms, bmm chain {lib_ms:.4f} ms (in "
+                  f"a CUDA graph {lib_dev_ms:.4f}), bound {b_ms:.4f} ms "
+                  f"({b_by}); {records[-1]['launches']} launches; on "
+                  f"{card_line()}")
+            del x
+        del bank, wdn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def profile_decode(torch, engine, prompts, out_dir, chrome=True):
     """Trace 4 steady decode steps of the batch and one prefill of the
     first prompt with torch.profiler: wall time per step, device-busy
@@ -4101,6 +4538,7 @@ def main():
     flash_attention_at(torch, g, 1, 128, 32, 32, 112)
     kernel_flash_chunk(torch, g, 8, 512, 32, 8, 128, 128)
     kernel_dense_family(torch, g, records)
+    kernel_families(torch, g, records)
     kernel_moe_gemm(torch, g, records, MOE_SHAPES)
     kernel_ssm_scan(torch, g, records, SCAN_SHAPES)
     phase("kernels")
@@ -4117,6 +4555,9 @@ def main():
         print(f"reference: reduced {arch} (prompts past its 16-token "
               f"window), card kernels vs CPU plain path")
         reference_phase(torch, get_config(arch).reduced())
+    for _, arch, *_ in FAMILIES:
+        print(f"reference: reduced {arch}, card kernels vs CPU plain path")
+        reference_phase(torch, get_config(arch).reduced())
     phase("reference")
     print("serve: Mixtral-8x7B widths, 8 layers, bf16, contiguous KV")
     engine, prompts, serve, serve_part = serve_phase(
@@ -4132,6 +4573,9 @@ def main():
           f"run_serving with an Orchestrator over make_workload("
           f"{ORCH_WORKLOAD}), the virtual clock on the card's step times")
     orchestrated = orchestrated_phase(torch, g, records, engine.params)
+    # keep what the flash record reads: the run's telemetry plane holds
+    # its engine, and so the weights, which phase 17 needs the card for
+    orchestrated = SimpleNamespace(flash=orchestrated.flash)
     phase("orchestrated serving + demo twin")
     print("elastic and preemption: the same weights, num_ew 2, max_ew 3; "
           f"{ELASTIC_WORKLOAD}, scale events {ELASTIC_SCALES}, EW0 "
@@ -4177,6 +4621,19 @@ def main():
           f"max_seq {QWEN2_MAX_SEQ}")
     qwen2 = qwen2_phase(torch, profile_dir=args.profile)
     phase("qwen2 + AW failover")
+    fam = {}
+    for label, arch, layers, num_ew, kv_plane in FAMILIES:
+        print(f"{label}: {arch} at {layers} layers, bf16, 2 AWs, {num_ew} "
+              f"EWs, {FAMILY_PROMPT}-token prompts"
+              + (f", whole-prompt, chunked ({CHUNK_BUDGET} tokens/step) and "
+                 f"paged ({PAGE_TOKENS}-token pages)" if kv_plane else ""))
+        fam[label] = family_phase(torch, label, arch, layers, num_ew,
+                                  kv_plane)
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase("MoE and dense families")
+    family_ffn_checks(torch, g, records, fam)
+    phase("families' expert FFN shapes")
     errs = served_flash_phase(torch, g)
     for name, run, ph, window in (
             ("flash_attention", serve, "prefill", None),
@@ -4189,17 +4646,23 @@ def main():
             ("flash_attention[qwen2 prefill]", qwen2["whole"], "prefill",
              None),
             ("flash_attention[qwen2 chunk]", qwen2["paged"], "chunks",
-             None)):
+             None)) + tuple(
+            (f"flash_attention[{label}]", fam[label]["whole"], "prefill",
+             None) for label, *_ in FAMILIES) + tuple(
+            (f"flash_attention[{label} chunk]", fam[label]["paged"],
+             "chunks", None) for label, *_, kv_plane in FAMILIES
+            if kv_plane):
         flash_record(torch, g, records, name, run, ph, errs, window=window)
     phase("flash at the served shapes")
 
     if not set(SEEN["ffn"]) <= FFN_CHECKED:
-        raise AssertionError(f"the expert FFN ran at (C, path) "
+        raise AssertionError(f"the expert FFN ran at "
                              f"{sorted(set(SEEN['ffn']) - FFN_CHECKED)}, "
                              f"which was not held to its plain version")
-    print(f"expert FFN (C, path) on every run: {sorted(SEEN['ffn'])}, each "
-          f"held to its plain version (the kernel phase's MOE_SHAPES and "
-          f"the orchestrated phase's prefill C)")
+    print(f"expert FFN (P, C, D, F, path) on every run: "
+          f"{sorted(SEEN['ffn'])}, each held to its plain version (the "
+          f"kernel phase's MOE_SHAPES, the later phases' new shapes and "
+          f"family_ffn_checks)")
     if not SEEN["scan"] <= set(SCAN_SHAPES):
         raise AssertionError(f"the SSD scan ran at (B, S) "
                              f"{sorted(SEEN['scan'] - set(SCAN_SHAPES))}, "
@@ -4223,8 +4686,8 @@ def main():
     def total(run, k):
         return sum(ph[k] for ph in run.launches.values())
 
-    def ffn_launches(run, c, path):
-        return sum(cnt[(c, path)] for cnt in run.ffn_c.values())
+    def ffn_launches(run, key):
+        return sum(cnt[key] for cnt in run.ffn_c.values())
 
     def attn(run, kernel, window):
         return sum(n for k, n in run.attn.items()
@@ -4251,9 +4714,15 @@ def main():
         "decode_attention_paged[qwen2]":
             total(qwen2["paged"], "decode_attention_paged"),
     }
-    for label, c, _, path in MOE_SHAPES:
+    for label, *_, kv_plane in FAMILIES:
+        launches[f"decode_attention_fused[{label}]"] = total(
+            fam[label]["whole"], "decode_attention_fused")
+        if kv_plane:
+            launches[f"decode_attention_paged[{label}]"] = total(
+                fam[label]["paged"], "decode_attention_paged")
+    for label, key in MOE_SHAPES:
         launches[f"moe_gemm[{label}]"] = ffn_launches(
-            runs[moe_run.get(label, "paged")], c, path)
+            runs[moe_run.get(label, "paged")], key)
     for r in records:
         r.setdefault("launches", launches.get(r["name"], 0))
         if r["launches"] <= 0:

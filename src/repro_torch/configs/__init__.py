@@ -1,8 +1,9 @@
 """Architecture config registry: ``get_config(<id>)`` resolution.
 
-The paper's own model, the hybrid family and the dense sliding-window and
-softcap family are registered; the other families of ``repro.configs``
-join as their model code is ported.
+The paper's own model, the hybrid family and the whole transformer family
+(dense, sliding-window and softcap, MoE with shared experts and a dense
+first layer, qk-norm, MQA) are registered; the encoder-decoder and xLSTM
+families of ``repro.configs`` join as their model code is ported.
 """
 from __future__ import annotations
 
@@ -16,6 +17,10 @@ ARCH_IDS = (
     "gemma2_2b",      # local/global layers, softcaps, head dim 256
     "h2o_danube_1_8b",  # a sliding window in every layer, head dim 80
     "qwen2_1_5b",     # QKV bias, group size 6
+    "qwen2_moe_a2_7b",  # 60 experts top-4, 4 shared experts, QKV bias, G 1
+    "kimi_k2_1t_a32b",  # 384 experts top-8, a shared expert, dense layer 0
+    "chameleon_34b",  # qk-norm, group size 8
+    "granite_34b",    # MQA (48 query heads on one KV head), ungated GeLU
 )
 
 

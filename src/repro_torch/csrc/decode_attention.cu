@@ -19,7 +19,7 @@
 //
 // What bounds it on an H100: bytes. Each (row, kv-head) reads its valid
 // cache slice once (2 * Dh values per position) and does ~G flops per
-// byte read (G = 1-8 query heads per kv-head), far below the ~295
+// byte read (G = 1-48 query heads per kv-head), far below the ~295
 // flops/byte where the tensor cores would matter: they are not the lever,
 // and neither body uses them. What keeps a kernel from the byte bound is
 // latency: too few blocks, or too few bytes in flight per SM.
@@ -81,6 +81,19 @@
 // In both, a masked position contributes exactly nothing (probability 0,
 // max unchanged), and the TPU kernel's block_k (TPU tiling) is dropped.
 //
+// Head groups: a block takes at most 8 query heads (the per-head state of
+// both bodies, l[G] and acc[G][8] in registers, the warp body's sm_acc
+// [NWARPS][G][Dh] in static shared memory, is sized by them). A kv-head
+// with G > 8 query heads (Granite-34B's MQA: 48 on one) is split into NG
+// = G / 8 head groups, one more block index each (the kv-head index of
+// the grid becomes the head-group index hg, kv-head hg / NG): each group
+// runs the G-8 body on its 8 heads and reads the kv-head's K/V itself,
+// and each has its own partials and merge ticket. A head's running max,
+// sums and order of sums depend only on its own q, so a G-48 call gives
+// bitwise the outputs of six G-8 calls on the six head slices; at G <= 8,
+// NG = 1 and the code is the code before head groups. Reading the K/V
+// once a group costs up to NG times the cache bytes from L2 or memory.
+//
 // The layout is a template parameter that only says where logical cache
 // position j of row b lives: row b * Sc + j of the contiguous cache, or
 // row bt[b, j / pt] * pt + j % pt of the page pool (Sc = nblk * pt). Both
@@ -100,8 +113,10 @@
 // (Dh, G) built: one table, `built` below, which the C entry
 // decode_attention_supports hands to the Python wrappers. The fused and
 // paged kernels: Dh in {32, 64, 112, 128} at G in {1, 2, 4, 8} (the pairs
-// built before Dh 80 and 256 came in), plus (80, 4) for H2O-Danube-1.8B,
-// (128, 6) for Qwen2-1.5B and (256, 2) for Gemma2-2B. The partial kernel:
+// built before Dh 80 and 256 came in; (128, 1) serves Qwen1.5-MoE-A2.7B,
+// (112, 8) Kimi-K2, (128, 8) Chameleon-34B), plus (80, 4) for
+// H2O-Danube-1.8B, (128, 6) for Qwen2-1.5B, (256, 2) for Gemma2-2B and
+// (128, 48) for Granite-34B (six head groups of 8). The partial kernel:
 // those three new pairs and Mixtral-8x7B's (128, 4). At Dh 256 the warp
 // body's merge array sm_acc[8][G][Dh] of float32 takes 16 KB at G 2 (48
 // KB static limit); the split body takes dynamic shared memory.
@@ -121,7 +136,7 @@ constexpr bool fused_ok(int dh, int g) {
   return ((dh == 32 || dh == 64 || dh == 112 || dh == 128) &&
           (g == 1 || g == 2 || g == 4 || g == 8)) ||
          (dh == 80 && g == 4) || (dh == 128 && g == 6) ||
-         (dh == 256 && g == 2);
+         (dh == 256 && g == 2) || (dh == 128 && g == 48);
 }
 
 constexpr bool partial_ok(int dh, int g) {
@@ -135,9 +150,13 @@ constexpr bool built(int dh, int g) {
   return Out::kPartial ? partial_ok(dh, g) : fused_ok(dh, g);
 }
 
+// query heads a block takes at group size g, and head groups a kv-head
+constexpr int group_heads(int g) { return g > 8 ? 8 : g; }
+constexpr int head_groups(int g) { return g / group_heads(g); }
+
 // The one place a call's (Dh, G) becomes template arguments: returns f(dh,
 // g) with dh and g as std::integral_constant, where Dh is in {32, 64, 80,
-// 112, 128, 256} and G in {1, 2, 4, 6, 8}; else cudaErrorInvalidValue. f
+// 112, 128, 256} and G in {1, 2, 4, 6, 8, 48}; else cudaErrorInvalidValue. f
 // itself refuses the pairs its body is not built for.
 template <int DH, typename F>
 int by_g(int g, F& f) {
@@ -148,6 +167,7 @@ int by_g(int g, F& f) {
     case 4: return f(D{}, std::integral_constant<int, 4>{});
     case 6: return f(D{}, std::integral_constant<int, 6>{});
     case 8: return f(D{}, std::integral_constant<int, 8>{});
+    case 48: return f(D{}, std::integral_constant<int, 48>{});
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -256,7 +276,8 @@ struct Partial {                            // the partials, as they are
   }
 };
 
-template <typename T, int DH, int G, typename Layout, typename Out>
+// G: query heads of the block's head group; NG: head groups a kv-head
+template <typename T, int DH, int G, int NG, typename Layout, typename Out>
 __global__ void __launch_bounds__(NWARPS * 32)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ ck,
                    const T* __restrict__ cv, const int* __restrict__ cpos,
@@ -265,7 +286,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ ck,
                    Out fin) {
   constexpr int EPL = (DH + 31) / 32;       // head elements per lane
   constexpr int DP = EPL * 32;
-  const int hk = blockIdx.x;
+  const int hg = blockIdx.x;                // head group
+  const int hk = hg / NG;                   // its kv-head
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -280,7 +302,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ ck,
   for (int g = 0; g < G; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.f;
-    const size_t off = ((size_t)b * H + (size_t)hk * G + g) * DH + lane;
+    const size_t off = ((size_t)b * H + (size_t)hg * G + g) * DH + lane;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       acc[g][e] = 0.f;
@@ -377,7 +399,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ ck,
 #pragma unroll
       for (int e = 0; e < EPL; ++e) a[e] += sm_acc[w][g][lane + 32 * e] * c;
     }
-    fin.template finish<DH, EPL>(q, (size_t)b * H + (size_t)hk * G + g,
+    fin.template finish<DH, EPL>(q, (size_t)b * H + (size_t)hg * G + g,
                                  (size_t)b * Hkv + hk, lane, scale, softcap,
                                  mm, ll, a);
   }
@@ -452,16 +474,18 @@ __device__ __forceinline__ void unpack8(const uint4 w, float (&f)[8]) {
   }
 }
 
-// Scratch of a call: acc [B, Hkv, nsplit, G, Dh] then (m, l) [B, Hkv,
-// nsplit, 2, G], float32, then the ticket counters [B, Hkv], int32.
+// Scratch of a call, per head group (G its query heads, NG groups a
+// kv-head): acc [B, Hkv * NG, nsplit, G, Dh] then (m, l) [B, Hkv * NG,
+// nsplit, 2, G], float32, then the ticket counters [B, Hkv * NG], int32.
 __host__ __device__ inline size_t acc_floats(int B, int Hkv, int nsplit,
                                              int G, int DH) {
   return (size_t)B * Hkv * nsplit * G * DH;
 }
 
 // Out: Fused<bf16> (fold (k1, v1), normalise) or Partial (the merged
-// partials as they are)
-template <int DH, int G, typename Layout, typename Out>
+// partials as they are). G: query heads of the block's head group; NG:
+// head groups a kv-head (the grid's y index is the head group).
+template <int DH, int G, int NG, typename Layout, typename Out>
 __global__ void __launch_bounds__(NT)
 decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ck,
                     const bf16* __restrict__ cv, const int* __restrict__ cpos,
@@ -471,31 +495,33 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ck,
                     int* __restrict__ tickets) {
   using C = Cfg<DH, G>;
   extern __shared__ __align__(128) char smem[];
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, hg = blockIdx.y, b = blockIdx.z;
+  const int hk = hg / NG;                   // the head group's kv-head
   const int nsplit = gridDim.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int p = pos[b];
-  const int pair = b * Hkv + hk;
+  const int pair = b * Hkv * NG + hg;       // partials and ticket
+  const int kvpair = b * Hkv + hk;          // k1, v1
   int* rowidx = reinterpret_cast<int*>(smem + C::OFF_ROW);
   unsigned char* ok = reinterpret_cast<unsigned char*>(smem + C::OFF_OK);
   unsigned* misc = reinterpret_cast<unsigned*>(smem + C::OFF_MISC);
   float* acc_ws = ws + ((size_t)pair * nsplit + split) * G * DH;
-  float* ml_ws = ws + acc_floats(gridDim.z, Hkv, nsplit, G, DH) +
+  float* ml_ws = ws + acc_floats(gridDim.z, Hkv * NG, nsplit, G, DH) +
                  ((size_t)pair * nsplit + split) * 2 * G;
 
-  // 1. q (and, fused, k1 and v1) of the (kv-head, row) into shared memory
+  // 1. q (and, fused, k1 and v1) of the (head group, row) into shared memory
   // (the scores and the finish read them there); the split's positions:
   // cache rows, validity, tiles with a valid key
   char* qs = smem + C::OFF_Q;
   {
-    const bf16* qg = q + ((size_t)b * H + (size_t)hk * G) * DH;
+    const bf16* qg = q + ((size_t)b * H + (size_t)hg * G) * DH;
     constexpr int NROW = Out::kPartial ? G : G + 2;
     for (int c = tid; c < NROW * C::NCH; c += NT) {
       const bf16* src = qg + c * 8;
       if constexpr (!Out::kPartial)
         if (c >= G * C::NCH)
           src = (c < (G + 1) * C::NCH ? fin.k1 : fin.v1) +
-                (size_t)pair * DH + (c % C::NCH) * 8;
+                (size_t)kvpair * DH + (c % C::NCH) * 8;
       sm90::cp_async16(qs + c * 16, src, true);
     }
     sm90::cp_async_commit();
@@ -728,7 +754,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ck,
   __threadfence();
 
   const float* acc_all = ws + (size_t)pair * nsplit * G * DH;
-  const float* ml_all = ws + acc_floats(gridDim.z, Hkv, nsplit, G, DH) +
+  const float* ml_all = ws + acc_floats(gridDim.z, Hkv * NG, nsplit, G, DH) +
                         (size_t)pair * nsplit * 2 * G;
   // head g = warp + gi * NW: mm the largest m of all splits, ll the sum of
   // l exp(m - mm) in split order
@@ -827,14 +853,14 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ck,
         a[e] = lane_in<DH>(lane, e) ? merged[g * DH + lane + 32 * e] : 0.f;
       finish_row<DH, C::EPL>(
           reinterpret_cast<const bf16*>(qs) + g * DH, k1s, v1s,
-          fin.out + ((size_t)b * H + (size_t)hk * G + g) * DH, lane, scale,
+          fin.out + ((size_t)b * H + (size_t)hg * G + g) * DH, lane, scale,
           softcap, mm[gi], ll[gi], a);
     }
   }
 }
 
-// The split body's launch: the call's ticket counters (the B * Hkv int32
-// after the partials in ws) zeroed on the stream, then one kernel.
+// The split body's launch: the call's ticket counters (the B * Hkv * NG
+// int32 after the partials in ws) zeroed on the stream, then one kernel.
 template <typename Layout, typename Out>
 int launch(const void* q, const void* ck, const void* cv, const void* cpos,
            const void* pos, int B, int H, int Hkv, int Dh, int Sc,
@@ -852,13 +878,16 @@ int launch(const void* q, const void* ck, const void* cv, const void* cpos,
     if constexpr (!built<Out>(DH, GG)) {
       return (int)cudaErrorInvalidValue;
     } else {
-      auto kernel = decode_split_kernel<DH, GG, Layout, Out>;
+      constexpr int GS = group_heads(GG), NG = head_groups(GG);
+      auto kernel = decode_split_kernel<DH, GS, NG, Layout, Out>;
       static bool sized = false;
       cudaError_t err = sm90::allow_smem(kernel, sized);
       if (err == cudaSuccess)
-        err = cudaMemsetAsync(tickets, 0, (size_t)B * Hkv * sizeof(int), st);
+        err = cudaMemsetAsync(tickets, 0, (size_t)B * Hkv * NG * sizeof(int),
+                              st);
       if (err != cudaSuccess) return (int)err;
-      kernel<<<dim3(nsplit, Hkv, B), dim3(NT), Cfg<DH, GG>::BYTES, st>>>(
+      kernel<<<dim3(nsplit, Hkv * NG, B), dim3(NT), Cfg<DH, GS>::BYTES,
+               st>>>(
           (const bf16*)q, (const bf16*)ck, (const bf16*)cv, (const int*)cpos,
           (const int*)pos, H, Hkv, Sc, window, softcap,
           1.0f / sqrtf((float)DH), layout, fin, (float*)ws, tickets);
@@ -884,8 +913,9 @@ int launch(const void* q, const void* ck, const void* cv, const void* cpos,
     if constexpr (!built<Out>(DH, G)) {
       return (int)cudaErrorInvalidValue;
     } else {
-      decode_attn_kernel<T, DH, G, Layout, Out>
-          <<<dim3(Hkv, B), dim3(NWARPS * 32), 0, st>>>(
+      constexpr int GS = group_heads(G), NG = head_groups(G);
+      decode_attn_kernel<T, DH, GS, NG, Layout, Out>
+          <<<dim3(Hkv * NG, B), dim3(NWARPS * 32), 0, st>>>(
               (const T*)q, (const T*)ck, (const T*)cv, (const int*)cpos,
               (const int*)pos, H, Hkv, Sc, window, softcap,
               1.0f / sqrtf((float)DH), layout, fin);
@@ -905,7 +935,8 @@ extern "C" long long decode_attention_workspace(int B, int H, int Hkv,
   const int nsplit =
       Sc > split::SPLIT ? (Sc + split::SPLIT - 1) / split::SPLIT : 1;
   return (long long)split::acc_floats(B, Hkv, nsplit, H / Hkv, Dh) +
-         (long long)B * Hkv * nsplit * 2 * (H / Hkv) + (long long)B * Hkv;
+         (long long)B * Hkv * nsplit * 2 * (H / Hkv) +
+         (long long)B * Hkv * head_groups(H / Hkv);
 }
 
 // q [B,H,Dh]; ck/cv [B,Sc,Hkv,Dh]; cpos [B,Sc] int32; k1/v1 [B,Hkv,Dh];
@@ -1007,7 +1038,7 @@ extern "C" int decode_attention_split_smem(int dh, int g) {
   return by_dh_g(dh, g, [](auto d, auto gg) -> int {
     constexpr int DH = decltype(d)::value, G = decltype(gg)::value;
     if constexpr (fused_ok(DH, G))
-      return split::Cfg<DH, G>::BYTES;
+      return split::Cfg<DH, group_heads(G)>::BYTES;
     else
       return 0;
   });

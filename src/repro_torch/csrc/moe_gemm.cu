@@ -794,7 +794,10 @@ constexpr int ATOMS = COLS / 64;         // 64-column A operands an item
 constexpr int BK = 64;                   // weight rows (k) a ring stage
 constexpr int W_BYTES = BK * COLS * 2;   // one weight tile, 16 KB
 constexpr int X_BYTES = N * BK * 2;      // 8 token rows' k slice, 1 KB
-constexpr int MAX_P = 512;               // slots the live list holds
+// slots the live list holds: Kimi-K2 on 2 EWs has 384 primary and 384
+// shadow slots; 4 bytes a slot of dynamic shared memory, which leaves every
+// ring's stage count as it was at 512
+constexpr int MAX_P = 1024;
 constexpr int LIVE_BYTES = MAX_P * 4 + 16 * 8;  // live list, mbarriers
 constexpr int SM_SMEM = 233472;          // shared memory of an SM, 228 KB
 
@@ -1146,31 +1149,37 @@ cudaError_t sm_count(int* n) {
 }
 
 // The tensor map of one expert bank [E][K][Nw] in the decode path's
-// boxes, made once per (bank, K, Nw) and kept (a model's banks are few and
-// live as long as the process): a map is host work, and the decode step
-// is host-bound. E is not passed to the kernel's entry, so the map spans
-// as many experts as a tensor map may (a box only ever reads an expert of
-// slot_expert, which the bank holds).
+// boxes, made once per (bank, K, Nw) and kept: a map is host work, and an
+// eager decode step is host-bound. The cache holds MAPS maps, three a MoE
+// layer, replaced in turn when full: 256 keep every bank of a whole
+// Qwen1.5-MoE-A2.7B (72), Mixtral-8x7B (96) or Kimi-K2 (180), where 64
+// made a 24-layer model encode every map again at every step. E is not
+// passed to the kernel's entry, so the map spans as many experts as a
+// tensor map may (a box only ever reads an expert of slot_expert, which
+// the bank holds; the offsets are the map's, 64-bit).
+constexpr int MAPS = 256;
+long long maps_encoded = 0;          // tensor maps made since the load
+
 cudaError_t tensor_map(CUtensorMap* out, const void* w, int K, int Nw) {
-  struct Entry {
+  struct Key {
     const void* w;
     int K, Nw;
-    CUtensorMap map;
   };
-  static Entry cache[64];
+  static Key keys[MAPS];
+  static CUtensorMap maps[MAPS];
   static int next = 0;
-  for (const Entry& c : cache)
-    if (c.w == w && c.K == K && c.Nw == Nw) {
-      *out = c.map;
+  for (int i = 0; i < MAPS; ++i)
+    if (keys[i].w == w && keys[i].K == K && keys[i].Nw == Nw) {
+      *out = maps[i];
       return cudaSuccess;
     }
-  Entry& c = cache[next];
   const cudaError_t err =
-      sm90::make_tma_3d(&c.map, w, 1 << 16, K, Nw, dec::BK);
+      sm90::make_tma_3d(&maps[next], w, 1 << 16, K, Nw, dec::BK);
   if (err != cudaSuccess) return err;
-  c.w = w, c.K = K, c.Nw = Nw;
-  next = (next + 1) % 64;
-  *out = c.map;
+  ++maps_encoded;
+  keys[next] = Key{w, K, Nw};
+  *out = maps[next];
+  next = (next + 1) % MAPS;
   return cudaSuccess;
 }
 
@@ -1300,6 +1309,11 @@ extern "C" long long moe_ffn_workspace(int P, int C, int D, int F,
                          : workspace_floats<__nv_bfloat16>(P, C, D, F,
                                                            decode));
 }
+
+// Tensor maps of expert banks the decode path has made since the library
+// was loaded: a run whose banks all fit the cache stops adding to it once
+// every bank was met. Launches nothing.
+extern "C" long long moe_ffn_tensor_maps() { return maps_encoded; }
 
 // The path moe_ffn takes for these arguments: 0 = skinny (the decode path),
 // 1 = tensor-core tile, 2 = CUDA-core tile; -1 for an unknown dtype.

@@ -46,6 +46,17 @@ def _path_fn():
     return fn
 
 
+def tensor_maps_encoded() -> int:
+    """Tensor maps of expert banks the decode path has made in this
+    process (the C source keeps 256, three a MoE layer): a count that
+    stops growing once every bank of a served model was met shows the
+    cache holds them all."""
+    fn = build.library("moe_gemm").moe_ffn_tensor_maps
+    fn.argtypes = []
+    fn.restype = ctypes.c_longlong
+    return int(fn())
+
+
 def _plan(ptrs, p, c, d, f, gated, code, dec):
     """The workspace size and path of a launch, asked of the C source once
     per shape, kind and alignment (16-byte alignment of x and of the

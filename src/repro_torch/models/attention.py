@@ -33,16 +33,17 @@ PREFILL_BLOCK_K = 16
 # params
 # --------------------------------------------------------------------------
 
-def attn_init(gen, cfg: ModelConfig, device):
-    """The reference's leaves: the four projections, the QKV biases
-    (zeros) with ``cfg.qkv_bias`` and the per-head q/k norms with
-    ``cfg.qk_norm``."""
+def attn_init(gen, cfg: ModelConfig, device, dtype=torch.float32):
+    """The reference's leaves: the four projections (in ``dtype``), the
+    QKV biases (zeros) with ``cfg.qkv_bias`` and the per-head q/k norms
+    with ``cfg.qk_norm``."""
     d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    kw = dict(device=device, dtype=dtype)
     p = {
-        "wq": dense_init(gen, d, h * dh, device=device),
-        "wk": dense_init(gen, d, hkv * dh, device=device),
-        "wv": dense_init(gen, d, hkv * dh, device=device),
-        "wo": dense_init(gen, h * dh, d, device=device),
+        "wq": dense_init(gen, d, h * dh, **kw),
+        "wk": dense_init(gen, d, hkv * dh, **kw),
+        "wv": dense_init(gen, d, hkv * dh, **kw),
+        "wo": dense_init(gen, h * dh, d, **kw),
     }
     if cfg.qkv_bias:
         for name, n in (("bq", h * dh), ("bk", hkv * dh), ("bv", hkv * dh)):

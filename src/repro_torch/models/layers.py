@@ -2,7 +2,11 @@
 
 Params are plain dicts of tensors; every function takes ``cfg`` explicitly
 where it needs it. Initialisers draw float32 from an explicit
-``torch.Generator`` and the model casts to ``cfg.torch_dtype``.
+``torch.Generator``, scale the draw in place and cast it to ``dtype`` (the
+model passes ``cfg.torch_dtype``) before the next draw, so a tensor costs
+at most one float32 temporary: Kimi-K2's 384-expert banks (11.3 GB each in
+bf16) would not fit the card beside a whole float32 layer. A cast right
+after the draw gives the bits of a cast after the layer.
 """
 from __future__ import annotations
 
@@ -18,19 +22,22 @@ from repro_torch.kernels.ref import ACTS
 # init helpers (same shapes and scales as the reference)
 # --------------------------------------------------------------------------
 
-def _normal(gen: torch.Generator, shape, device):
+def normal(gen: torch.Generator, shape, std: float, device,
+           dtype=torch.float32):
+    """A float32 standard-normal draw times ``std`` (in place), in
+    ``dtype``."""
     return torch.randn(shape, generator=gen, dtype=torch.float32,
-                       device=device)
+                       device=device).mul_(std).to(dtype)
 
 
 def dense_init(gen, in_dim: int, out_dim: int, *, device,
-               scale: float = 1.0):
-    return _normal(gen, (in_dim, out_dim), device) * (scale /
-                                                      math.sqrt(in_dim))
+               scale: float = 1.0, dtype=torch.float32):
+    return normal(gen, (in_dim, out_dim), scale / math.sqrt(in_dim), device,
+                  dtype)
 
 
-def embed_init(gen, vocab: int, d: int, device):
-    return _normal(gen, (vocab, d), device) * 0.02
+def embed_init(gen, vocab: int, d: int, device, dtype=torch.float32):
+    return normal(gen, (vocab, d), 0.02, device, dtype)
 
 
 def rmsnorm_init(d: int, device):
@@ -115,11 +122,12 @@ def apply_rope(x, positions, theta: float):
 # dense MLP (SwiGLU or plain)
 # --------------------------------------------------------------------------
 
-def mlp_init(gen, d: int, d_ff: int, gated: bool, device):
-    p = {"w_up": dense_init(gen, d, d_ff, device=device),
-         "w_down": dense_init(gen, d_ff, d, device=device)}
+def mlp_init(gen, d: int, d_ff: int, gated: bool, device,
+             dtype=torch.float32):
+    p = {"w_up": dense_init(gen, d, d_ff, device=device, dtype=dtype),
+         "w_down": dense_init(gen, d_ff, d, device=device, dtype=dtype)}
     if gated:
-        p["w_gate"] = dense_init(gen, d, d_ff, device=device)
+        p["w_gate"] = dense_init(gen, d, d_ff, device=device, dtype=dtype)
     return p
 
 

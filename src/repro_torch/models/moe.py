@@ -19,7 +19,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import ert as ert_lib
 from repro_torch.core import refe
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import dense_init, matmul, mlp, mlp_init
+from repro_torch.models.layers import (dense_init, matmul, mlp, mlp_init,
+                                       normal)
 
 
 def moe_placement(cfg: ModelConfig, num_ew: int,
@@ -29,25 +30,22 @@ def moe_placement(cfg: ModelConfig, num_ew: int,
 
 
 def moe_init(gen, cfg: ModelConfig, placement: ert_lib.ExpertPlacement,
-             device):
-    """One MoE layer's params. The stored bank holds one row per logical
-    expert, padded to ``placement.primary_slots``."""
+             device, dtype=torch.float32):
+    """One MoE layer's params, each tensor in ``dtype`` as soon as it is
+    drawn. The stored bank holds one row per logical expert, padded to
+    ``placement.primary_slots``."""
     e_store, d, f = placement.primary_slots, cfg.d_model, cfg.moe.d_ff
-
-    def normal(shape, std):
-        return torch.randn(shape, generator=gen, dtype=torch.float32,
-                           device=device) * std
-
     experts = {
-        "wg": normal((e_store, d, f), 1.0 / math.sqrt(d)),
-        "wu": normal((e_store, d, f), 1.0 / math.sqrt(d)),
-        "wd": normal((e_store, f, d), 1.0 / math.sqrt(f)),
+        "wg": normal(gen, (e_store, d, f), 1.0 / math.sqrt(d), device, dtype),
+        "wu": normal(gen, (e_store, d, f), 1.0 / math.sqrt(d), device, dtype),
+        "wd": normal(gen, (e_store, f, d), 1.0 / math.sqrt(f), device, dtype),
     }
-    p = {"router": dense_init(gen, d, cfg.moe.num_experts, device=device),
+    p = {"router": dense_init(gen, d, cfg.moe.num_experts, device=device,
+                              dtype=dtype),
          "experts": experts}
     if cfg.moe.num_shared_experts:
         p["shared"] = mlp_init(gen, d, cfg.moe.shared_d_ff, gated=True,
-                               device=device)
+                               device=device, dtype=dtype)
     return p
 
 

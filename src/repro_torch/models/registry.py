@@ -1,6 +1,6 @@
-"""Model family dispatch: config -> ModelApi (the transformer family and
-the Zamba2 hybrid so far; the other families raise until they are
-ported)."""
+"""Model family dispatch: config -> ModelApi (the whole transformer
+family, dense and MoE, and the Zamba2 hybrid; the encoder-decoder, xLSTM
+and pure-SSM families raise until they are ported)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -18,6 +18,6 @@ def get_model(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
         return build_hybrid(cfg, **kw)
     if cfg.is_encdec or cfg.xlstm_pattern or cfg.ssm.enabled:
         raise NotImplementedError(
-            f"{cfg.name}: only the transformer family and the Zamba2 "
-            f"hybrid are ported so far")
+            f"{cfg.name}: the encoder-decoder, xLSTM and pure-SSM "
+            f"families are not ported yet")
     return build_decoder(cfg, **kw)

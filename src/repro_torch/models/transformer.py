@@ -54,15 +54,18 @@ def layer_windows(cfg: ModelConfig):
                                   for i in range(scanned)]
 
 
-def _layer_init(gen, cfg: ModelConfig, use_moe: bool, placement, device):
+def _layer_init(gen, cfg: ModelConfig, use_moe: bool, placement, device,
+                dtype=torch.float32):
+    """One layer's params; every drawn tensor in ``dtype`` as soon as it
+    is drawn (the norms' ones and the biases' zeros stay float32)."""
     p = {"ln1": rmsnorm_init(cfg.d_model, device),
-         "attn": attn.attn_init(gen, cfg, device),
+         "attn": attn.attn_init(gen, cfg, device, dtype),
          "ln2": rmsnorm_init(cfg.d_model, device)}
     if use_moe:
-        p["moe"] = moe_mod.moe_init(gen, cfg, placement, device)
+        p["moe"] = moe_mod.moe_init(gen, cfg, placement, device, dtype)
     else:
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff or cfg.moe.d_ff,
-                            cfg.mlp_gated, device)
+                            cfg.mlp_gated, device, dtype)
     return p
 
 
@@ -137,17 +140,20 @@ def build_decoder(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
 
     def init_params(gen: torch.Generator):
         """Seeded params with the reference's shapes and scales, drawn on
-        ``gen``'s device layer by layer and cast to the config dtype."""
+        ``gen``'s device tensor by tensor, each cast to the config dtype
+        as soon as it is drawn (the peak is the finished tensors plus one
+        float32 draw and its cast)."""
         params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                      device),
+                                      device, dtype),
                   "final_norm": rmsnorm_init(cfg.d_model, device)}
         if not cfg.tie_embeddings:
             params["unembed"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                           device)
+                                           device, dtype)
         params = cast_floats(params, dtype)
         params["layers"] = [
             cast_floats(_layer_init(gen, cfg, cfg.moe.enabled and
-                                    i >= n_first, placement, device), dtype)
+                                    i >= n_first, placement, device, dtype),
+                        dtype)
             for i in range(cfg.num_layers)]
         return params
 

@@ -652,6 +652,147 @@ def test_flash_attention_at_new_heads(dev, dtype, b, s, h, hkv, dh, window,
 
 
 # --------------------------------------------------------------------------
+# Granite-34B's decode attention (MQA: 48 query heads on one KV head), and
+# the expert FFN's decode path past 512 slots (Kimi-K2 on 2 EWs: 768)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernels_at_g48(dev, dtype):
+    """Fused and paged decode at (Dh 128, G 48), the head groups of 8 that
+    a block takes, against the plain versions over a 300-position cache
+    (three splits in bf16); paged bitwise the fused kernel on the gathered
+    pages; the launches counted once a call."""
+    r = np.random.default_rng(48)
+    args = _decode_case(r, 3, 48, 1, 128, 300, dtype, dev)
+    n = da.KERNEL.launches
+    got = ops.decode_attention(*args)
+    assert da.KERNEL.launches == n + 1
+    _close(got, da.decode_attention_plain(*args), dtype)
+    pargs = _paged_case(r, 3, 48, 1, 128, 19, 16, dtype, dev)
+    q, pk, pv, ppos, bt, k1, v1, pos = pargs
+    n = da.PAGED_KERNEL.launches
+    paged = ops.decode_attention_paged(*pargs)
+    assert da.PAGED_KERNEL.launches == n + 1
+    _close(paged, da.decode_attention_paged_plain(*pargs), dtype)
+    ck, cv, cpos = da.gather_pages(pk, pv, ppos, bt)
+    assert torch.equal(paged, da.decode_attention_cuda(q, ck, cv, cpos, k1,
+                                                       v1, pos))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["fused", "paged"])
+def test_decode_g48_is_six_g8_calls(dev, dtype, kind):
+    """A head's running max, sums and order of sums depend only on its own
+    q: the G-48 call gives bitwise the outputs of six G-8 calls on the six
+    head slices, over the same K/V, in both bodies (bf16 over 600
+    positions: five splits, and a merge ticket per head group)."""
+    r = np.random.default_rng(6)
+    if kind == "fused":
+        args = list(_decode_case(r, 4, 48, 1, 128, 600, dtype, dev))
+        fn = ops.decode_attention
+    else:
+        args = list(_paged_case(r, 4, 48, 1, 128, 38, 16, dtype, dev))
+        fn = ops.decode_attention_paged
+    whole = fn(*args)
+    q = args[0]
+    for i in range(6):
+        part = fn(q[:, 8 * i:8 * i + 8].contiguous(), *args[1:])
+        assert torch.equal(whole[:, 8 * i:8 * i + 8], part), i
+
+
+def _bank(g, e, rows, cols):
+    """A bf16 bank [e, rows, cols] of N(0, 1 / rows) draws, 16 experts at a
+    time (Kimi-K2's whole bank in float32 would be 22.5 GB)."""
+    w = torch.empty((e, rows, cols), dtype=torch.bfloat16, device="cuda")
+    for i in range(0, e, 16):
+        w[i:i + 16] = torch.randn((min(16, e - i), rows, cols), generator=g,
+                                  device="cuda").mul_(rows ** -0.5)
+    return w
+
+
+def test_decode_ffn_at_768_slots(dev):
+    """The bf16 decode path at P 768 (Kimi-K2's 384 primaries and 384
+    shadows on 2 EWs) on Kimi's whole bank (384 experts at D 7168, F 2048:
+    5.6 G elements a tensor, an expert's offset past 2^31 elements from
+    expert 147 on): it takes the decode path ("skinny"), the live slots
+    (experts 146, 147, 316 and 376-383) match the plain version and hold
+    half an ulp + 1e-4 of the float32 one, empty slots give exact zeros,
+    and a shadow slot's rows are bitwise its primary's. The tensor-core
+    path matches the plain version on the same slots."""
+    g = torch.Generator(device="cuda").manual_seed(768)
+    d, f, e, p, c = 7168, 2048, 384, 768, 2
+    wg, wu = (_bank(g, e, d, f) for _ in range(2))
+    wd = _bank(g, e, f, d)
+    se = torch.arange(p, device="cuda", dtype=torch.int32) % e
+    last = torch.arange(e - 8, e, device="cuda", dtype=torch.int32)
+    se[:8] = se[384:392] = last           # primaries on 376..383, shadows
+    live = torch.zeros(p, dtype=torch.bool, device="cuda")
+    live[:8] = live[384:392] = True
+    live[[146, 147, 700]] = True          # experts 146, 147 and 316
+    cnt = torch.where(live, c, 0).to(torch.int32)
+    x = torch.randn((p, c, d), generator=g, device="cuda").bfloat16()
+    x[384:392] = x[:8]
+    got = _decode_ffn(x, wg, wu, wd, se, cnt)
+    assert mg.last_path == "skinny"
+    idx = live.nonzero().flatten()
+    want = mg.expert_ffn_plain(x[idx], wg, wu, wd, se[idx], cnt[idx])
+    _close(got[idx], want, torch.bfloat16)
+    want32 = mg.expert_ffn_plain(x[:8].float(), wg[e - 8:].float(),
+                                 wu[e - 8:].float(), wd[e - 8:].float(),
+                                 se[:8] - (e - 8), cnt[:8])
+    assert bool(((got[:8].float() - want32).abs() <=
+                 1e-4 + 2.0 ** -8 * want32.abs()).all())
+    assert torch.equal(got[384:392], got[:8])
+    assert not got[~live].float().abs().max().item()
+    # every slot live: the live list holds all 768
+    full = _decode_ffn(x, wg, wu, wd, se, torch.full((p,), c,
+                                                     dtype=torch.int32,
+                                                     device="cuda"))
+    assert torch.equal(full[idx], got[idx])
+    tc = mg.expert_ffn_cuda(x, wg, wu, wd, se, cnt, decode=False)
+    assert mg.last_path == "tensor_core"
+    _close(tc[idx], want, torch.bfloat16)
+    assert not tc[~live].float().abs().max().item()
+
+
+def test_decode_ffn_tensor_maps_are_kept_for_72_banks(dev):
+    """72 banks (a whole Qwen1.5-MoE-A2.7B: 24 layers x 3) through the
+    decode path twice: the second pass makes no tensor map."""
+    r = np.random.default_rng(72)
+    banks = [_decode_ffn_case(r, dev, d=256, f=256, e=2) for _ in range(24)]
+    se = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    cnt = torch.tensor([1, 1], dtype=torch.int32, device=dev)
+    x = _randn(r, (2, 1, 256), torch.bfloat16, dev)
+    for wg, wu, wd in banks:
+        _decode_ffn(x, wg, wu, wd, se, cnt)
+    n = mg.tensor_maps_encoded()
+    for wg, wu, wd in banks:
+        _decode_ffn(x, wg, wu, wd, se, cnt)
+    assert mg.tensor_maps_encoded() == n
+
+
+def test_route_gates_do_not_depend_on_the_call(dev):
+    """Qwen1.5-MoE's routing (60 experts top-4 on 8 EWs, 80 slots): a
+    token's experts, gate weights (softmax over 60, a sum over 4) and
+    slots have the same bits in a 128-token call and inside a 1,024-token
+    call, so a chunk call routes its tokens as whole-prompt prefill
+    does."""
+    from repro_torch.core import ert, refe
+    pl = ert.default_placement(60, 8)
+    rs = refe.RouteState.healthy(pl, 2, device=dev)
+    r = np.random.default_rng(60)
+    logits = _randn(r, (1024, 60), torch.bfloat16, dev)
+    x = torch.zeros((1024, 8), dtype=torch.bfloat16, device=dev)
+
+    def route(n):
+        return refe.route(x[:n], logits[:n], rs, pl, top_k=4,
+                          capacity_factor=4.0, capacity=n)
+    small, big = route(128), route(1024)
+    for k in ("topk_idx", "gate_w", "slot_idx"):
+        assert torch.equal(small[k], big[k][:128]), k
+
+
+# --------------------------------------------------------------------------
 # the flash kernel's tensor-core path (bfloat16)
 # --------------------------------------------------------------------------
 
