@@ -37,7 +37,10 @@ Phases, each of which raises on failure (exit code != 0):
                 G 8, Granite Dh 128 G 48 on one KV head; paged decode at
                 Qwen1.5-MoE's and Granite's; flash on each 128-token
                 prompt; the G-48 fused and paged calls bitwise six G-8
-                calls on the head slices, float32 and bf16); the partial decode
+                calls on the head slices, float32 and bf16) and at phase
+                18's Whisper (fused decode at Dh 64 G 1; flash on its
+                32-token prompt and, without the causal mask, on a
+                200-token input); the partial decode
                 kernel at Mixtral's and both Gemma2 decode shapes (m and
                 l, and acc / l, to the float32 bar; combined, against the
                 fused kernel; timed also in a CUDA graph from HBM);
@@ -290,8 +293,31 @@ Phases, each of which raises on failure (exit code != 0):
                 timed record per MoE model and path, which replays the
                 slot experts and counts of a call the run made (its most
                 launched decode shape, its largest prefill or chunk C).
+ 18. recurrent and encoder-decoder families (after phase 17, with its
+                engines dropped) — RECURRENT_FAMILIES whole in bf16 with
+                seeded weights, 2 AWs, 1 EW, step graphs on, each after
+                its reduced float32 model on the card against the CPU
+                plain path (phase 3's check): xLSTM-350m (24 layers of
+                mLSTM/sLSTM pairs; no kernel on its path, as in the
+                reference) with 8 requests of 128 prompt tokens and 16
+                greedy new tokens, and Whisper-small (12 encoder and 12
+                decoder layers) with 8 requests, each with its own
+                seeded 1,500-frame input and a 32-token decoder prompt,
+                and 8 greedy new tokens: every prefill call launches
+                flash once per encoder layer without the causal mask
+                (B 1, 1,500 frames) and once per decoder layer, every
+                decode step the fused decode kernel at (Dh 64, G 1) once
+                per decoder layer. ``fail_aw(0)`` once every request has
+                8 (xLSTM) or 4 (Whisper) tokens, recover, provision:
+                bitwise; after that run's first step, outside its clock
+                and counts, the seg-1 step graph against the eager step
+                and the step times (the cache put back); no capture
+                after the warm-up of one request. Prints TTFT, TBT, the decode
+                step's wall time and device busy, the per-step
+                checkpoint's bytes and gather + copy ms, the store's peak
+                pinned bytes and the restores' host ms.
  14. flash at the served shapes — every (B, Sq, Sk, heads, window,
-                softcap) the runs gave the flash kernel, on the positions
+                softcap, causal) the runs gave the flash kernel, on the positions
                 of that shape's first call (pad tails, rows outside a
                 chunk) with seeded bf16 q/k/v, against the bf16 plain
                 version and the float32 one; then one record per path,
@@ -391,6 +417,15 @@ FAMILIES = (("qwen-moe", "qwen2_moe_a2_7b", 24, 8, True),
 FAMILY_MAX_SEQ = 256
 FAMILY_PROMPT = 128
 FAMILY_NEW = 16
+# the recurrent and encoder-decoder families (phase 18), whole, in bf16
+# with seeded weights, 2 AWs, 8 requests: (label, arch, prompt tokens, new
+# tokens, tokens every request has at fail_aw(0), max_seq). xLSTM-350m:
+# 24 layers of mLSTM/sLSTM pairs, constant-size state only; Whisper-small:
+# 12 encoder and 12 decoder layers, each request with its own seeded
+# 1,500-frame input (its cross K/V, 55.3 MB, rides every token's
+# checkpoint segment)
+RECURRENT_FAMILIES = (("xlstm", "xlstm_350m", 128, 16, 8, 256),
+                      ("whisper", "whisper_small", 32, 8, 4, 256))
 
 
 def card_line() -> str:
@@ -918,6 +953,24 @@ def kernel_families(torch, g, records):
     g48_is_six_g8_calls(torch, g)
 
 
+def kernel_whisper(torch, g, records):
+    """The attention kernels at the shapes phase 18's Whisper run gives
+    them: the fused decode kernel at (Dh 64, G 1) over 8 rows of its
+    max_seq cache, and flash on the decoder's prompt (causal) and, without
+    the causal mask, on an encoder's input, in float32 and bf16 (bf16 also
+    against the float32 plain version). The served shapes, the encoder's
+    1,500 frames among them, are held and timed after the runs."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper_small")
+    _, _, prompt_len, _, _, max_seq = RECURRENT_FAMILIES[1]
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    print(f"{cfg.name} attention (Dh {dh}, G {h // hkv})")
+    decode_attention_at(torch, g, records, "decode_attention_fused[whisper]",
+                        8, h, hkv, dh, max_seq)
+    flash_attention_at(torch, g, 1, prompt_len, h, hkv, dh)
+    flash_attention_at(torch, g, 2, 200, h, hkv, dh, causal=False)
+
+
 def g48_is_six_g8_calls(torch, g):
     """Granite's decode shape (B 8, H 48 on one KV head, Dh 128): the G-48
     call of the fused and of the paged kernel, in float32 and bf16, is
@@ -970,16 +1023,17 @@ def kernel_flash_attention(torch, g):
 
 
 def flash_attention_at(torch, g, b, s, h, hkv, dh, *, window=0,
-                       softcap=0.0):
-    """The flash kernel on a causal prompt of s tokens in float32 and bf16
-    (the latter also against the float32 plain version). The plain
-    version runs one query block (block_q = S): every row's online
-    softmax is the same, and a long prompt then takes S / 16 steps instead
-    of (S / 64) * (S / 16)."""
+                       softcap=0.0, causal=True):
+    """The flash kernel on a prompt of s tokens (causal, or not: an
+    encoder's) in float32 and bf16 (the latter also against the float32
+    plain version). The plain version runs one query block (block_q = S):
+    every row's online softmax is the same, and a long prompt then takes
+    S / 16 steps instead of (S / 64) * (S / 16)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.attention import blockwise_attention
-    kw = dict(window=window, softcap=softcap)
-    tag = (f"B{b} S{s} H{h} Hkv{hkv} Dh{dh} causal"
+    kw = dict(window=window, softcap=softcap, causal=causal)
+    tag = (f"B{b} S{s} H{h} Hkv{hkv} Dh{dh} "
+           + ("causal" if causal else "not causal")
            + (f" window={window}" if window else "")
            + (f" softcap={softcap:g}" if softcap else ""))
     p = torch.arange(s, device="cuda", dtype=torch.int32).repeat(b, 1)
@@ -1055,15 +1109,18 @@ def served_flash_phase(torch, g):
     return errs
 
 
-def flash_record(torch, g, records, name, run, phase, errs, *, window=None):
+def flash_record(torch, g, records, name, run, phase, errs, *, window=None,
+                 causal=None):
     """A record of the flash kernel at the largest shape (Sq x Sk) that
     ``run`` gave it in ``phase`` (with a window or not, if ``window`` is
-    given), timed on that shape's recorded positions; its launches are the
-    run's launches at that shape."""
+    given; causal or not, if ``causal`` is given), timed on that shape's
+    recorded positions; its launches are the run's launches at that
+    shape."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     shapes = {sh: n for (ph, sh), n in run.flash.items() if ph == phase and
-              (window is None or bool(sh.window) == window)}
+              (window is None or bool(sh.window) == window) and
+              (causal is None or sh.causal == causal)}
     if not shapes:
         raise AssertionError(f"{name}: the run gave the flash kernel no "
                              f"shape in its {phase} phase")
@@ -1084,6 +1141,11 @@ def flash_record(torch, g, records, name, run, phase, errs, *, window=None):
             def sdpa():
                 return F.scaled_dot_product_attention(qq, kk, vv,
                                                       is_causal=True)
+        elif not shape.causal and bool(mask.all()):
+            # an encoder's full attention: every pair, no mask
+            def sdpa():
+                return F.scaled_dot_product_attention(qq, kk, vv,
+                                                      is_causal=False)
         else:
             def sdpa():
                 return F.scaled_dot_product_attention(
@@ -1331,10 +1393,15 @@ def reference_phase(torch, cfg):
                          dtype=torch.int32)
     mask = torch.ones((4, 24), dtype=torch.bool)
     mask[3, 17:] = False
+    kw = {}
+    if cfg.is_encdec:
+        kw["frames"] = torch.randn((4, cfg.encoder_seq, cfg.d_model),
+                                   generator=gen)
     lg, cg, _ = gpu.prefill(params, toks.cuda(), gpu.init_route_state(), 48,
-                            capacity=32, mask=mask.cuda())
+                            capacity=32, mask=mask.cuda(),
+                            **{k: v.cuda() for k, v in kw.items()})
     lc, cc, _ = cpu.prefill(cparams, toks, cpu.init_route_state(), 48,
-                            capacity=32, mask=mask)
+                            capacity=32, mask=mask, **kw)
     pos = torch.tensor([24, 24, -1, 24], dtype=torch.int32)
     nt = torch.randint(0, cfg.vocab_size, (4,), generator=gen,
                        dtype=torch.int32)
@@ -1563,7 +1630,11 @@ class Run:
     "decode" (the rest of ``step()``)."""
 
     def __init__(self, torch, engine, prompts, max_new, fail=None,
-                 at_end=None, warm_up=False, sampling=None):
+                 at_end=None, warm_up=False, sampling=None, frames=None,
+                 after_step=None):
+        """``frames``: each prompt's frames (an encoder-decoder's);
+        ``after_step(engine, steps)`` runs after each step, outside the
+        run's clock and launch counts."""
         from repro_torch.serving.api import RequestSpec
         captures0 = engine.decode_plane.captures()
         chunk_counts = {k: 0 for k in launch_counts()}
@@ -1591,7 +1662,8 @@ class Run:
                 rid = f"r{i}"
                 t_submit[rid] = time.perf_counter()
                 handles.append(engine.client.submit(RequestSpec(
-                    rid=rid, prompt=p, max_new=max_new, sampling=sampling)))
+                    rid=rid, prompt=p, max_new=max_new, sampling=sampling,
+                    frames=None if frames is None else frames[i])))
                 if handles[-1].tokens():
                     # the exact whole-prompt scheme samples the first token
                     # from the prefill's logits (a host sync) inside submit
@@ -1602,14 +1674,18 @@ class Run:
             self.steps = 0
             self.t_fail, self.victims, self.recovery_s = None, [], None
             t_dec0 = None
+            # the host time and launches of ``after_step`` are left out of
+            # the run's clock and counts
+            hook_s, hook_counts = 0.0, Counter()
             while not all(h.done() for h in handles):
                 if fail is not None and self.t_fail is None:
-                    t = time.perf_counter()
+                    t = time.perf_counter() - hook_s
                     victims = fail(engine, handles, self.steps)
                     if victims is not None:
                         self.t_fail, self.victims = t, victims
                 out = engine.step()
-                now = time.perf_counter()  # step() ends in a host sync
+                # step() ends in a host sync
+                now = time.perf_counter() - hook_s
                 self.steps += 1
                 if t_dec0 is None:
                     t_dec0 = now
@@ -1623,12 +1699,18 @@ class Run:
                         all(last.get(r, 0) > self.t_fail
                             for r in self.victims):
                     self.recovery_s = now - self.t_fail
-            t_end = time.perf_counter()
+                if after_step is not None:
+                    c_h, t_h = launch_counts(), time.perf_counter()
+                    after_step(engine, self.steps)
+                    hook_s += time.perf_counter() - t_h
+                    hook_counts.update(delta(c_h, launch_counts()))
+            t_end = time.perf_counter() - hook_s
         if at_end is not None:          # the engine's final caches
             at_end(engine)
         self.ffn_c, self.attn, self.flash = obs.ffn_c, obs.attn, obs.flash
         self.launches = {"prefill": delta(obs.c0, c1), "chunks": chunk_counts,
-                         "decode": {k: v - chunk_counts[k] for k, v in
+                         "decode": {k: v - chunk_counts[k] - hook_counts[k]
+                                    for k, v in
                                     delta(c1, obs.c_end).items()}}
         self.streams = [h.tokens() for h in handles]
         # release in reverse, so the slot free lists are back in their
@@ -1768,27 +1850,46 @@ def device_busy_ms(torch, fn, calls):
 
 def step_times(torch, engine, prompts, label, reps=6, segs=(1, 8)):
     """Per decode step, at the batch of ``prompts`` two steps into decode:
-    the eager step (the plane's segment function, launched op by op)
-    against its graph replay, at each seg of ``segs`` (a segment's times
-    over its length). Wall: host clock from the dispatch through the token drain,
-    median of ``reps`` (3 for the eager segment); device busy: the union
-    of the device spans under torch.profiler. The repeated steps rewrite
-    the same KV; the requests then run to their end and are released."""
+    ``decode_step_times``. The repeated steps rewrite the same KV; the
+    requests then run to their end and are released."""
     from repro_torch.serving.api import RequestSpec
     t0 = time.perf_counter()
-    plane = engine.decode_plane
     handles = [engine.client.submit(RequestSpec(
         rid=f"t{i}", prompt=p, max_new=40)) for i, p in enumerate(prompts)]
     for _ in range(2):
         engine.step()
+    out = decode_step_times(torch, engine, label, reps=reps, segs=segs)
+    for h in reversed(handles):
+        while not h.done():
+            engine.step()
+        engine.release_request(h.rid)
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def decode_step_times(torch, engine, label, reps=6, segs=(1, 8),
+                      light=False, restore=False):
+    """Per decode step of the engine's active requests: the eager step
+    (the plane's segment function, launched op by op) against its graph
+    replay, at each seg of ``segs`` (a segment's times over its length).
+    Wall: host clock from the dispatch through the token drain, median of
+    ``reps`` (the eager step's 3 for a segment of 8); device busy: the
+    union of the device spans under torch.profiler. ``light``, for a step
+    of tens of thousands of device ops (Whisper's), the eager step run
+    just before: one eager sample, no eager profile, one profiled replay.
+    With ``restore`` the cache is put back afterwards, so a recurrent
+    state the steps advanced is as it was."""
+    plane = engine.decode_plane
     act = engine.active_requests()
+    before = cache_copy(engine.cache) if restore else None
     out = {}
     for seg in segs:
         key = plane.load(act, seg)
 
         def eager():
             plane.segment(key[0], key[1], plane.route_state)[0].cpu()
-        eager()
+        if not light or plane.graphs.get(key) is None:
+            eager()
         if plane.graphs.get(key) is None:
             plane.graphs[key] = plane.capture(key)
         graph = plane.graphs[key]
@@ -1796,28 +1897,30 @@ def step_times(torch, engine, prompts, label, reps=6, segs=(1, 8)):
         def replay():
             graph.replay()[0].cpu()
         for mode, fn in (("eager", eager), ("graph", replay)):
-            fn()
+            heavy = light and mode == "eager"
+            if not heavy:
+                fn()
             walls = []
             # an eager segment of 8 steps takes 8 eager steps' time
-            for _ in range(3 if (mode, seg) == ("eager", 8) else reps):
+            n = 1 if heavy else 3 if (mode, seg) == ("eager", 8) else reps
+            for _ in range(n):
                 t0 = time.perf_counter()
                 fn()
                 walls.append(time.perf_counter() - t0)
             wall = statistics.median(walls) * 1e3 / seg
-            busy, ops = device_busy_ms(torch, fn, 1 if seg > 1 else 2)
+            busy, ops = (None, 0) if heavy else device_busy_ms(
+                torch, fn, 1 if seg > 1 or light else 2)
             out[(mode, seg)] = (wall, busy)
             print(f"  {label} decode step, {mode}, seg {seg} ({len(act)} "
                   f"rows): wall {wall:.3f} ms a step, device busy "
                   + (f"{busy / seg:.3f} ms a step ({ops / seg:.0f} device "
                      f"ops a step; busy {100 * busy / seg / wall:.1f}% of "
                      f"the wall)" if busy is not None else
-                     "not measured (the profiler saw no device event)")
+                     "not measured" + ("" if heavy else " (the profiler "
+                                       "saw no device event)"))
                   + f"; on {card_line()}")
-    for h in reversed(handles):
-        while not h.done():
-            engine.step()
-        engine.release_request(h.rid)
-    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    if restore:
+        cache_put(engine.cache, before)
     return out
 
 
@@ -2101,7 +2204,7 @@ def same_streams(what, got, want):
 
 
 def aw_failover(torch, label, engine, prompts, max_new, want, fail_tokens,
-                uncommitted=False):
+                uncommitted=False, frames=None, after_step=None):
     """``fail_aw(0)`` once every request has ``fail_tokens`` tokens, then
     ``recover_aw_requests()`` (the other AW is full: nothing is restored
     there), ``provision_aw(0)``, and steps to the end. Every stream must
@@ -2149,7 +2252,8 @@ def aw_failover(torch, label, engine, prompts, max_new, want, fail_tokens,
         torch.cuda.synchronize()
         install_s.append(time.perf_counter() - t0)
     with patched(engine.scheduler, _install_recovery=timed_install):
-        fo = Run(torch, engine, prompts, max_new, fail=fail_aw)
+        fo = Run(torch, engine, prompts, max_new, fail=fail_aw,
+                 frames=frames, after_step=after_step)
     if fo.t_fail is None:
         raise AssertionError(f"{label}: the AW failure was never injected")
     same_streams(f"{label} streams under fail_aw(0)", fo, want)
@@ -2175,6 +2279,7 @@ def aw_failover(torch, label, engine, prompts, max_new, want, fail_tokens,
           f"ms (host clock); largest gap between tokens "
           f"{max(fo.tbt) * 1e3:.2f} ms; on {card_line()}")
     fo.report(f"{label} AW failover")
+    fo.install_s = install_s
     return fo, held
 
 
@@ -4170,6 +4275,135 @@ def family_phase(torch, label, arch, layers, num_ew, kv_plane):
     print(f"  [{label}: {time.perf_counter() - t_fam:.1f} s]")
     return runs
 
+def recurrent_family_phase(torch, label, arch, prompt_len, max_new,
+                           fail_tokens, max_seq):
+    """One family of phase 18, whole, in bf16 with seeded weights, 2 AWs,
+    1 EW, 8 requests (Whisper's each with its own seeded frames), step
+    graphs on. A warm-up of one request captures the seg-1 step graph
+    (its key does not depend on the rows). The failure-free run: Whisper's
+    every prefill call launches flash once per encoder layer, without the
+    causal mask, and once per decoder layer, every decode step the fused
+    decode kernel once per decoder layer; the xLSTM launches no kernel,
+    as the reference runs its cells in plain jnp; the store's peak pinned
+    bytes are sampled after every step. Then the per-step checkpoint
+    gather and copy, and ``fail_aw(0)`` once every request has
+    ``fail_tokens`` tokens, recover, provision: bitwise. After that run's
+    first step (outside its clock and counts), with 8 rows decoding: the
+    seg-1 step graph against the eager step from the same state, and the
+    decode step's wall time and device busy, eager and graph, the cache
+    put back after them (each prefill runs eagerly: separate runs for
+    these would prefill 8 prompts again). Returns the failure-free Run."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    t_fam = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), dtype="bfloat16")
+    print(f"reference: reduced {arch}, card kernels vs CPU plain path")
+    reference_phase(torch, get_config(arch).reduced())
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, EngineConfig(
+        max_batch=8, max_seq=max_seq, num_aw=2, num_ew=1), seed=0,
+        device="cuda")
+    torch.cuda.synchronize()
+    print(f"  engine: {cfg.name}, {cfg.num_layers} layers"
+          + (f" + {cfg.encoder_layers} encoder layers" if cfg.is_encdec
+             else f" ({' / '.join(cfg.xlstm_pattern)})")
+          + f" bf16, {cfg.param_count / 1e9:.3f}B params, seeded init "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    rng = np.random.default_rng(18)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(prompt_len,)).astype(
+        np.int32) for _ in range(8)]
+    frames = [rng.standard_normal((cfg.encoder_seq, cfg.d_model),
+                                  dtype=np.float32)
+              for _ in range(8)] if cfg.is_encdec else None
+    t0 = time.perf_counter()
+    Run(torch, engine, prompts[:1], 2, warm_up=True,
+        frames=None if frames is None else frames[:1])
+    print(f"  warm-up (one request: its prefill, an eager decode step and "
+          f"the seg-1 step graph's capture): "
+          f"{time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    peak = [0]
+
+    def note_pinned(eng, steps):
+        peak[0] = max(peak[0], pinned_bytes(eng.store))
+    calls0, steps0 = engine.scheduler.stats.calls, engine.steps
+    run = Run(torch, engine, prompts, max_new, frames=frames,
+              after_step=note_pinned)
+    calls = engine.scheduler.stats.calls - calls0
+    steps = engine.steps - steps0
+    for st in run.streams:
+        if len(st) != max_new or not all(0 <= t < cfg.vocab_size
+                                         for t in st):
+            raise AssertionError(f"{label}: bad stream {st}")
+    if calls != len(prompts):
+        raise AssertionError(f"{label}: {calls} prefill calls, expected one "
+                             f"per request")
+    if cfg.is_encdec:
+        want = {"prefill": {"flash_attention": (cfg.encoder_layers +
+                                                cfg.num_layers) * calls,
+                            "decode_attention_fused": 0},
+                "decode": {"flash_attention": 0, "decode_attention_fused":
+                           cfg.num_layers * steps}}
+        for phase, kernels in want.items():
+            for k, n in kernels.items():
+                if run.launches[phase][k] != n:
+                    raise AssertionError(
+                        f"{label} {phase}: {k} launched "
+                        f"{run.launches[phase][k]} times, expected {n}")
+        enc = [sh for (ph, sh) in run.flash if not sh.causal]
+        if [(sh.b, sh.sq, sh.sk) for sh in enc] != \
+                [(1, cfg.encoder_seq, cfg.encoder_seq)]:
+            raise AssertionError(f"{label}: the encoder's flash calls ran at "
+                                 f"{enc}, not one non-causal shape over "
+                                 f"{cfg.encoder_seq} frames")
+        print(f"  main path: {calls} prefill calls (each {cfg.encoder_layers}"
+              f" flash launches without the causal mask over "
+              f"{cfg.encoder_seq} frames + {cfg.num_layers} causal over the "
+              f"{prompt_len}-token prompt; the cross attention the plain "
+              f"blockwise path, as the reference's), {steps} decode steps "
+              f"({cfg.num_layers} decode attention launches each)")
+    else:
+        ran = {k: v for ph in run.launches.values() for k, v in ph.items()
+               if v}
+        if ran:
+            raise AssertionError(f"{label}: kernels launched on a path that "
+                                 f"has none: {ran}")
+        print(f"  main path: {calls} prefill calls and {steps} decode steps "
+              f"in plain PyTorch (the reference's cells are plain jnp on "
+              f"every backend: no kernel on this path)")
+    run.report(label)
+    print(f"  stream r0: {run.streams[0]}")
+    slots, toks = list(range(8)), [prompt_len + 1] * 8
+    leaves = engine.layout.extract_tokens(engine.cache, slots, toks)
+    nbytes = sum(sum(v.nbytes for v in t) if isinstance(t, list)
+                 else t.nbytes for t in leaves)
+    del leaves
+    ck_ms = host_ms(torch, lambda: engine.layout.extract_tokens(
+        engine.cache, slots, toks), reps=5)
+    print(f"  per-step checkpoint gather + device-to-host copy (8 rows): "
+          f"{ck_ms:.3f} ms, {nbytes} bytes ({nbytes // 8} per token); the "
+          f"store's peak pinned bytes over the run {peak[0]} (after the "
+          f"last of its {run.steps} steps, before the releases); on "
+          f"{card_line()}")
+
+    def probe(eng, steps):
+        if steps != 1:
+            return
+        print(f"{label} graph == eager: the seg-1 step graph against the "
+              f"eager step from the same state, {len(eng.active_requests())}"
+              f" rows decoding")
+        graph_equals_eager(torch, eng, 1, label)
+        decode_step_times(torch, eng, label, reps=3, segs=(1,),
+                          light=cfg.is_encdec, restore=True)
+    fo, _ = aw_failover(torch, label, engine, prompts, max_new, run,
+                        fail_tokens, frames=frames, after_step=probe)
+    run.ck = SimpleNamespace(bytes=nbytes, ms=ck_ms, peak_pinned=peak[0],
+                             install_ms=[t * 1e3 for t in fo.install_s])
+    print(f"  [{label}: {time.perf_counter() - t_fam:.1f} s]")
+    return run
+
 
 def draw_bank(torch, g, e, rows, cols):
     """A bf16 expert bank [e, rows, cols] of N(0, 1 / rows) draws, 16
@@ -4539,6 +4773,7 @@ def main():
     kernel_flash_chunk(torch, g, 8, 512, 32, 8, 128, 128)
     kernel_dense_family(torch, g, records)
     kernel_families(torch, g, records)
+    kernel_whisper(torch, g, records)
     kernel_moe_gemm(torch, g, records, MOE_SHAPES)
     kernel_ssm_scan(torch, g, records, SCAN_SHAPES)
     phase("kernels")
@@ -4634,6 +4869,18 @@ def main():
     phase("MoE and dense families")
     family_ffn_checks(torch, g, records, fam)
     phase("families' expert FFN shapes")
+    rec = {}
+    for label, arch, prompt_len, max_new, fail_tokens, max_seq in \
+            RECURRENT_FAMILIES:
+        print(f"{label}: {arch} whole, bf16, 2 AWs, 1 EW, 8 requests of "
+              f"{prompt_len} prompt tokens + {max_new} new, max_seq "
+              f"{max_seq}, fail_aw(0) once every request has {fail_tokens} "
+              f"tokens")
+        rec[label] = recurrent_family_phase(torch, label, arch, prompt_len,
+                                            max_new, fail_tokens, max_seq)
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase("recurrent and encoder-decoder families")
     errs = served_flash_phase(torch, g)
     for name, run, ph, window in (
             ("flash_attention", serve, "prefill", None),
@@ -4653,6 +4900,10 @@ def main():
              "chunks", None) for label, *_, kv_plane in FAMILIES
             if kv_plane):
         flash_record(torch, g, records, name, run, ph, errs, window=window)
+    for name, causal in (("flash_attention[whisper encoder]", False),
+                         ("flash_attention[whisper prompt]", True)):
+        flash_record(torch, g, records, name, rec["whisper"], "prefill",
+                     errs, causal=causal)
     phase("flash at the served shapes")
 
     if not set(SEEN["ffn"]) <= FFN_CHECKED:
@@ -4714,6 +4965,8 @@ def main():
         "decode_attention_paged[qwen2]":
             total(qwen2["paged"], "decode_attention_paged"),
     }
+    launches["decode_attention_fused[whisper]"] = total(
+        rec["whisper"], "decode_attention_fused")
     for label, *_, kv_plane in FAMILIES:
         launches[f"decode_attention_fused[{label}]"] = total(
             fam[label]["whole"], "decode_attention_fused")

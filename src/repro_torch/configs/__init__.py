@@ -1,9 +1,9 @@
 """Architecture config registry: ``get_config(<id>)`` resolution.
 
-The paper's own model, the hybrid family and the whole transformer family
-(dense, sliding-window and softcap, MoE with shared experts and a dense
-first layer, qk-norm, MQA) are registered; the encoder-decoder and xLSTM
-families of ``repro.configs`` join as their model code is ported.
+Every architecture of the reference's registry: the paper's own model,
+the hybrid, the whole transformer family (dense, sliding-window and
+softcap, MoE with shared experts and a dense first layer, qk-norm, MQA),
+the xLSTM and the encoder-decoder (Whisper).
 """
 from __future__ import annotations
 
@@ -21,6 +21,8 @@ ARCH_IDS = (
     "kimi_k2_1t_a32b",  # 384 experts top-8, a shared expert, dense layer 0
     "chameleon_34b",  # qk-norm, group size 8
     "granite_34b",    # MQA (48 query heads on one KV head), ungated GeLU
+    "xlstm_350m",     # mLSTM/sLSTM pairs, recurrent state only
+    "whisper_small",  # encoder-decoder: 1500 frames, cross attention
 )
 
 

@@ -129,9 +129,15 @@ class ModelConfig:
             n += self.num_layers * mamba
             n_attn_apps = self.num_layers // max(1, self.hybrid_attn_every)
             n += attn + 3 * d * self.d_ff if n_attn_apps else 0
+        elif self.xlstm_pattern:
+            n += self.num_layers * (4 * d * d + 2 * d * 4 * d)
         else:
             mult = 3 if self.mlp_gated else 2
             n += self.num_layers * (attn + mult * d * self.d_ff)
+        if self.encoder_layers:
+            mult = 3 if self.mlp_gated else 2
+            n += self.encoder_layers * (attn + mult * d * self.d_ff)
+            n += self.num_layers * attn  # cross attention
         return int(n)
 
     def reduced(self) -> "ModelConfig":

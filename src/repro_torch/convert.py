@@ -3,10 +3,12 @@
 Takes the reference model's params as a nested dict/tuple of array-likes
 (``np.asarray`` must accept each leaf, as it does JAX arrays) and returns
 the port's layout: the scanned ``blocks`` axis is unstacked into a list of
-per-layer dicts (leading ``dense{i}`` layers first), the hybrid's stacked
-Mamba2 blocks into one list in execution order, and every weight keeps
-its layout ([in, out] projections, [E, D, F] expert banks). The port does
-not import JAX: the caller hands over the params.
+per-layer dicts (leading ``dense{i}`` layers first; an xLSTM's units the
+same way, into ``blocks``), the hybrid's stacked Mamba2 blocks into one
+list in execution order, Whisper's stacked ``enc`` and ``dec`` layers
+into two lists, and every weight keeps its layout ([in, out]
+projections, [E, D, F] expert banks). The port does not import JAX: the
+caller hands over the params.
 """
 from __future__ import annotations
 
@@ -33,11 +35,13 @@ def _tree(node, fn):
 
 
 def params_from_reference(ref_params: Any, device="cuda") -> dict:
-    """Convert reference decoder or hybrid params (``init_params`` of
-    ``build_decoder`` or ``build_hybrid``) into the port's param dict on
-    ``device``."""
+    """Convert reference params (``init_params`` of ``build_decoder``,
+    ``build_hybrid``, ``build_xlstm`` or ``build_encdec``) into the port's
+    param dict on ``device``."""
     if "units" in ref_params:
         return _hybrid_from_reference(ref_params, device)
+    if "enc" in ref_params:
+        return _encdec_from_reference(ref_params, device)
     out = {k: _tree(v, lambda a: _tensor(a, device))
            for k, v in ref_params.items()
            if k != "blocks" and not k.startswith("dense")}
@@ -46,13 +50,15 @@ def params_from_reference(ref_params: Any, device="cuda") -> dict:
     for i in range(n_first):
         layers.append(_tree(ref_params[f"dense{i}"],
                             lambda a: _tensor(a, device)))
-    units = ref_params["blocks"]            # tuple over the attn pattern
+    # a tuple over the unit's pattern (attention kinds, or an xLSTM's
+    # mLSTM/sLSTM cells), each stacked over the unit's repeats
+    units = ref_params["blocks"]
     stacked = [_tree(u, lambda a: np.asarray(a)) for u in units]
     reps = len(_first_leaf(stacked[0]))
     for r in range(reps):
         for unit in stacked:
             layers.append(_tree(unit, lambda a: _tensor(a[r], device)))
-    out["layers"] = layers
+    out["blocks" if "cell" in stacked[0] else "layers"] = layers
     return out
 
 
@@ -78,4 +84,16 @@ def _hybrid_from_reference(ref_params, device) -> dict:
         blocks += [_tree(tr, lambda a, i=i: _tensor(a[i], device))
                    for i in range(_first_leaf(tr).shape[0])]
     out["blocks"] = blocks
+    return out
+
+
+def _encdec_from_reference(ref_params, device) -> dict:
+    """Whisper's stacked ``enc`` and ``dec`` layers become two lists in
+    execution order; the embedding and the norms keep their layout."""
+    out = {k: _tree(v, lambda a: _tensor(a, device))
+           for k, v in ref_params.items() if k not in ("enc", "dec")}
+    for name in ("enc", "dec"):
+        st = _tree(ref_params[name], np.asarray)
+        out[name] = [_tree(st, lambda a, i=i: _tensor(a[i], device))
+                     for i in range(_first_leaf(st).shape[0])]
     return out

@@ -51,7 +51,7 @@ def combine_decode_partials(q, m, l, acc, k1, v1, *, softcap: float = 0.0):
     b, h, dh = q.shape
     hkv = k1.shape[1]
     g = h // hkv
-    qs = (q.float() * kref.attn_scale(dh, q.device)).reshape(b, hkv, g, dh)
+    qs = (q.float() * kref.attn_scale(dh)).reshape(b, hkv, g, dh)
     s_self = torch.einsum("bhgd,bhd->bhg", qs, k1.float())
     if softcap:
         s_self = torch.tanh(s_self / softcap) * softcap

@@ -6,6 +6,7 @@ are cast back to the input dtype, as in the reference.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -16,10 +17,11 @@ ACTS = {"silu": F.silu,
         "gelu": lambda x: F.gelu(x, approximate="tanh")}
 
 
-def attn_scale(dh: int, device=None) -> torch.Tensor:
-    """1/sqrt(dh) computed in float32, as the reference does."""
-    return 1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32,
-                                         device=device))
+def attn_scale(dh: int) -> float:
+    """1/sqrt(dh) computed in float32, as the reference does. A Python
+    number, not a device tensor: a step captured in a CUDA graph may not
+    copy from the host."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(dh)))
 
 
 # --------------------------------------------------------------------------
@@ -36,7 +38,7 @@ def decode_attention_partial_ref(q, ck, cv, cpos, pos, *, window: int = 0,
     b, h, dh = q.shape
     hkv = ck.shape[2]
     g = h // hkv
-    qs = q.reshape(b, hkv, g, dh).float() * attn_scale(dh, q.device)
+    qs = q.reshape(b, hkv, g, dh).float() * attn_scale(dh)
     s = torch.einsum("bhgd,bshd->bhgs", qs, ck.float())
     if softcap:
         s = torch.tanh(s / softcap) * softcap
@@ -60,7 +62,7 @@ def decode_attention_ref(q, ck, cv, cpos, k1, v1, pos, *, window: int = 0,
     b, h, dh = q.shape
     hkv = ck.shape[2]
     g = h // hkv
-    qs = q.reshape(b, hkv, g, dh).float() * attn_scale(dh, q.device)
+    qs = q.reshape(b, hkv, g, dh).float() * attn_scale(dh)
     s = torch.einsum("bhgd,bshd->bhgs", qs, ck.float())
     s_self = torch.einsum("bhgd,bhd->bhg", qs, k1.float())
     if softcap:

@@ -1,6 +1,6 @@
 """GQA attention: blockwise full attention for prefill, chunked prefill
 and single-token decode, against a contiguous slotted KV cache or a paged
-one.
+one; and the Whisper decoder's cross attention over the encoder's K/V.
 
 Cache layout per attention layer (as in the reference):
     {"k": [B, Sc, Hkv, Dh], "v": [B, Sc, Hkv, Dh], "pos": [B, Sc] int32}
@@ -33,10 +33,12 @@ PREFILL_BLOCK_K = 16
 # params
 # --------------------------------------------------------------------------
 
-def attn_init(gen, cfg: ModelConfig, device, dtype=torch.float32):
+def attn_init(gen, cfg: ModelConfig, device, dtype=torch.float32,
+              cross: bool = False):
     """The reference's leaves: the four projections (in ``dtype``), the
-    QKV biases (zeros) with ``cfg.qkv_bias`` and the per-head q/k norms
-    with ``cfg.qk_norm``."""
+    QKV biases (zeros) with ``cfg.qkv_bias`` unless ``cross`` (Whisper's
+    cross attention has none) and the per-head q/k norms with
+    ``cfg.qk_norm``."""
     d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     kw = dict(device=device, dtype=dtype)
     p = {
@@ -45,7 +47,7 @@ def attn_init(gen, cfg: ModelConfig, device, dtype=torch.float32):
         "wv": dense_init(gen, d, hkv * dh, **kw),
         "wo": dense_init(gen, h * dh, d, **kw),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, n in (("bq", h * dh), ("bk", hkv * dh), ("bv", hkv * dh)):
             p[name] = torch.zeros((n,), dtype=torch.float32, device=device)
     if cfg.qk_norm:
@@ -110,7 +112,7 @@ def blockwise_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
     g = h // hkv
     bq = block_q or _pick_block(sq)
     bk = block_k or _pick_block(sk)
-    qs = q.reshape(b, sq, hkv, g, dh).float() * attn_scale(dh, q.device)
+    qs = q.reshape(b, sq, hkv, g, dh).float() * attn_scale(dh)
     kf, vf = k.float(), v.float()
     out = torch.empty((b, sq, hkv, g, dh), dtype=torch.float32,
                       device=q.device)
@@ -372,3 +374,26 @@ def attn_decode_paged(cfg: ModelConfig, params, x, cache, bt, pos):
     out = out.reshape(b, 1, -1) @ params["wo"]
     cache = paged_write_chunk(cache, bt, k1, v1, pos[:, None])
     return out, cache
+
+
+def attn_cross(cfg: ModelConfig, params, x, cross_kv, blocked: bool = False):
+    """Cross attention (the Whisper decoder): full attention over the
+    encoder's K/V, no RoPE on either side. Like the reference on every
+    backend, it calls the plain ``blockwise_attention`` with
+    ``causal=False`` and zero positions, on the card too. ``blocked``
+    (prefill) runs the projections in fixed row blocks."""
+    b, s, _ = x.shape
+    q = _project_q(cfg, params, x, blocked)
+    k, v = cross_kv["k"], cross_kv["v"]
+    q_pos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    k_pos = torch.zeros((b, k.shape[1]), dtype=torch.int32, device=x.device)
+    out = blockwise_attention(q, k, v, q_pos, k_pos, causal=False,
+                              softcap=cfg.attn_softcap)
+    return matmul(out.reshape(b, s, -1), params["wo"], blocked)
+
+
+def cross_kv_init(cfg: ModelConfig, params, enc_out):
+    """The decoder's cross-attention K/V from the encoder's output, once
+    at prefill, in fixed row blocks."""
+    k, v = _project_kv(cfg, params, enc_out, blocked=True)
+    return {"k": k, "v": v}

@@ -65,6 +65,9 @@ class RequestSpec:
     completion_deadline: Optional[float] = None  # last-token deadline: an
     #                                    overrun is flagged, never dropped
     session: Optional[str] = None      # affinity key (session_affinity)
+    frames: Optional[np.ndarray] = None  # [T_enc, D] frame embeddings of
+    #                                    an encoder-decoder model (None =
+    #                                    zeros)
     prompt_len: int = 8
     seed: int = 0
     token_dist: str = "uniform"    # "uniform" | "zipf"
@@ -221,7 +224,7 @@ class Client:
             spec.rid, prompt, spec.max_new, now=now,
             slo_class=spec.slo_class, deadline=spec.deadline,
             completion_deadline=spec.completion_deadline,
-            sampling=spec.sampling, session=spec.session)
+            sampling=spec.sampling, session=spec.session, frames=spec.frames)
         handle = RequestHandle(self, spec)
         self._handles[spec.rid] = handle
         self.engine.scheduler.admit(now)

@@ -22,7 +22,9 @@ batched gather and one device-to-host copy.
 
 Pad tokens (length and repeated-row padding) are masked out of expert
 capacity, and the prefill capacity comes from the real token count, so a
-request's routing does not depend on its batch's padding.
+request's routing does not depend on its batch's padding. An
+encoder-decoder's prefill also takes each request's frames (zeros when it
+has none; padding rows repeat the first request's).
 """
 from __future__ import annotations
 
@@ -136,10 +138,20 @@ class ContinuousBatchScheduler:
         rs = eng.route_state._replace(
             aw_health=torch.ones_like(eng.route_state.aw_health))
         dev = eng.device
+        kw = {}
+        if eng.cfg.is_encdec:
+            # each request's frames (zeros when it has none); padding rows
+            # repeat the first request's
+            zeros = np.zeros((eng.cfg.encoder_seq, eng.cfg.d_model),
+                             np.float32)
+            frames = [q.frames if q.frames is not None else zeros
+                      for q, _, _ in entries]
+            frames += [frames[0]] * (rows - n_real)
+            kw["frames"] = torch.as_tensor(np.stack(frames), device=dev)
         last_logits, req_cache, load = eng.api.prefill(
             eng.params, torch.as_tensor(toks, device=dev), rs,
             eng.ecfg.max_seq, capacity=eng.prefill_capacity(sum(pre_lens)),
-            mask=torch.as_tensor(mask, device=dev))
+            mask=torch.as_tensor(mask, device=dev), **kw)
         if eng.collect_load:
             eng.note_dispatch_load(load.cpu().numpy())
         firsts = None

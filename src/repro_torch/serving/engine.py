@@ -98,7 +98,7 @@ from repro_torch.serving.decode_loop import DecodeLoopPlane
 from repro_torch.serving.flightrec import FlightRecorder
 from repro_torch.serving.gateway import Gateway, QueuedRequest
 from repro_torch.serving.kvcache import (CacheLayout, PagedCacheLayout,
-                                         PagePool)
+                                         PagePool, state_leaves)
 from repro_torch.serving.prefixcache import PrefixCachePlane
 from repro_torch.serving.telemetry import EventBus, TelemetryPlane
 from repro_torch.serving.workers import (AttentionWorker, ClusterSlotView,
@@ -322,11 +322,12 @@ class InferenceEngine:
         self.pages: Optional[PagePool] = None
         if ecfg.kv_page_tokens > 0:
             pt = ecfg.kv_page_tokens
-            if cfg.ssm.enabled:
+            if state_leaves(self.api.init_cache(1, pt)):
                 # the reference's paged layout asserts an attention-only
-                # cache: recurrent state has no pages
+                # cache: state leaves (recurrent state, cross K/V) have no
+                # pages
                 raise ValueError("paged KV needs an attention-only cache "
-                                 f"({cfg.name} keeps recurrent state)")
+                                 f"({cfg.name} keeps state leaves)")
             if ecfg.max_seq % pt:
                 raise ValueError(f"kv_page_tokens={pt} must divide "
                                  f"max_seq={ecfg.max_seq}")
@@ -587,8 +588,10 @@ class InferenceEngine:
         r.paused = True
         r.queued_for_recovery = True
         r.preemptions += 1
+        # the frames are not kept: a resumed encoder-decoder request
+        # restores its cross K/V from its log, as in the reference
         self.gateway.requeue_recovery([QueuedRequest(
-            rid, r.prompt, r.max_new, t_enqueue=now,
+            rid, r.prompt, r.max_new, t_enqueue=now, frames=None,
             slo_class=r.slo_class, deadline=r.deadline,
             completion_deadline=r.completion_deadline,
             completion_flagged=r.completion_flagged,

@@ -59,6 +59,8 @@ class QueuedRequest:
     completion_flagged: bool = False   # completion overrun already emitted
     prefix_hit: int = 0             # tokens adopted from the prefix cache
     #                                 at placement (0 = cold admission)
+    frames: Optional[np.ndarray] = None   # an encoder-decoder request's
+    #                                 frame embeddings (None = zeros)
 
     @property
     def deadline_key(self) -> float:
@@ -261,14 +263,16 @@ class Gateway:
                 deadline: Optional[float] = None,
                 completion_deadline: Optional[float] = None,
                 sampling: Optional[SamplingParams] = None,
-                session: Optional[str] = None):
+                session: Optional[str] = None,
+                frames: Optional[np.ndarray] = None):
         if slo_class not in SLO_CLASSES:
             raise ValueError(f"unknown slo_class {slo_class!r}: expected "
                              f"one of {SLO_CLASSES}")
         entry = QueuedRequest(rid, np.asarray(prompt, np.int32), max_new,
                               now, slo_class=slo_class, deadline=deadline,
                               sampling=sampling, session=session,
-                              completion_deadline=completion_deadline)
+                              completion_deadline=completion_deadline,
+                              frames=frames)
         self._insert(entry)
         self.stats.enqueued += 1
         self.stats.bump(slo_class, "enqueued")

@@ -2,9 +2,13 @@
 paged one (port of ``repro.serving.kvcache``).
 
 The port's contiguous cache is ``{"layers": [{"k", "v", "pos"}, ...]}``
-with the request slot as axis 0 of every tensor; a hybrid (Zamba2) cache
-adds the recurrent state leaves ``"h"`` [B, L, H, P, N] and ``"conv"``
-[B, L, W-1, Di] (models/hybrid.py). The reference's leaf discovery (batch
+with the request slot as axis 0 of every tensor; state leaves, each with
+a layer axis after the slot, sit beside it: a hybrid (Zamba2) cache's
+``"h"`` [B, L, H, P, N] and ``"conv"`` [B, L, W-1, Di]
+(models/hybrid.py), an xLSTM cache's mLSTM and sLSTM cells (``"mlstm_c"``
+... ``"slstm_h"``, models/xlstm_model.py; its ``"layers"`` is empty) and
+Whisper's cross-attention ``"cross_k"`` / ``"cross_v"`` [B, L, T_enc,
+Hkv, Dh] (models/whisper.py). The reference's leaf discovery (batch
 axis, attention vs state leaves) is therefore not needed. A paged cache
 holds per-layer page pools ``[P, pt, ...]`` instead, plus one block table
 ``"bt"`` [B, nblk] (models/attention.py); it is attention-only. Writes
@@ -13,8 +17,9 @@ are in place.
 Checkpoint segments (the unit of §6.1) are layout-independent: one
 token's segment is ``[kv [L, 2, Hkv, Dh], pos [L]]`` on the host, in the
 cache's own dtype, so a segment a paged AW wrote restores onto a
-contiguous engine and vice versa; a hybrid's adds ``h`` and ``conv``, the
-slot's whole state at that token (the reference's state-leaf segment). A
+contiguous engine and vice versa; a cache with state leaves adds each of
+them, the slot's whole state at that token (the reference's state-leaf
+segment; an xLSTM's ``kv`` and ``pos`` are empty). A
 gather for many tokens returns the same leaves with a leading token axis,
 from one device-to-host copy.
 """
@@ -27,8 +32,12 @@ import numpy as np
 import torch
 
 
-#: a hybrid cache's recurrent state leaves, in segment order
-STATE_LEAVES = ("h", "conv")
+#: every state leaf a cache may hold, in segment order: the hybrid's
+#: Mamba2 state, the xLSTM's cells, Whisper's cross-attention K/V
+STATE_LEAVES = ("h", "conv",
+                "mlstm_c", "mlstm_n", "mlstm_m",
+                "slstm_c", "slstm_n", "slstm_m", "slstm_h",
+                "cross_k", "cross_v")
 
 
 def _pack_to_host(leaves) -> List[torch.Tensor]:
@@ -67,8 +76,16 @@ def _copy_stream(device) -> "torch.cuda.Stream":
     return _copy_streams[device]
 
 
-def _state_leaves(cache) -> List[str]:
+def state_leaves(cache) -> List[str]:
+    """The state leaves ``cache`` holds, in segment order."""
     return [name for name in STATE_LEAVES if name in cache]
+
+
+def cache_device(cache) -> torch.device:
+    """The device of the cache (an xLSTM cache has no attention layer)."""
+    if cache["layers"]:
+        return cache["layers"][0]["k"].device
+    return cache[state_leaves(cache)[0]].device
 
 
 class _SegmentOps:
@@ -90,15 +107,15 @@ class _SegmentOps:
     def extract_tokens(self, cache, slots, tokens) -> List[torch.Tensor]:
         """Checkpoint segments of the (slot, token) pairs in one batched
         gather and one device-to-host copy: host leaves
-        [kv [n, L, 2, Hkv, Dh], pos [n, L]] (a hybrid's also h and conv,
-        each a list of n host tensors); pair i's segment is [leaf[i] for
-        each leaf].
+        [kv [n, L, 2, Hkv, Dh], pos [n, L]] and each state leaf, a list
+        of n host tensors (kv and pos are [n, 0] without an attention
+        layer); pair i's segment is [leaf[i] for each leaf].
 
         A state leaf's segment is the slot's whole current state, the same
         for every token of the slot: each distinct slot's state is
         gathered and copied once, and each pair's segment is a view of its
         slot's one host copy (a prompt's tokens at install share one)."""
-        dev = cache["layers"][0]["k"].device
+        dev = cache_device(cache)
         slots = np.asarray(slots)
         s = torch.as_tensor(slots, dtype=torch.long, device=dev)
         t = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
@@ -109,11 +126,16 @@ class _SegmentOps:
             kv.append(torch.stack([layer["k"][i0, i1], layer["v"][i0, i1]],
                                   1))
             pos.append(layer["pos"][i0, i1])
+        if kv:
+            kv, pos = torch.stack(kv, 1), torch.stack(pos, 1)
+        else:
+            kv = torch.zeros((len(slots), 0), device=dev)
+            pos = torch.zeros((len(slots), 0), dtype=torch.int32,
+                              device=dev)
         uniq, inv = np.unique(slots, return_inverse=True)
         rows = torch.as_tensor(uniq, dtype=torch.long, device=dev)
-        out = _pack_to_host([torch.stack(kv, 1), torch.stack(pos, 1)] +
-                            [cache[name][rows]
-                             for name in _state_leaves(cache)])
+        out = _pack_to_host([kv, pos] + [cache[name][rows]
+                                         for name in state_leaves(cache)])
         out[2:] = [[h[j] for j in inv.tolist()] for h in out[2:]]
         return out
 
@@ -148,7 +170,7 @@ class _SegmentOps:
             return cache
         tokens = np.asarray(tokens)[keep]
         segs = [sg for sg, k in zip(segs, keep) if k]
-        dev = cache["layers"][0]["k"].device
+        dev = cache_device(cache)
         kv = torch.stack([sg[0] for sg in segs]).to(dev)    # [n,L,2,Hkv,Dh]
         pos = torch.stack([sg[1] for sg in segs]).to(dev)   # [n,L]
         s = torch.full((len(tokens),), slot, dtype=torch.long, device=dev)
@@ -168,14 +190,14 @@ class _SegmentOps:
         # what stays. Written once, from that token: a batched scatter
         # with repeated indices picks no defined winner on CUDA.
         last = segs[int(np.argmax(tokens))]
-        for j, name in enumerate(_state_leaves(cache)):
+        for j, name in enumerate(state_leaves(cache)):
             cache[name][slot] = last[2 + j].to(dev)
         return cache
 
 
 class CacheLayout(_SegmentOps):
-    """Slot-level operations on a contiguous cache: attention layers and,
-    in a hybrid, recurrent state leaves."""
+    """Slot-level operations on a contiguous cache: attention layers and
+    state leaves."""
 
     def _index(self, cache, slots, tokens):
         return [(slots, tokens % layer["k"].shape[1])
@@ -200,7 +222,7 @@ class CacheLayout(_SegmentOps):
         per attention layer], and each state leaf}."""
         out = {"layers": [{k: t[row] for k, t in layer.items()}
                           for layer in cache["layers"]]}
-        out.update({name: cache[name][row] for name in _state_leaves(cache)})
+        out.update({name: cache[name][row] for name in state_leaves(cache)})
         return out
 
     @staticmethod
@@ -220,7 +242,7 @@ class CacheLayout(_SegmentOps):
         for layer, st in zip(cache["layers"], state["layers"]):
             for k, t in layer.items():
                 t[slot].copy_(st[k])
-        for name in _state_leaves(cache):
+        for name in state_leaves(cache):
             cache[name][slot].copy_(state[name])
         return cache
 
@@ -242,16 +264,17 @@ class CacheLayout(_SegmentOps):
             layer["k"][slot].zero_()
             layer["v"][slot].zero_()
             layer["pos"][slot].fill_(-1)
-        for name in _state_leaves(cache):
+        for name in state_leaves(cache):
             cache[name][slot].zero_()
         return cache
 
     def prefill_paddable(self, cache, max_seq: int) -> bool:
         """True when slot index == absolute position in every layer (full
-        attention, no ring wrap) and there is no recurrent state, which a
-        pad token must never reach: the precondition for padded and
-        chunked prefill."""
-        if _state_leaves(cache):
+        attention, no ring wrap) and there is no state leaf (recurrent
+        state, which a pad token must never reach, or Whisper's cross
+        K/V, which the reference's layout counts as state too): the
+        precondition for padded and chunked prefill."""
+        if state_leaves(cache):
             return False
         return all(layer["k"].shape[1] >= max_seq
                    for layer in cache["layers"])
@@ -293,7 +316,7 @@ class PagedCacheLayout(_SegmentOps):
         writes; max_seq = page_tokens) and the block table, every entry at
         the null page."""
         cache = init_cache(self.pool.num_pages + 1, self.page_tokens)
-        dev = cache["layers"][0]["k"].device
+        dev = cache_device(cache)
         cache["bt"] = torch.zeros((batch, self.nblk), dtype=torch.int32,
                                   device=dev)
         return cache
@@ -321,7 +344,7 @@ class PagedCacheLayout(_SegmentOps):
         blk = np.nonzero(row > 0)[0]
         if not len(blk):
             return cache
-        dev = cache["layers"][0]["k"].device
+        dev = cache_device(cache)
         pages = torch.as_tensor(row[blk], dtype=torch.long, device=dev)
         blk = torch.as_tensor(blk, dtype=torch.long, device=dev)
         pt = self.page_tokens
@@ -339,7 +362,7 @@ class PagedCacheLayout(_SegmentOps):
         unchanged."""
         pids = self.pool.slot_pages(slot)
         if pids:
-            dev = cache["layers"][0]["k"].device
+            dev = cache_device(cache)
             idx = torch.as_tensor(pids, dtype=torch.long, device=dev)
             for layer in cache["layers"]:
                 sub = layer["pos"][idx]
@@ -359,7 +382,7 @@ class PagedCacheLayout(_SegmentOps):
         """Invalidate freed pages' positions, so a recycled page can never
         leak stale entries into its next owner's attention."""
         if pages:
-            dev = cache["layers"][0]["k"].device
+            dev = cache_device(cache)
             idx = torch.as_tensor(pages, dtype=torch.long, device=dev)
             for layer in cache["layers"]:
                 layer["pos"][idx] = -1

@@ -1321,22 +1321,23 @@ def _leaves(cache):
 
 def _replay_equals_eager(eng, seg_len):
     """A replay of the seg_len step graph gives the ring, the slot loads
-    and the cache of the eager step from the same state, the eager step
-    reading the engine's RouteState (the graph reads the plane's copy)."""
+    and every cache tensor (state leaves included) of the eager step from
+    the same state, the eager step reading the engine's RouteState (the
+    graph reads the plane's copy)."""
     plane = eng.decode_plane
     key = plane.load(eng.active_requests(), seg_len)
-    before = [t.clone() for t in _leaves(eng.cache)]
+    before = [t.clone() for t in _all_leaves(eng.cache)]
     ring, loads = (t.clone() for t in plane.segment(key[0], key[1],
                                                     eng.route_state))
-    eager = [t.clone() for t in _leaves(eng.cache)]
-    for t, b in zip(_leaves(eng.cache), before):
+    eager = [t.clone() for t in _all_leaves(eng.cache)]
+    for t, b in zip(_all_leaves(eng.cache), before):
         t.copy_(b)
     if plane.graphs.get(key) is None:
         plane.graphs[key] = plane.capture(key)
     g_ring, g_loads = plane.graphs[key].replay()
     assert torch.equal(g_ring, ring) and torch.equal(g_loads, loads)
-    assert all(torch.equal(a, b) for a, b in zip(_leaves(eng.cache), eager))
-    for t, b in zip(_leaves(eng.cache), before):
+    assert all(torch.equal(a, b) for a, b in zip(_all_leaves(eng.cache), eager))
+    for t, b in zip(_all_leaves(eng.cache), before):
         t.copy_(b)
     return loads
 
@@ -1757,3 +1758,80 @@ def test_exact_replay_on_the_card_is_bit_identical(dev, tmp_path):
     report = replay_bundle(bundle, device="cuda")
     assert report["ok"] and report["config_hash_ok"], report
     assert report["matched"] == len(m.outputs) > 0
+
+
+# --------------------------------------------------------------------------
+# the recurrent and encoder-decoder families: Whisper's attention shapes,
+# and each family's decode step graph
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h", [(2, 40, 6), (1, 1500, 12)])
+def test_flash_attention_without_causal_mask(dev, dtype, b, s, h):
+    """An encoder's full attention (Dh 64, G 1): the small case and the
+    Whisper encoder's 1,500 frames, against the plain version with no
+    causal mask."""
+    r = np.random.default_rng(s)
+    q, k, v = (_randn(r, (b, s, h, 64), dtype, dev) for _ in range(3))
+    p = torch.arange(s, device=dev, dtype=torch.int32).repeat(b, 1)
+    n = fa.KERNEL.launches
+    got = ops.full_attention(q, k, v, p, p, causal=False)
+    assert fa.KERNEL.launches == n + 1
+    want = blockwise_attention(q, k, v, p, p, causal=False, block_q=s,
+                               block_k=16)
+    _close(got, want, dtype)
+    # the causal call differs: the mask is not applied by default
+    assert not torch.equal(got, ops.full_attention(q, k, v, p, p))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sc", [40, 256])
+def test_decode_attention_at_dh64_g1(dev, dtype, sc):
+    """Whisper's decoder self-attention: H = Hkv 12, Dh 64, 8 rows."""
+    r = np.random.default_rng(sc)
+    b, h, dh = 8, 12, 64
+    q = _randn(r, (b, h, dh), dtype, dev)
+    ck, cv = (_randn(r, (b, sc, h, dh), dtype, dev) for _ in range(2))
+    k1, v1 = (_randn(r, (b, h, dh), dtype, dev) for _ in range(2))
+    pos = torch.tensor(r.integers(1, sc, size=(b,)), dtype=torch.int32,
+                       device=dev)
+    ar = torch.arange(sc, device=dev, dtype=torch.int32)[None]
+    cpos = torch.where(ar < pos[:, None], ar, torch.full_like(ar, -1))
+    args = (q, ck, cv, cpos, k1, v1, pos)
+    n = da.KERNEL.launches
+    _close(ops.decode_attention(*args), da.decode_attention_plain(*args),
+           dtype)
+    assert da.KERNEL.launches == n + 1
+
+
+@pytest.mark.parametrize("arch", ["xlstm_350m", "whisper_small"])
+def test_family_step_graph_replay_equals_the_eager_step(dev, arch):
+    """A reduced bf16 xLSTM (a cache of state leaves only, a RouteState
+    with zero slots) and Whisper (self attention, a plain cross attention
+    over the encoder's frames): the seg-1 step graph's replay gives the
+    token ring and every cache tensor of the eager step from the same
+    state, and the engine captures no graph after its first step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.api import RequestSpec
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    eng = InferenceEngine(cfg, EngineConfig(max_batch=4, max_seq=64,
+                                            num_aw=2, num_ew=1),
+                          seed=7, device="cuda")
+    r = np.random.default_rng(0)
+    handles = []
+    for i, (n, new) in enumerate(((9, 8), (5, 12), (12, 6))):
+        frames = r.normal(size=(cfg.encoder_seq, cfg.d_model)).astype(
+            np.float32) if cfg.is_encdec else None
+        handles.append(eng.client.submit(RequestSpec(
+            rid=f"f{i}", prompt=r.integers(1, cfg.vocab_size, size=(n,)),
+            max_new=new, frames=frames)))
+    eng.step()
+    eng.step()
+    assert eng.route_state.slot_expert.numel() == 0
+    assert _replay_equals_eager(eng, 1).shape == (1, 0)
+    while not all(h.done() for h in handles):
+        eng.step()
+    assert eng.decode_plane.captures() == 1

@@ -254,9 +254,14 @@ def test_prefill_decode_step(arch):
     params = api.init_params(torch.Generator().manual_seed(0))
     rs = api.init_route_state()
     b, s = 2, 12
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (b, s)).astype(np.int32))
-    last, cache, _ = api.prefill(params, toks, rs, s + 8)
+    kw = {}
+    if cfg.is_encdec:
+        kw["frames"] = torch.from_numpy(rng.normal(size=(
+            b, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    last, cache, _ = api.prefill(params, toks, rs, s + 8, **kw)
     assert last.shape == (b, cfg.vocab_size)
     structure = _shapes(cache)
     tok = last.argmax(-1).to(torch.int32)
