@@ -316,6 +316,35 @@ Phases, each of which raises on failure (exit code != 0):
                 step's wall time and device busy, the per-step
                 checkpoint's bytes and gather + copy ms, the store's peak
                 pinned bytes and the restores' host ms.
+ 19. training (after phase 18, with its engines dropped) — (1) each
+                TRAIN_MODELS arch reduced, in float32: the loss and every
+                gradient leaf on the card (flash, the expert FFN and the
+                SSD scan in the forward pass) against the CPU's plain path
+                (the loss to 1e-3, each leaf to 1e-3 of its largest
+                magnitude + 1e-4); (2) each kernel's autograd Function
+                (flash causal at S 200, bf16 and float32; the expert FFN
+                on a bank with shadow slots; the SSD scan at Zamba2's
+                heads): the output and every input's gradient against the
+                plain version differentiated directly, one launch in the
+                forward pass; (3) TRAIN_MODELS in bf16 with seeded
+                weights, a few AdamW steps on one fixed batch of
+                ``lm_batches``: Qwen2-1.5B whole, Mixtral-8x7B widths at 2
+                of 32 layers (2 EWs), Zamba2-7B widths at 13 layers,
+                xLSTM-350m and Whisper-small whole; the loss finite every
+                step and lower at the last, every param leaf with a
+                gradient and moved, each model's kernels launched in
+                every forward pass and none in a backward pass (the
+                backward recomputes the plain versions), ``save_params``
+                and ``load_params`` on the card bitwise (leaves and
+                ``forward_train``'s logits); prints each step's forward,
+                backward and optimizer times (CUDA events), the peak
+                memory and the launches per step; (4) ``python -m
+                repro_torch.launch.train`` with its defaults, in a process
+                of its own, its loss improved. Then the expert FFN and the
+                SSD scan at the training shapes against their plain
+                versions, timed (``moe_gemm[train]``, ``ssm_scan[train]``,
+                with the training launches); flash's in phase 14
+                (``flash_attention[train ...]``).
  14. flash at the served shapes — every (B, Sq, Sk, heads, window,
                 softcap, causal) the runs gave the flash kernel, on the positions
                 of that shape's first call (pad tails, rows outside a
@@ -340,6 +369,8 @@ import dataclasses
 import functools
 import gc
 import json
+import math
+import os
 import statistics
 from collections import Counter
 import subprocess
@@ -426,6 +457,30 @@ FAMILY_NEW = 16
 # checkpoint segment)
 RECURRENT_FAMILIES = (("xlstm", "xlstm_350m", 128, 16, 8, 256),
                       ("whisper", "whisper_small", 32, 8, 4, 256))
+# the training phase (19), each in bf16 with seeded weights, a few AdamW
+# steps at lr TRAIN_LR on one fixed batch of lm_batches: (label, arch,
+# layers trained (0: all), EWs, batch, sequence, steps). A first step
+# moves a weight of 1 (a norm scale) down by 1.1 lr with the weight
+# decay, more than half the bfloat16 spacing below 1 (2^-9) at 2e-3, so
+# every leaf moves. Qwen2-1.5B whole (the launcher's default arch);
+# Mixtral-8x7B widths at 2 of 32 layers (P 16: 8 primary and 8 shadow
+# slots on 2 EWs); Zamba2-7B widths at the hybrid phases' 13 layers;
+# xLSTM-350m whole at S 64 (its sLSTM runs one step at a time: 12 layers
+# x S small ops, eagerly, each way); Whisper-small whole on seeded
+# 1,500-frame inputs and a 32-token decoder sequence, 2 steps (on an
+# NVIDIA H100 at lr 3e-3, a third step overshot: loss 10.98, 8.83, 16.36)
+TRAIN_MODELS = (("qwen2", "qwen2_1_5b", 0, 1, 4, 512, 4),
+                ("mixtral", "mixtral_8x7b", 2, 2, 4, 512, 3),
+                ("zamba2", "zamba2_7b", HYBRID_LAYERS, 1, 4, 512, 3),
+                ("xlstm", "xlstm_350m", 0, 1, 4, 64, 3),
+                ("whisper", "whisper_small", 0, 1, 2, 32, 2))
+# the kernels each model's forward pass must launch
+TRAIN_KERNELS = {"qwen2": ("flash_attention",),
+                 "mixtral": ("flash_attention", "moe_ffn"),
+                 "zamba2": ("flash_attention", "ssm_scan"),
+                 "xlstm": (), "whisper": ("flash_attention",)}
+TRAIN_LR = 2e-3
+TRAIN_AUX = 0.01                   # the reference's aux_coef
 
 
 def card_line() -> str:
@@ -1187,13 +1242,13 @@ def scan_inputs(torch, g, bs, s, h, p, n, dtype):
     return x, dt, a, b, c
 
 
-def kernel_ssm_scan(torch, g, records, shapes):
+def kernel_ssm_scan(torch, g, records, shapes, name="ssm_scan"):
     """The SSD scan at Zamba2-7B's widths (112 heads, P = N = 64, chunk
-    64) for every (B, S) in ``shapes`` (checked against what the runs
-    give it, after them), plus one step and an odd length that halves the
-    chunk to 1: float32 within 2e-4 of the plain chunked scan (the Pallas
-    kernel's bar), bf16 within half an ulp + 1e-4 of the float32 plain
-    version."""
+    64) for every (B, S) in ``shapes`` (added to SCAN_CHECKED; checked
+    against what the runs give it, after them), plus one step and an odd
+    length that halves the chunk to 1: float32 within 2e-4 of the plain
+    chunked scan (the Pallas kernel's bar), bf16 within half an ulp +
+    1e-4 of the float32 plain version. Each shape's record is ``name``."""
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import ssm_scan as ss
     print("ssm_scan (Mamba2/SSD chunked scan, csrc/ssm_scan.cu)")
@@ -1236,8 +1291,9 @@ def kernel_ssm_scan(torch, g, records, shapes):
         flops = 2.0 * bs * h * (s_ // t) * (t * (t + 1) // 2 * (n + p) +
                                             2 * t * n * p)
         b_ms, b_by = bound(nbytes, flops, FP32_FLOPS_PER_S)
+        SCAN_CHECKED.add((bs, s_))
         records.append(dict(
-            name="ssm_scan", route="cuda",
+            name=name, route="cuda",
             source="src/repro_torch/csrc/ssm_scan.cu",
             replaces=ss.KERNEL.replaces, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1379,15 +1435,7 @@ def reference_phase(torch, cfg):
     gpu = get_model(cfg, num_aw=2, num_ew=2, device="cuda")
     cpu = get_model(cfg, num_aw=2, num_ew=2, device="cpu")
     params = gpu.init_params(torch.Generator(device="cuda").manual_seed(1))
-
-    def to_cpu(t):
-        if isinstance(t, dict):
-            return {k: to_cpu(v) for k, v in t.items()}
-        if isinstance(t, list):
-            return [to_cpu(v) for v in t]
-        return t.cpu()
-
-    cparams = to_cpu(params)
+    cparams = tree_to(params, "cpu")
     gen = torch.Generator().manual_seed(2)
     toks = torch.randint(0, cfg.vocab_size, (4, 24), generator=gen,
                          dtype=torch.int32)
@@ -1461,6 +1509,9 @@ FLASH_CHECKED = set()
 # (kernel_moe_gemm, family_ffn_checks); main() fails if a run gave the
 # kernel another
 FFN_CHECKED = set()
+# the SSD scan's (B, S) held to the plain version (kernel_ssm_scan);
+# main() fails if a run gave the kernel another
+SCAN_CHECKED = set()
 
 
 def observe_kernel_shapes():
@@ -4563,6 +4614,352 @@ def family_ffn_checks(torch, g, records, runs_by_label):
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phase 19: training
+# --------------------------------------------------------------------------
+
+def tree_to(tree, device):
+    """A nested dict/list of tensors, each moved to ``device``."""
+    from repro_torch.convert import tree_map
+    return tree_map(tree, lambda t: t.to(device))
+
+
+def train_batch(torch, cfg, b, s, seed):
+    """One fixed batch of ``lm_batches`` on the card; an encoder-decoder
+    also gets seeded frames [B, T_enc, D]."""
+    from repro_torch.data.workloads import lm_batches
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             next(lm_batches(cfg.vocab_size, b, s, 1, seed=seed)).items()}
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(
+            (b, cfg.encoder_seq, cfg.d_model),
+            generator=torch.Generator(device="cuda").manual_seed(seed),
+            device="cuda")
+    return batch
+
+
+def train_reference_checks(torch):
+    """Phase 19 (1): each reduced float32 model of TRAIN_MODELS, its loss
+    and every gradient leaf on the card (its kernels in the forward pass)
+    against the same model's plain path on the CPU: the loss to 1e-3
+    (phase 3's bar), each leaf to 1e-3 of its largest magnitude plus
+    1e-4, every leaf present on both."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.training.train import leaf_paths, loss_and_grads
+    for label, arch, *_ in TRAIN_MODELS:
+        cfg = get_config(arch).reduced()
+        gpu = get_model(cfg, num_aw=1, num_ew=2, device="cuda")
+        cpu = get_model(cfg, num_aw=1, num_ew=2, device="cpu")
+        params = gpu.init_params(torch.Generator(device="cuda").manual_seed(1))
+        batch = train_batch(torch, cfg, 2, 24, 2)
+        c0 = launch_counts()
+        lg, gg = loss_and_grads(gpu, params, batch, gpu.init_route_state(),
+                                aux_coef=TRAIN_AUX)
+        ran = delta(c0, launch_counts())
+        lc, gcpu = loss_and_grads(cpu, tree_to(params, "cpu"),
+                                  tree_to(batch, "cpu"),
+                                  cpu.init_route_state(), aux_coef=TRAIN_AUX)
+        worst, where = 0.0, None
+        want = leaf_paths(gcpu)
+        for k, g in leaf_paths(gg).items():
+            if g is None or want[k] is None:
+                raise AssertionError(f"{arch}: no gradient for {k}")
+            # the floor: a leaf whose exact gradient is 0 (the key bias,
+            # under softmax's shift invariance) keeps rounding noise
+            scale = want[k].abs().max().item() + 1e-4
+            rel = (g.cpu() - want[k]).abs().max().item() / scale
+            if rel > worst:
+                worst, where = rel, k
+        err = abs(lg.item() - lc.item())
+        need = [k for k in TRAIN_KERNELS[label] if not ran[k]]
+        print(f"  {cfg.name} fp32 loss card {lg.item():.6f} CPU "
+              f"{lc.item():.6f} (|diff| {err:.2e}, tol 1e-3); {len(want)} "
+              f"gradient leaves, worst {worst:.2e} of the leaf's largest "
+              f"magnitude + 1e-4 ({where}; tol 1e-3); forward launches "
+              f"{ {k: ran[k] for k in TRAIN_KERNELS[label]} }")
+        if not (err <= 1e-3 and worst <= 1e-3) or need:
+            raise AssertionError(f"{arch}: training on the card disagrees "
+                                 f"with the CPU (or {need} not launched)")
+
+
+def grads_through(torch, fn, inputs, douts):
+    """(outputs, the gradient of every floating input) of sum(out * dout)
+    over ``fn(*inputs)``."""
+    leaves = [t.detach().clone().requires_grad_() if t.is_floating_point()
+              else t for t in inputs]
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    sum((o.float() * d).sum() for o, d in zip(outs, douts)).backward()
+    return outs, [t.grad for t in leaves if t.is_floating_point()]
+
+
+def function_check(torch, name, kernel, fn, plain, inputs, douts, tol):
+    """``fn`` (a kernel entry point through KernelWithPlainGrad) against
+    ``plain`` differentiated directly in float32 on the same inputs
+    upcast: the outputs and every input's gradient within rtol ``tol``
+    and atol ``tol`` times the float32 tensor's RMS (its typical
+    magnitude). ``douts`` must be exact in the outputs' dtype, so that
+    both sides see one cotangent. Each tensor's line gives the reading
+    the bar is set from: the least atol, in units of that RMS, that would
+    pass at rtol ``tol``. ``kernel`` must launch once, in the forward
+    pass."""
+    n = kernel.launches
+    got = grads_through(torch, fn, inputs, douts)
+    if kernel.launches != n + 1:
+        raise AssertionError(f"{name}: {kernel.launches - n} launches")
+    want = grads_through(torch, plain, [
+        t.float() if t.is_floating_point() else t for t in inputs], douts)
+    names = [f"out{i}" for i in range(len(got[0]))] + \
+        [f"d{i}" for i in range(len(got[1]))]
+    errs, bad = [], []
+    for tag, a, b in zip(names, got[0] + tuple(got[1]),
+                         want[0] + tuple(want[1])):
+        a, b = a.detach(), b.detach()
+        rms = b.square().mean().sqrt().item()
+        need = ((a.float() - b).abs() - tol * b.abs()).max().item()
+        try:
+            errs.append(check(f"{name} {tag} (rms {rms:.3e}, atol needed "
+                              f"{max(need, 0.0) / max(rms, 1e-30):.3e} rms)",
+                              a, b, atol=tol * rms, rtol=tol))
+        except AssertionError as e:
+            bad.append(str(e))
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return max(errs)
+
+
+def train_function_checks(torch, g):
+    """Phase 19 (2): flash (causal, S 200: not a multiple of its tile, a
+    padded tail), the expert FFN (8 slots on 4 stored experts, three of
+    them shadows, one empty) and the SSD scan at Zamba2's head widths,
+    each through its autograd Function: the output and every input's
+    gradient against the plain version differentiated directly in
+    float32 (``function_check``'s bar at bf16 2e-2, fp32 1e-4, the scan
+    2e-4; the cotangents exact in the outputs' dtype), one launch each,
+    in the forward pass."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.models.attention import blockwise_attention
+    b, s, h, hkv, dh = 2, 200, 12, 2, 128
+    pos = torch.arange(s, device="cuda", dtype=torch.int32).repeat(b, 1)
+    pos[1, s - 9:] = -1
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        q = torch.randn((b, s, h, dh), generator=g, device="cuda").to(dtype)
+        k, v = (torch.randn((b, s, hkv, dh), generator=g,
+                            device="cuda").to(dtype) for _ in range(2))
+        dout = [torch.randn((b, s, h, dh), generator=g,
+                            device="cuda").to(dtype).float()]
+        function_check(
+            torch, f"flash grad {str(dtype)[6:]} B{b} S{s} H{h} Hkv{hkv} "
+            f"Dh{dh} causal", fa.KERNEL,
+            lambda q, k, v: ops.full_attention(q, k, v, pos, pos),
+            lambda q, k, v: blockwise_attention(q, k, v, pos, pos),
+            [q, k, v], dout, tol)
+    p, c, d, f, e = 8, 64, 256, 512, 4
+    se = torch.tensor([0, 1, 2, 3, 0, 1, 0, -1], dtype=torch.int32,
+                      device="cuda")
+    cnt = torch.tensor([c, 9, 0, c, 5, 1, c, 0], dtype=torch.int32,
+                       device="cuda")
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        x = torch.randn((p, c, d), generator=g, device="cuda").to(dtype)
+        wg, wu = ((torch.randn((e, d, f), generator=g, device="cuda") *
+                   d ** -0.5).to(dtype) for _ in range(2))
+        wd = (torch.randn((e, f, d), generator=g, device="cuda") *
+              f ** -0.5).to(dtype)
+        dout = [torch.randn((p, c, d), generator=g,
+                            device="cuda").to(dtype).float()]
+        function_check(
+            torch, f"expert FFN grad {str(dtype)[6:]} P{p} C{c} D{d} F{f}, "
+            f"shadow slots", mg.KERNEL,
+            lambda *w: ops.expert_ffn(*w, se, cnt, decode=False),
+            lambda *w: mg.expert_ffn_plain(*w, se, cnt), [x, wg, wu, wd],
+            dout, tol)
+    args = scan_inputs(torch, g, 1, 128, 112, 64, 64, torch.float32)
+    douts = [torch.randn((1, 128, 112, 64), generator=g, device="cuda"),
+             torch.randn((1, 112, 64, 64), generator=g, device="cuda")]
+    function_check(
+        torch, "ssm_scan grad fp32 B1 S128 H112 P64 N64", ss.KERNEL,
+        lambda *t: ops.ssm_scan(*t, chunk=64),
+        lambda *t: kref.ssm_scan_chunked_ref(*t, chunk=64), args, douts,
+        2e-4)
+
+
+def train_model(torch, label, arch, layers, num_ew, b, s, steps):
+    """Phase 19 (3): one model in bf16 with seeded weights, ``steps``
+    AdamW steps (lr TRAIN_LR) on one fixed batch of ``lm_batches``, the
+    steps observed as a run in phase "train": per step the forward,
+    backward and optimizer times (CUDA events) and the kernels' launches
+    in the forward and backward passes. Fails unless the loss is finite
+    every step and lower at the last than at the first, every param leaf
+    got a gradient and moved, each kernel in TRAIN_KERNELS launched in
+    every forward pass and none in a backward pass (the backward is the
+    plain versions), and, after ``save_params`` and ``load_params`` on
+    the card, every leaf and ``forward_train``'s logits are bitwise
+    equal. Returns the run's observation (its flash shapes and expert FFN
+    keys) and its numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.training import init_opt_state
+    from repro_torch.training.checkpoint_io import load_params, save_params
+    from repro_torch.training.train import (adamw_update, forward_loss,
+                                            tree_leaves)
+    t_model = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), dtype="bfloat16",
+                              num_layers=layers or get_config(arch).num_layers)
+    torch.cuda.reset_peak_memory_stats()
+    api = get_model(cfg, num_aw=1, num_ew=num_ew, device="cuda")
+    params = api.init_params(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rs = api.init_route_state()
+    batch = train_batch(torch, cfg, b, s, 1)
+    opt = init_opt_state(params)
+    moved = torch.zeros(len(tree_leaves(params)), dtype=torch.bool)
+    losses, times, fwd, bwd = [], [], [], []
+    with observed(torch, "train") as obs:
+        for _ in range(steps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            c0 = launch_counts()
+            ev[0].record()
+            with torch.enable_grad():
+                loss, leaves = forward_loss(api, params, batch, rs,
+                                            aux_coef=TRAIN_AUX)
+                ev[1].record()
+                c1 = launch_counts()
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            ev[2].record()
+            c2 = launch_counts()
+            if any(gr is None for gr in grads):
+                raise AssertionError(f"{label}: a param leaf got no "
+                                     f"gradient")
+            new, opt = adamw_update(params, list(grads), opt, lr=TRAIN_LR,
+                                    beta1=0.9, beta2=0.95, eps=1e-8,
+                                    weight_decay=0.1, clip=1.0)
+            ev[3].record()
+            torch.cuda.synchronize()
+            losses.append(loss.item())
+            times.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+            fwd.append(delta(c0, c1))
+            bwd.append(delta(c1, c2))
+            moved |= torch.stack([(x != y).any() for x, y in zip(
+                tree_leaves(params), tree_leaves(new))]).cpu()
+            params = new
+            del loss, leaves, grads, new
+    peak = torch.cuda.max_memory_allocated()
+    for i, (loss, (tf, tb, to)) in enumerate(zip(losses, times)):
+        print(f"    step {i + 1}: loss {loss:.4f}; forward {tf:.2f} ms, "
+              f"backward {tb:.2f} ms, optimizer {to:.2f} ms "
+              f"(step {tf + tb + to:.2f} ms)")
+    kernels = TRAIN_KERNELS[label]
+    print(f"    launches per step, forward: "
+          f"{[{k: f[k] for k in kernels} for f in fwd]}; backward: "
+          f"{[{k: bb[k] for k in kernels} for bb in bwd]}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses}")
+    if not bool(moved.all()):
+        raise AssertionError(f"{label}: {int((~moved).sum())} param leaves "
+                             f"did not move")
+    if any(not f[k] for f in fwd for k in kernels) or \
+            any(bb[k] for bb in bwd for k in kernels):
+        raise AssertionError(f"{label}: kernel launches forward {fwd}, "
+                             f"backward {bwd}")
+    # the weight checkpoint, on the card
+    path = Path(__file__).resolve().parent / "build" / "train_ckpt" / \
+        f"{label}.npz"
+    t0 = time.perf_counter()
+    save_params(str(path), params, step=steps)
+    t_save = time.perf_counter() - t0
+    nbytes = path.stat().st_size
+    t0 = time.perf_counter()
+    loaded, step = load_params(str(path), params)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    path.unlink()
+    same = step == steps and all(
+        torch.equal(x.view(torch.int16), y.view(torch.int16))
+        for x, y in zip(tree_leaves(params), tree_leaves(loaded)))
+    with torch.no_grad():
+        l0 = api.forward_train(params, batch, rs)[0]
+        l1 = api.forward_train(loaded, batch, rs)[0]
+    if not (same and torch.equal(l0.view(torch.int16), l1.view(torch.int16))):
+        raise AssertionError(f"{label}: the reloaded weights or their "
+                             f"logits are not bitwise the trained ones")
+    med = [statistics.median(t[i] for t in times[1:] or times)
+           for i in range(3)]
+    print(f"  {label}: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+          f"{steps} steps, every one of {len(moved)} param leaves moved; "
+          f"step (median of steps 2-{steps}) forward {med[0]:.2f} ms, "
+          f"backward {med[1]:.2f} ms, optimizer {med[2]:.2f} ms; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB "
+          f"({n_params / 1e9:.3f} B params); checkpoint "
+          f"{nbytes / 1e9:.2f} GB saved in {t_save:.1f} s, loaded in "
+          f"{t_load:.1f} s, every leaf and the logits bitwise equal; "
+          f"{time.perf_counter() - t_model:.1f} s")
+    del params, opt, loaded, l0, l1
+    return SimpleNamespace(flash=obs.flash, ffn_c=obs.ffn_c, losses=losses,
+                           times=times, fwd=fwd, peak=peak)
+
+
+def train_launcher_run():
+    """Phase 19 (4): ``python -m repro_torch.launch.train`` with its
+    defaults (the reduced Qwen2, 50 steps, on the card), in a process of
+    its own; fails unless it exits 0 with its loss improved."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=root, env=dict(os.environ,
+                                            PYTHONPATH=str(root / "src")))
+    lines = out.stdout.strip().splitlines()
+    for line in lines:
+        print(f"    {line}")
+    if out.returncode or not lines or "(improved)" not in lines[-1]:
+        raise AssertionError(f"launch.train exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    print(f"  python -m repro_torch.launch.train: exit 0, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def training_phase(torch, g):
+    """Phase 19. Returns each TRAIN_MODELS run by label."""
+    print("training (1): reduced float32 models, loss and gradients, card "
+          "kernels vs CPU plain path")
+    train_reference_checks(torch)
+    print("training (2): each kernel's autograd Function against its plain "
+          "version differentiated directly")
+    train_function_checks(torch, g)
+    runs = {}
+    for label, arch, layers, num_ew, b, s, steps in TRAIN_MODELS:
+        print(f"training (3): {arch} at "
+              f"{layers or 'all its'} layers, bf16, {num_ew} EW(s), B{b} "
+              f"S{s}, {steps} AdamW steps at lr {TRAIN_LR} on one batch")
+        runs[label] = train_model(torch, label, arch, layers, num_ew, b, s,
+                                  steps)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("training (4): the launcher with its defaults")
+    train_launcher_run()
+    return runs
+
+
+def train_kernel_shapes(torch, g, records, runs):
+    """The expert FFN and the SSD scan at the shapes the training runs
+    gave them, held to their plain versions and timed (``moe_gemm[train]``
+    and ``ssm_scan[train]``, with the training forward passes' launches);
+    flash's shapes are held in the last phase."""
+    ffn = runs["mixtral"].ffn_c["train"]
+    (key,) = ffn
+    kernel_moe_gemm(torch, g, records, [("train", key)], small=False)
+    records[-1]["launches"] = ffn[key]
+    (scan,) = SEEN["scan"] - SCAN_CHECKED
+    kernel_ssm_scan(torch, g, records, [scan], name="ssm_scan[train]")
+    records[-1]["launches"] = sum(f["ssm_scan"] for f in runs["zamba2"].fwd)
+
+
 def profile_decode(torch, engine, prompts, out_dir, chrome=True):
     """Trace 4 steady decode steps of the batch and one prefill of the
     first prompt with torch.profiler: wall time per step, device-busy
@@ -4881,6 +5278,13 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
     phase("recurrent and encoder-decoder families")
+    print(f"training: {', '.join(m[1] for m in TRAIN_MODELS)} in bf16, "
+          f"AdamW at lr {TRAIN_LR}; the reduced models in float32 against "
+          f"the CPU; the launcher")
+    train = training_phase(torch, g)
+    phase("training")
+    train_kernel_shapes(torch, g, records, train)
+    phase("training's kernel shapes")
     errs = served_flash_phase(torch, g)
     for name, run, ph, window in (
             ("flash_attention", serve, "prefill", None),
@@ -4904,6 +5308,10 @@ def main():
                          ("flash_attention[whisper prompt]", True)):
         flash_record(torch, g, records, name, rec["whisper"], "prefill",
                      errs, causal=causal)
+    for label in ("qwen2", "mixtral", "zamba2", "whisper"):
+        flash_record(torch, g, records, f"flash_attention[train {label}]",
+                     train[label], "train", errs,
+                     causal=False if label == "whisper" else None)
     phase("flash at the served shapes")
 
     if not set(SEEN["ffn"]) <= FFN_CHECKED:
@@ -4914,12 +5322,13 @@ def main():
           f"{sorted(SEEN['ffn'])}, each held to its plain version (the "
           f"kernel phase's MOE_SHAPES, the later phases' new shapes and "
           f"family_ffn_checks)")
-    if not SEEN["scan"] <= set(SCAN_SHAPES):
+    if not SEEN["scan"] <= SCAN_CHECKED:
         raise AssertionError(f"the SSD scan ran at (B, S) "
-                             f"{sorted(SEEN['scan'] - set(SCAN_SHAPES))}, "
-                             f"which the kernel phase did not check")
+                             f"{sorted(SEEN['scan'] - SCAN_CHECKED)}, "
+                             f"which no check held to its plain version")
     print(f"ssm_scan (B, S) on every run: {sorted(SEEN['scan'])}, each held "
-          f"to its plain version in the kernel phase")
+          f"to its plain version (the kernel phase's SCAN_SHAPES, the "
+          f"training shape after phase 19)")
     ran = {k[:3] for k in SEEN["attn"]}
     if not ran <= CHECKED:
         raise AssertionError(f"the attention kernels ran at (kernel, Dh, G) "

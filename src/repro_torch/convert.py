@@ -26,38 +26,42 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
-def _tree(node, fn):
+def tree_map(node, fn):
+    """``fn`` of every leaf of a nested dict/list/tuple, in its structure
+    (a tuple becomes a list)."""
     if isinstance(node, dict):
-        return {k: _tree(v, fn) for k, v in node.items()}
+        return {k: tree_map(v, fn) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return [_tree(v, fn) for v in node]
+        return [tree_map(v, fn) for v in node]
     return fn(node)
 
 
 def params_from_reference(ref_params: Any, device="cuda") -> dict:
     """Convert reference params (``init_params`` of ``build_decoder``,
     ``build_hybrid``, ``build_xlstm`` or ``build_encdec``) into the port's
-    param dict on ``device``."""
+    param dict on ``device``. Any tree of the params' structure converts
+    the same way: the reference's gradients (``jax.grad`` of a loss over
+    the params) or its optimizer moments."""
     if "units" in ref_params:
         return _hybrid_from_reference(ref_params, device)
     if "enc" in ref_params:
         return _encdec_from_reference(ref_params, device)
-    out = {k: _tree(v, lambda a: _tensor(a, device))
+    out = {k: tree_map(v, lambda a: _tensor(a, device))
            for k, v in ref_params.items()
            if k != "blocks" and not k.startswith("dense")}
     layers = []
     n_first = sum(1 for k in ref_params if k.startswith("dense"))
     for i in range(n_first):
-        layers.append(_tree(ref_params[f"dense{i}"],
+        layers.append(tree_map(ref_params[f"dense{i}"],
                             lambda a: _tensor(a, device)))
     # a tuple over the unit's pattern (attention kinds, or an xLSTM's
     # mLSTM/sLSTM cells), each stacked over the unit's repeats
     units = ref_params["blocks"]
-    stacked = [_tree(u, lambda a: np.asarray(a)) for u in units]
+    stacked = [tree_map(u, lambda a: np.asarray(a)) for u in units]
     reps = len(_first_leaf(stacked[0]))
     for r in range(reps):
         for unit in stacked:
-            layers.append(_tree(unit, lambda a: _tensor(a[r], device)))
+            layers.append(tree_map(unit, lambda a: _tensor(a[r], device)))
     out["blocks" if "cell" in stacked[0] else "layers"] = layers
     return out
 
@@ -73,15 +77,15 @@ def _hybrid_from_reference(ref_params, device) -> dict:
     """The hybrid's stacked Mamba2 blocks (``units`` [r, every, ...], then
     ``trailing`` [t, ...]) become one ``blocks`` list in execution
     order; ``shared`` and the rest keep their layout."""
-    out = {k: _tree(v, lambda a: _tensor(a, device))
+    out = {k: tree_map(v, lambda a: _tensor(a, device))
            for k, v in ref_params.items() if k not in ("units", "trailing")}
-    units = _tree(ref_params["units"], np.asarray)
+    units = tree_map(ref_params["units"], np.asarray)
     r, every = _first_leaf(units).shape[:2]
-    blocks = [_tree(units, lambda a, u=u, j=j: _tensor(a[u, j], device))
+    blocks = [tree_map(units, lambda a, u=u, j=j: _tensor(a[u, j], device))
               for u in range(r) for j in range(every)]
     if "trailing" in ref_params:
-        tr = _tree(ref_params["trailing"], np.asarray)
-        blocks += [_tree(tr, lambda a, i=i: _tensor(a[i], device))
+        tr = tree_map(ref_params["trailing"], np.asarray)
+        blocks += [tree_map(tr, lambda a, i=i: _tensor(a[i], device))
                    for i in range(_first_leaf(tr).shape[0])]
     out["blocks"] = blocks
     return out
@@ -90,10 +94,10 @@ def _hybrid_from_reference(ref_params, device) -> dict:
 def _encdec_from_reference(ref_params, device) -> dict:
     """Whisper's stacked ``enc`` and ``dec`` layers become two lists in
     execution order; the embedding and the norms keep their layout."""
-    out = {k: _tree(v, lambda a: _tensor(a, device))
+    out = {k: tree_map(v, lambda a: _tensor(a, device))
            for k, v in ref_params.items() if k not in ("enc", "dec")}
     for name in ("enc", "dec"):
-        st = _tree(ref_params[name], np.asarray)
-        out[name] = [_tree(st, lambda a, i=i: _tensor(a[i], device))
+        st = tree_map(ref_params[name], np.asarray)
+        out[name] = [tree_map(st, lambda a, i=i: _tensor(a[i], device))
                      for i in range(_first_leaf(st).shape[0])]
     return out

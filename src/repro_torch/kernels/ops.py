@@ -3,8 +3,19 @@
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel, and anything the kernel refuses raises. There is no
 switch and no fallback: a CUDA tensor never takes the plain path.
+
+Gradients. The kernels compute forward passes only, as the reference's
+Pallas kernels do (its ``kernels/ops.py`` has no ``custom_vjp``). Where a
+CUDA call of flash, the expert FFN or the SSD scan needs a gradient (grad
+mode on and an input that requires one), it goes through
+``KernelWithPlainGrad``: the forward pass launches the kernel, and the
+backward pass recomputes the kernel's plain version on the saved inputs
+and differentiates that. A call that needs no gradient (every serving
+path) calls the kernel directly, as before.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -16,6 +27,51 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.moe_gemm import expert_ffn_cuda, expert_ffn_plain
 from repro_torch.kernels.ref import ssm_scan_chunked_ref, ssm_scan_ref
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+
+
+class KernelWithPlainGrad(torch.autograd.Function):
+    """``kernel(*inputs)`` forward; backward: ``grads(inputs, grad_outputs,
+    needs)``, the gradient of each input (None where ``needs`` is False
+    or the input is an integer tensor). ``kernel`` and ``grads`` are
+    plain callables; ``inputs`` are tensors or None."""
+
+    @staticmethod
+    def forward(ctx, kernel, grads, *inputs):
+        ctx.grads = grads
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*inputs)
+        return kernel(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grad_outputs):
+        return (None, None) + tuple(ctx.grads(
+            ctx.saved_tensors, grad_outputs, ctx.needs_input_grad[2:]))
+
+
+def plain_grads(plain, inputs, grad_outputs, needs):
+    """The gradients of ``plain(*inputs)`` (a tensor or a tuple of them)
+    against ``grad_outputs`` (None for an output that got none), for the
+    inputs flagged in ``needs``; None for the others."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() if want else t
+                  for t, want in zip(inputs, needs)]
+        out = plain(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        used = [(o, g) for o, g in zip(outs, grad_outputs) if g is not None]
+        wanted = [t for t, want in zip(leaves, needs) if want]
+        got = iter(torch.autograd.grad([o for o, _ in used], wanted,
+                                       [g for _, g in used],
+                                       allow_unused=True))
+    return [next(got) if want else None for want in needs]
+
+
+def _with_plain_grad(kernel, grads, *inputs):
+    """``kernel(*inputs)``, through ``KernelWithPlainGrad`` when autograd
+    needs the call's gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        return KernelWithPlainGrad.apply(kernel, grads, *inputs)
+    return kernel(*inputs)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -63,13 +119,23 @@ def full_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
     """Full-sequence (prefill) attention. ``block_k`` pins the KV block of
     the plain version's online softmax; the kernel's KV tile is fixed and
     independent of the padded extent."""
-    if _on_cuda(q):
-        return flash_attention_cuda(q, k, v, q_pos, k_pos, causal=causal,
-                                    window=window, softcap=softcap)
     from repro_torch.models.attention import blockwise_attention
-    return blockwise_attention(q, k, v, q_pos, k_pos, window=window,
-                               softcap=softcap, causal=causal,
-                               block_k=block_k)
+    if not _on_cuda(q):
+        return blockwise_attention(q, k, v, q_pos, k_pos, window=window,
+                                   softcap=softcap, causal=causal,
+                                   block_k=block_k)
+    opts = dict(causal=causal, window=window, softcap=softcap)
+
+    def kernel(q, k, v, q_pos, k_pos):
+        return flash_attention_cuda(q, k, v, q_pos, k_pos, **opts)
+
+    def plain(q, k, v, q_pos, k_pos):
+        # the backward recomputes one block: a plain float32 softmax
+        return blockwise_attention(q, k, v, q_pos, k_pos, block_q=q.shape[1],
+                                   block_k=k.shape[1], **opts)
+
+    return _with_plain_grad(
+        kernel, functools.partial(plain_grads, plain), q, k, v, q_pos, k_pos)
 
 
 def expert_ffn(x, w_gate, w_up, w_down, slot_expert, counts, *,
@@ -82,12 +148,59 @@ def expert_ffn(x, w_gate, w_up, w_down, slot_expert, counts, *,
     shape = x.shape
     x3 = x.reshape(shape[0], -1, shape[-1])
     if _on_cuda(x):
-        y = expert_ffn_cuda(x3, w_gate, w_up, w_down, slot_expert, counts,
-                            act=act, decode=decode)
+        y = _with_plain_grad(
+            functools.partial(expert_ffn_cuda, act=act, decode=decode),
+            functools.partial(_expert_ffn_grads, act=act),
+            x3, w_gate, w_up, w_down, slot_expert, counts)
     else:
         y = expert_ffn_plain(x3, w_gate, w_up, w_down, slot_expert, counts,
                              act=act)
     return y.reshape(shape)
+
+
+def _expert_ffn_grads(inputs, grad_outputs, needs, *, act: str):
+    """The expert FFN's backward: ``expert_ffn_plain`` recomputed one live
+    slot at a time in float32 on its expert's rows of the stored bank
+    upcast (one slot's float32 weights at a time, not the whole slot
+    bank). The bank gradients are summed in float32 for the experts that
+    live slots read, so an expert read by several slots (a shadow, a split
+    replica) gets the sum, rounded once to the bank's dtype; the other
+    experts' rows and the slots without a token get 0."""
+    x, w_gate, w_up, w_down, slot_expert, counts = inputs
+    (dy,) = grad_outputs
+    if dy is None:
+        return [None] * len(inputs)
+    banks = (w_gate, w_up, w_down)
+    live = torch.nonzero(counts > 0).flatten()
+    touched, which = torch.unique(
+        torch.clamp(slot_expert.long(), min=0)[live], return_inverse=True)
+    acc = [torch.zeros((len(touched),) + w.shape[1:], dtype=torch.float32,
+                       device=w.device) if want else None
+           for w, want in zip(banks, needs[1:4])]
+    dx = torch.zeros_like(x) if needs[0] else None
+    one = torch.ones((1,), dtype=counts.dtype, device=counts.device)
+    first = torch.zeros_like(one)
+
+    def plain(x1, wg, wu, wd):
+        return expert_ffn_plain(x1, wg, wu, wd, first, one, act=act)
+
+    live_l, which_l, touched_l = (t.tolist() for t in (live, which, touched))
+    for p, j in zip(live_l, which_l):
+        e = touched_l[j]
+        rows = [None if w is None else w[e:e + 1].float() for w in banks]
+        got = plain_grads(plain, [x[p:p + 1]] + rows, (dy[p:p + 1],),
+                          needs[:4])
+        if dx is not None:
+            dx[p] = got[0][0]
+        for a, g in zip(acc, got[1:]):
+            if a is not None:
+                a[j] += g[0]
+    dbanks = []
+    for w, a in zip(banks, acc):
+        if a is not None:
+            a = torch.zeros_like(w).index_copy_(0, touched, a.to(w.dtype))
+        dbanks.append(a)
+    return [dx, *dbanks, None, None]
 
 
 def ssm_scan(x, dt, a, b, c, *, chunk: int = 64):
@@ -97,7 +210,11 @@ def ssm_scan(x, dt, a, b, c, *, chunk: int = 64):
     takes the chunked plain form for S > 1 and the sequential one for a
     single step, as the reference does."""
     if _on_cuda(x):
-        return ssm_scan_cuda(x, dt, a, b, c, chunk=chunk)
+        return _with_plain_grad(
+            functools.partial(ssm_scan_cuda, chunk=chunk),
+            functools.partial(plain_grads, functools.partial(
+                ssm_scan_chunked_ref, chunk=chunk)),
+            x, dt, a, b, c)
     if x.shape[1] > 1:
         return ssm_scan_chunked_ref(x, dt, a, b, c, chunk=chunk)
     return ssm_scan_ref(x, dt, a, b, c)

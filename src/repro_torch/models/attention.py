@@ -279,20 +279,22 @@ def paged_write_chunk(cache, bt, k, v, positions):
 # --------------------------------------------------------------------------
 
 def attn_full(cfg: ModelConfig, params, x, positions, *, window: int = 0,
-              causal: bool = True, cache: Optional[dict] = None):
-    """Prefill path. Returns (out [B,S,D], cache written in place or
-    None). With a cache the plain version's KV block is pinned to
-    PREFILL_BLOCK_K, as in the reference."""
+              causal: bool = True, cache: Optional[dict] = None,
+              blocked: bool = True):
+    """Prefill and training path. Returns (out [B,S,D], cache written in
+    place or None). With a cache the plain version's KV block is pinned
+    to PREFILL_BLOCK_K, as in the reference. ``blocked`` (prefill) runs
+    the projections in fixed row blocks; training runs them whole."""
     from repro_torch.kernels import ops as kops
-    q = _project_q(cfg, params, x, blocked=True)
-    k, v = _project_kv(cfg, params, x, blocked=True)
+    q = _project_q(cfg, params, x, blocked)
+    k, v = _project_kv(cfg, params, x, blocked)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     bk = _pick_block(k.shape[1], PREFILL_BLOCK_K) if cache is not None else 0
     out = kops.full_attention(q, k, v, positions, positions, window=window,
                               softcap=cfg.attn_softcap, causal=causal,
                               block_k=bk)
-    out = matmul(out.reshape(*x.shape[:2], -1), params["wo"], True)
+    out = matmul(out.reshape(*x.shape[:2], -1), params["wo"], blocked)
     if cache is not None:
         cache = cache_write_prefill(cache, k, v, positions)
     return out, cache
@@ -376,24 +378,27 @@ def attn_decode_paged(cfg: ModelConfig, params, x, cache, bt, pos):
     return out, cache
 
 
-def attn_cross(cfg: ModelConfig, params, x, cross_kv, blocked: bool = False):
+def attn_cross(cfg: ModelConfig, params, x, cross_kv, blocked: bool = False,
+               block_k: int = 0):
     """Cross attention (the Whisper decoder): full attention over the
     encoder's K/V, no RoPE on either side. Like the reference on every
     backend, it calls the plain ``blockwise_attention`` with
     ``causal=False`` and zero positions, on the card too. ``blocked``
-    (prefill) runs the projections in fixed row blocks."""
+    (prefill) runs the projections in fixed row blocks; ``block_k`` pins
+    the plain version's KV block (0: the reference's automatic block, 4
+    keys over 1,500 frames)."""
     b, s, _ = x.shape
     q = _project_q(cfg, params, x, blocked)
     k, v = cross_kv["k"], cross_kv["v"]
     q_pos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
     k_pos = torch.zeros((b, k.shape[1]), dtype=torch.int32, device=x.device)
     out = blockwise_attention(q, k, v, q_pos, k_pos, causal=False,
-                              softcap=cfg.attn_softcap)
+                              softcap=cfg.attn_softcap, block_k=block_k)
     return matmul(out.reshape(b, s, -1), params["wo"], blocked)
 
 
-def cross_kv_init(cfg: ModelConfig, params, enc_out):
+def cross_kv_init(cfg: ModelConfig, params, enc_out, blocked: bool = True):
     """The decoder's cross-attention K/V from the encoder's output, once
-    at prefill, in fixed row blocks."""
-    k, v = _project_kv(cfg, params, enc_out, blocked=True)
+    at prefill, in fixed row blocks (training: whole)."""
+    k, v = _project_kv(cfg, params, enc_out, blocked)
     return {"k": k, "v": v}

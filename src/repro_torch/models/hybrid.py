@@ -10,7 +10,8 @@ a plain list in execution order and the stack is a Python loop.
 
 Cache: ``{"layers": [one {"k", "v", "pos"} cache per occurrence], "h":
 [B, L, H, P, N] float32, "conv": [B, L, W-1, Di]}`` with the request slot
-as axis 0 of every tensor and L the Mamba2 blocks; updated in place.
+as axis 0 of every tensor and L the Mamba2 blocks; updated in place. The
+training forward pass keeps no cache.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models.layers import (embed_init, mlp, mlp_init, norm,
                                        rmsnorm, rmsnorm_init, unembed)
-from repro_torch.models.transformer import (ModelApi, cast_floats,
+from repro_torch.models.transformer import (ModelApi, as_batch, cast_floats,
+                                            layer_call,
                                             route_state_without_experts)
 
 
@@ -75,6 +77,8 @@ def build_hybrid(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
 
     def _mamba_apply(bp, x, cache, i, mode):
         h = rmsnorm(bp["ln"], x, cfg.norm_eps)
+        if cache is None:                                   # training
+            return x + mamba2.mamba_forward(cfg, bp["mamba"], h)[0]
         st = {"h": cache["h"][:, i], "conv": cache["conv"][:, i]}
         if mode == "decode":
             y, st = mamba2.mamba_decode_step(cfg, bp["mamba"], h, st)
@@ -84,35 +88,50 @@ def build_hybrid(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
         cache["conv"][:, i] = st["conv"]
         return x + y
 
-    def _shared_attn(params, x, mode, positions, pos, kv):
+    def _shared_attn(p, x, mode, positions, pos, kv):
         # the prefill path runs its projections and norms in fixed row
         # blocks, as the transformer family's does
-        p = params["shared"]
-        blocked = mode != "decode"
+        blocked = mode == "prefill"
         h = norm(p["ln1"], x, cfg.norm_eps, blocked)
         if mode == "decode":
             a, _ = attn.attn_decode(cfg, p["attn"], h, kv, pos,
                                     window=window)
         else:
             a, _ = attn.attn_full(cfg, p["attn"], h, positions,
-                                  window=window, cache=kv)
+                                  window=window, cache=kv, blocked=blocked)
         x = x + a
         h = norm(p["ln2"], x, cfg.norm_eps, blocked)
         return x + mlp(p["mlp"], h, cfg.act, blocked=blocked)
 
     def _run(params, x, mode, cache, positions=None, pos=None):
+        """``cache`` None: the training forward pass (mode "train")."""
         blocks = params["blocks"]
         for u in range(r):
             for i in range(u * every, (u + 1) * every):
-                x = _mamba_apply(blocks[i], x, cache, i, mode)
-            x = _shared_attn(params, x, mode, positions, pos,
-                             cache["layers"][u])
+                x = layer_call(cfg, _mamba_apply, blocks[i], x, cache, i,
+                               mode)
+            kv = cache["layers"][u] if cache is not None else None
+            x = layer_call(cfg, _shared_attn, params["shared"], x, mode,
+                           positions, pos, kv)
         for i in range(r * every, n_blocks):            # trailing blocks
-            x = _mamba_apply(blocks[i], x, cache, i, mode)
+            x = layer_call(cfg, _mamba_apply, blocks[i], x, cache, i, mode)
         return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
     def _embed(params, tokens):
         return params["embed"].to(dtype)[tokens.long()]
+
+    def forward_train(params, batch, route_state):
+        """The teacher-forced forward pass of training: batch["tokens"]
+        [B, S] int, no cache. Returns (logits [B, S, V], a zero aux
+        loss: the hybrid has no router)."""
+        tokens = as_batch(batch, device)["tokens"]
+        b, s = tokens.shape
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=device).expand(b, s)
+        x = _run(params, _embed(params, tokens), "train", None,
+                 positions=positions)
+        return unembed(cfg, params, x), torch.zeros(
+            (), dtype=torch.float32, device=device)
 
     @torch.no_grad()
     def prefill(params, tokens, route_state, max_seq: int, capacity=None,
@@ -146,5 +165,5 @@ def build_hybrid(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
 
     # a row at pos -1 still advances its recurrent state: no segments
     return ModelApi(cfg, None, num_aw, num_ew, device, init_params,
-                    init_cache, prefill, decode, init_route_state, None,
-                    False)
+                    init_cache, forward_train, prefill, decode,
+                    init_route_state, None, False)

@@ -1,8 +1,8 @@
 """Decoder stack for the transformer family (port of
 ``repro.models.transformer``): the MoE Mixtral and the dense Gemma2,
-Danube and Qwen2 (sliding-window layers keep ring caches); whole-prompt
-prefill, chunked prefill and decode, over a contiguous or a paged KV
-cache.
+Danube and Qwen2 (sliding-window layers keep ring caches); the training
+forward pass, whole-prompt prefill, chunked prefill and decode, over a
+contiguous or a paged KV cache.
 
 The reference scans stacked layer params with ``lax.scan``; here the params
 hold a plain list of per-layer dicts and the stack is a Python loop. MoE
@@ -31,6 +31,7 @@ class ModelApi(NamedTuple):
     device: torch.device
     init_params: Callable[..., Any]     # (generator) -> params
     init_cache: Callable[..., Any]      # (batch, max_seq) -> caches
+    forward_train: Callable[..., Any]   # (params, batch, rs) -> (logits, aux)
     prefill: Callable[..., Any]         # -> (last_logits, caches, load)
     decode: Callable[..., Any]          # -> (logits, caches, load)
     init_route_state: Callable[..., refe.RouteState]
@@ -72,11 +73,14 @@ def _layer_init(gen, cfg: ModelConfig, use_moe: bool, placement, device,
 def _layer_apply(cfg: ModelConfig, p, x, *, window: int, mode: str,
                  positions=None, pos=None, cache=None, route_state=None,
                  placement=None, capacity=None, token_mask=None, bt=None):
-    """mode: 'prefill' | 'chunk' | 'decode'. ``bt`` is the [B, nblk] block
-    table of a paged cache (None = contiguous). Returns (x, cache, slot
-    load). Prefill and chunk calls run their dense projections and norms
-    in fixed row blocks (``layers.row_blocked``); decode steps do not."""
-    blocked = mode != "decode"
+    """mode: 'train' | 'prefill' | 'chunk' | 'decode'. ``bt`` is the [B,
+    nblk] block table of a paged cache (None = contiguous); 'train' has
+    no cache. Returns (x, cache, router aux loss or None, slot load).
+    Prefill and chunk calls run their dense projections and norms in
+    fixed row blocks (``layers.row_blocked``); decode steps and training
+    do not. Every mode but decode keeps the expert FFN off its decode
+    path."""
+    blocked = mode in ("prefill", "chunk")
     h = norm(p["ln1"], x, cfg.norm_eps, blocked)
     if mode == "decode" and bt is not None:
         a, cache = attn.attn_decode_paged(cfg, p["attn"], h, cache, bt, pos)
@@ -91,19 +95,21 @@ def _layer_apply(cfg: ModelConfig, p, x, *, window: int, mode: str,
                                    window=window)
     else:
         a, cache = attn.attn_full(cfg, p["attn"], h, positions,
-                                  window=window, cache=cache)
+                                  window=window, cache=cache,
+                                  blocked=blocked)
     x = x + a
     h = norm(p["ln2"], x, cfg.norm_eps, blocked)
     if "moe" in p:
-        f, _, load = moe_mod.moe_apply(cfg, p["moe"], h, route_state,
-                                       placement, capacity=capacity,
-                                       token_mask=token_mask,
-                                       decode=not blocked)
+        f, aux, load = moe_mod.moe_apply(cfg, p["moe"], h, route_state,
+                                         placement, capacity=capacity,
+                                         token_mask=token_mask,
+                                         decode=mode == "decode")
     else:
         f = mlp(p["mlp"], h, cfg.act, blocked=blocked)
         n_slots = placement.num_slots if placement is not None else 0
         load = torch.zeros((n_slots,), dtype=torch.float32, device=x.device)
-    return x + f, cache, load
+        aux = None
+    return x + f, cache, aux, load
 
 
 def route_state_without_experts(num_aw: int, num_ew: int,
@@ -117,6 +123,22 @@ def route_state_without_experts(num_aw: int, num_ew: int,
         ew_health=torch.ones((num_ew,), dtype=torch.bool, device=device),
         aw_health=torch.ones((num_aw,), dtype=torch.bool, device=device),
         slot_expert=empty(0), slot_owner=empty(0), split_slot=empty(0))
+
+
+def layer_call(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``; with ``cfg.remat``, under ``torch.utils.checkpoint``
+    (non-reentrant): its activations are recomputed in the backward pass,
+    as the reference's ``jax.checkpoint`` of the scan body does."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def as_batch(batch, device):
+    """A training batch ({"tokens", "labels", "frames"}, numpy arrays or
+    tensors) as tensors on ``device``."""
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
 def cast_floats(tree, dtype):
@@ -164,24 +186,54 @@ def build_decoder(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
 
     def _run_stack(params, x, mode, positions=None, pos=None, caches=None,
                    route_state=None, capacity=None, token_mask=None):
+        """Returns (normed x, slot load, summed router aux loss: summed
+        in the training forward pass only, else None)."""
         load_total = torch.zeros((n_slots,), dtype=torch.float32,
                                  device=x.device)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
+            if mode == "train" else None
         # a paged engine carries one block table beside its layer pools,
         # threaded to every layer
         bt = caches.get("bt") if caches is not None else None
         for i, lp in enumerate(params["layers"]):
             c = caches["layers"][i] if caches is not None else None
-            x, c, load = _layer_apply(
+            if mode == "train":
+                x, aux = layer_call(cfg, _train_layer, lp, x, positions,
+                                    windows[i], route_state)
+                aux_total = aux_total + aux
+                continue
+            x, c, _, load = _layer_apply(
                 cfg, lp, x, window=windows[i], mode=mode,
                 positions=positions, pos=pos, cache=c,
                 route_state=route_state, placement=placement,
                 capacity=capacity, token_mask=token_mask, bt=bt)
             load_total = load_total + load
         return norm(params["final_norm"], x, cfg.norm_eps,
-                    mode != "decode"), load_total
+                    mode in ("prefill", "chunk")), load_total, aux_total
+
+    def _train_layer(lp, x, positions, window, route_state):
+        x, _, aux, _ = _layer_apply(cfg, lp, x, window=window, mode="train",
+                                    positions=positions,
+                                    route_state=route_state,
+                                    placement=placement)
+        return x, (aux if aux is not None else
+                   torch.zeros((), dtype=torch.float32, device=x.device))
 
     def _embed(params, tokens):
         return params["embed"].to(dtype)[tokens.long()]
+
+    def forward_train(params, batch, route_state):
+        """The teacher-forced forward pass of training: batch["tokens"]
+        [B, S] int at positions 0..S-1, no cache, every token real.
+        Returns (logits [B, S, V], the router aux loss summed over the
+        MoE layers: a float32 scalar, 0 for a dense model)."""
+        tokens = as_batch(batch, device)["tokens"]
+        b, s = tokens.shape
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=device).expand(b, s)
+        x, _, aux = _run_stack(params, _embed(params, tokens), "train",
+                               positions=positions, route_state=route_state)
+        return unembed(cfg, params, x), aux
 
     @torch.no_grad()
     def prefill(params, tokens, route_state, max_seq: int, capacity=None,
@@ -193,10 +245,10 @@ def build_decoder(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
         positions = torch.arange(s, dtype=torch.int32,
                                  device=device).expand(b, s)
         caches = init_cache(b, max_seq)
-        x, load = _run_stack(params, _embed(params, tokens), "prefill",
-                             positions=positions, caches=caches,
-                             route_state=route_state, capacity=capacity,
-                             token_mask=mask)
+        x, load, _ = _run_stack(params, _embed(params, tokens), "prefill",
+                                positions=positions, caches=caches,
+                                route_state=route_state, capacity=capacity,
+                                token_mask=mask)
         return unembed(cfg, params, x[:, -1]), caches, load
 
     @torch.no_grad()
@@ -208,10 +260,10 @@ def build_decoder(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
         such rows, live decode slots included, are untouched). Updates
         ``caches`` in place; returns (caches, slot load). No logits: the
         first generated token rides the decode step."""
-        x, load = _run_stack(params, _embed(params, tokens), "chunk",
-                             positions=positions, caches=caches,
-                             route_state=route_state, capacity=capacity,
-                             token_mask=positions >= 0)
+        x, load, _ = _run_stack(params, _embed(params, tokens), "chunk",
+                                positions=positions, caches=caches,
+                                route_state=route_state, capacity=capacity,
+                                token_mask=positions >= 0)
         return caches, load
 
     @torch.no_grad()
@@ -221,10 +273,10 @@ def build_decoder(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
         from the model's capacity factor. ``caches`` may be paged (a "bt"
         block table beside the layer pools). Updates ``caches`` in place;
         returns (logits [B, V], caches, slot load [P])."""
-        x, load = _run_stack(params, _embed(params, tokens[:, None]),
-                             "decode", pos=pos, caches=caches,
-                             route_state=route_state,
-                             token_mask=(pos >= 0)[:, None])
+        x, load, _ = _run_stack(params, _embed(params, tokens[:, None]),
+                                "decode", pos=pos, caches=caches,
+                                route_state=route_state,
+                                token_mask=(pos >= 0)[:, None])
         return unembed(cfg, params, x[:, 0]), caches, load
 
     def init_route_state():
@@ -233,5 +285,5 @@ def build_decoder(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
         return refe.RouteState.healthy(placement, num_aw, device=device)
 
     return ModelApi(cfg, placement, num_aw, num_ew, device, init_params,
-                    init_cache, prefill, decode, init_route_state,
-                    prefill_chunk, True)
+                    init_cache, forward_train, prefill, decode,
+                    init_route_state, prefill_chunk, True)

@@ -8,7 +8,9 @@ stack is a Python loop. The cache holds recurrent state only, no
 attention layer: ``{"layers": [], "mlstm_c" [B, Lm, H, Dh, Dh], "mlstm_n"
 [B, Lm, H, Dh], "mlstm_m" [B, Lm, H], "slstm_c" / "slstm_n" / "slstm_m" /
 "slstm_h" [B, Ls, D]}``, float32, with the request slot as axis 0 and Lm
-(Ls) the mLSTM (sLSTM) layers in stack order; updated in place.
+(Ls) the mLSTM (sLSTM) layers in stack order; updated in place. The
+training forward pass keeps no cache: every layer starts from a zero
+state.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (embed_init, rmsnorm, rmsnorm_init,
                                        unembed)
-from repro_torch.models.transformer import (ModelApi, cast_floats,
+from repro_torch.models.transformer import (ModelApi, as_batch, cast_floats,
+                                            layer_call,
                                             route_state_without_experts)
 
 _INIT = {"mlstm": xl.mlstm_init, "slstm": xl.slstm_init}
@@ -62,19 +65,35 @@ def build_xlstm(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
                 cache[f"{kind}_{name}"] = torch.stack([t] * n, 1)
         return cache
 
+    def _block(bp, x, kind, j, cache):
+        if cache is None:                                   # training
+            return x + _FWD[kind](cfg, bp["cell"],
+                                  rmsnorm(bp["ln"], x, cfg.norm_eps))[0]
+        names = [n for n in cache if n.startswith(kind + "_")]
+        st = {n[len(kind) + 1:]: cache[n][:, j] for n in names}
+        y, st = _FWD[kind](cfg, bp["cell"],
+                           rmsnorm(bp["ln"], x, cfg.norm_eps), st)
+        for n in names:
+            cache[n][:, j] = st[n[len(kind) + 1:]]
+        return x + y
+
     def _run(params, x, cache):
+        """``cache`` None: the training forward pass."""
         for bp, kind, j in zip(params["blocks"], kinds, index):
-            names = [n for n in cache if n.startswith(kind + "_")]
-            st = {n[len(kind) + 1:]: cache[n][:, j] for n in names}
-            y, st = _FWD[kind](cfg, bp["cell"],
-                               rmsnorm(bp["ln"], x, cfg.norm_eps), st)
-            for n in names:
-                cache[n][:, j] = st[n[len(kind) + 1:]]
-            x = x + y
+            x = layer_call(cfg, _block, bp, x, kind, j, cache)
         return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
     def _embed(params, tokens):
         return params["embed"].to(dtype)[tokens.long()]
+
+    def forward_train(params, batch, route_state):
+        """The teacher-forced forward pass of training: batch["tokens"]
+        [B, S] int, each layer from a zero state, no cache. Returns
+        (logits [B, S, V], a zero aux loss)."""
+        tokens = as_batch(batch, device)["tokens"]
+        x = _run(params, _embed(params, tokens), None)
+        return unembed(cfg, params, x), torch.zeros(
+            (), dtype=torch.float32, device=device)
 
     @torch.no_grad()
     def prefill(params, tokens, route_state, max_seq: int = 0,
@@ -101,5 +120,5 @@ def build_xlstm(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
 
     # a row at pos -1 still advances its recurrent state: no segments
     return ModelApi(cfg, None, num_aw, num_ew, device, init_params,
-                    init_cache, prefill, decode, init_route_state, None,
-                    False)
+                    init_cache, forward_train, prefill, decode,
+                    init_route_state, None, False)

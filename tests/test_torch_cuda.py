@@ -1835,3 +1835,154 @@ def test_family_step_graph_replay_equals_the_eager_step(dev, arch):
     while not all(h.done() for h in handles):
         eng.step()
     assert eng.decode_plane.captures() == 1
+
+
+# ---------------------------------------------------------------------------
+# gradients through the kernels (KernelWithPlainGrad): training
+# ---------------------------------------------------------------------------
+
+def _grads_of(fn, inputs, douts):
+    """(outputs, gradients of every floating input) of sum(out * dout)."""
+    leaves = [t.detach().clone().requires_grad_() if t.is_floating_point()
+              else t for t in inputs]
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    sum((o.float() * d).sum() for o, d in zip(outs, douts)).backward()
+    return outs, [t.grad for t in leaves if t.is_floating_point()]
+
+
+def _f32(inputs):
+    """The floating inputs upcast to float32, for the plain version."""
+    return [t.float() if t.is_floating_point() else t for t in inputs]
+
+
+def _close_grads(got, want, tol):
+    """``got`` (the Function's outputs and gradients) against ``want``
+    (the plain version's, in float32 on the inputs upcast, given the same
+    cotangents, exact in the outputs' dtype): rtol ``tol``, atol ``tol``
+    times the float32 tensor's RMS, its typical magnitude."""
+    (go, gg), (wo, wg) = got, want
+    assert all(g is not None for g in gg)
+    for a, b in zip(go + tuple(gg), wo + tuple(wg)):
+        a, b = a.detach(), b.detach()
+        rms = float(b.square().mean().sqrt())
+        torch.testing.assert_close(a.float(), b, rtol=tol, atol=tol * rms)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,dh,window", [(2, 100, 8, 2, 64, 0),
+                                                 (1, 200, 12, 2, 128, 0),
+                                                 (2, 72, 4, 4, 112, 32)])
+def test_flash_gradient_through_the_kernel(dev, dtype, b, s, h, hkv, dh,
+                                           window):
+    """A call that needs a gradient launches the kernel in the forward
+    pass (S not a multiple of the tile, a padded tail); its output and
+    the gradients of q, k and v match the plain version differentiated
+    directly in float32."""
+    r = np.random.default_rng(s + dh)
+    q = _randn(r, (b, s, h, dh), dtype, dev)
+    k, v = (_randn(r, (b, s, hkv, dh), dtype, dev) for _ in range(2))
+    p = torch.arange(s, device=dev, dtype=torch.int32).repeat(b, 1)
+    p[-1, s - 9:] = -1
+    dout = [_randn(r, (b, s, h, dh), dtype, dev).float()]
+    kw = dict(window=window, causal=True)
+    n = fa.KERNEL.launches
+    got = _grads_of(lambda q, k, v: ops.full_attention(q, k, v, p, p, **kw),
+                    [q, k, v], dout)
+    assert fa.KERNEL.launches == n + 1
+    want = _grads_of(lambda q, k, v: blockwise_attention(q, k, v, p, p, **kw),
+                     _f32([q, k, v]), dout)
+    _close_grads(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [24, 130])
+def test_expert_ffn_gradient_through_the_kernel_with_shadows(dev, dtype, c):
+    """Eight slots over four stored experts: slots 4-6 shadow experts 0,
+    1 and 0 again, slot 7 is empty. The kernel runs the forward pass (its
+    tile path); the gradients of x and of the stored banks, which sum
+    every slot that reads an expert, match the plain version (the
+    gathered slot bank) differentiated directly in float32."""
+    r = np.random.default_rng(c)
+    p, d, f, e = 8, 96, 160, 4
+    x = _randn(r, (p, c, d), dtype, dev)
+    wg, wu = (_randn(r, (e, d, f), dtype, dev, 0.1) for _ in range(2))
+    wd = _randn(r, (e, f, d), dtype, dev, 0.1)
+    se = torch.tensor([0, 1, 2, 3, 0, 1, 0, -1], dtype=torch.int32,
+                      device=dev)
+    cnt = torch.tensor([c, 3, 0, c, 5, 1, c, 0], dtype=torch.int32,
+                       device=dev)
+    dout = [_randn(r, (p, c, d), dtype, dev).float()]
+    n = mg.path_launches["tensor_core"] + mg.path_launches["cuda_core"]
+    got = _grads_of(lambda *w: ops.expert_ffn(*w, se, cnt, decode=False),
+                    [x, wg, wu, wd], dout)
+    assert mg.path_launches["tensor_core"] + \
+        mg.path_launches["cuda_core"] == n + 1
+    want = _grads_of(lambda *w: mg.expert_ffn_plain(*w, se, cnt),
+                     _f32([x, wg, wu, wd]), dout)
+    _close_grads(got, want, TOL[dtype])
+    assert float(got[1][0][2].abs().max()) == 0.0     # slot 2: no token
+    assert float(got[1][1][2].abs().max()) == 0.0     # expert 2: slot 2
+
+
+@pytest.mark.parametrize("bs,s,h,p,n,chunk", [(2, 128, 8, 64, 64, 64),
+                                              (1, 96, 3, 16, 32, 32)])
+def test_ssm_scan_gradient_through_the_kernel(dev, bs, s, h, p, n, chunk):
+    """The kernel runs the forward pass; y, h_final and the gradients of
+    x, dt, a, b and c (through both outputs) match the plain chunked
+    scan differentiated directly, at the kernel's float32 bar."""
+    r = np.random.default_rng(s + h)
+    args = _scan_inputs(r, bs, s, h, p, n, torch.float32, dev)
+    douts = [_randn(r, (bs, s, h, p), torch.float32, dev),
+             _randn(r, (bs, h, p, n), torch.float32, dev)]
+    launches = ss.KERNEL.launches
+    got = _grads_of(lambda *t: ops.ssm_scan(*t, chunk=chunk), args, douts)
+    assert ss.KERNEL.launches == launches + 1
+    want = _grads_of(lambda *t: kref.ssm_scan_chunked_ref(*t, chunk=chunk),
+                     _f32(args), douts)
+    _close_grads(got, want, 2e-4)
+
+
+def test_no_gradient_no_function(dev):
+    """Without a gradient to take (grad mode off, or no input that
+    requires one), the kernels are called directly: their outputs carry
+    no autograd history, as on every serving path."""
+    r = np.random.default_rng(0)
+    q = _randn(r, (1, 64, 4, 64), torch.bfloat16, dev).requires_grad_()
+    p = torch.arange(64, device=dev, dtype=torch.int32)[None]
+    with torch.no_grad():
+        assert ops.full_attention(q, q, q, p, p).grad_fn is None
+    assert ops.full_attention(q.detach(), q.detach(), q.detach(), p,
+                              p).grad_fn is None
+    assert type(ops.full_attention(q, q, q, p, p).grad_fn).__name__ == \
+        "KernelWithPlainGradBackward"
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "zamba2_7b"])
+def test_bf16_train_step_launches_the_kernels(dev, arch):
+    """A reduced bf16 train step: the forward pass launches flash and the
+    expert FFN (Mixtral) or the SSD scan (Zamba2), the loss is finite,
+    the step counts 1 and every param leaf got a gradient."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.workloads import lm_batches
+    from repro_torch.models import get_model
+    from repro_torch.training import init_opt_state, make_train_step
+    from repro_torch.training.train import loss_and_grads, tree_leaves
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    api = get_model(cfg, num_aw=1, num_ew=2, device="cuda")
+    params = api.init_params(torch.Generator(device="cuda").manual_seed(0))
+    rs = api.init_route_state()
+    batch = next(lm_batches(cfg.vocab_size, 2, 64, 1, seed=1))
+    n = {k.symbol: k.launches for k in (fa.KERNEL, mg.KERNEL, ss.KERNEL)}
+    _, grads = loss_and_grads(api, params, batch, rs, aux_coef=0.01)
+    ran = {k.symbol: k.launches - n[k.symbol]
+           for k in (fa.KERNEL, mg.KERNEL, ss.KERNEL)}
+    want = {"mixtral_8x7b": ("flash_attention", "moe_ffn"),
+            "zamba2_7b": ("flash_attention", "ssm_scan")}[arch]
+    assert all(ran[k] > 0 for k in want), ran
+    assert all(g is not None for g in tree_leaves(grads))
+    params2, opt, loss = make_train_step(api, lr=3e-3)(
+        params, init_opt_state(params), batch, rs)
+    assert torch.isfinite(loss) and int(opt.step) == 1
