@@ -345,6 +345,24 @@ Phases, each of which raises on failure (exit code != 0):
                 versions, timed (``moe_gemm[train]``, ``ssm_scan[train]``,
                 with the training launches); flash's in phase 14
                 (``flash_attention[train ...]``).
+ 20. launch plane (after phase 19) — (a) Mixtral-8x7B widths at 8
+                layers in bf16, 2 AWs x 2 EWs, 16 slots: the unsharded
+                engine, then an engine on params the ``Sharder`` placed on
+                a 1x1 ("data", "model") ``DeviceMesh`` over a 1-rank NCCL
+                group (``launch/mesh.py``), served from their local
+                shards: 8 requests of 128 + 32 tokens, failure-free and
+                under ``fail_ew(0)``, bitwise the unsharded engine's
+                streams, no capture after warm-up; the launches of the
+                sharded run and the peak memory; the group destroyed at
+                the end; (b) ``roofline/op_count.py``'s count of one
+                prefill call (8 x 128) and one eager decode step of the
+                unsharded engine (the kernels report their launches'
+                work) against ``roofline/analysis.py``'s, flops and
+                bytes, each ratio held to OP_COUNT_BANDS; (c) ``python -m
+                repro_torch.launch.dryrun --all --include-paper-model`` at
+                16 x 16 and 2 x 16 x 16 in processes of their own beside
+                (a): 37 ok, 7 skipped and 0 errors each, one line per
+                case with its dominant term and its bytes per device.
  14. flash at the served shapes — every (B, Sq, Sk, heads, window,
                 softcap, causal) the runs gave the flash kernel, on the positions
                 of that shape's first call (pad tails, rows outside a
@@ -380,10 +398,6 @@ from pathlib import Path
 from types import SimpleNamespace
 from typing import NamedTuple
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-L2_BYTES = 50 * 2 ** 20            # H100 SXM L2
-BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
-FP32_FLOPS_PER_S = 67e12           # H100 SXM float32 on the CUDA cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # a bfloat16 result against the float32 plain version on the same inputs:
 # rounding once at the output costs at most half an ulp (2^-8 relative);
@@ -483,6 +497,13 @@ TRAIN_LR = 2e-3
 TRAIN_AUX = 0.01                   # the reference's aux_coef
 
 
+def h100():
+    """The card's published figures, one definition with the roofline
+    (``repro_torch.roofline.h100``)."""
+    from repro_torch.roofline import h100 as spec
+    return spec
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -536,18 +557,19 @@ def cold_graph_ms(torch, fn, tensors, calls: int = 20) -> float:
     reads another layer's cache."""
     import itertools
     per = sum(t.numel() * t.element_size() for t in tensors)
-    n = max(1, min(calls, -(-4 * L2_BYTES // per)))
+    n = max(1, min(calls, -(-4 * h100().L2_BYTES // per)))
     turn = itertools.cycle([tuple(tensors)] + [
         tuple(t.clone() for t in tensors) for _ in range(n - 1)])
     return graph_ms(torch, lambda: fn(*next(turn)), calls)
 
 
-def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S):
+def bound(nbytes: float, flops: float, peak: float = None):
     """The least time for the work: bytes at the HBM rate or flops at
     ``peak`` (bf16 tensor cores unless the kernel computes in float32 on
     the CUDA cores), the larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    spec = h100()
+    t_bytes = nbytes / spec.HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (spec.BF16_FLOPS_PER_S if peak is None else peak) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -621,14 +643,6 @@ def ring_decode_inputs(torch, g, b, h, hkv, dh, sc, dtype, lo, hi):
     return q, ck, cv, cpos, k1, v1, pos
 
 
-def valid_keys(cpos, pos, window):
-    """The [B, Sc] mask of cache entries a decode row attends to."""
-    ok = (cpos >= 0) & (cpos <= pos[:, None])
-    if window:
-        ok &= cpos > pos[:, None] - window
-    return ok
-
-
 def decode_attention_at(torch, g, records, name, b, h, hkv, dh, sc, *,
                         window=0, softcap=0.0, ring=None):
     """The fused decode kernel at a serving shape: in float32 first, so
@@ -671,7 +685,7 @@ def decode_attention_at(torch, g, records, name, b, h, hkv, dh, sc, *,
         torch, lambda *a: da.decode_attention_cuda(*a, **kw), args)
     plain_ms = time_ms(torch, lambda: da.decode_attention_plain(*args,
                                                                 **kw))
-    ok = valid_keys(cpos, pos, window)
+    ok = da.valid_keys(cpos, pos, window)
     grp = h // hkv
     lib_ms, lib_dev_ms = None, None
     library = "none: SDPA has no tanh softcap"
@@ -692,11 +706,7 @@ def decode_attention_at(torch, g, records, name, b, h, hkv, dh, sc, *,
         lib_ms = time_ms(torch, sdpa)
         lib_dev_ms = cold_graph_ms(torch, sdpa, (qq, kk, vv, mask))
         library = "SDPA"
-    valid = int(ok.sum().item())
-    el = 2
-    nbytes = (q.numel() + 2 * valid * hkv * dh + k1.numel() + v1.numel()
-              + q.numel()) * el + cpos.numel() * 4 + pos.numel() * 4
-    flops = 4.0 * (valid + b) * grp * hkv * dh
+    flops, nbytes = da.fused_work(q, k1, cpos, int(ok.sum().item()))
     b_ms, b_by = bound(nbytes, flops)
     records.append(dict(
         name=name, route="cuda",
@@ -762,11 +772,8 @@ def partial_at(torch, g, records, name, b, h, hkv, dh, sc, *, window=0,
         (q, ck, cv, cpos, pos))
     plain_ms = time_ms(torch, lambda: da.decode_attention_partial_plain(
         q, ck, cv, cpos, pos, **kw))
-    valid = int(valid_keys(cpos, pos, window).sum().item())
-    grp = h // hkv
-    nbytes = (q.numel() + 2 * valid * hkv * dh) * 2 + \
-        (cpos.numel() + pos.numel()) * 4 + (2 * b * h + b * h * dh) * 4
-    flops = 4.0 * valid * grp * hkv * dh
+    flops, nbytes = da.partial_work(
+        q, cpos, hkv, int(da.valid_keys(cpos, pos, window).sum().item()))
     b_ms, b_by = bound(nbytes, flops)
     records.append(dict(
         name=name, route="cuda",
@@ -816,7 +823,6 @@ def paged_inputs(torch, g, b, h, hkv, dh, nblk, pt, dtype, min_len):
 def kernel_decode_attention_paged(torch, g, records, name, b, h, hkv, dh,
                                   nblk, pt=PAGE_TOKENS):
     from repro_torch.kernels import decode_attention as da
-    import numpy as np
     import torch.nn.functional as F
     print(f"decode_attention_paged (block-table GQA decode, "
           f"csrc/decode_attention.cu), G {h // hkv}")
@@ -881,16 +887,8 @@ def kernel_decode_attention_paged(torch, g, records, name, b, h, hkv, dh,
     lib_dev_ms = cold_graph_ms(torch, sdpa, (qq, kk, vv, mask))
     # bytes of the valid pages: every (page, offset) some row attends to,
     # once, with the positions of the pages read and the block table
-    bt_h, cpos_h = bt.cpu().numpy(), cpos.cpu().numpy()
-    page = np.repeat(bt_h, pt, axis=1)
-    off = np.tile(np.arange(pt), nblk)[None].repeat(b, 0)
-    v_h = valid.cpu().numpy()
-    uniq = len(set(zip(page[v_h].tolist(), off[v_h].tolist())))
-    pages_read = len(set(bt_h[bt_h > 0].tolist()))
-    el = 2
-    nbytes = (2 * q.numel() + 2 * uniq * hkv * dh + k1.numel() +
-              v1.numel()) * el + (pages_read * pt + bt.numel() + b) * 4
-    flops = 4.0 * (int(v_h.sum()) + b) * grp * hkv * dh
+    flops, nbytes = da.paged_work(q, k1, bt, pt, int(valid.sum().item()),
+                                  *da.paged_reads(bt, valid, pt))
     b_ms, b_by = bound(nbytes, flops)
     records.append(dict(
         name=name, route="cuda",
@@ -899,7 +897,7 @@ def kernel_decode_attention_paged(torch, g, records, name, b, h, hkv, dh,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         library="SDPA on the pre-gathered view, gather excluded",
         graph_ms=dev_ms, library_graph_ms=lib_dev_ms,
-        shape=f"{shape} bf16, {int(cpos_h.shape[1])}-token view"))
+        shape=f"{shape} bf16, {int(cpos.shape[1])}-token view"))
     print(f"  time {ms:.4f} ms (in a CUDA graph, L2 cold {dev_ms:.4f}), "
           f"plain {plain_ms:.4f} ms, SDPA on the pre-gathered view "
           f"{lib_ms:.4f} ms (in a CUDA graph, L2 cold {lib_dev_ms:.4f}), "
@@ -1109,16 +1107,6 @@ def flash_attention_at(torch, g, b, s, h, hkv, dh, *, window=0,
     CHECKED.add(("flash_attention", dh, h // hkv))
 
 
-def flash_mask(shape, qp, kp):
-    """[B, Sq, Sk]: the (query, key) pairs a flash call attends to."""
-    m = (kp[:, None, :] >= 0) & (qp[:, :, None] >= 0)
-    if shape.causal:
-        m &= kp[:, None, :] <= qp[:, :, None]
-    if shape.window:
-        m &= kp[:, None, :] > qp[:, :, None] - shape.window
-    return m
-
-
 def flash_case(torch, g, shape):
     """bf16 q, k, v of a served flash shape (seeded) with the positions of
     its first call, and the kernel and plain calls on them."""
@@ -1184,7 +1172,7 @@ def flash_record(torch, g, records, name, run, phase, errs, *, window=None,
     ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
     dev_ms, lib_dev_ms = graph_ms(torch, kern), None
     lib_ms, library = None, "none: SDPA has no tanh softcap"
-    mask = flash_mask(shape, qp, kp)
+    mask = fa.pair_mask(qp, kp, causal=shape.causal, window=shape.window)
     if not shape.softcap:
         grp = shape.h // shape.hkv
         qq = q.transpose(1, 2).contiguous()
@@ -1207,12 +1195,8 @@ def flash_record(torch, g, records, name, run, phase, errs, *, window=None,
                     qq, kk, vv, attn_mask=mask[:, None])
         lib_ms, lib_dev_ms = time_ms(torch, sdpa), graph_ms(torch, sdpa)
         library = "SDPA"
-    live = (qp >= 0).any(1)
-    keys = int(((kp >= 0) & live[:, None]).sum().item())
-    nbytes = (2 * int((qp >= 0).sum().item()) * shape.h * shape.dh +
-              2 * keys * shape.hkv * shape.dh) * 2 + \
-        (qp.numel() + kp.numel()) * 4
-    flops = 4.0 * int(mask.sum().item()) * shape.h * shape.dh
+    flops, nbytes = fa.work(qp, kp, shape.h, shape.hkv, shape.dh,
+                            causal=shape.causal, window=shape.window)
     b_ms, b_by = bound(nbytes, flops)
     records.append(dict(
         name=name, route="cuda",
@@ -1284,13 +1268,8 @@ def kernel_ssm_scan(torch, g, records, shapes, name="ssm_scan"):
         plain_ms = time_ms(torch, lambda: kref.ssm_scan_chunked_ref(
             *args, chunk=chunk))
         t = kref.scan_chunk(s_, chunk)
-        nbytes = (2 * args[0].numel() * 2 + bs * h * p * n * 4 +
-                  (bs * s_ * h + 2 * bs * s_ * n + h) * 4)
-        # per (b, h, chunk): the causal (i >= j) half of C B^T and of
-        # W x, then C h^T and the state update
-        flops = 2.0 * bs * h * (s_ // t) * (t * (t + 1) // 2 * (n + p) +
-                                            2 * t * n * p)
-        b_ms, b_by = bound(nbytes, flops, FP32_FLOPS_PER_S)
+        flops, nbytes = ss.work(bs, s_, h, p, n, chunk)
+        b_ms, b_by = bound(nbytes, flops, h100().FP32_FLOPS_PER_S)
         SCAN_CHECKED.add((bs, s_))
         records.append(dict(
             name=name, route="cuda",
@@ -1402,8 +1381,7 @@ def kernel_moe_gemm(torch, g, records, shapes, *, timed=None, small=True):
         # in a CUDA graph: no host time; the 2.8 GB bank never fits L2
         dev_ms, lib_dev_ms = graph_ms(torch, kern), graph_ms(torch, chain)
         active = int((cnt > 0).sum().item())  # the kernel skips the rest
-        nbytes = active * (3 * d * f + 2 * c * d) * 2 + 2 * n_slot * 4
-        flops = active * 2.0 * c * d * f * 3
+        flops, nbytes = mg.work(n_slot, c, d, f, active, active)
         b_ms, b_by = bound(nbytes, flops)
         records.append(dict(
             name=f"moe_gemm[{label}]", route="cuda",
@@ -4583,9 +4561,7 @@ def family_ffn_checks(torch, g, records, runs_by_label):
             del xa, wg_, wu_, wd_
             # each live slot's C rows read and the whole output written
             # once, each distinct expert's three matrices read once
-            nbytes = (n_exp * 3 * d * f + n_live * c * d + p * c * d) * 2 + \
-                2 * p * 4
-            flops = n_live * 2.0 * c * d * f * 3
+            flops, nbytes = mg.work(p, c, d, f, n_live, n_exp)
             b_ms, b_by = bound(nbytes, flops)
             name = f"moe_gemm[{label} {kind}]"
             records.append(dict(
@@ -4960,6 +4936,234 @@ def train_kernel_shapes(torch, g, records, runs):
     records[-1]["launches"] = sum(f["ssm_scan"] for f in runs["zamba2"].fwd)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the launch plane
+# ---------------------------------------------------------------------------
+# the op count's tolerances (counted / analytic, ``roofline/analysis.py``
+# against ``roofline/op_count.py`` on the same call): a decode step's
+# expert FFN runs only the slots that got a token (the analytic count
+# takes the 8 primaries at capacity), so its flops and bytes may come out
+# below; a prefill call's projections and norms run in fixed 128-row
+# blocks that each read the weights again, and its norms and activations
+# are unfused, so its bytes come out above the analytic floor
+OP_COUNT_BANDS = {("decode", "flops"): (0.80, 1.10),
+                  ("decode", "bytes"): (0.80, 1.25),
+                  ("prefill", "flops"): (0.95, 1.10),
+                  ("prefill", "bytes"): (1.00, 2.50)}
+
+
+def start_dryruns(root):
+    """Start ``python -m repro_torch.launch.dryrun --all
+    --include-paper-model`` at 16 x 16 and 2 x 16 x 16, each in a process
+    of its own, side by side (host only: the fake process group needs no
+    card); returns {mesh: (process, start time, log, json)}."""
+    out_dir = root / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    runs = {}
+    for mesh, extra in (("16x16", []), ("2x16x16", ["--multi-pod"])):
+        log, out = out_dir / f"{mesh}.log", out_dir / f"{mesh}.json"
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                 "--include-paper-model", "--json", str(out)] + extra,
+                env=env, cwd=root, stdout=f, stderr=subprocess.STDOUT)
+        runs[mesh] = (proc, time.perf_counter(), log, out)
+    return runs
+
+
+def finish_dryruns(runs):
+    """Wait for the dry runs; each must exit 0 with 37 ok, 7 skipped and
+    0 errors. Returns {mesh: (results, seconds)}."""
+    got = {}
+    for mesh, (proc, t0, log, out) in runs.items():
+        proc.wait(timeout=600)
+        secs = time.perf_counter() - t0
+        text = log.read_text()
+        summary = [line for line in text.splitlines()
+                   if line.startswith("dry-run:")]
+        if proc.returncode != 0 or summary != [
+                "dry-run: 37 ok, 7 skipped (documented), 0 errors"]:
+            print(text[-4000:])
+            raise AssertionError(f"dry run at {mesh}: exit "
+                                 f"{proc.returncode}, {summary}")
+        got[mesh] = (json.loads(out.read_text()), secs)
+    return got
+
+
+def op_count_check(torch, engine, prompts):
+    """The op count of one prefill call (8 rows of 128 tokens) and one
+    eager decode step of ``engine`` against ``roofline/analysis.py``'s
+    count for the same config and batch: flops and bytes, each ratio held
+    to OP_COUNT_BANDS. Kernel launches report their work to the counter
+    (``kernels/ops.py``); the calls run inside ``observed`` so their
+    kernel shapes are held to the plain versions like a run's."""
+    import numpy as np
+    from repro_torch.roofline.analysis import served_work
+    from repro_torch.roofline.op_count import OpCounter
+    api = engine.api
+    toks = torch.as_tensor(np.stack(prompts), device=engine.device)
+    rows, seq = toks.shape
+    cap = engine.prefill_capacity(toks.numel())
+    with observed(torch, "prefill") as obs:
+        torch.cuda.synchronize()
+        with OpCounter() as pre:
+            _, cache, _ = api.prefill(engine.params, toks,
+                                      engine.route_state,
+                                      engine.ecfg.max_seq, capacity=cap)
+        torch.cuda.synchronize()
+        SEEN["phase"] = "decode"
+        pos = torch.full((rows,), seq, dtype=torch.int32,
+                         device=engine.device)
+        nxt = toks[:, -1].contiguous()
+        with OpCounter() as dec:
+            api.decode(engine.params, nxt, pos, cache, engine.route_state)
+        torch.cuda.synchronize()
+    del cache
+    want = {"prefill": served_work(engine, "prefill", rows=rows, seq=seq,
+                                   capacity=cap),
+            "decode": served_work(engine, "decode", rows=rows,
+                                  ctx=[seq + 1] * rows)}
+    for kind, c in (("prefill", pre), ("decode", dec)):
+        w = want[kind]
+        for what, got, ana in (("flops", c.flops, w.flops),
+                               ("bytes", c.bytes, w.hbm_bytes)):
+            lo, hi = OP_COUNT_BANDS[(kind, what)]
+            r = got / ana
+            print(f"  op count, {kind} ({rows} rows x "
+                  f"{seq if kind == 'prefill' else 1}): {what} counted "
+                  f"{got:.4e}, analytic {ana:.4e}, ratio {r:.4f} (band "
+                  f"{lo}-{hi})")
+            if not lo <= r <= hi:
+                raise AssertionError(f"op count {kind} {what}: ratio {r:.4f}"
+                                     f" outside [{lo}, {hi}]")
+        kern = {k: [v[0], f"{v[1]:.3e}", f"{v[2]:.3e}"]
+                for k, v in c.kernels.items()}
+        print(f"    {kind} kernels (launches, flops, bytes): {kern}")
+        print(f"    {kind} analytic by part (flops): "
+              f"{ {k: f'{v:.3e}' for k, v in w.by().items() if v} }")
+    return obs
+
+
+def launch_phase(torch, g, records):
+    """Phase 20: (a) Mixtral-8x7B widths at 8 of 32 layers, 2 AWs x 2
+    EWs, 16 slots, served from params the Sharder placed on a 1x1
+    ("data", "model") mesh over a 1-rank NCCL group, from their local
+    shards: 8 requests of 128 + 32 tokens, failure-free and under
+    fail_ew(0), bitwise the unsharded engine's streams; zero captures
+    after warm-up; the launches and the peak memory; (b) the op count of
+    a prefill call and an eager decode step against the analytic count;
+    (c) the dry run at both production meshes in processes of their own,
+    one line per case."""
+    t_phase = time.perf_counter()
+    # (c) runs on the host while (a) and (b) use the card
+    dry = start_dryruns(Path(__file__).resolve().parent)
+    try:
+        served_sharded(torch, g, records)
+    except BaseException:
+        for proc, *_ in dry.values():
+            proc.kill()
+        raise
+    dry = finish_dryruns(dry)
+    for mesh, (results, secs) in dry.items():
+        print(f"  dry run {mesh}: 37 ok, 7 skipped, 0 errors ({secs:.1f} s "
+              f"in its own process); per case: dominant term, bytes per "
+              f"device (H100 SXM spec figures, not measured)")
+        for r in results:
+            if r["status"] != "ok":
+                print(f"    {r['name']}: skipped ({r['reason']})")
+                continue
+            print(f"    {r['name']}: {r['dominant']} (compute "
+                  f"{r['compute_s'] * 1e3:.3f} ms, memory "
+                  f"{r['memory_s'] * 1e3:.3f} ms, collective "
+                  f"{r['collective_s'] * 1e3:.3f} ms); "
+                  f"{r['mem_per_device_bytes'] / 2**30:.2f} GiB a device"
+                  f"{'' if r['fits'] else ' OVER 80 GB'}")
+    print(f"  launch phase wall {time.perf_counter() - t_phase:.1f} s; on "
+          f"{card_line()}")
+
+
+def served_sharded(torch, g, records):
+    """Phase 20 (a) and (b) (``launch_phase``)."""
+    import numpy as np
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch.sharding import Sharder, local_shards
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    from repro_torch.training.train import leaf_paths
+    cfg = mixtral_8_layers()
+    ecfg = EngineConfig(max_batch=8, max_seq=512, num_aw=2, num_ew=2)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(128,)).astype(np.int32)
+               for _ in range(8)]
+    max_new = 32
+
+    def fail_ew(eng, handles, steps):
+        if steps == 8:
+            eng.fail_ew(0)
+            return []
+        return None
+    torch.cuda.reset_peak_memory_stats()
+    plain = InferenceEngine(cfg, ecfg, seed=0, device="cuda")
+    Run(torch, plain, prompts, 2, warm_up=True)
+    want = Run(torch, plain, prompts, max_new)
+    obs = op_count_check(torch, plain, prompts)
+    want_failed = Run(torch, plain, prompts, max_new, fail=fail_ew)
+    same_streams("unsharded engine under fail_ew(0)", want_failed, want)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    with lmesh.single_rank_group("cuda"):
+        mesh = lmesh.make_debug_mesh((1, 1), ("data", "model"))
+        sharder = Sharder(cfg, mesh)
+        t0 = time.perf_counter()
+        # the engine's own seeded draw, placed leaf by leaf (on a 1x1
+        # mesh each DTensor wraps its leaf: no copy)
+        api = get_model(cfg, num_aw=2, num_ew=2, device="cuda")
+        params = sharder.shard_params(api.init_params(
+            torch.Generator(device="cuda").manual_seed(0)))
+        kinds = Counter(type(t).__name__ for t in
+                        leaf_paths(params).values())
+        engine = InferenceEngine(cfg, ecfg, params=local_shards(params),
+                                 device="cuda")
+        print(f"  sharded engine: {dict(kinds)} leaves placed on "
+              f"{mesh}, served from their local shards "
+              f"({time.perf_counter() - t0:.1f} s)")
+        Run(torch, engine, prompts, 2, warm_up=True)
+        reset_counts()
+        run = Run(torch, engine, prompts, max_new)
+        launches = {k: sum(ph[k] for ph in run.launches.values())
+                    for k in ("decode_attention_fused", "flash_attention",
+                              "moe_ffn")}
+        failed = Run(torch, engine, prompts, max_new, fail=fail_ew)
+        same_streams("sharded engine (against the unsharded one)", run,
+                     want)
+        same_streams("sharded engine under fail_ew(0) (against the "
+                     "unsharded one)", failed, want_failed)
+        print(f"  {len(run.streams)} streams of the sharded engine bitwise "
+              f"the unsharded engine's, failure-free and under fail_ew(0)")
+        for k, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"{k} was not launched by the sharded "
+                                     f"engine")
+        run.report("sharded")
+        print(f"  sharded run launches: {launches}; step graphs "
+              f"{engine.decode_plane.captures()}, none after warm-up; peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del engine, params, api
+        gc.collect()
+    if torch.distributed.is_initialized():
+        raise AssertionError("the 1-rank group outlived its phase")
+    # the expert FFN at any (P, C, D, F, path) of the op-count calls that
+    # no earlier check held to the plain versions
+    todo = sorted({key for per_phase in obs.ffn_c.values()
+                   for key in per_phase} - FFN_CHECKED)
+    if todo:
+        kernel_moe_gemm(torch, g, records,
+                        [(f"launch-C{k[1]}-{k[4]}", k) for k in todo],
+                        timed=set(), small=False)
+
+
 def profile_decode(torch, engine, prompts, out_dir, chrome=True):
     """Trace 4 steady decode steps of the batch and one prefill of the
     first prompt with torch.profiler: wall time per step, device-busy
@@ -5285,6 +5489,12 @@ def main():
     phase("training")
     train_kernel_shapes(torch, g, records, train)
     phase("training's kernel shapes")
+    print("launch plane: Mixtral-8x7B widths, 8 layers, bf16, params placed "
+          "by the Sharder on a 1x1 mesh over a 1-rank NCCL group; the op "
+          "count against the analytic count; the dry run at 16x16 and "
+          "2x16x16")
+    launch_phase(torch, g, records)
+    phase("launch plane")
     errs = served_flash_phase(torch, g)
     for name, run, ph, window in (
             ("flash_attention", serve, "prefill", None),

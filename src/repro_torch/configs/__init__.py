@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, MoEConfig  # noqa: F401
+from repro_torch.configs.base import (LONG_CONTEXT_ARCHS, SHAPES,  # noqa
+                                      ModelConfig, MoEConfig, ShapeConfig,
+                                      supports_shape)
 
 ARCH_IDS = (
     "mixtral_8x7b",   # the paper's own evaluation model
@@ -36,3 +38,17 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown or not yet ported architecture {name!r}; "
                        f"ported: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
+
+
+#: the ten assigned architectures, in the reference registry's order (the
+#: order its dry run sweeps); the paper's own model comes after them
+ASSIGNED_ARCHS = ("qwen2_1_5b", "qwen2_moe_a2_7b", "h2o_danube_1_8b",
+                  "zamba2_7b", "chameleon_34b", "whisper_small", "xlstm_350m",
+                  "gemma2_2b", "granite_34b", "kimi_k2_1t_a32b")
+
+
+def all_configs(include_paper_model: bool = True):
+    """name -> config of every assigned architecture, then Mixtral-8x7B
+    unless ``include_paper_model`` is False."""
+    ids = ASSIGNED_ARCHS + (("mixtral_8x7b",) if include_paper_model else ())
+    return {cfg.name: cfg for cfg in map(get_config, ids)}

@@ -1,8 +1,10 @@
-"""Config schema for models and Tarragon resilience knobs (PyTorch port).
+"""Config schema for models, input shapes and Tarragon resilience knobs
+(PyTorch port).
 
-Mirrors ``repro.configs.base``: a model is a ``ModelConfig``; ``reduced()``
-produces the CPU-smoke variant of the same family (<=2 layers, d_model<=128,
-4 experts). The compute dtype is exposed as a torch dtype.
+Mirrors ``repro.configs.base``: a model is a ``ModelConfig``, an input
+shape a ``ShapeConfig``; ``reduced()`` produces the CPU-smoke variant of
+the same family (<=2 layers, d_model<=128, 4 experts). The compute dtype
+is exposed as a torch dtype.
 """
 from __future__ import annotations
 
@@ -140,6 +142,22 @@ class ModelConfig:
             n += self.num_layers * attn  # cross attention
         return int(n)
 
+    @property
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top-k + shared only), as the
+        reference counts them."""
+        if not self.moe.enabled:
+            return self.param_count
+        d = self.d_model
+        hd = self.head_dim_
+        attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) + \
+            self.num_heads * hd * d
+        ffn = 3 * d * self.moe.d_ff * self.moe.top_k + \
+            3 * d * self.moe.shared_d_ff
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        n += self.num_layers * (attn + ffn + d * self.moe.num_experts)
+        return int(n)
+
     def reduced(self) -> "ModelConfig":
         """CPU smoke-test variant of the same family (the reference's
         ``reduced()``, field for field)."""
@@ -180,3 +198,31 @@ class ModelConfig:
             ssm=ssm,
             dtype="float32",
         )
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+# Architectures with a sub-quadratic long-context path: a sliding window,
+# recurrent state, or both.
+LONG_CONTEXT_ARCHS = frozenset(
+    {"h2o-danube-1.8b", "zamba2-7b", "xlstm-350m", "gemma2-2b"})
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    if shape.name == "long_500k":
+        return cfg.name in LONG_CONTEXT_ARCHS
+    return True

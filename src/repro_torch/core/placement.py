@@ -73,12 +73,21 @@ class PlacementPlan:
                 cand[ex, 1] = s
         return cand
 
+    def replica_of(self, expert: int) -> int:
+        return int(self.candidates()[expert, 1])
+
     def slots_of_ew(self, ew: int) -> np.ndarray:
         return np.nonzero(self.slot_owner == ew)[0]
 
     def resident_experts(self, ew: int) -> List[int]:
         return [int(self.slot_expert[s]) for s in self.slots_of_ew(ew)
                 if self.slot_expert[s] >= 0]
+
+    def moved_slots(self, prev: "PlacementPlan") -> int:
+        """Slots whose (resident expert, owner) changed: the host-side
+        weight-push volume a plan transition implies."""
+        return int(np.sum((self.slot_expert != prev.slot_expert) |
+                          (self.slot_owner != prev.slot_owner)))
 
 
 @dataclass
@@ -488,4 +497,13 @@ class ExpertPlacementManager:
         mask = np.zeros((self.max_ew,), bool)
         mask[list(self.members)] = True
         return mask
+
+
+def push_seconds(moved_slots: int, d_model: int, d_ff: int,
+                 link_gbps: float = 400.0, bytes_per_el: int = 2,
+                 gated: bool = True) -> float:
+    """Host-side weight-push time for a plan transition: bytes of expert
+    weights whose residency changed, over the provisioning link."""
+    per_expert = (3 if gated else 2) * d_model * d_ff * bytes_per_el
+    return moved_slots * per_expert / (link_gbps / 8 * 1e9)
 

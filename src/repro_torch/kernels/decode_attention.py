@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -43,6 +44,56 @@ PARTIAL_KERNEL = build.CudaKernel(
     "decode_attention", "decode_attention_partial",
     [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P],
     replaces="src/repro/kernels/decode_attention.py:78")
+
+
+def valid_keys(cpos, pos, window: int = 0):
+    """The [B, Sc] mask of cache entries a decode row attends to."""
+    ok = (cpos >= 0) & (cpos <= pos[:, None])
+    if window:
+        ok &= cpos > pos[:, None] - window
+    return ok
+
+
+def fused_work(q, k1, cpos, valid: int):
+    """(flops, bytes) of one fused decode call with ``valid`` cache keys
+    attended in all: q read and the output written, each valid key's K
+    and V read once, the new token's k1/v1, the positions."""
+    b, h, dh = q.shape
+    hkv, el = k1.shape[1], q.element_size()
+    nbytes = (2 * q.numel() + 2 * valid * hkv * dh + 2 * k1.numel()) * el \
+        + cpos.numel() * 4 + b * 4
+    return 4.0 * (valid + b) * h * dh, nbytes
+
+
+def paged_reads(bt, ok, pt: int):
+    """(distinct (page, offset) entries read, pages read) of a paged
+    decode call: ``ok`` [B, nblk * pt] flags the valid entries of each
+    row's block-table view."""
+    bt_h, ok_h = bt.cpu().numpy(), ok.cpu().numpy()
+    page = bt_h.repeat(pt, axis=1)
+    off = np.tile(np.arange(pt), bt_h.shape[1])[None].repeat(len(bt_h), 0)
+    uniq = len(set(zip(page[ok_h].tolist(), off[ok_h].tolist())))
+    return uniq, len(set(bt_h[bt_h > 0].tolist()))
+
+
+def paged_work(q, k1, bt, pt: int, valid: int, uniq: int, pages: int):
+    """(flops, bytes) of one paged decode call: as ``fused_work``, with
+    each distinct (page, offset) entry read once, and the positions of the
+    ``pages`` pages read and the block table."""
+    b, h, dh = q.shape
+    hkv, el = k1.shape[1], q.element_size()
+    nbytes = (2 * q.numel() + 2 * uniq * hkv * dh + 2 * k1.numel()) * el \
+        + (pages * pt + bt.numel() + b) * 4
+    return 4.0 * (valid + b) * h * dh, nbytes
+
+
+def partial_work(q, cpos, hkv: int, valid: int):
+    """(flops, bytes) of one partial decode call: q and the valid keys'
+    K and V in bf16, the positions, and the float32 (m, l, acc) out."""
+    b, h, dh = q.shape
+    nbytes = (q.numel() + 2 * valid * hkv * dh) * 2 + \
+        (cpos.numel() + b) * 4 + (2 * b * h + b * h * dh) * 4
+    return 4.0 * valid * h * dh, nbytes
 
 
 def combine_decode_partials(q, m, l, acc, k1, v1, *, softcap: float = 0.0):

@@ -36,6 +36,31 @@ def _path(code: int) -> str:
     return PATHS[fn(code)]
 
 
+def pair_mask(q_pos, k_pos, *, causal: bool = True, window: int = 0):
+    """[B, Sq, Sk]: the (query, key) pairs a flash call attends to."""
+    m = (k_pos[:, None, :] >= 0) & (q_pos[:, :, None] >= 0)
+    if causal:
+        m &= k_pos[:, None, :] <= q_pos[:, :, None]
+    if window:
+        m &= k_pos[:, None, :] > q_pos[:, :, None] - window
+    return m
+
+
+def work(q_pos, k_pos, h: int, hkv: int, dh: int, *, causal: bool = True,
+         window: int = 0, el: int = 2):
+    """(flops, bytes) of one flash call: the query rows with a position
+    read and written, the keys of rows with a query read once (K and V),
+    the positions; flops over the valid (query, key) pairs."""
+    live = (q_pos >= 0).any(1)
+    keys = int(((k_pos >= 0) & live[:, None]).sum().item())
+    rows = int((q_pos >= 0).sum().item())
+    pairs = int(pair_mask(q_pos, k_pos, causal=causal, window=window)
+                .sum().item())
+    nbytes = (2 * rows * h * dh + 2 * keys * hkv * dh) * el + \
+        (q_pos.numel() + k_pos.numel()) * 4
+    return 4.0 * pairs * h * dh, nbytes
+
+
 def flash_attention_cuda(q, k, v, q_pos, k_pos, *, causal: bool = True,
                          window: int = 0, softcap: float = 0.0):
     """q: [B,Sq,H,Dh]; k,v: [B,Sk,Hkv,Dh]; *_pos: [B,Sq]/[B,Sk] int32

@@ -72,6 +72,18 @@ def _plan(ptrs, p, c, d, f, gated, code, dec):
     return plan
 
 
+def work(p: int, c: int, d: int, f: int, live: int, experts: int,
+         el: int = 2):
+    """(flops, bytes) of one expert FFN call over P slots of capacity C:
+    each of the ``live`` slots with a token runs its C rows through three
+    D x F matrices (the kernel skips the others); each of the ``experts``
+    distinct experts those slots read has its three matrices read once,
+    the live slots' rows are read, the whole output written, and the slot
+    table read."""
+    nbytes = (experts * 3 * d * f + live * c * d + p * c * d) * el + 2 * p * 4
+    return live * 2.0 * c * d * f * 3, nbytes
+
+
 def expert_ffn_plain(x, w_gate, w_up, w_down, slot_expert, counts, *,
                      act: str = "silu"):
     """x: [P,C,D]; w_gate/w_up: [E,D,F] stored bank (w_gate may be None);

@@ -12,13 +12,22 @@ mode on and an input that requires one), it goes through
 backward pass recomputes the kernel's plain version on the saved inputs
 and differentiates that. A call that needs no gradient (every serving
 path) calls the kernel directly, as before.
+
+Op counts. A launch on the card reports its flops and bytes to an active
+``roofline.op_count.OpCounter`` (the kernel modules' ``work`` formulas);
+with none active the report does nothing.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_gemm as mg
+from repro_torch.kernels import ssm_scan as ss
 from repro_torch.kernels.decode_attention import (
     decode_attention_cuda, decode_attention_paged_cuda,
     decode_attention_paged_plain, decode_attention_partial_cuda,
@@ -27,6 +36,7 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.moe_gemm import expert_ffn_cuda, expert_ffn_plain
 from repro_torch.kernels.ref import ssm_scan_chunked_ref, ssm_scan_ref
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+from repro_torch.roofline.op_count import kernel as count_work
 
 
 class KernelWithPlainGrad(torch.autograd.Function):
@@ -75,6 +85,9 @@ def _with_plain_grad(kernel, grads, *inputs):
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
+    if isinstance(t, DTensor):
+        raise TypeError("a DTensor reaches no kernel: serve its "
+                        "to_local() shard")
     if t.is_cuda:
         return True
     if t.device.type == "cpu":
@@ -87,8 +100,13 @@ def decode_attention(q, ck, cv, cpos, k1, v1, pos, *, window: int = 0,
     """Single-token GQA decode attention over cache + current token.
     q: [B,H,Dh]; ck/cv: [B,Sc,Hkv,Dh]; cpos: [B,Sc]; k1/v1: [B,Hkv,Dh];
     pos: [B]. Returns [B,H,Dh]."""
-    fn = decode_attention_cuda if _on_cuda(q) else decode_attention_plain
-    return fn(q, ck, cv, cpos, k1, v1, pos, window=window, softcap=softcap)
+    if not _on_cuda(q):
+        return decode_attention_plain(q, ck, cv, cpos, k1, v1, pos,
+                                      window=window, softcap=softcap)
+    count_work("decode_attention_fused", lambda: da.fused_work(
+        q, k1, cpos, int(da.valid_keys(cpos, pos, window).sum())))
+    return decode_attention_cuda(q, ck, cv, cpos, k1, v1, pos,
+                                 window=window, softcap=softcap)
 
 
 def decode_attention_partial(q, ck, cv, cpos, pos, *, window: int = 0,
@@ -98,9 +116,13 @@ def decode_attention_partial(q, ck, cv, cpos, pos, *, window: int = 0,
     combines them: ``decode_attention.combine_decode_partials``). q:
     [B,H,Dh] (unscaled); ck/cv: [B,Sc,Hkv,Dh]; cpos: [B,Sc]; pos: [B].
     Returns (m, l [B,Hkv,G], acc [B,Hkv,G,Dh]) in float32."""
-    fn = decode_attention_partial_cuda if _on_cuda(q) \
-        else decode_attention_partial_plain
-    return fn(q, ck, cv, cpos, pos, window=window, softcap=softcap)
+    if not _on_cuda(q):
+        return decode_attention_partial_plain(q, ck, cv, cpos, pos,
+                                              window=window, softcap=softcap)
+    count_work("decode_attention_partial", lambda: da.partial_work(
+        q, cpos, ck.shape[2], int(da.valid_keys(cpos, pos, window).sum())))
+    return decode_attention_partial_cuda(q, ck, cv, cpos, pos, window=window,
+                                         softcap=softcap)
 
 
 def decode_attention_paged(q, pk, pv, ppos, bt, k1, v1, pos, *,
@@ -109,9 +131,20 @@ def decode_attention_paged(q, pk, pv, ppos, bt, k1, v1, pos, *,
     q: [B,H,Dh]; pk/pv: [P,pt,Hkv,Dh] page pools; ppos: [P,pt]; bt:
     [B,nblk] block table (page 0 = the null page, positions all -1);
     k1/v1: [B,Hkv,Dh]; pos: [B]. Full attention only. Returns [B,H,Dh]."""
-    fn = decode_attention_paged_cuda if _on_cuda(q) \
-        else decode_attention_paged_plain
-    return fn(q, pk, pv, ppos, bt, k1, v1, pos, softcap=softcap)
+    if not _on_cuda(q):
+        return decode_attention_paged_plain(q, pk, pv, ppos, bt, k1, v1, pos,
+                                            softcap=softcap)
+    count_work("decode_attention_paged", lambda: _paged_work(
+        q, ppos, bt, k1, pos))
+    return decode_attention_paged_cuda(q, pk, pv, ppos, bt, k1, v1, pos,
+                                       softcap=softcap)
+
+
+def _paged_work(q, ppos, bt, k1, pos):
+    pt = ppos.shape[1]
+    ok = da.valid_keys(ppos[bt.long()].reshape(bt.shape[0], -1), pos)
+    return da.paged_work(q, k1, bt, pt, int(ok.sum()),
+                         *da.paged_reads(bt, ok, pt))
 
 
 def full_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
@@ -125,6 +158,9 @@ def full_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                                    softcap=softcap, causal=causal,
                                    block_k=block_k)
     opts = dict(causal=causal, window=window, softcap=softcap)
+    count_work("flash_attention", lambda: fa.work(
+        q_pos, k_pos, q.shape[2], k.shape[2], q.shape[3], causal=causal,
+        window=window, el=q.element_size()))
 
     def kernel(q, k, v, q_pos, k_pos):
         return flash_attention_cuda(q, k, v, q_pos, k_pos, **opts)
@@ -148,6 +184,8 @@ def expert_ffn(x, w_gate, w_up, w_down, slot_expert, counts, *,
     shape = x.shape
     x3 = x.reshape(shape[0], -1, shape[-1])
     if _on_cuda(x):
+        count_work("moe_ffn", lambda: _ffn_work(x3, w_gate, slot_expert,
+                                                counts))
         y = _with_plain_grad(
             functools.partial(expert_ffn_cuda, act=act, decode=decode),
             functools.partial(_expert_ffn_grads, act=act),
@@ -156,6 +194,13 @@ def expert_ffn(x, w_gate, w_up, w_down, slot_expert, counts, *,
         y = expert_ffn_plain(x3, w_gate, w_up, w_down, slot_expert, counts,
                              act=act)
     return y.reshape(shape)
+
+
+def _ffn_work(x3, w_gate, slot_expert, counts):
+    live = counts > 0
+    return mg.work(x3.shape[0], x3.shape[1], x3.shape[2], w_gate.shape[2],
+                   int(live.sum()), int(slot_expert[live].unique().numel()),
+                   x3.element_size())
 
 
 def _expert_ffn_grads(inputs, grad_outputs, needs, *, act: str):
@@ -210,6 +255,9 @@ def ssm_scan(x, dt, a, b, c, *, chunk: int = 64):
     takes the chunked plain form for S > 1 and the sequential one for a
     single step, as the reference does."""
     if _on_cuda(x):
+        count_work("ssm_scan", lambda: ss.work(
+            x.shape[0], x.shape[1], x.shape[2], x.shape[3], b.shape[-1],
+            chunk))
         return _with_plain_grad(
             functools.partial(ssm_scan_cuda, chunk=chunk),
             functools.partial(plain_grads, functools.partial(

@@ -21,6 +21,18 @@ KERNEL = build.CudaKernel(
 MAX_DIM = 64          # the kernel's largest chunk length, P and N
 
 
+def work(bs: int, s: int, h: int, p: int, n: int, chunk: int):
+    """(flops, bytes) of one SSD scan: x read and y written (bf16), the
+    float32 final state, dt, B, C and A; per (b, h, chunk of t) the causal
+    (i >= j) half of C B^T and of W x, then C h^T and the state update."""
+    t = scan_chunk(s, chunk)
+    nbytes = 2 * bs * s * h * p * 2 + bs * h * p * n * 4 + \
+        (bs * s * h + 2 * bs * s * n + h) * 4
+    flops = 2.0 * bs * h * (s // t) * (t * (t + 1) // 2 * (n + p) +
+                                       2 * t * n * p)
+    return flops, nbytes
+
+
 def ssm_scan_cuda(x, dt, a, b, c, *, chunk: int = 64):
     """Launch the CUDA kernel. x: [B,S,H,P] float32 or bfloat16; dt:
     [B,S,H]; a: [H]; b, c: [B,S,N] (cast to float32). Zero initial state.

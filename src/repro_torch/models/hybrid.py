@@ -150,12 +150,12 @@ def build_hybrid(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
         return unembed(cfg, params, x[:, -1]), cache, no_load
 
     @torch.no_grad()
-    def decode(params, tokens, pos, cache, route_state):
+    def decode(params, tokens, pos, cache, route_state, capacity=None):
         """tokens: [B] int; pos: [B] absolute positions (-1 = row not
         decoding: no KV write; its recurrent state advances, as in the
         reference, and is overwritten when the slot is next installed).
-        Updates ``cache`` in place; returns (logits [B, V], cache, an
-        empty slot load)."""
+        ``capacity`` is the MoE family's and unused. Updates ``cache`` in
+        place; returns (logits [B, V], cache, an empty slot load)."""
         x = _run(params, _embed(params, tokens[:, None]), "decode", cache,
                  pos=pos)
         return unembed(cfg, params, x[:, 0]), cache, no_load

@@ -267,15 +267,16 @@ def build_decoder(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
         return caches, load
 
     @torch.no_grad()
-    def decode(params, tokens, pos, caches, route_state):
+    def decode(params, tokens, pos, caches, route_state, capacity=None):
         """tokens: [B] int; pos: [B] absolute positions (-1 = row not
-        decoding: no cache write, no capacity claim). Expert capacity comes
-        from the model's capacity factor. ``caches`` may be paged (a "bt"
-        block table beside the layer pools). Updates ``caches`` in place;
-        returns (logits [B, V], caches, slot load [P])."""
+        decoding: no cache write, no capacity claim). Expert capacity is
+        ``capacity``, or from the model's capacity factor when None.
+        ``caches`` may be paged (a "bt" block table beside the layer
+        pools). Updates ``caches`` in place; returns (logits [B, V],
+        caches, slot load [P])."""
         x, load, _ = _run_stack(params, _embed(params, tokens[:, None]),
                                 "decode", pos=pos, caches=caches,
-                                route_state=route_state,
+                                route_state=route_state, capacity=capacity,
                                 token_mask=(pos >= 0)[:, None])
         return unembed(cfg, params, x[:, 0]), caches, load
 

@@ -185,10 +185,11 @@ def build_encdec(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
         return unembed(cfg, params, x[:, -1]), cache, no_load
 
     @torch.no_grad()
-    def decode(params, tokens, pos, cache, route_state):
+    def decode(params, tokens, pos, cache, route_state, capacity=None):
         """tokens: [B] int; pos: [B] absolute positions (-1 = row not
-        decoding: no KV write). Updates ``cache`` in place; returns
-        (logits [B, V], cache, an empty slot load)."""
+        decoding: no KV write). ``capacity`` is the MoE family's and
+        unused. Updates ``cache`` in place; returns (logits [B, V], cache,
+        an empty slot load)."""
         x = _run_decoder(params, _embed(params, tokens[:, None]), "decode",
                          cache["layers"], _cached_cross(cache), pos=pos)
         return unembed(cfg, params, x[:, 0]), cache, no_load

@@ -107,11 +107,12 @@ def build_xlstm(cfg: ModelConfig, *, num_aw: int = 1, num_ew: int = 1,
         return unembed(cfg, params, x[:, -1]), cache, no_load
 
     @torch.no_grad()
-    def decode(params, tokens, pos, cache, route_state):
+    def decode(params, tokens, pos, cache, route_state, capacity=None):
         """tokens: [B] int; ``pos`` is unused: a row not decoding advances
         its state too, as in the reference, and the slot's next install
-        overwrites it. Updates ``cache`` in place; returns (logits [B, V],
-        cache, an empty slot load)."""
+        overwrites it. ``capacity`` is the MoE family's and unused.
+        Updates ``cache`` in place; returns (logits [B, V], cache, an
+        empty slot load)."""
         x = _run(params, _embed(params, tokens[:, None]), cache)
         return unembed(cfg, params, x[:, 0]), cache, no_load
 

@@ -37,8 +37,6 @@ import torch
 from repro_torch.serving.gateway import Gateway, QueuedRequest
 from repro_torch.serving.kvcache import CacheLayout
 
-PREFILL_BUCKET = 16               # padded-prefill length bucket
-
 
 def _next_pow2(n: int) -> int:
     p = 1
@@ -73,9 +71,10 @@ class ContinuousBatchScheduler:
     """Drives admission, bucketed prefill and decode over the engine's
     shared device state."""
 
-    def __init__(self, engine, gateway: Gateway):
+    def __init__(self, engine, gateway: Gateway, bucket: int = 16):
         self.engine = engine
         self.gateway = gateway
+        self.bucket = max(1, bucket)     # padded-prefill length bucket
         self.stats = PrefillStats()
 
     # -- admission ----------------------------------------------------------
@@ -106,7 +105,7 @@ class ContinuousBatchScheduler:
         for q, aw, slot in fresh:
             n = len(q.prompt)
             if eng.prefill_paddable and n >= 2:
-                key = (True, -((n - 1) // -PREFILL_BUCKET) * PREFILL_BUCKET)
+                key = (True, -((n - 1) // -self.bucket) * self.bucket)
             else:
                 key = (False, n)
             groups.setdefault(key, []).append((q, aw, slot))

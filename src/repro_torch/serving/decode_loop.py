@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import gc
 import zlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -145,9 +145,9 @@ class DecodeLoopPlane:
         b = ecfg.max_batch
         dev = engine.device
         self.seg_len = max(1, int(ecfg.decode_segment_len))
-        self.greedy = np.ones((b,), bool)
-        self.temperature = np.ones((b,), np.float32)
-        self.top_k = np.zeros((b,), np.int32)
+        self.greedy = np.full((b,), bool(ecfg.greedy))
+        self.temperature = np.full((b,), float(ecfg.temperature), np.float32)
+        self.top_k = np.full((b,), int(ecfg.top_k), np.int32)
         self.seed = np.zeros((b,), np.int64)
         # the step's device buffers: rows tokens, pos, emitted, max_new of
         # ``inputs`` (filled from a pinned host twin before every step),
@@ -162,18 +162,22 @@ class DecodeLoopPlane:
                          torch.zeros((b,), dtype=torch.int64, device=dev))
         self._sampling_stale = True
         self.route_state: Optional[RouteState] = None
-        #: (seg_len, deep top-k, paged) -> its StepGraph (None on the CPU)
-        self.graphs: Dict[Tuple[int, bool, bool], Optional[StepGraph]] = {}
+        #: (seg_len, deep top-k, paged, decode capacity) -> its StepGraph
+        #: (None on the CPU)
+        self.graphs: Dict[tuple, Optional[StepGraph]] = {}
         self.loads = None      # [seg_len, P] slot loads of the last step
         self.host_loads: Optional[np.ndarray] = None   # their host copy
         self._pinned_loads: Dict[int, torch.Tensor] = {}
 
     def resolve(self, sampling, rid: str):
         """(greedy, temperature, top_k, seed) for one request; a request
-        without sampling params is greedy. The seed defaults to a stable
-        hash of the rid, so a replay in any slot draws the same stream."""
+        without sampling params takes the engine's (``EngineConfig``'s
+        greedy, temperature, top_k). The seed defaults to a stable hash of
+        the rid, so a replay in any slot draws the same stream."""
         if sampling is None:
-            greedy, temp, top_k, seed = True, 1.0, 0, None
+            ecfg = self.engine.ecfg
+            greedy, temp, top_k, seed = (ecfg.greedy, ecfg.temperature,
+                                         ecfg.top_k, None)
         else:
             greedy, temp, top_k = (sampling.greedy, sampling.temperature,
                                    sampling.top_k)
@@ -206,8 +210,9 @@ class DecodeLoopPlane:
         with torch.no_grad():
             for _ in range(seg_len):
                 active = pos >= 0
-                logits, _, load = eng.api.decode(eng.params, tokens, pos,
-                                                 eng.cache, route_state)
+                logits, _, load = eng.api.decode(
+                    eng.params, tokens, pos, eng.cache, route_state,
+                    capacity=eng.decode_capacity)
                 nxt = _sample_tokens(eng.ecfg.sample_seed, logits, pos, g, t,
                                      k, s, deep_k=deep_k)
                 emitted = emitted + active.to(torch.int32)
@@ -220,7 +225,7 @@ class DecodeLoopPlane:
                 pos = torch.where(alive, pos + 1, -1)
             return torch.stack(ring), torch.stack(loads)
 
-    def load(self, act, seg_len: int) -> Tuple[int, bool, bool]:
+    def load(self, act, seg_len: int) -> tuple:
         """Fill the step's buffers for the active set and map every page a
         segment can write; returns the step's graph key."""
         eng = self.engine
@@ -246,7 +251,8 @@ class DecodeLoopPlane:
             # this copy, never the engine's current ones
             for dst, src in zip(self.route_state, eng.route_state):
                 dst.copy_(src)
-        return seg_len, bool((self.top_k > 64).any()), eng.pages is not None
+        return (seg_len, bool((self.top_k > 64).any()), eng.pages is not None,
+                eng.decode_capacity)
 
     def run(self, act, seg_len: int) -> np.ndarray:
         """One decode dispatch of ``seg_len`` steps over the active set:
@@ -280,8 +286,8 @@ class DecodeLoopPlane:
         return ring.cpu().numpy()
 
     def capture(self, key) -> StepGraph:
-        """The step graph of ``key`` (seg_len, deep top-k, paged), captured
-        after a step of that key ran eagerly."""
+        """The step graph of ``key`` (seg_len, deep top-k, paged, decode
+        capacity), captured after a step of that key ran eagerly."""
         return StepGraph(lambda: self.segment(key[0], key[1],
                                               self.route_state))
 

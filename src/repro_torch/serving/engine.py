@@ -87,6 +87,7 @@ from repro_torch.core.orchestrator import WorkerEvent
 from repro_torch.core.placement import ExpertPlacementManager, PlacementPlan
 from repro_torch.core.refe import RouteState
 from repro_torch.models import get_model
+from repro_torch.models.attention import PREFILL_BLOCK_K
 from repro_torch.serving.api import (CANCELLED, DECODING, DONE, PLACED,
                                      PREEMPTED, PREEMPTIBLE_CLASSES,
                                      PREFILLING, STANDARD, Client,
@@ -116,8 +117,19 @@ class EngineConfig:
     tarragon: bool = True          # False = MegaScale-style static binding
     #                                (no shadow slots)
     checkpoint: bool = True        # False = nothing reaches the store
+    checkpoint_reorder: int = 0    # test hook: each AW's checkpointer
+    #                                delivers its segments shuffled in
+    #                                windows of this many
+    greedy: bool = True            # the sampling of a request that carries
+    temperature: float = 1.0       # no SamplingParams (temperature and
+    top_k: int = 0                 # top_k when greedy is False; top_k 0 =
+    #                                the full distribution)
     sample_seed: int = 0           # the engine's part of every draw's key
+    capacity_factor_decode: float = 0.0  # decode steps' expert capacity
+    #                                factor over max_batch rows (0 = the
+    #                                model's own capacity factor)
     placement: str = "least_loaded"      # Gateway placement policy
+    prefill_bucket: int = 16       # padded-prefill length bucket
     kv_page_tokens: int = 0        # KV page extent in tokens (0 = the
     #                                contiguous per-slot cache; > 0 needs
     #                                full attention, chunked prefill and
@@ -359,7 +371,8 @@ class InferenceEngine:
 
         per_aw = ecfg.max_batch // ecfg.num_aw
         self.aws = [AttentionWorker(a, a * per_aw, (a + 1) * per_aw,
-                                    self.store)
+                                    self.store,
+                                    reorder_window=ecfg.checkpoint_reorder)
                     for a in range(ecfg.num_aw)]
         for w in self.aws:
             w.page_pool = self.pages
@@ -384,7 +397,8 @@ class InferenceEngine:
         self.collect_load = self.placement_mgr is not None
 
         self.gateway = Gateway(self.aws, policy=ecfg.placement)
-        self.scheduler = ContinuousBatchScheduler(self, self.gateway)
+        self.scheduler = ContinuousBatchScheduler(
+            self, self.gateway, bucket=ecfg.prefill_bucket)
         # ---- telemetry plane: the event bus always runs (it is the audit
         # stream); the TelemetryPlane when ``telemetry`` is on
         self.bus = EventBus()
@@ -398,6 +412,16 @@ class InferenceEngine:
         # path, as in the reference
         self.chunked: Optional[ChunkedPrefillPlane] = None
         if ecfg.chunk_token_budget > 0 and self.prefill_paddable:
+            # chunked == whole-prompt bits need one KV block partition:
+            # the cache extent and the padded buckets both multiples of
+            # the prefill's key block
+            if ecfg.max_seq % PREFILL_BLOCK_K or \
+                    ecfg.prefill_bucket % PREFILL_BLOCK_K:
+                raise ValueError(
+                    f"chunked prefill requires max_seq and prefill_bucket "
+                    f"to be multiples of PREFILL_BLOCK_K={PREFILL_BLOCK_K} "
+                    f"(got max_seq={ecfg.max_seq}, prefill_bucket="
+                    f"{ecfg.prefill_bucket})")
             self.chunked = ChunkedPrefillPlane(self, ecfg.chunk_token_budget)
             self.gateway.prefill_load = self.chunked.outstanding_tokens
         self.gateway.prefill_token_cap = ecfg.prefill_token_cap
@@ -434,6 +458,17 @@ class InferenceEngine:
         self.gateway.flightrec = self.flightrec
 
     # -- expert capacity ----------------------------------------------------
+    @property
+    def decode_capacity(self) -> Optional[int]:
+        """A decode step's expert capacity from ``capacity_factor_decode``
+        over ``max_batch`` rows (None: the model's capacity factor)."""
+        cf = self.ecfg.capacity_factor_decode
+        if not cf or not self.cfg.moe.enabled:
+            return None
+        return int(max(1, round(cf * self.cfg.moe.top_k *
+                                self.ecfg.max_batch /
+                                self.cfg.moe.num_experts)))
+
     def prefill_capacity(self, n_real_tokens: int) -> Optional[int]:
         """Capacity of a prefill call from its REAL token count, rounded
         up to a power of two."""

@@ -218,6 +218,9 @@ class GatewayStats:
         c = self.by_class.setdefault(slo_class, {})
         c[key] = c.get(key, 0) + n
 
+    def class_count(self, slo_class: str, key: str) -> int:
+        return self.by_class.get(slo_class, {}).get(key, 0)
+
 
 class Gateway:
     """Per-class waiting queues plus placement over the AW pool."""

@@ -64,10 +64,13 @@ class AttentionWorker:
     """One AW: cache partition, checkpoint stream, prefix cache and
     liveness."""
 
-    def __init__(self, aw_id: int, lo: int, hi: int, store: CheckpointStore):
+    def __init__(self, aw_id: int, lo: int, hi: int, store: CheckpointStore,
+                 reorder_window: int = 0):
         self.aw_id = aw_id
         self.slots = SlotPartition(lo, hi)
-        self.checkpointer = KVCheckpointer(store, aw_id, seed=aw_id)
+        self.checkpointer = KVCheckpointer(store, aw_id,
+                                           reorder_window=reorder_window,
+                                           seed=aw_id)
         # the AW's prefix cache, attached by the engine's PrefixCachePlane:
         # cached slots are this worker's retained KV (evictable capacity,
         # lost with the worker); a paged cache pins pages, not slots
@@ -178,10 +181,24 @@ class ExpertWorker:
 
 
 class ClusterSlotView:
-    """Every AW's slot partition seen as one slot space; the engine reads
-    the partition width (``per_aw``)."""
+    """Every AW's slot partition seen as one slot space: the partition
+    width (``per_aw``), and the reference's slot-manager view (the AW of a
+    slot, an AW's free count, alloc and release)."""
 
     def __init__(self, workers: List[AttentionWorker], max_batch: int):
+        self._workers = workers
         self.max_batch = max_batch
         self.num_aw = len(workers)
         self.per_aw = max_batch // len(workers)
+
+    def aw_of(self, slot: int) -> int:
+        return slot // self.per_aw
+
+    def free_count(self, aw_id: int) -> int:
+        return self._workers[aw_id].slots.free_count()
+
+    def alloc(self, aw_id: int) -> int:
+        return self._workers[aw_id].slots.alloc()
+
+    def release(self, slot: int):
+        self._workers[self.aw_of(slot)].slots.release(slot)

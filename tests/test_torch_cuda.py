@@ -1986,3 +1986,95 @@ def test_bf16_train_step_launches_the_kernels(dev, arch):
     params2, opt, loss = make_train_step(api, lr=3e-3)(
         params, init_opt_state(params), batch, rs)
     assert torch.isfinite(loss) and int(opt.step) == 1
+
+
+def test_sharded_engine_on_a_one_rank_nccl_mesh(dev):
+    """Reduced bf16 Mixtral (capacity factor 4.0) served from the
+    Sharder's local shards on a 1x1 mesh over a 1-rank NCCL group: greedy
+    streams bitwise the unsharded engine's, with and without fail_ew(0);
+    the group is gone after its block."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch.sharding import Sharder, local_shards
+    from repro_torch.models import get_model
+    from repro_torch.serving.api import RequestSpec
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    cfg = get_config("mixtral_8x7b").reduced()
+    cfg = dataclasses.replace(cfg, dtype="bfloat16", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=4.0))
+    ecfg = EngineConfig(max_batch=4, max_seq=64, num_aw=2, num_ew=2)
+    r = np.random.default_rng(0)
+    prompts = [r.integers(1, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (9, 17, 30, 5)]
+
+    def serve(eng, fail):
+        hs = [eng.client.submit(RequestSpec(rid=f"r{i}", prompt=p,
+                                            max_new=12))
+              for i, p in enumerate(prompts)]
+        steps = 0
+        while not all(h.done() for h in hs):
+            if fail and steps == 4:
+                eng.fail_ew(0)
+            eng.step()
+            steps += 1
+        out = [h.tokens() for h in hs]
+        for h in reversed(hs):
+            eng.release_request(h.rid)
+        return out
+    plain = InferenceEngine(cfg, ecfg, seed=0, device="cuda")
+    want = [serve(plain, False), serve(plain, True)]
+    with lmesh.single_rank_group("cuda"):
+        mesh = lmesh.make_debug_mesh()
+        api = get_model(cfg, num_aw=2, num_ew=2, device="cuda")
+        params = Sharder(cfg, mesh).shard_params(api.init_params(
+            torch.Generator(device="cuda").manual_seed(0)))
+        eng = InferenceEngine(cfg, ecfg, params=local_shards(params),
+                              device="cuda")
+        assert [serve(eng, False), serve(eng, True)] == want
+    assert not dist.is_initialized()
+
+
+def test_op_count_sees_the_kernel_launches(dev):
+    """A reduced bf16 Mixtral prefill and decode step under an
+    OpCounter: flash, the expert FFN and the fused decode attention report
+    one entry per launch with the kernel modules' work, and the counted
+    flops are within the CPU bands of the analytic count."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.roofline.analysis import served_work
+    from repro_torch.roofline.op_count import OpCounter
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    cfg = get_config("mixtral_8x7b").reduced()
+    cfg = dataclasses.replace(cfg, dtype="bfloat16", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=4.0))
+    eng = InferenceEngine(cfg, EngineConfig(max_batch=8, max_seq=96,
+                                            num_aw=2, num_ew=2),
+                          device="cuda")
+    toks = torch.randint(1, cfg.vocab_size, (8, 32), dtype=torch.int32,
+                         device=dev)
+    cap = eng.prefill_capacity(toks.numel())
+    n = {k.symbol: k.launches for k in (fa.KERNEL, mg.KERNEL, da.KERNEL)}
+    with OpCounter() as pre:
+        _, cache, _ = eng.api.prefill(eng.params, toks, eng.route_state, 96,
+                                      capacity=cap)
+    pos = torch.full((8,), 32, dtype=torch.int32, device=dev)
+    with OpCounter() as dec:
+        eng.api.decode(eng.params, toks[:, -1].contiguous(), pos, cache,
+                       eng.route_state)
+    ran = {k.symbol: k.launches - n[k.symbol]
+           for k in (fa.KERNEL, mg.KERNEL, da.KERNEL)}
+    assert pre.kernels["flash_attention"][0] == cfg.num_layers
+    assert pre.kernels["moe_ffn"][0] == cfg.num_layers
+    assert dec.kernels["decode_attention_fused"][0] == cfg.num_layers
+    assert dec.kernels["moe_ffn"][0] == cfg.num_layers
+    assert ran == {"flash_attention": cfg.num_layers,
+                   "moe_ffn": 2 * cfg.num_layers,
+                   "decode_attention_fused": cfg.num_layers}
+    w_pre = served_work(eng, "prefill", rows=8, seq=32, capacity=cap)
+    w_dec = served_work(eng, "decode", rows=8, ctx=[33] * 8)
+    assert 0.8 <= pre.flops / w_pre.flops <= 1.1
+    assert 0.8 <= dec.flops / w_dec.flops <= 1.1
