@@ -9,6 +9,10 @@
                                            # DIR/qwen2; Chrome traces
                                            # for Mixtral and Zamba2
                                            # only)
+    python3 chip_smoke.py --phase overlap  # phase 21 alone, after the
+                                           # build, with its expert-FFN
+                                           # and flash shapes checked;
+                                           # no JSON lines
 
 Phases, each of which raises on failure (exit code != 0):
   1. card     — ``nvidia-smi`` name and power limit, then the kernel build
@@ -363,6 +367,37 @@ Phases, each of which raises on failure (exit code != 0):
                 16 x 16 and 2 x 16 x 16 in processes of their own beside
                 (a): 37 ok, 7 skipped and 0 errors each, one line per
                 case with its dominant term and its bytes per device.
+ 21. overlapping failures (after phase 20) — Mixtral-8x7B widths at 8
+                layers in bf16 with seeded weights for 3 EWs (the bank's
+                9 rows: 8 experts and a pad; P 15 slots), 2 AWs,
+                capacity factor 4.0, an Orchestrator with T_w 1.0 s on a
+                virtual clock each sub-run drives between its steps
+                (``Script``); every stream bitwise the same engine's
+                failure-free run, no capture after warm-up: (a) on the
+                dual-protected layout (every shadow slot on EW2, holding
+                a replica of each expert of EW0 and EW1), 8 requests of
+                128 + 32 tokens, EW0 fails, EW1 0.3 s later while EW0's
+                replacement provisions, EW0 back with the shadows
+                re-pointed (EW1's replicas pinned: no expert without a
+                healthy replica), then EW1, 0 outstanding; (b) 6 requests,
+                AW0 and EW0 in one detection window: one victim restored
+                onto AW1 at once, two queued until AW0's provisioning,
+                the bytes restored and the host ms from fail_aw to each
+                victim's next token; (c) the same during chunked prefill:
+                2 prompts of 512 tokens at chunk budget CHUNK_BUDGET on
+                AW1 (session affinity), which fails with EW0 after the
+                first chunk tick, each prompt resumed from its committed
+                cursor; (d) (b) with the victim restored at once
+                cancelled inside the recovery window: the survivors
+                bitwise, every slot free, no store log or queue entry
+                left; (e) ``run_serving`` with 24 requests arriving at
+                once against 16 slots and AW0 failed while 8 wait: none
+                lost, every stream bitwise the failure-free run's, TTFT,
+                TBT and max stall. Each sub-run prints its wall time and
+                its launches of decode attention, flash and the expert
+                FFN; the peak memory; the expert FFN at every new (P, C,
+                D, F, path) held to its plain versions (the decode and
+                prefill shapes at P 15 are in MOE_SHAPES).
  14. flash at the served shapes — every (B, Sq, Sk, heads, window,
                 softcap, causal) the runs gave the flash kernel, on the positions
                 of that shape's first call (pad tails, rows outside a
@@ -419,7 +454,8 @@ PAGE_TOKENS = 16
 
 def mixtral_ffn(c, path, p=16):
     """The key of an expert FFN call at Mixtral-8x7B's widths, (P, C, D, F,
-    path): P 16 is 8 primary and 8 shadow slots on 2 EWs."""
+    path): P 16 is 8 primary and 8 shadow slots on 2 EWs, P 15 (phase 21)
+    9 primary slots (8 experts and a pad) and 6 shadow slots on 3 EWs."""
     return p, c, 4096, 14336, path
 
 
@@ -430,7 +466,9 @@ MOE_SHAPES = [("decode", mixtral_ffn(2, "skinny")),
               ("chunk-8", mixtral_ffn(8, "tensor_core")),
               ("chunk-tail", mixtral_ffn(4, "tensor_core")),
               ("chunk-tail-2", mixtral_ffn(2, "tensor_core")),
-              ("chunk", mixtral_ffn(256, "tensor_core"))]
+              ("chunk", mixtral_ffn(256, "tensor_core")),
+              ("decode-3ew", mixtral_ffn(8, "skinny", p=15)),
+              ("prefill-3ew", mixtral_ffn(128, "tensor_core", p=15))]
 # Zamba2-7B as the hybrid phases serve it: 13 of 81 layers (two units of 6
 # Mamba2 blocks + the shared block, then one trailing block)
 HYBRID_LAYERS = 13
@@ -2458,9 +2496,9 @@ class ServeRun:
         from repro_torch.serving.engine import EngineConfig, InferenceEngine
         from repro_torch.serving.scheduler import (FailurePlan, ScalePlan,
                                                    run_serving)
-        eng = InferenceEngine(cfg, EngineConfig(
-            max_batch=8, max_seq=512, num_aw=2, num_ew=2, **ecfg_kw),
-            params=params, device="cuda")
+        eng = InferenceEngine(cfg, EngineConfig(**{
+            "max_batch": 8, "max_seq": 512, "num_aw": 2, "num_ew": 2,
+            **ecfg_kw}), params=params, device="cuda")
         if setup is not None:
             setup(eng)
         orch = Orchestrator(eng, **{"worker_init_time": 1.0,
@@ -5164,6 +5202,453 @@ def served_sharded(torch, g, records):
                         timed=set(), small=False)
 
 
+# --------------------------------------------------------------------------
+# phase 21: overlapping failures
+# --------------------------------------------------------------------------
+
+# Mixtral-8x7B widths at 8 layers, bf16, seeded weights, 2 AWs and 3 EWs
+# at capacity factor 4.0 (no call drops a token); the orchestrator's T_w
+# 1.0 s on a virtual clock that each sub-run drives between steps
+OVERLAP_EWS = 3
+OVERLAP_PROMPT, OVERLAP_NEW = 128, 32
+OVERLAP_LONG = 512                 # (c): two prompts at CHUNK_BUDGET
+OVERLAP_QUEUE = 24                 # (e): requests against 16 slots
+# (e): AW0 fails at 0.05 s of virtual time, while 8 requests wait: no
+# request can finish before it (31 decode steps after its prefill)
+OVERLAP_AW_FAIL = 0.05
+OVERLAP_TITLE = (
+    f"overlapping failures: Mixtral-8x7B widths, 8 layers, bf16, 2 AWs x "
+    f"{OVERLAP_EWS} EWs, capacity factor 4.0, T_w 1.0 s: (a) EW1 while "
+    f"EW0 provisions, (b) AW0 + EW0 in one detection window, (c) the same "
+    f"mid chunked prefill, (d) a cancel inside the recovery window, (e) "
+    f"run_serving with {OVERLAP_QUEUE} requests against 16 slots")
+
+
+class Script:
+    """Timed actions between the steps of a ``Run`` (its ``after_step``,
+    outside the run's clock and launch counts), and the wall time from
+    an action to the next token of each request it names. Each action
+    ``fn(engine, steps)`` returns None while it waits for its moment,
+    else those rids. ``step`` wraps the engine's ``step()`` (patch it on
+    the engine for the run): the end of the step whose output holds a
+    watched rid's token (a host sync) ends its ``next_token_ms``."""
+
+    def __init__(self, engine, *actions):
+        self._step = engine.step
+        self.pending = list(actions)
+        self.watch, self.next_token_ms, self.at = {}, {}, []
+
+    def step(self, now=None):
+        out = self._step(now)
+        t = time.perf_counter()
+        for rid in [r for r in self.watch if r in out]:
+            self.next_token_ms[rid] = (t - self.watch.pop(rid)) * 1e3
+        return out
+
+    def __call__(self, engine, steps):
+        if not self.pending:
+            return
+        t0 = time.perf_counter()
+        out = self.pending[0](engine, steps)
+        if out is None:
+            return
+        self.pending.pop(0)
+        self.at.append(steps)
+        self.watch.update({rid: t0 for rid in out})
+
+    def run(self, torch, engine, prompts, label):
+        """The Run under this script: (Run, its wall time)."""
+        t0 = time.perf_counter()
+        with patched(engine, step=self.step):
+            run = Run(torch, engine, prompts, OVERLAP_NEW, after_step=self)
+        wall = time.perf_counter() - t0
+        if self.pending:
+            raise AssertionError(f"{label}: {len(self.pending)} scripted "
+                                 f"action(s) never ran")
+        return run, wall
+
+
+def overlap_engine(cfg, params, **kw):
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    return InferenceEngine(cfg, EngineConfig(**{
+        "max_batch": 8, "max_seq": 256, "num_aw": 2,
+        "num_ew": OVERLAP_EWS, **kw}), params=params, device="cuda")
+
+
+def dual_protect(engine):
+    """The layout of the reference's tests/test_compound_failures.py at 8
+    experts: every shadow slot moves to EW2, which then holds a replica
+    of each expert of EW0 and EW1 (in its pad slot and shadow slots), so
+    EW0 and EW1 may be down at once."""
+    import numpy as np
+    mgr, p = engine.placement_mgr, engine.api.placement
+    owner = p.slot_owner().copy()
+    owner[p.primary_slots:] = 2
+    guarded = [e for e in range(p.num_experts) if owner[e] in (0, 1)]
+    free = [s for s in range(p.num_experts, p.num_slots) if owner[s] == 2]
+    slot_expert = np.full((p.num_slots,), -1, np.int32)
+    slot_expert[:p.num_experts] = np.arange(p.num_experts)
+    for ex, s in zip(guarded, free):
+        slot_expert[s] = ex
+    plan = mgr.adopt(slot_expert, slot_owner=owner,
+                     reason="dual protect ew0+ew1")
+    engine.install_plan(plan)
+    cand = plan.candidates()
+    if not all(cand[e, 1] >= 0 and owner[cand[e, 1]] == 2
+               for e in guarded):
+        raise AssertionError(f"dual protection: candidates {cand.tolist()}")
+    return guarded
+
+
+def sub_run_line(label, launches, wall_s):
+    """A sub-run's wall time and its launches of decode attention, flash
+    and the expert FFN (``launches``: per phase), each of which it must
+    have made on the card."""
+    ran = {k: sum(ph[k] for ph in launches.values())
+           for k in ("decode_attention_fused", "flash_attention",
+                     "moe_ffn")}
+    for k, n in ran.items():
+        if n <= 0:
+            raise AssertionError(f"{label}: {k} was not launched")
+    print(f"  {label}: {wall_s:.2f} s wall; launches {ran}")
+
+
+def overlap_phase(torch, g, records):
+    """Phase 21: overlapping failures on one seeded Mixtral-8x7B (8 of 32
+    layers, bf16, 2 AWs, 3 EWs, capacity factor 4.0, T_w 1.0 s), each
+    sub-run's streams bitwise the same engine's failure-free run, every
+    run on its step graphs with no capture after warm-up: (a) EW0 fails,
+    EW1 0.3 s later while EW0's replacement provisions, on the
+    dual-protected layout; (b) AW0 and EW0 in one detection window; (c)
+    (b) during chunked prefill; (d) a cancel inside (b)'s recovery window;
+    (e) ``run_serving`` with 24 requests against 16 slots, AW0 failed
+    while the queue waits. Then the expert FFN at every new (P, C, D, F,
+    path) of these runs against its plain versions. Returns (a)'s
+    failure-free run, whose launches of the expert FFN by phase and
+    shape (``ffn_c``) are those of the MOE_SHAPES records at P 15."""
+    import numpy as np
+    from repro_torch.core import selfheal
+    from repro_torch.core.orchestrator import Orchestrator
+    from repro_torch.data.workloads import make_workload
+    from repro_torch.models import get_model
+    t_phase = time.perf_counter()
+    cfg = mixtral_8_layers(capacity_factor=4.0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = get_model(cfg, num_aw=2, num_ew=OVERLAP_EWS,
+                       device="cuda").init_params(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"  seeded weights for {OVERLAP_EWS} EWs: "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(OVERLAP_PROMPT,))
+               .astype(np.int32) for _ in range(8)]
+    ffn_c = {}
+
+    def keep(run):
+        for ph, cnt in run.ffn_c.items():
+            ffn_c.setdefault(ph, Counter()).update(cnt)
+
+    def events(orch):
+        return [(round(e.t, 4), e.kind, e.worker, e.detail)
+                for e in orch.events]
+
+    # (a) EW0, then EW1 while EW0's replacement provisions
+    eng = overlap_engine(cfg, params)
+    guarded = dual_protect(eng)
+    keep(Run(torch, eng, prompts, 2, warm_up=True))
+    want = measured = Run(torch, eng, prompts, OVERLAP_NEW)
+    want.report("(a) failure-free")
+    orch = Orchestrator(eng, worker_init_time=1.0, weight_push_time=0.2)
+    dl = orch.detection_latency()
+
+    def ew0(e, steps):
+        if steps < 4:
+            return None
+        orch.inject_failure("ew", 0, now=10.0)
+        orch.tick(10.0 + dl + 1e-6)
+        if e.failed_ews != {0}:
+            raise AssertionError(f"(a): failed EWs {e.failed_ews}")
+        return []
+
+    def ew1(e, steps):
+        if steps < 8:
+            return None
+        orch.inject_failure("ew", 1, now=10.3)
+        orch.tick(10.3 + dl + 1e-6)
+        # EW0's replacement is ready at 11.03 s: still provisioning
+        if e.failed_ews != {0, 1} or orch.outstanding != 2:
+            raise AssertionError(f"(a): failed EWs {e.failed_ews}, "
+                                 f"{orch.outstanding} outstanding")
+        return []
+
+    def ew0_back(e, steps):
+        if steps < 12:
+            return None
+        orch.tick(11.2)
+        lost = selfheal.experts_without_healthy_replica(
+            e.route_state, e.api.placement)
+        if e.failed_ews != {1} or lost.size:
+            raise AssertionError(f"(a): after EW0's provisioning failed "
+                                 f"EWs {e.failed_ews}, experts without a "
+                                 f"healthy replica {lost.tolist()}")
+        return []
+
+    def ew1_back(e, steps):
+        if steps < 16:
+            return None
+        orch.tick(11.8)
+        if e.failed_ews or orch.outstanding:
+            raise AssertionError(f"(a): failed EWs {e.failed_ews}, "
+                                 f"{orch.outstanding} outstanding")
+        return []
+    script = Script(eng, ew0, ew1, ew0_back, ew1_back)
+    got, wall = script.run(torch, eng, prompts, "(a)")
+    same_streams("(a) streams under EW0 then EW1", got, want)
+    print(f"  (a) {len(got.streams)} streams bitwise equal to the "
+          f"failure-free run; EW0 and EW1 down together from step "
+          f"{script.at[1]} to {script.at[2]} on the replicas of experts "
+          f"{guarded} on EW2; after provisioning no expert without a "
+          f"healthy replica, 0 outstanding; placement generation "
+          f"{eng.placement_generation}; events {events(orch)}")
+    got.report("(a) EW0 then EW1")
+    sub_run_line("(a)", got.launches, wall)
+    keep(want)
+    keep(got)
+    del eng
+
+    # (b) AW0 and EW0 in one detection window, then (d) the same with a
+    # cancel inside the recovery window, on one engine: 6 requests, so
+    # AW1 has one free slot when AW0 dies
+    eng = overlap_engine(cfg, params)
+    six = prompts[:6]
+    keep(Run(torch, eng, six, 2, warm_up=True))
+    want = Run(torch, eng, six, OVERLAP_NEW)
+    want.report("(b), (d) failure-free")
+    keep(want)
+
+    def aw_ew(engine, orch, t, cancel=False):
+        """The (b) and (d) script on ``engine``: AW0 and EW0 fail at
+        virtual time ``t`` after 4 steps (with ``cancel``, the victim
+        restored at once is cancelled), both come back after 10."""
+        state = {}
+
+        def fail(e, steps):
+            if steps < 4:
+                return None
+            victims = sorted(r.rid for r in e.requests.values()
+                             if r.aw == 0 and not r.done)
+            b0 = e.store.stats.bytes_restored
+            orch.inject_failure("aw", 0, now=t)
+            orch.inject_failure("ew", 0, now=t)
+            fired = orch.tick(t + dl + 1e-6)
+            if sorted(ev.kind for ev in fired if ev.kind == "detected") \
+                    != ["detected", "detected"] or e.failed_aws != {0} or \
+                    e.failed_ews != {0}:
+                raise AssertionError(f"detection: {fired}")
+            now = [rid for rid in victims if not e.requests[rid].paused]
+            state.update(victims=victims, now=now, queued=e.gateway.depth(),
+                         bytes=e.store.stats.bytes_restored - b0)
+            if cancel:
+                rid = now[0]
+                if not e.cancel_request(rid, now=t + 0.1) or \
+                        e.gateway.find(rid) is not None or \
+                        rid in e.requests:
+                    raise AssertionError(f"(d): cancel of {rid}")
+                state["cancelled"] = rid
+                victims = [v for v in victims if v != rid]
+            return victims
+
+        def provision(e, steps):
+            if steps < 10:
+                return None
+            orch.tick(t + dl + 1.0 + 1e-3)
+            if e.failed_aws or e.failed_ews or orch.outstanding or \
+                    e.gateway.depth():
+                raise AssertionError(f"provisioning: {e.failed_aws} "
+                                     f"{e.failed_ews} {orch.outstanding}")
+            return []
+        return state, Script(engine, fail, provision)
+
+    for label, cancel in (("(b)", False), ("(d)", True)):
+        if cancel:
+            # (b)'s provisioning re-pointed the shadows to EW1: protect
+            # EW0 again, or its experts would have no replica in (d)
+            eng.repoint_shadows(0)
+        orch = Orchestrator(eng, worker_init_time=1.0)
+        restores0 = eng.store.stats.restores
+        state, script = aw_ew(eng, orch, 5.0, cancel)
+        got, wall = script.run(torch, eng, six, label)
+        keep(got)
+        cancelled = state.get("cancelled")
+        keep_i = [i for i in range(len(six)) if f"r{i}" != cancelled]
+        bad = [i for i in keep_i if got.streams[i] != want.streams[i]]
+        if bad:
+            raise AssertionError(f"{label}: streams of requests {bad} "
+                                 f"differ from the failure-free run "
+                                 f"({state})")
+        restored = eng.store.stats.restores - restores0
+        if restored != len(state["victims"]) or not state["now"] or \
+                not state["queued"]:
+            raise AssertionError(f"{label}: {restored} restores for "
+                                 f"victims {state}")
+        if sum(w.slots.free_count() for w in eng.aws) != 8 or \
+                eng.store._logs or eng.gateway.depth():
+            raise AssertionError(f"{label}: a slot, a log or a queue "
+                                 f"entry outlived the run")
+        ms = script.next_token_ms
+        print(f"  {label} {len(keep_i)} streams bitwise equal to the "
+              f"failure-free run; AW0 held {state['victims']}: "
+              f"{state['now']} restored onto AW1 at detection "
+              f"({state['bytes']} bytes), {state['queued']} queued until "
+              f"AW0's provisioning; {restored} restores, "
+              f"{eng.store.stats.bytes_restored} bytes restored by the "
+              f"engine so far"
+              + (f"; {cancelled} cancelled inside the recovery window: "
+                 f"every slot free, no log or queue entry left"
+                 if cancel else "")
+              + f"; fail_aw to the next token "
+              f"{ {r: round(v, 2) for r, v in ms.items()} } ms (host "
+              f"clock; the queued victims' through AW0's provisioning); "
+              f"events {events(orch)}")
+        if len(ms) != len(state["victims"]) - bool(cancel):
+            raise AssertionError(f"{label}: victims without a next token: "
+                                 f"{ms}")
+        got.report(f"{label} AW0 + EW0")
+        sub_run_line(label, got.launches, wall)
+    del eng
+
+    # (c) (b) during chunked prefill: both long prompts on AW1 (session
+    # affinity: r0 and r1 hash there), which fails after the first chunk
+    # tick with EW0
+    eng = overlap_engine(cfg, params, max_seq=640,
+                         chunk_token_budget=CHUNK_BUDGET,
+                         placement="session_affinity")
+    longs = [rng.integers(0, cfg.vocab_size, size=(OVERLAP_LONG,))
+             .astype(np.int32) for _ in range(2)]
+    keep(Run(torch, eng, longs, 2, warm_up=True))
+    want = Run(torch, eng, longs, OVERLAP_NEW)
+    want.report("(c) failure-free")
+    keep(want)
+    orch = Orchestrator(eng, worker_init_time=1.0)
+    cursors = {}
+
+    def mid_prefill(e, steps):
+        # after the first chunk tick: r0 holds a chunk, r1 waits in the
+        # stream (FIFO under the budget)
+        rs = sorted(e.requests.values(), key=lambda r: r.rid)
+        if not all(r.prefilling for r in rs) or \
+                not any(r.prefill_cursor for r in rs):
+            raise AssertionError(
+                f"(c): after step {steps} (rid, cursor) "
+                f"{[(r.rid, r.prefill_cursor) for r in rs]}")
+        aw = {r.aw for r in rs}
+        if aw != {1}:
+            raise AssertionError(f"(c): the prompts are on AWs {aw}")
+        cursors.update({r.rid: r.prefill_cursor for r in rs})
+        orch.inject_failure("aw", 1, now=3.0)
+        orch.inject_failure("ew", 0, now=3.0)
+        orch.tick(3.0 + dl + 1e-6)
+        return [r.rid for r in rs]
+
+    def provision_c(e, steps):
+        if steps < 8:
+            return None
+        orch.tick(3.0 + dl + 1.0 + 1e-3)
+        if e.failed_aws or e.failed_ews or orch.outstanding:
+            raise AssertionError("(c): provisioning")
+        return []
+    script = Script(eng, mid_prefill, provision_c)
+    resumed0 = eng.chunked.stats.resumed
+    got, wall = script.run(torch, eng, longs, "(c)")
+    keep(got)
+    same_streams("(c) streams under AW1 + EW0 mid chunked prefill", got,
+                 want)
+    st = eng.chunked.stats
+    restored_at = {rid: st.restored_tokens.get(rid) for rid in cursors}
+    if st.resumed - resumed0 != len(cursors) or restored_at != cursors:
+        raise AssertionError(f"(c): resumed {st.resumed - resumed0}, "
+                             f"restored prefixes {restored_at}, cursors at "
+                             f"the failure {cursors}")
+    ms = {r: round(v, 2) for r, v in script.next_token_ms.items()}
+    print(f"  (c) {len(got.streams)} streams bitwise equal to the "
+          f"failure-free run; AW1 failed with EW0 after chunk tick "
+          f"{script.at[0]}, both prompts mid prefill; each resumed from "
+          f"its committed cursor {cursors} on AW0; fail_aw to the first "
+          f"token {ms} ms (host clock); events {events(orch)}")
+    got.report("(c) AW1 + EW0 mid chunked prefill")
+    sub_run_line("(c)", got.launches, wall)
+    del eng
+
+    # (e) run_serving, 24 requests at once against 16 slots, AW0 failed
+    # while 8 wait
+    wl = make_workload("random", rate_rps=12.0, duration=3.0, seed=6)
+    if len(wl) < OVERLAP_QUEUE:
+        raise AssertionError(f"(e): the workload has {len(wl)} requests")
+    wl = [dataclasses.replace(w, arrival=0.0,
+                              prompt_len=64 + 16 * (i % 5),
+                              max_new_tokens=OVERLAP_NEW)
+          for i, w in enumerate(wl[:OVERLAP_QUEUE])]
+    depth_at_fail = []
+
+    def note_depth(e):
+        fail_aw = e.fail_aw
+
+        def fail(aw):
+            depth_at_fail.append(e.gateway.depth())
+            fail_aw(aw)
+        e.fail_aw = fail
+    runs = {}
+    for label, failures in (("(e) failure-free", ()),
+                            ("(e) AW0 under a queue",
+                             ((OVERLAP_AW_FAIL, "aw", 0),))):
+        runs[label] = ServeRun(torch, cfg, params, wl, failures,
+                               setup=note_depth,
+                               max_batch=16, num_ew=OVERLAP_EWS)
+        keep(runs[label])
+    base, run = runs.values()
+    if len(base.m.finished) != len(wl) or len(run.m.finished) != len(wl):
+        raise AssertionError("(e): a request was lost")
+    if run.m.outputs != base.m.outputs:
+        bad = sorted(r for r in base.m.outputs
+                     if run.m.outputs.get(r) != base.m.outputs[r])
+        raise AssertionError(f"(e): streams differ for {bad}")
+    if depth_at_fail != [8] or not run.victims:
+        raise AssertionError(f"(e): queue depth at fail_aw(0) "
+                             f"{depth_at_fail}, victims {run.victims}")
+    for label, r in runs.items():
+        pre, dec = r.launches["prefill"], r.launches["decode"]
+        # a decode step of 16 rows has C 16: past the decode path's 8
+        if pre["moe_ffn/tensor_core"] != pre["moe_ffn"] or \
+                dec["moe_ffn/tensor_core"] != dec["moe_ffn"]:
+            raise AssertionError(f"{label}: the expert FFN left the "
+                                 f"tensor-core path: {r.launches}")
+        r.report(label)
+        sub_run_line(label, r.launches, r.wall_s)
+    print(f"  (e) {len(wl)} streams bitwise equal to the failure-free "
+          f"run, none lost; AW0 failed with {depth_at_fail[0]} requests "
+          f"queued and held {len(run.victims)} ({run.victims}), restored "
+          f"{len(run.restored)}; TTFT and TBT above on the run's own step "
+          f"times")
+    print(f"  overlapping failures: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s; on {card_line()}")
+    del runs, base, run, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the expert FFN at every (P, C, D, F, path) of these runs that no
+    # earlier check held to the plain versions
+    todo = sorted({key for cnt in ffn_c.values() for key in cnt}
+                  - FFN_CHECKED)
+    if todo:
+        kernel_moe_gemm(torch, g, records,
+                        [(f"overlap-C{k[1]}-{k[4]}", k) for k in todo],
+                        timed=set(), small=False)
+    return measured
+
+
 def profile_decode(torch, engine, prompts, out_dir, chrome=True):
     """Trace 4 steady decode steps of the batch and one prefill of the
     first prompt with torch.profiler: wall time per step, device-busy
@@ -5327,6 +5812,10 @@ def main():
     ap.add_argument("--profile", metavar="DIR", type=Path, default=None,
                     help="also trace decode steps and a prefill with "
                     "torch.profiler and write the traces to DIR")
+    ap.add_argument("--phase", choices=("overlap",), default=None,
+                    help="run only this phase after the build: overlap = "
+                    "phase 21, with its expert-FFN shapes of phase 2 "
+                    "and its flash shapes of phase 14")
     args = ap.parse_args()
 
     import torch
@@ -5361,6 +5850,8 @@ def main():
     records = []
     phase = Phases(torch)
     g = torch.Generator(device="cuda").manual_seed(0)
+    if args.phase == "overlap":
+        return overlap_alone(torch, g, records, phase)
     kernel_decode_attention(torch, g, records)
     print("decode_attention at Zamba2's shared block (Dh 112, G 1)")
     decode_attention_at(torch, g, records, "decode_attention_fused[Dh112]",
@@ -5495,6 +5986,9 @@ def main():
           "2x16x16")
     launch_phase(torch, g, records)
     phase("launch plane")
+    print(OVERLAP_TITLE)
+    overlap = overlap_phase(torch, g, records)
+    phase("overlapping failures")
     errs = served_flash_phase(torch, g)
     for name, run, ph, window in (
             ("flash_attention", serve, "prefill", None),
@@ -5562,8 +6056,10 @@ def main():
     def attn(run, kernel, window):
         return sum(n for k, n in run.attn.items()
                    if k[0] == kernel and k[3] == window)
-    runs = {"serve": serve, "whole": whole, "paged": paged}
-    moe_run = {"decode": "serve", "prefill": "serve", "prefill-kv": "whole"}
+    runs = {"serve": serve, "whole": whole, "paged": paged,
+            "overlap": overlap}
+    moe_run = {"decode": "serve", "prefill": "serve", "prefill-kv": "whole",
+               "decode-3ew": "overlap", "prefill-3ew": "overlap"}
     launches = {
         "decode_attention_fused": total(serve, "decode_attention_fused"),
         "decode_attention_fused[Dh112]":
@@ -5609,6 +6105,27 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def overlap_alone(torch, g, records, phase):
+    """``--phase overlap``: phase 21 alone, with the checks of its kernel
+    shapes (its MOE_SHAPES entries first, its flash shapes after); no
+    JSON lines."""
+    kernel_moe_gemm(torch, g, records,
+                    [s for s in MOE_SHAPES if s[0].endswith("-3ew")])
+    phase("kernels (phase 21's expert FFN shapes)")
+    print(OVERLAP_TITLE)
+    overlap_phase(torch, g, records)
+    phase("overlapping failures")
+    served_flash_phase(torch, g)
+    phase("flash at the served shapes")
+    if not set(SEEN["ffn"]) <= FFN_CHECKED:
+        raise AssertionError(f"the expert FFN ran at "
+                             f"{sorted(set(SEEN['ffn']) - FFN_CHECKED)}, "
+                             f"which was not held to its plain version")
+    phase.report()
+    print(card_line())
     return 0
 
 

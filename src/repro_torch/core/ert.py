@@ -128,3 +128,11 @@ def initial_slot_expert(placement: ExpertPlacement,
     se[: placement.num_experts] = np.arange(placement.num_experts)
     se[placement.primary_slots:] = np.asarray(shadow_assignment, np.int32)
     return se
+
+
+def ew_health_to_slot_health(ew_health, slot_owner):
+    """Health of each slot's owning EW: ``ew_health`` [num_ew] indexed by
+    ``slot_owner`` [P] (a tensor or an array), on ``ew_health``'s
+    device."""
+    return ew_health[torch.as_tensor(slot_owner, dtype=torch.long,
+                                     device=ew_health.device)]

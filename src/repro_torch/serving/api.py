@@ -100,6 +100,10 @@ PREEMPTED = "preempted"
 DONE = "done"
 CANCELLED = "cancelled"
 
+#: every state a handle reports, in lifecycle order
+LIFECYCLE_STATES = (QUEUED, PLACED, PREFILLING, DECODING, PREEMPTED, DONE,
+                    CANCELLED)
+
 
 @dataclass
 class RequestStatus:

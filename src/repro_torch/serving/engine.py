@@ -91,11 +91,12 @@ from repro_torch.models.attention import PREFILL_BLOCK_K
 from repro_torch.serving.api import (CANCELLED, DECODING, DONE, PLACED,
                                      PREEMPTED, PREEMPTIBLE_CLASSES,
                                      PREFILLING, STANDARD, Client,
-                                     SamplingParams)
+                                     RequestSpec, SamplingParams)
 from repro_torch.serving.batching import ContinuousBatchScheduler
 from repro_torch.serving.chunked import ChunkedPrefillPlane
 from repro_torch.serving.controller import ServingController
-from repro_torch.serving.decode_loop import DecodeLoopPlane
+from repro_torch.serving.decode_loop import (DecodeLoopPlane,
+                                             _sample_tokens)
 from repro_torch.serving.flightrec import FlightRecorder
 from repro_torch.serving.gateway import Gateway, QueuedRequest
 from repro_torch.serving.kvcache import (CacheLayout, PagedCacheLayout,
@@ -481,6 +482,33 @@ class InferenceEngine:
         while p < cap:
             p *= 2
         return p
+
+    # -- host sampling: the decode head samples on the device
+    # (``decode_plane``); this shim remains for callers holding host logits
+    def sample_token(self, row_logits: np.ndarray,
+                     sampling: Optional[SamplingParams] = None, *,
+                     seed: Optional[int] = None, pos: int = 0) -> int:
+        """DEPRECATED host-side sampling shim: the decode head's own sampler
+        on one CPU row, float32, keyed on (the engine's ``sample_seed``,
+        ``seed`` (0 if None), ``pos``): no RNG state, the same draw for the
+        same (seed, pos), and the decode loop's distribution and bits."""
+        ecfg = self.ecfg
+        sp = SamplingParams(greedy=ecfg.greedy, temperature=ecfg.temperature,
+                            top_k=ecfg.top_k) if sampling is None else sampling
+        logits = torch.as_tensor(np.asarray(row_logits, np.float32))[None]
+        out = _sample_tokens(
+            ecfg.sample_seed, logits, torch.tensor([pos], dtype=torch.int32),
+            torch.tensor([bool(sp.greedy)]),
+            torch.tensor([float(sp.temperature)], dtype=torch.float32),
+            torch.tensor([int(sp.top_k)], dtype=torch.int32),
+            torch.tensor([0 if seed is None else int(seed)],
+                         dtype=torch.int64),
+            deep_k=int(sp.top_k) > 64)
+        return int(out[0])
+
+    def choose_aw(self) -> Optional[int]:
+        """The Gateway's placement pick for a request with no key."""
+        return self.gateway.choose_aw()
 
     # -- admission ----------------------------------------------------------
     def make_request_state(self, q: QueuedRequest, slot: int
@@ -888,6 +916,11 @@ class InferenceEngine:
     def failed_ews(self) -> set:
         return {w.ew_id for w in self.ews if w.member and not w.alive}
 
+    @property
+    def checkpointers(self) -> dict:
+        """Each AW's KV checkpointer, by AW id."""
+        return {w.aw_id: w.checkpointer for w in self.aws}
+
     def fail_aw(self, aw: int):
         """AW crash: its slots, pages and undelivered checkpoint writes are
         gone; its requests pause until re-admitted through the Gateway.
@@ -1082,6 +1115,27 @@ class InferenceEngine:
         plan = self.placement_mgr.plan_rebalance(live=tuple(self.live_ews))
         self.install_plan(plan, now=now)
         return plan
+
+    # -- one request to completion ------------------------------------------
+    def generate(self, rid: str, prompt: np.ndarray, max_new: int
+                 ) -> List[int]:
+        """Run one request to completion through ``client.submit`` and
+        ``step()``; returns its tokens. The request must be admitted at
+        once: with no AW slot free it is refused (``RuntimeError``), as
+        the reference's synchronous admission refuses it."""
+        self.client.submit(RequestSpec(rid=rid, prompt=prompt,
+                                       max_new=max_new))
+        r = self.requests.get(rid)
+        if r is None:
+            self.gateway.drop(rid)
+            self.client.forget(rid)
+            if self.telemetry is not None:
+                self.telemetry.on_drop(rid, 0.0, "refused")
+            raise RuntimeError(f"request {rid!r} refused: no attention "
+                               "worker has a free slot")
+        while not r.done:
+            self.step()
+        return r.tokens
 
     # -- teardown -----------------------------------------------------------
     def cancel_request(self, rid: str, now: float = 0.0) -> bool:
