@@ -3837,7 +3837,7 @@ def copy_designs(torch, label, gather, keep=3):
     (``.cpu()``, the port's copy before the pinned one), a reused pinned
     staging buffer followed by a host copy into store-owned pageable
     memory, and store-owned pinned blocks from PyTorch's pinned-memory
-    cache (what ``kvcache._pack_to_host`` does). Each is timed with
+    cache (what ``kvcache._to_host`` does). Each is timed with
     ``keep`` copies kept alive, as the store keeps a run's checkpoints
     (pinned blocks newly allocated unless PyTorch's cache holds freed
     ones of the size), and with each copy freed before the next (median
@@ -3846,13 +3846,12 @@ def copy_designs(torch, label, gather, keep=3):
     from repro_torch.serving import kvcache
     start = time.perf_counter()
     got = []
-    real = kvcache._pack_to_host
+    real = kvcache._to_host
 
-    def spy(leaves):
-        got.append(torch.cat([t.reshape(-1).view(torch.uint8)
-                              for t in leaves]))
-        return real(leaves)
-    with patched(kvcache, _pack_to_host=spy):
+    def spy(packed):
+        got.append(packed)
+        return real(packed)
+    with patched(kvcache, _to_host=spy):
         gather()
     src = got[0]
     n = src.numel()

@@ -174,7 +174,15 @@ class Orchestrator:
     # -- control loop --------------------------------------------------------
     def tick(self, now: float) -> List[WorkerEvent]:
         """Advance the control plane to virtual time ``now``. Returns the
-        events that fired during this tick."""
+        events that fired during this tick. With telemetry on, the tick is
+        the ``orch.tick`` host span."""
+        tel = self.engine.telemetry
+        if tel is None:
+            return self._tick(now)
+        with tel.root("orch.tick", now):
+            return self._tick(now)
+
+    def _tick(self, now: float) -> List[WorkerEvent]:
         fired: List[WorkerEvent] = []
         for f in self._failures:
             if f.detected or now < f.t_fail + self.detection_latency():

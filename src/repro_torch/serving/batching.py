@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.serving.gateway import Gateway, QueuedRequest
 from repro_torch.serving.kvcache import CacheLayout
-
+from repro_torch.serving.telemetry import host_root, host_span
 
 def _next_pow2(n: int) -> int:
     p = 1
@@ -147,12 +147,14 @@ class ContinuousBatchScheduler:
                       for q, _, _ in entries]
             frames += [frames[0]] * (rows - n_real)
             kw["frames"] = torch.as_tensor(np.stack(frames), device=dev)
-        last_logits, req_cache, load = eng.api.prefill(
-            eng.params, torch.as_tensor(toks, device=dev), rs,
-            eng.ecfg.max_seq, capacity=eng.prefill_capacity(sum(pre_lens)),
-            mask=torch.as_tensor(mask, device=dev), **kw)
-        if eng.collect_load:
-            eng.note_dispatch_load(load.cpu().numpy())
+        with host_span("prefill.call", rows=rows, tokens=sum(pre_lens)):
+            last_logits, req_cache, load = eng.api.prefill(
+                eng.params, torch.as_tensor(toks, device=dev), rs,
+                eng.ecfg.max_seq,
+                capacity=eng.prefill_capacity(sum(pre_lens)),
+                mask=torch.as_tensor(mask, device=dev), **kw)
+            if eng.collect_load:
+                eng.note_dispatch_load(load.cpu().numpy())
         firsts = None
         if not padded:
             firsts = eng.decode_plane.sample_rows(
@@ -166,18 +168,20 @@ class ContinuousBatchScheduler:
         self.stats.padded_tokens += rows * length
         self.stats.batch_sizes.append(n_real)
 
-        for i, (q, aw, slot) in enumerate(entries):
-            # the prefill cache is contiguous whatever the engine's layout;
-            # the engine's layout writes it into the slot (a paged engine
-            # maps the prefilled prefix's pages first)
-            state = CacheLayout.request_state(req_cache, i)
-            if padded and pre_lens[i] < length:
-                state = CacheLayout.scrub_request_state(state, pre_lens[i])
-            eng._kv_ensure(slot, pre_lens[i])
-            eng.layout.write_request_state(eng.cache, slot, state)
-            first = int(firsts[i]) if not padded else None
-            self._install_fresh(q, aw, slot, now, padded=padded, first=first,
-                                n_prefilled=pre_lens[i])
+        with host_span("prefill.install"):
+            for i, (q, aw, slot) in enumerate(entries):
+                # the prefill cache is contiguous whatever the engine's
+                # layout; the engine's layout writes it into the slot (a
+                # paged engine maps the prefilled prefix's pages first)
+                state = CacheLayout.request_state(req_cache, i)
+                if padded and pre_lens[i] < length:
+                    state = CacheLayout.scrub_request_state(state,
+                                                            pre_lens[i])
+                eng._kv_ensure(slot, pre_lens[i])
+                eng.layout.write_request_state(eng.cache, slot, state)
+                first = int(firsts[i]) if not padded else None
+                self._install_fresh(q, aw, slot, now, padded=padded,
+                                    first=first, n_prefilled=pre_lens[i])
 
     def _install_fresh(self, q: QueuedRequest, aw: int, slot: int,
                        now: float, *, padded: bool, first: Optional[int],
@@ -217,12 +221,20 @@ class ContinuousBatchScheduler:
         the request to the committed token. A request caught mid-prefill
         re-enters the chunked plane with its cursor at the commit
         watermark: only the uncommitted tail of the prompt is recomputed."""
+        stats = self.engine.store.stats
+        b0 = stats.bytes_restored
+        with host_span("restore.install") as sp:
+            self._restore(q, aw, slot, now)
+            sp.note(bytes=stats.bytes_restored - b0)
+
+    def _restore(self, q: QueuedRequest, aw: int, slot: int, now: float):
         eng = self.engine
         r = eng.requests.get(q.rid)
         if r is None:              # released while waiting for recovery
             eng.aws[aw].slots.release(slot)
             return
-        committed, tok_val, segs = eng.store.restore_request(q.rid)
+        with host_span("restore.read"):
+            committed, tok_val, segs = eng.store.restore_request(q.rid)
         eng._kv_clear_slot(slot)
         if segs:
             # paged: map pages covering the restored prefix first
@@ -270,24 +282,41 @@ class ContinuousBatchScheduler:
         the flight recorder's tick, a budgeted slice of chunked prefill
         (when the plane is on), then one decode
         dispatch over all active slots: a step, or a segment of
-        ``decode_segment_len`` steps. Returns {rid: new_tokens}."""
+        ``decode_segment_len`` steps. Returns {rid: new_tokens}. With
+        telemetry on, the whole is the ``step`` host span and each part a
+        span inside it."""
         eng = self.engine
         t_now = now if now is not None else float(eng.steps)
+        tel = eng.telemetry
+        pf0 = eng.prefill_tokens_done()
+        with host_root(tel, "step", t_now) as sp:
+            out = self._step(t_now)
+            sp.note(rows=len(out),
+                    prefill_tokens=eng.prefill_tokens_done() - pf0)
+        return out
+
+    def _step(self, t_now: float) -> Dict[str, List[int]]:
+        eng = self.engine
         if eng.controller is not None:
             # the control plane's decision pass comes before admission:
             # scale and rebalance requests land on the orchestrator's
             # clock, and the chunk budget is set before this tick's plan
-            eng.controller.tick(t_now)
+            with host_span("controller"):
+                eng.controller.tick(t_now)
         if self.gateway.depth():
-            self.admit(t_now)
-        eng.check_deadlines(t_now)
+            with host_span("admit"):
+                self.admit(t_now)
+        with host_span("deadlines"):
+            eng.check_deadlines(t_now)
         if eng.flightrec is not None:
             # the forensics plane: drain the bus through the recorder's
             # cursor, fingerprint when due, advance the watchdogs (host
             # bookkeeping only)
-            eng.flightrec.tick(t_now)
+            with host_span("flightrec"):
+                eng.flightrec.tick(t_now)
         if eng.chunked is not None:
-            eng.chunked.tick(t_now)
+            with host_span("chunked"):
+                eng.chunked.tick(t_now)
         act = eng.active_requests()
         if not act:
             return {}
@@ -316,16 +345,17 @@ class ContinuousBatchScheduler:
         stacked = eng.layout.extract_tokens(
             eng.cache, [r.slot for r in ck_reqs],
             [r.pos for r in ck_reqs]) if ck_reqs else None
-        ck = {r.rid: i for i, r in enumerate(ck_reqs)}
+        with host_span("ckpt.commit"):
+            for i, r in enumerate(ck_reqs):
+                eng.aws[r.aw].checkpointer.checkpoint_token(
+                    r.rid, r.pos, [leaf[i] for leaf in stacked],
+                    token_value=int(toks[r.slot]))
+            for w in eng.aws:
+                w.checkpointer.flush()
 
         out: Dict[str, List[int]] = {}
         for r in act:
             nxt = int(toks[r.slot])
-            if r.rid in ck:
-                i = ck[r.rid]
-                eng.aws[r.aw].checkpointer.checkpoint_token(
-                    r.rid, r.pos, [leaf[i] for leaf in stacked],
-                    token_value=nxt)
             r.pos += 1
             r.tokens.append(nxt)
             r.next_input = nxt
@@ -335,8 +365,6 @@ class ContinuousBatchScheduler:
             if len(r.tokens) >= r.max_new or r.pos >= eng.ecfg.max_seq - 1:
                 r.done = True
                 r.t_done = t_now
-        for w in eng.aws:
-            w.checkpointer.flush()
         eng.steps += 1
         return out
 
@@ -384,7 +412,8 @@ class ContinuousBatchScheduler:
                 r.t_done = t_now
         # every request's range from one gather and one copy
         eng._bulk_checkpoint_group(ck_items)
-        for w in eng.aws:
-            w.checkpointer.flush()
+        with host_span("ckpt.commit"):
+            for w in eng.aws:
+                w.checkpointer.flush()
         eng.steps += 1
         return out

@@ -28,6 +28,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.serving.telemetry import host_span
+
 CHUNK_MIN = 8          # the smallest chunk shape, as in the reference
 
 def _pow2_at_least(n: int) -> int:
@@ -237,12 +239,13 @@ class ChunkedPrefillPlane:
         rs = eng.route_state._replace(
             aw_health=torch.ones_like(eng.route_state.aw_health))
         dev = eng.device
-        eng.cache, load = eng.api.prefill_chunk(
-            eng.params, torch.as_tensor(toks, device=dev),
-            torch.as_tensor(pos, device=dev), eng.cache, rs,
-            capacity=eng.prefill_capacity(real))
-        if eng.collect_load:
-            eng.note_dispatch_load(load.cpu().numpy())
+        with host_span("prefill.call", rows=rows, tokens=real):
+            eng.cache, load = eng.api.prefill_chunk(
+                eng.params, torch.as_tensor(toks, device=dev),
+                torch.as_tensor(pos, device=dev), eng.cache, rs,
+                capacity=eng.prefill_capacity(real))
+            if eng.collect_load:
+                eng.note_dispatch_load(load.cpu().numpy())
 
         self.stats.calls += 1
         self.stats.chunks += len(entries)
@@ -251,20 +254,22 @@ class ChunkedPrefillPlane:
         if shape not in self.stats.shapes:
             self.stats.shapes.append(shape)
 
-        for job, take in entries:
-            r = eng.requests[job.rid]
-            c = r.prefill_cursor
-            self._checkpoint_chunk(job, c, take)
-            r.prefill_cursor = c + take
-            self.stats.prefilled_tokens[job.rid] = \
-                self.stats.prefilled_tokens.get(job.rid, 0) + take
-            if eng.telemetry is not None:
-                eng.telemetry.on_prefill_chunk(job.rid, now, take, shape)
-            if eng.flightrec is not None:
-                eng.flightrec.on_chunk(job.rid, now, take, shape, c)
-            if r.prefill_cursor >= job.n_pre:
-                del self.jobs[job.rid]
-                self._finalize(r)
+        with host_span("prefill.install"):
+            for job, take in entries:
+                r = eng.requests[job.rid]
+                c = r.prefill_cursor
+                self._checkpoint_chunk(job, c, take)
+                r.prefill_cursor = c + take
+                self.stats.prefilled_tokens[job.rid] = \
+                    self.stats.prefilled_tokens.get(job.rid, 0) + take
+                if eng.telemetry is not None:
+                    eng.telemetry.on_prefill_chunk(job.rid, now, take,
+                                                   shape)
+                if eng.flightrec is not None:
+                    eng.flightrec.on_chunk(job.rid, now, take, shape, c)
+                if r.prefill_cursor >= job.n_pre:
+                    del self.jobs[job.rid]
+                    self._finalize(r)
         return real
 
     def _checkpoint_chunk(self, job: _PrefillJob, start: int, take: int):
@@ -275,8 +280,10 @@ class ChunkedPrefillPlane:
             return
         seg_stack = eng.layout.extract_range(eng.cache, job.slot, start,
                                              take)
-        eng._ck_range(eng.aws[job.aw].checkpointer, job.rid, start,
-                      seg_stack, list(job.prompt[start + 1:start + take + 1]))
+        with host_span("ckpt.commit"):
+            eng._ck_range(eng.aws[job.aw].checkpointer, job.rid, start,
+                          seg_stack,
+                          list(job.prompt[start + 1:start + take + 1]))
 
     def _finalize(self, r):
         """Prefill complete: hand the request to the decode plane. The

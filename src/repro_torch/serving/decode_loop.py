@@ -46,6 +46,7 @@ import torch
 
 from repro_torch.core.refe import RouteState
 from repro_torch.kernels import build
+from repro_torch.serving.telemetry import host_span
 
 _M32 = 0xFFFFFFFF
 # odd multipliers below 2**31, so every product fits in a signed int64
@@ -258,15 +259,20 @@ class DecodeLoopPlane:
         """One decode dispatch of ``seg_len`` steps over the active set:
         a graph replay on the card (after the key's first, eager, step),
         the eager segment on the CPU. Returns the token ring on the host,
-        the dispatch's one device-to-host drain."""
-        key = self.load(act, seg_len)
+        the dispatch's one device-to-host drain. Host spans:
+        ``decode.load``, ``decode.replay`` (``captured``: the key's eager
+        step and capture) and ``decode.drain``."""
+        with host_span("decode.load"):
+            key = self.load(act, seg_len)
         graph = self.graphs.get(key)
-        if graph is not None:
-            ring, self.loads = graph.replay()
-        else:
-            ring, self.loads = self.segment(key[0], key[1], self.route_state)
-            self.graphs[key] = self.capture(key) \
-                if self.engine.device.type == "cuda" else None
+        with host_span("decode.replay", captured=key not in self.graphs):
+            if graph is not None:
+                ring, self.loads = graph.replay()
+            else:
+                ring, self.loads = self.segment(key[0], key[1],
+                                                self.route_state)
+                self.graphs[key] = self.capture(key) \
+                    if self.engine.device.type == "cuda" else None
         tel = self.engine.telemetry
         if tel is not None and seg_len > 1:
             # host counters only: the dispatch above is untouched
@@ -283,7 +289,8 @@ class DecodeLoopPlane:
                     pin_memory=self.loads.is_cuda)
             buf.copy_(self.loads, non_blocking=True)
             self.host_loads = buf.numpy()
-        return ring.cpu().numpy()
+        with host_span("decode.drain"):
+            return ring.cpu().numpy()
 
     def capture(self, key) -> StepGraph:
         """The step graph of ``key`` (seg_len, deep top-k, paged, decode

@@ -46,7 +46,10 @@ Telemetry plane (``serving/telemetry.py``, ``telemetry`` True by default,
 as in the reference): every worker, placement and request-plane event is
 published on ``engine.bus``; ``engine.telemetry`` keeps histograms,
 spans and stall attribution from host hooks on values the host already
-holds (no device read, no capture).
+holds (no device read, no capture), and host-clock spans of each step's
+and tick's work. On or off, a decode step waits on the card twice: the
+token drain and the checkpoint's copy to pinned host memory (the
+``ckpt.copy`` span).
 
 Control plane (``serving/controller.py``, ``controller="on"``): one
 decision pass per tick autoscales the EW pool, triggers weighted
@@ -102,7 +105,8 @@ from repro_torch.serving.gateway import Gateway, QueuedRequest
 from repro_torch.serving.kvcache import (CacheLayout, PagedCacheLayout,
                                          PagePool, state_leaves)
 from repro_torch.serving.prefixcache import PrefixCachePlane
-from repro_torch.serving.telemetry import EventBus, TelemetryPlane
+from repro_torch.serving.telemetry import (EventBus, TelemetryPlane,
+                                           host_span)
 from repro_torch.serving.workers import (AttentionWorker, ClusterSlotView,
                                          ExpertWorker)
 
@@ -764,12 +768,13 @@ class InferenceEngine:
             self.cache, [r.slot for r, _, _ in items],
             [start for _, start, _ in items], [n for _, _, n in items])
         at = 0
-        for r, start, n in items:
-            self._ck_range(self.aws[r._aw].checkpointer, r.rid, start,
-                           [leaf[at:at + n] for leaf in stacked],
-                           [self._ck_token_value(r, t)
-                            for t in range(start, start + n)])
-            at += n
+        with host_span("ckpt.commit"):
+            for r, start, n in items:
+                self._ck_range(self.aws[r._aw].checkpointer, r.rid, start,
+                               [leaf[at:at + n] for leaf in stacked],
+                               [self._ck_token_value(r, t)
+                                for t in range(start, start + n)])
+                at += n
 
     @staticmethod
     def _ck_token_value(r: RequestState, t: int) -> int:
@@ -927,7 +932,12 @@ class InferenceEngine:
         Requests caught mid-prefill stop their chunk stream; recovery
         resumes it from the committed cursor. Requests the store does not
         know (``checkpoint=False``) cannot be restored: as in the
-        reference, they keep decoding against the dead worker's slot."""
+        reference, they keep decoding against the dead worker's slot.
+        The ``recover.fail_aw`` host span."""
+        with host_span("recover.fail_aw"):
+            self._fail_aw(aw)
+
+    def _fail_aw(self, aw: int):
         if self.prefix_plane is not None:
             # snapshot the dying AW's cached prefixes before fail() clears
             # them: checkpoint-backed entries become restorable orphans
@@ -963,7 +973,11 @@ class InferenceEngine:
         """Per-request restoration (§6.2): requeue every request of a dead
         AW at the front of the Gateway and admit as many as capacity
         allows now; the rest stay queued and are admitted on later ticks.
-        Returns the rids restored now."""
+        Returns the rids restored now. The ``recover.requeue`` host span."""
+        with host_span("recover.requeue"):
+            return self._recover_aw_requests(now)
+
+    def _recover_aw_requests(self, now: float) -> List[str]:
         entries = []
         for aw in sorted(self.failed_aws):
             for rid in self.store.active_requests_on(aw):

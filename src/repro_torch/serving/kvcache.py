@@ -31,6 +31,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from repro_torch.serving.telemetry import host_span
+
 
 #: every state leaf a cache may hold, in segment order: the hybrid's
 #: Mamba2 state, the xLSTM's cells, Whisper's cross-attention K/V
@@ -40,30 +42,26 @@ STATE_LEAVES = ("h", "conv",
                 "cross_k", "cross_v")
 
 
-def _pack_to_host(leaves) -> List[torch.Tensor]:
-    """Bring gathered tensors to the host in one copy: views of one host
-    buffer holding exactly the device bits. From the card the buffer is
+def _to_host(packed: torch.Tensor) -> torch.Tensor:
+    """``packed`` on the host, in one copy. From the card the buffer is
     pinned memory, which the store then owns (a request's release drops
     the last views and hands the block back to PyTorch's pinned-memory
     cache); the copy runs with ``non_blocking`` on a copy stream that
     starts after the gather and that is waited for before this returns,
     so a checkpoint never commits across a step's end."""
-    flat = [t.reshape(-1).view(torch.uint8) for t in leaves]
-    packed = torch.cat(flat)
-    if packed.is_cuda:
-        src = packed
+    if not packed.is_cuda:
+        return packed
+    src = packed
+    with host_span("ckpt.pin_alloc", bytes=src.numel()):
         packed = torch.empty(src.numel(), dtype=torch.uint8,
                              pin_memory=True)
+    with host_span("ckpt.copy"):
         stream = _copy_stream(src.device)
         stream.wait_stream(torch.cuda.current_stream(src.device))
         with torch.cuda.stream(stream):
             packed.copy_(src, non_blocking=True)
         stream.synchronize()
-    out, at = [], 0
-    for t, f in zip(leaves, flat):
-        out.append(packed[at:at + f.numel()].view(t.dtype).reshape(t.shape))
-        at += f.numel()
-    return out
+    return packed
 
 
 _copy_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
@@ -115,27 +113,37 @@ class _SegmentOps:
         for every token of the slot: each distinct slot's state is
         gathered and copied once, and each pair's segment is a view of its
         slot's one host copy (a prompt's tokens at install share one)."""
-        dev = cache_device(cache)
-        slots = np.asarray(slots)
-        s = torch.as_tensor(slots, dtype=torch.long, device=dev)
-        t = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
-                            device=dev)
-        kv, pos = [], []
-        for layer, (i0, i1) in zip(cache["layers"],
-                                   self._index(cache, s, t)):
-            kv.append(torch.stack([layer["k"][i0, i1], layer["v"][i0, i1]],
-                                  1))
-            pos.append(layer["pos"][i0, i1])
-        if kv:
-            kv, pos = torch.stack(kv, 1), torch.stack(pos, 1)
-        else:
-            kv = torch.zeros((len(slots), 0), device=dev)
-            pos = torch.zeros((len(slots), 0), dtype=torch.int32,
-                              device=dev)
-        uniq, inv = np.unique(slots, return_inverse=True)
-        rows = torch.as_tensor(uniq, dtype=torch.long, device=dev)
-        out = _pack_to_host([kv, pos] + [cache[name][rows]
-                                         for name in state_leaves(cache)])
+        with host_span("ckpt.gather"):
+            dev = cache_device(cache)
+            slots = np.asarray(slots)
+            s = torch.as_tensor(slots, dtype=torch.long, device=dev)
+            t = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
+                                device=dev)
+            kv, pos = [], []
+            for layer, (i0, i1) in zip(cache["layers"],
+                                       self._index(cache, s, t)):
+                kv.append(torch.stack([layer["k"][i0, i1],
+                                       layer["v"][i0, i1]], 1))
+                pos.append(layer["pos"][i0, i1])
+            if kv:
+                kv, pos = torch.stack(kv, 1), torch.stack(pos, 1)
+            else:
+                kv = torch.zeros((len(slots), 0), device=dev)
+                pos = torch.zeros((len(slots), 0), dtype=torch.int32,
+                                  device=dev)
+            uniq, inv = np.unique(slots, return_inverse=True)
+            rows = torch.as_tensor(uniq, dtype=torch.long, device=dev)
+            leaves = [kv, pos] + [cache[name][rows]
+                                  for name in state_leaves(cache)]
+            flat = [x.reshape(-1).view(torch.uint8) for x in leaves]
+            packed = torch.cat(flat)
+        # one host buffer holding exactly the device bits; each leaf a view
+        packed = _to_host(packed)
+        out, at = [], 0
+        for x, f in zip(leaves, flat):
+            out.append(packed[at:at + f.numel()].view(x.dtype)
+                       .reshape(x.shape))
+            at += f.numel()
         out[2:] = [[h[j] for j in inv.tolist()] for h in out[2:]]
         return out
 
@@ -171,27 +179,35 @@ class _SegmentOps:
         tokens = np.asarray(tokens)[keep]
         segs = [sg for sg, k in zip(segs, keep) if k]
         dev = cache_device(cache)
-        kv = torch.stack([sg[0] for sg in segs]).to(dev)    # [n,L,2,Hkv,Dh]
-        pos = torch.stack([sg[1] for sg in segs]).to(dev)   # [n,L]
-        s = torch.full((len(tokens),), slot, dtype=torch.long, device=dev)
-        t = torch.as_tensor(tokens, dtype=torch.long, device=dev)
-        for li, (layer, (i0, i1)) in enumerate(zip(
-                cache["layers"], self._index(cache, s, t))):
-            lkv, lpos = kv[:, li], pos[:, li]
-            win = self._ring_winners(layer, tokens)
-            if win is not None:
-                sel = torch.as_tensor(win, dtype=torch.long, device=dev)
-                i0, i1, lkv, lpos = i0[sel], i1[sel], lkv[sel], lpos[sel]
-            layer["k"][i0, i1] = lkv[:, 0]
-            layer["v"][i0, i1] = lkv[:, 1]
-            layer["pos"][i0, i1] = lpos
+        names = state_leaves(cache)
         # a state leaf's segment is the whole state: the reference writes
         # the segments in token order, so the highest token's snapshot is
         # what stays. Written once, from that token: a batched scatter
         # with repeated indices picks no defined winner on CUDA.
         last = segs[int(np.argmax(tokens))]
-        for j, name in enumerate(state_leaves(cache)):
-            cache[name][slot] = last[2 + j].to(dev)
+        with host_span("restore.stack"):
+            kv = torch.stack([sg[0] for sg in segs])    # [n,L,2,Hkv,Dh]
+            pos = torch.stack([sg[1] for sg in segs])   # [n,L]
+        with host_span("restore.upload"):
+            kv, pos = kv.to(dev), pos.to(dev)
+            states = [last[2 + j].to(dev) for j in range(len(names))]
+        with host_span("restore.scatter"):
+            s = torch.full((len(tokens),), slot, dtype=torch.long,
+                           device=dev)
+            t = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+            for li, (layer, (i0, i1)) in enumerate(zip(
+                    cache["layers"], self._index(cache, s, t))):
+                lkv, lpos = kv[:, li], pos[:, li]
+                win = self._ring_winners(layer, tokens)
+                if win is not None:
+                    sel = torch.as_tensor(win, dtype=torch.long, device=dev)
+                    i0, i1, lkv, lpos = i0[sel], i1[sel], lkv[sel], \
+                        lpos[sel]
+                layer["k"][i0, i1] = lkv[:, 0]
+                layer["v"][i0, i1] = lkv[:, 1]
+                layer["pos"][i0, i1] = lpos
+            for name, state in zip(names, states):
+                cache[name][slot] = state
         return cache
 
 

@@ -28,13 +28,30 @@ reference writes it), ``prometheus_text()`` (text exposition format) and
 
 The plane is host bookkeeping on values the host already holds: no hook
 reads a device tensor, so telemetry on and off give the same streams, the
-same step-graph keys and no new capture, and a decode step keeps its one
-host sync (the token drain).
+same step-graph keys and no new capture. A decode step on the card waits
+on the device twice with it on or off: the token ring's drain and the
+checkpoint's copy to pinned host memory (``kvcache._to_host`` waits on its
+copy stream), which the ``decode.drain`` and ``ckpt.copy`` host spans time.
+
+**Host spans** time the program's own work on the host clock of
+``time.time_ns()``, the clock of ``torch.profiler``'s host events: a step
+(``step``, from ``ContinuousBatchScheduler.step``) or an orchestrator tick
+(``orch.tick``) is a root, and the spans opened inside it (``host_span``:
+the decode loop's load, replay and drain, the checkpoint's gather, pinned
+allocation, copy and commit, prefill calls, restores) carry its tick, the
+``now`` it was given. They sit in a ring of ``HOST_SPAN_RING`` records
+that drops the oldest, with per-name totals beside it (both scraped as
+``host_span.*`` and ``host_spans.dropped`` gauges), and emit no
+``record_function`` or NVTX range, so nothing reaches the profiler's device
+timeline. ``newest_plane()`` hands an in-process reader the newest plane.
 """
 from __future__ import annotations
 
 import json
 import math
+import time
+import weakref
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -349,17 +366,134 @@ class Span:
         return (self.t1 - self.t0) if self.t1 is not None else 0.0
 
 
+#: host spans the ring keeps: a serving-loop turn on the card records 11
+#: (the tick, and a decode step with its 9 parts), so 60 s of 64-row
+#: Mixtral steps on an H100 (~38 ms each) is ~17k of them
+HOST_SPAN_RING = 1 << 16
+
+#: the tracer of the step or tick in progress, which ``host_span`` records
+#: into (None between them, and when the engine's telemetry is off)
+_recording: Optional["SpanTracer"] = None
+
+
+class _NoSpan:
+    """What ``host_span`` returns when nothing records: a no-op."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def note(self, **args):
+        pass
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _HostSpan:
+    """An open host span; ``note`` adds arguments before it closes."""
+    __slots__ = ("tracer", "name", "args", "t0", "t1")
+
+    def __init__(self, tracer: "SpanTracer", name: str, args):
+        self.tracer, self.name, self.args = tracer, name, args
+
+    def __enter__(self):
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.time_ns()
+        tr = self.tracer
+        tr.add_host(self.name, tr.tick, self.t0, self.t1, self.args)
+        return False
+
+    def note(self, **args):
+        if self.args is None:
+            self.args = args
+        else:
+            self.args.update(args)
+
+
+class _HostRoot(_HostSpan):
+    """A step's or tick's span: ``host_span``s opened inside it record
+    into its tracer, under its tick."""
+    __slots__ = ("tick", "_outer")
+
+    def __init__(self, tracer: "SpanTracer", name: str, tick: float, args):
+        super().__init__(tracer, name, args)
+        self.tick = tick
+
+    def __enter__(self):
+        global _recording
+        tr = self.tracer
+        self._outer = (_recording, tr.tick)
+        _recording, tr.tick = tr, self.tick
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        global _recording
+        self.t1 = time.time_ns()
+        tr = self.tracer
+        tr.add_host(self.name, self.tick, self.t0, self.t1, self.args)
+        _recording, tr.tick = self._outer
+        return False
+
+
+def host_span(name: str, **args):
+    """A span of host work inside the step or tick in progress (a no-op
+    outside one): ``with host_span("ckpt.copy"): ...``."""
+    tr = _recording
+    if tr is None:
+        return _NO_SPAN
+    return _HostSpan(tr, name, args or None)
+
+
+def host_root(plane: Optional["TelemetryPlane"], name: str, tick: float,
+              **args):
+    """The root span of a step or tick of ``plane``'s engine (a no-op when
+    the plane is off)."""
+    if plane is None:
+        return _NO_SPAN
+    return _HostRoot(plane.tracer, name, tick, args or None)
+
+
 class SpanTracer:
     """Virtual-clock span recorder with a Perfetto/Chrome ``trace_event``
     exporter. Memory is bounded: past ``max_spans`` closed spans, new ones
     are dropped and counted (``dropped``) rather than growing without
-    limit — a soak run keeps its histograms exact and its trace a prefix."""
+    limit — a soak run keeps its histograms exact and its trace a prefix.
+
+    Beside them, host spans: ``(name, tick, t0_ns, t1_ns, args)`` on the
+    ``time.time_ns()`` clock, in a ring of ``HOST_SPAN_RING`` that drops
+    the oldest (``host_dropped`` counts them), with ``host_totals``
+    {name: [count, ns]} over every span recorded."""
 
     def __init__(self, max_spans: int = 200_000):
         self.max_spans = max_spans
         self.spans: List[Span] = []
         self.instants: List[Span] = []
         self.dropped = 0
+        self.host_spans: deque = deque(maxlen=HOST_SPAN_RING)
+        self.host_totals: Dict[str, List[int]] = {}
+        self.host_dropped = 0
+        self.tick: Optional[float] = None    # the root in progress
+
+    def add_host(self, name: str, tick: Optional[float], t0: int, t1: int,
+                 args: Optional[dict] = None):
+        ring = self.host_spans
+        if len(ring) == ring.maxlen:
+            self.host_dropped += 1
+        ring.append((name, tick, t0, t1, args))
+        tot = self.host_totals.get(name)
+        if tot is None:
+            self.host_totals[name] = [1, t1 - t0]
+        else:
+            tot[0] += 1
+            tot[1] += t1 - t0
 
     def _room(self) -> bool:
         if len(self.spans) + len(self.instants) >= self.max_spans:
@@ -430,7 +564,27 @@ class SpanTracer:
                 "ph": "i", "pid": 1, "tid": tid_of(sp.track),
                 "name": sp.name, "cat": sp.cat, "ts": sp.t0 * 1e6,
                 "s": "t", "args": sp.args})
+        if self.host_spans:
+            events += self._host_events()
         return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    def _host_events(self) -> List[dict]:
+        """The host spans as process 2, on absolute microseconds of the
+        ``time.time_ns()`` clock, steps and ticks with their spans on one
+        thread. ``torch.profiler``'s Chrome export holds its events at
+        ``ts`` + ``baseTimeNanoseconds`` / 1e3 on the same clock."""
+        events: List[dict] = [
+            {"ph": "M", "pid": 2, "name": "process_name",
+             "args": {"name": "tarragon-host"}},
+            {"ph": "M", "pid": 2, "tid": 0, "name": "thread_name",
+             "args": {"name": "steps and ticks"}}]
+        for name, tick, t0, t1, args in self.host_spans:
+            events.append({
+                "ph": "X", "pid": 2, "tid": 0,
+                "name": name, "cat": "host", "ts": t0 / 1e3,
+                "dur": (t1 - t0) / 1e3, "args": {"tick": tick,
+                                                  **(args or {})}})
+        return events
 
 
 # ---------------------------------------------------------------------------
@@ -513,6 +667,16 @@ _PHASE_CAUSE = {("queued", "fresh"): "queue_wait",
                 ("prefill", None): "prefill"}
 
 
+_newest: Optional[weakref.ref] = None
+
+
+def newest_plane() -> Optional["TelemetryPlane"]:
+    """The newest TelemetryPlane still alive, or None: the handle an
+    in-process scraper (a benchmark's metric reader) reads host spans
+    through."""
+    return _newest() if _newest is not None else None
+
+
 class TelemetryPlane:
     """Per-engine observability plane: registry, tracer and stall
     attribution, fed by host hooks at every lifecycle transition. The
@@ -540,6 +704,8 @@ class TelemetryPlane:
         self._prefill_windows: List[Tuple[float, float]] = []
         self._stalls: List[StallRecord] = []
         self._attributed = False
+        global _newest
+        _newest = weakref.ref(self)
 
     # -- internals ----------------------------------------------------------
     def _touch(self, t: float) -> float:
@@ -747,6 +913,12 @@ class TelemetryPlane:
             self._stalls.append(
                 StallRecord(rid, "ttft", t_enqueue, t_enqueue + v, v))
 
+    # -- host spans ---------------------------------------------------------
+    def root(self, name: str, tick: float, **args):
+        """The root host span of a step or tick given ``now`` = ``tick``:
+        ``with plane.root("orch.tick", now): ...``."""
+        return host_root(self, name, tick, **args)
+
     # -- stall attribution ---------------------------------------------------
     def _rebalance_windows(self) -> List[Tuple[float, float]]:
         """Pair rebalance_started -> rebalanced events off the bus (a
@@ -872,6 +1044,12 @@ class TelemetryPlane:
         # reference's jit.decode_traces: step graphs are the port's traces)
         self.registry.gauge("graph.decode_captures",
                             eng.decode_plane.captures())
+        tr = self.tracer
+        # host spans: the ring's drops, and per name every span recorded
+        self.registry.gauge("host_spans.dropped", tr.host_dropped)
+        for name, (n, ns) in tr.host_totals.items():
+            self.registry.gauge(f"host_span.{name}.spans", n)
+            self.registry.gauge(f"host_span.{name}.seconds", ns / 1e9)
         self.registry.gauge("bus.events", len(eng.bus))
         self.registry.gauge("bus.dropped", eng.bus.dropped)
         # events lost to the bus cap, as a counter Prometheus scrapes

@@ -1613,6 +1613,37 @@ def test_telemetry_adds_no_capture_and_no_host_sync(dev):
     assert out[True] == out[False]
 
 
+def test_host_spans_time_the_checkpoint_copy_off_the_device_timeline(dev):
+    """On the card each decode step's checkpoint allocates a pinned block
+    and waits for its copy (``ckpt.pin_alloc``, ``ckpt.copy``, inside the
+    step's span), and no host span is an event of the profiler, on the
+    host or the device timeline."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng = _prefix_engine(prefix_cache_slots=0, chunk_token_budget=0)
+    for i in range(3):
+        eng.gateway.enqueue(f"r{i}", np.arange(1 + i, 9 + i,
+                                               dtype=np.int32), 6, now=0.0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for k in range(8):
+            eng.step(now=0.1 * k)
+    torch.cuda.synchronize()
+    spans = list(eng.telemetry.tracer.host_spans)
+    names = {s[0] for s in spans}
+    assert {"step", "decode.replay", "decode.drain", "ckpt.gather",
+            "ckpt.pin_alloc", "ckpt.copy", "ckpt.commit"} <= names
+    steps = {s[1]: s for s in spans if s[0] == "step"}
+    for name, tick, t0, t1, args in spans:
+        if name == "ckpt.pin_alloc":
+            assert args["bytes"] > 0
+        if name != "step":
+            assert steps[tick][2] <= t0 <= t1 <= steps[tick][3], name
+    events = prof.events()
+    assert any(e.device_type == DeviceType.CUDA for e in events)
+    assert not names & {e.name for e in events}
+
+
 def test_capture_survives_a_dead_engine_collected_mid_capture(dev):
     """An engine holds reference cycles, so a dropped one (with its step
     graphs) is freed by the garbage collector, whenever that runs. A

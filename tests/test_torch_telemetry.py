@@ -12,6 +12,9 @@ the per-class histograms, the stall records and the root-span counts equal
 the reference's, and inside the port telemetry on and off give the same
 streams, the same step-graph keys and the same host-sync count ("zero new
 jit traces" reads "no new step graph": ``decode_plane.captures()``). The
+chrome trace's first process is compared with the reference's; the second
+holds the port's host spans, which the last section tests on a tiny engine
+of the port alone (the reference has none). The
 reference runs with the port's one rule of the prefix cache applied (an
 entry stops at its prefill-computed positions; see
 ``tests/test_torch_prefixcache.py``), so that warm turns adopt, and the
@@ -20,10 +23,12 @@ virtual clock charges, the same tokens in both.
 import dataclasses
 import json
 import math
+import types
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jget_config
 from repro.core.costmodel import TarragonProfile as JProfile
@@ -330,7 +335,7 @@ def test_telemetry_on_off_bit_identical():
 def test_telemetry_mints_zero_new_jit_traces():
     """No new step graph: the same keys on and off (on the card each key is
     one capture), the snapshot's gauge agrees, and a decode step keeps its
-    one host sync (the token drain)."""
+    host syncs."""
     eng_on, _, _, _ = scenario("port", True)
     eng_off, _, _, _ = scenario("port", False)
     assert set(eng_on.decode_plane.graphs) == set(eng_off.decode_plane.graphs)
@@ -459,9 +464,12 @@ def test_chrome_trace_export(tmp_path):
     stall = [e for e in xs if e["name"].startswith("stall(")]
     assert stall and any(e["args"].get("restore", 0) > 0 for e in stall)
     assert {w.request_id for w in wl} <= {e["name"] for e in xs}
+    # process 1 is the reference's trace; process 2, the port's host spans
     ref = scenario("jax")[2].telemetry.export_chrome()
-    assert [(e["ph"], e["name"]) for e in evs] == \
+    assert [(e["ph"], e["name"]) for e in evs if e["pid"] == 1] == \
         [(e["ph"], e["name"]) for e in ref["traceEvents"]]
+    host = [e for e in xs if e["pid"] == 2]
+    assert len(host) == len(m.telemetry.tracer.host_spans) > 0
 
 
 def test_telemetry_off_engine_has_no_plane():
@@ -487,3 +495,182 @@ def test_quickstart_twin_on_cpu(tmp_path):
     assert sorted(e["name"] for e in roots) == ["req0", "req1"]
     assert out["snapshot"]["counters"]["requests.released"] == 2
     assert [len(out[r]) for r in ("req0", "req1")] == [4, 4]
+
+
+# --------------------------------------------------------------------------
+# host spans (the port's own): a tiny engine on each decode path, AW0
+# failing at its fourth tick while both AWs hold requests
+# --------------------------------------------------------------------------
+
+HOST_PATHS = {"single": {}, "segment": {"decode_segment_len": 4},
+              "chunked": {"chunk_token_budget": 4}}
+ROOTS = ("step", "orch.tick")
+_HOST_RUNS = {}
+
+
+def host_run(path: str, telemetry: bool = True):
+    """40 ticks and steps of four requests on a seeded tiny engine, with
+    AW0 failing at t 0.03 (cached)."""
+    key = (path, telemetry)
+    if key not in _HOST_RUNS:
+        eng = InferenceEngine(_cfg(tget_config), EngineConfig(
+            max_batch=8, max_seq=64, telemetry=telemetry,
+            **HOST_PATHS[path]), device="cpu")
+        orch = Orchestrator(eng, profile=TarragonProfile(
+            detect=0.05, detect_retries=1), worker_init_time=0.5)
+        for i in range(4):
+            eng.gateway.enqueue(f"r{i}", np.arange(1 + i, 9 + i,
+                                                   dtype=np.int32), 40,
+                                now=0.0)
+        outs = {}
+        for k in range(40):
+            now = 0.01 * k
+            if k == 3:
+                orch.inject_failure("aw", 0, now)
+            orch.tick(now)
+            for rid, toks in eng.step(now=now).items():
+                outs.setdefault(rid, []).extend(toks)
+        _HOST_RUNS[key] = (eng, orch, outs)
+    return _HOST_RUNS[key]
+
+
+@pytest.mark.parametrize("path", sorted(HOST_PATHS))
+def test_host_spans_nest_in_their_step_or_tick(path):
+    spans = list(host_run(path)[0].telemetry.tracer.host_spans)
+    roots = {}
+    for name, tick, t0, t1, _ in spans:
+        if name in ROOTS:
+            roots.setdefault(tick, []).append((name, t0, t1))
+    # each tick, then the step given the same now
+    assert [[r[0] for r in rs] for rs in roots.values()] == \
+        [list(ROOTS[::-1])] * 40
+    roots = {tick: [r[1:] for r in rs] for tick, rs in roots.items()}
+    for name, tick, t0, t1, _ in spans:
+        assert t0 <= t1, name
+        if name in ROOTS:
+            continue
+        assert any(a <= t0 and t1 <= b for a, b in roots[tick]), name
+
+
+@pytest.mark.parametrize("path", sorted(HOST_PATHS))
+def test_host_span_names_on_every_path(path):
+    eng, orch, _ = host_run(path)
+    names = {s[0] for s in eng.telemetry.tracer.host_spans}
+    want = {"step", "orch.tick", "deadlines", "flightrec", "admit",
+            "decode.load", "decode.replay", "decode.drain", "ckpt.gather",
+            "ckpt.commit", "prefill.call", "prefill.install",
+            "recover.fail_aw", "recover.requeue", "restore.install",
+            "restore.read", "restore.stack", "restore.upload",
+            "restore.scatter"}
+    if path == "chunked":
+        want.add("chunked")
+    # the pinned allocation and the copy run only from the card
+    assert names == want
+    assert [e.detail for e in orch.events if e.kind == "detected"] == \
+        ["restored 2 requests"]
+    installs = [s for s in eng.telemetry.tracer.host_spans
+                if s[0] == "restore.install"]
+    assert len(installs) == 2 and all(s[4]["bytes"] > 0 for s in installs)
+
+
+@pytest.mark.parametrize("path", sorted(HOST_PATHS))
+def test_host_totals_equal_the_ring(path):
+    tr = host_run(path)[0].telemetry.tracer
+    assert tr.host_dropped == 0
+    sums = {}
+    for name, _, t0, t1, _ in tr.host_spans:
+        c, ns = sums.get(name, (0, 0))
+        sums[name] = (c + 1, ns + t1 - t0)
+    assert {k: tuple(v) for k, v in tr.host_totals.items()} == sums
+
+
+@pytest.mark.parametrize("path", sorted(HOST_PATHS))
+def test_host_spans_leave_streams_and_captures_unchanged(path):
+    eng_on, _, on = host_run(path, True)
+    eng_off, _, off = host_run(path, False)
+    assert on == off and len(on) == 4
+    assert set(eng_on.decode_plane.graphs) == set(eng_off.decode_plane.graphs)
+    assert eng_on.gateway.stats.host_syncs == eng_off.gateway.stats.host_syncs
+    assert eng_off.telemetry is None
+
+
+@pytest.mark.parametrize("path", sorted(HOST_PATHS))
+def test_host_totals_reach_the_snapshot_and_prometheus(path):
+    """An operator scrapes the host spans' totals and the ring's drops as
+    gauges: ``host_span.<name>.spans`` / ``.seconds``, ``host_spans.dropped``."""
+    tel = host_run(path)[0].telemetry
+    tot = tel.tracer.host_totals
+    gauges = tel.snapshot()["gauges"]
+    assert gauges["host_spans.dropped"] == 0
+    for name, (n, ns) in tot.items():
+        assert gauges[f"host_span.{name}.spans"] == n
+        assert gauges[f"host_span.{name}.seconds"] == ns / 1e9
+    lines = tel.prometheus_text().splitlines()
+    assert f"tarragon_host_span_step_spans {tot['step'][0]:g}" in lines
+    assert "tarragon_host_spans_dropped 0" in lines
+
+
+def test_host_ring_drops_the_oldest(monkeypatch):
+    from repro_torch.serving import telemetry
+    monkeypatch.setattr(telemetry, "HOST_SPAN_RING", 4)
+    tr = telemetry.SpanTracer()
+    for i in range(6):
+        tr.add_host(f"s{i}", 0.0, i, i + 10)
+    assert [s[0] for s in tr.host_spans] == ["s2", "s3", "s4", "s5"]
+    assert tr.host_dropped == 2
+    assert tr.host_totals["s0"] == [1, 10]
+
+
+def test_host_spans_sit_on_the_profilers_clock():
+    """A span around an aten op holds the op's kineto interval within 1
+    ms, and no span reaches the profiler: the names of an engine's spans
+    are not among its events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import telemetry
+    plane = types.SimpleNamespace(tracer=telemetry.SpanTracer())
+    x = torch.randn(128, 128)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with telemetry.host_root(plane, "step", -1.0):
+            with telemetry.host_span("mm"):
+                torch.mm(x, x)
+    (a,) = [e.start_ns() for e in prof.profiler.kineto_results.events()
+            if e.name() == "aten::mm"]
+    (b,) = [e.start_ns() + e.duration_ns()
+            for e in prof.profiler.kineto_results.events()
+            if e.name() == "aten::mm"]
+    (span,) = [s for s in plane.tracer.host_spans if s[0] == "mm"]
+    assert span[1] == -1.0
+    assert span[2] - 1_000_000 <= a <= b <= span[3] + 1_000_000
+
+    eng = InferenceEngine(_cfg(tget_config), EngineConfig(
+        max_batch=4, max_seq=32, decode_segment_len=2), device="cpu")
+    eng.gateway.enqueue("p", np.arange(1, 9, dtype=np.int32), 6, now=0.0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for k in range(4):
+            eng.step(now=0.1 * k)
+    spans = {s[0] for s in eng.telemetry.tracer.host_spans}
+    names = {e.name for e in prof.events()}
+    assert {"step", "decode.replay", "ckpt.gather"} <= spans
+    assert "aten::cat" in names and not spans & names
+
+
+def test_chrome_export_holds_host_spans_on_absolute_us(tmp_path):
+    eng, _, _ = host_run("chunked")
+    path = tmp_path / "trace.json"
+    trace = eng.telemetry.export_chrome(str(path))
+    assert json.loads(path.read_text()) == trace
+    host = [e for e in trace["traceEvents"] if e["pid"] == 2]
+    spans = list(eng.telemetry.tracer.host_spans)
+    xs = [e for e in host if e["ph"] == "X"]
+    assert [(e["name"], e["ts"], e["args"]["tick"]) for e in xs] == \
+        [(s[0], s[2] / 1e3, s[1]) for s in spans]
+    assert min(e["ts"] for e in xs) > 1e15      # after 2001, in us
+    assert {e["tid"] for e in xs} == {0}
+
+
+def test_newest_plane_is_the_newest_engines():
+    from repro_torch.serving import telemetry
+    eng = InferenceEngine(_cfg(tget_config), EngineConfig(
+        max_batch=2, max_seq=16), device="cpu")
+    assert telemetry.newest_plane() is eng.telemetry
